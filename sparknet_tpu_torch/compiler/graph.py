@@ -1,0 +1,305 @@
+"""NetParameter -> executable network on a torch device.
+
+Counterpart of ``sparknet_tpu/compiler/graph.py`` (ref:
+caffe/src/caffe/net.cpp: Init topological wiring :40-540, ForwardFromTo
+:565-583).  The executor is an eager layer loop over the phase-filtered
+layers: blobs are dict entries, in-place prototxt tops (top == bottom) are
+plain rebinds, and each layer's ``apply`` is a function on tensors.
+
+Phase filtering follows NetStateRule semantics (net.cpp:287 FilterNet +
+StateMeetsRule: phase / min_level / max_level / stage / not_stage).
+Cross-layer weight sharing (``param { name: ... }``) is ROADMAP Queue A3.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from sparknet_tpu_torch.common import Phase, f32_precision, get_config, resolve_device
+from sparknet_tpu_torch.ops import create_layer
+from sparknet_tpu_torch.ops.base import Layer
+from sparknet_tpu_torch.ops.data_layers import InputLayer
+from sparknet_tpu_torch.proto.text_format import Message
+
+Params = dict[str, list[torch.Tensor]]
+State = dict[str, dict[str, torch.Tensor]]
+
+
+@dataclasses.dataclass
+class NetVars:
+    """All network variables: learnable params (``{layer: [blob, ...]}`` in
+    Caffe's ``blobs_`` order) and mutable state (``{layer: {name: tensor}}``)."""
+
+    params: Params
+    state: State
+
+
+def _rule_matches(rule: Message, phase: Phase, level: int, stages: set[str]) -> bool:
+    """ref: Net::StateMeetsRule (net.cpp:287+)."""
+    if rule.has("phase") and rule.get_str("phase") != phase.name:
+        return False
+    if rule.has("min_level") and level < rule.get_int("min_level"):
+        return False
+    if rule.has("max_level") and level > rule.get_int("max_level"):
+        return False
+    for s in rule.get_all("stage"):
+        if str(s) not in stages:
+            return False
+    for s in rule.get_all("not_stage"):
+        if str(s) in stages:
+            return False
+    return True
+
+
+def filter_phase(
+    net_param: Message,
+    phase: Phase,
+    level: int = 0,
+    stages: set[str] | None = None,
+) -> list[Message]:
+    """Select the layers active in ``phase`` (ref: Net::FilterNet)."""
+    stages = stages or set()
+    out = []
+    for lp in net_param.get_all("layer") or net_param.get_all("layers"):
+        includes = lp.get_all("include")
+        excludes = lp.get_all("exclude")
+        keep = True
+        if includes:
+            keep = any(_rule_matches(r, phase, level, stages) for r in includes)
+        elif excludes:
+            keep = not any(_rule_matches(r, phase, level, stages) for r in excludes)
+        if keep:
+            out.append(lp)
+    return out
+
+
+@dataclasses.dataclass
+class BlobInfo:
+    shape: tuple[int, ...]
+    dtype: Any
+
+
+class Network:
+    """A phase-specific view of a NetParameter on one device.
+
+    ``init(gen)`` -> NetVars on the net's device;
+    ``apply(vars, feeds)`` -> (blobs, new_state, total_loss).
+    ``device=None`` means CUDA and raises without a CUDA device; pass
+    ``device="cpu"`` to run on the CPU.
+    """
+
+    def __init__(
+        self,
+        net_param: Message,
+        phase: Phase = Phase.TRAIN,
+        device: str | torch.device | None = None,
+    ):
+        from sparknet_tpu_torch.proto.upgrade import upgrade_net
+
+        self.device = resolve_device(device)
+        net_param = upgrade_net(net_param)
+        self.net_param = net_param
+        self.phase = phase
+        self.name = net_param.get_str("name", "net")
+        self.layers: list[Layer] = [
+            create_layer(lp, phase) for lp in filter_phase(net_param, phase)
+        ]
+        for layer in self.layers:
+            if any(pm.get_str("name", "") for pm in layer.lp.get_all("param")):
+                raise NotImplementedError(
+                    f"layer {layer.name!r} shares a param by name; cross-layer "
+                    "weight sharing is not ported yet (ROADMAP Queue A3)")
+        self.input_layers = [l for l in self.layers if isinstance(l, InputLayer)]
+        # External feed blobs: tops of the input layers.
+        self.feed_blobs: list[str] = [t for l in self.input_layers for t in l.tops]
+        # net-level legacy inputs: `input: "data"` + input_shape/input_dim
+        self.net_inputs = self._net_level_inputs()
+        self.feed_blobs.extend(n for n, _ in self.net_inputs)
+        self._blob_info: dict[str, BlobInfo] | None = None
+
+    # -- legacy net-level inputs (ref: net.cpp AppendTop "deprecated 4D input
+    # dimensions" / input_shape) ------------------------------------------
+    def _net_level_inputs(self) -> list[tuple[str, tuple[int, ...] | None]]:
+        from sparknet_tpu_torch.ops.layout import internal_shape
+
+        names = [str(s) for s in self.net_param.get_all("input")]
+        shapes: list[tuple[int, ...] | None] = []
+        shape_msgs = self.net_param.get_all("input_shape")
+        dims_flat = [int(d) for d in self.net_param.get_all("input_dim")]
+        for i, _ in enumerate(names):
+            if i < len(shape_msgs):
+                shapes.append(internal_shape(
+                    tuple(int(d) for d in shape_msgs[i].get_all("dim"))))
+            elif dims_flat:
+                shapes.append(internal_shape(tuple(dims_flat[4 * i : 4 * i + 4])))
+            else:
+                shapes.append(None)
+        return list(zip(names, shapes))
+
+    # ------------------------------------------------------------------
+    def feed_shapes(self) -> dict[str, tuple[int, ...]]:
+        """Declared shapes for feed blobs (from layer params), where known."""
+        out: dict[str, tuple[int, ...]] = {}
+        for l in self.input_layers:
+            shapes = l.blob_shapes()
+            if shapes:
+                for top, shape in zip(l.tops, shapes):
+                    out[top] = shape
+        for name, shape in self.net_inputs:
+            if shape:
+                out[name] = shape
+        return out
+
+    # ------------------------------------------------------------------
+    def init(
+        self,
+        gen: torch.Generator | None = None,
+        feed_shapes: dict[str, tuple[int, ...]] | None = None,
+    ) -> NetVars:
+        """Initialize params/state on the net's device.
+
+        Blobs are drawn on the CPU from ``gen`` (default: a generator seeded
+        with ``Config.seed``) and moved to the device; shapes propagate layer
+        by layer on the ``meta`` device, which computes no values."""
+        if gen is None:
+            gen = torch.Generator().manual_seed(get_config().seed)
+        shapes = dict(self.feed_shapes())
+        if feed_shapes:
+            shapes.update(feed_shapes)
+        blob: dict[str, torch.Tensor] = {}
+        for name in self.feed_blobs:
+            if name not in shapes:
+                raise ValueError(
+                    f"no shape known for input blob {name!r}; pass feed_shapes"
+                )
+            blob[name] = torch.empty(shapes[name], device="meta")
+        params: Params = {}
+        state: State = {}
+        train = self.phase == Phase.TRAIN
+        for layer in self.layers:
+            if isinstance(layer, InputLayer):
+                continue
+            p, s = layer.init(gen, [tuple(blob[b].shape) for b in layer.bottoms])
+            if p:
+                # params are keyed by layer name (Caffe snapshot layout)
+                if sum(1 for l2 in self.layers if l2.name == layer.name) > 1:
+                    raise ValueError(
+                        f"param-owning layer {layer.name!r} shares its name "
+                        "with another layer; rename one"
+                    )
+                params[layer.name] = [t.to(self.device) for t in p]
+            if s:
+                if layer.name in state:
+                    raise ValueError(
+                        f"two stateful layers share the name {layer.name!r}"
+                    )
+                state[layer.name] = {k: v.to(self.device) for k, v in s.items()}
+            outs = layer.apply(
+                [t.to("meta") for t in p], {k: v.to("meta") for k, v in s.items()},
+                [blob[b] for b in layer.bottoms], train=train).outputs
+            for top, o in zip(layer.tops, outs):
+                blob[top] = o
+        self._blob_info = {k: BlobInfo(tuple(v.shape), v.dtype) for k, v in blob.items()}
+        return NetVars(params=params, state=state)
+
+    def blob_info(self) -> dict[str, BlobInfo]:
+        if self._blob_info is None:
+            raise RuntimeError("call init() first")
+        return self._blob_info
+
+    # ------------------------------------------------------------------
+    def layer_index(self, name: str) -> int:
+        for i, layer in enumerate(self.layers):
+            if layer.name == name:
+                return i
+        raise KeyError(
+            f"no layer named {name!r}; layers: {[l.name for l in self.layers]}"
+        )
+
+    def apply(
+        self,
+        variables: NetVars,
+        feeds: dict[str, Any],
+        *,
+        train: bool | None = None,
+        start: str | None = None,
+        end: str | None = None,
+    ) -> tuple[dict[str, torch.Tensor], State, torch.Tensor]:
+        """Forward pass. Returns (all blobs, updated state, total weighted loss).
+
+        ``feeds`` maps blob names to tensors or numpy arrays; they are moved
+        to the net's device.  ``start``/``end`` name the first/last layer to
+        run — the partial execution of Net::ForwardFromTo (net.cpp:565-583).
+        A run that starts mid-graph takes its inputs from ``feeds`` (feed the
+        start layer's bottom blobs).  Loss accumulates over the executed
+        range only (layer.hpp Forward loss() * loss_weight).  Convolutions
+        and matrix products run in full float32 (``common.f32_precision``).
+        """
+        train = (self.phase == Phase.TRAIN) if train is None else train
+        si = 0 if start is None else self.layer_index(start)
+        ei = len(self.layers) - 1 if end is None else self.layer_index(end)
+        if si > ei:
+            raise ValueError(
+                f"start layer {start!r} (#{si}) comes after end layer "
+                f"{end!r} (#{ei})"
+            )
+        blob: dict[str, torch.Tensor] = {}
+        if si > 0:
+            # mid-graph starts are primed with whatever the caller supplies
+            for name, val in feeds.items():
+                blob[name] = torch.as_tensor(val, device=self.device)
+        else:
+            for name in self.feed_blobs:
+                if name not in feeds:
+                    raise ValueError(f"missing feed for input blob {name!r}")
+                blob[name] = torch.as_tensor(feeds[name], device=self.device)
+        new_state: State = {}
+        total_loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        with f32_precision():
+            for layer in self.layers[si : ei + 1]:
+                if isinstance(layer, InputLayer):
+                    continue
+                missing = [b for b in layer.bottoms if b not in blob]
+                if missing:
+                    raise ValueError(
+                        f"layer {layer.name!r} needs blob(s) {missing}; feed "
+                        "them or start the run at an earlier layer"
+                    )
+                out = layer.apply(
+                    variables.params.get(layer.name, []),
+                    variables.state.get(layer.name, {}),
+                    [blob[b] for b in layer.bottoms], train=train)
+                if out.state:
+                    new_state[layer.name] = out.state
+                for top, o in zip(layer.tops, out.outputs):
+                    blob[top] = o
+                for w, o in zip(layer.loss_weights(), out.outputs):
+                    if w != 0.0:
+                        total_loss = total_loss + w * o.sum().to(torch.float32)
+        # carry forward unmodified state so the structure is stable
+        for lname, s in variables.state.items():
+            new_state.setdefault(lname, s)
+        return blob, new_state, total_loss
+
+    # ------------------------------------------------------------------
+    def output_blobs(self) -> list[str]:
+        """Tops never consumed as a bottom — the net's outputs
+        (ref: net.cpp AppendTop/available_blobs bookkeeping)."""
+        consumed = set()
+        for l in self.layers:
+            for b in l.bottoms:
+                if b not in l.tops:  # in-place use doesn't consume
+                    consumed.add(b)
+        outs: list[str] = []
+        for l in self.layers:
+            for t in l.tops:
+                if t not in consumed and t not in outs:
+                    outs.append(t)
+        return outs
+
+    def __repr__(self):
+        return (f"<Network {self.name!r} phase={self.phase.name} "
+                f"layers={len(self.layers)} device={self.device}>")

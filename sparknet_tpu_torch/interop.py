@@ -1,0 +1,74 @@
+"""The weights bridge: the JAX package's variables -> the port's.
+
+Two inputs, one output (a ``NetVars`` of float tensors on a given device):
+
+* ``netvars_from_numpy(params, state)`` takes ``{layer: [w, b, ...]}``
+  params and ``{layer: {name: value}}`` state whose leaves convert with
+  ``np.asarray`` — a JAX ``NetVars``'s ``.params``/``.state`` as they are;
+* ``netvars_from_solverstate(path)`` reads a ``.solverstate.npz`` snapshot
+  (the key scheme of ``sparknet_tpu/solvers/solver.py`` ``Solver.save``:
+  ``param/<layer>/<i>`` and ``state/<layer>/<k>``; layer names may contain
+  ``/``).  Solver history (``hist/...``), ``__iter__`` and ``__meta__``
+  belong to the training path and are skipped.
+
+Blob order is Caffe's in both packages (conv OIHW, fc (out, in) in NCHW
+flatten order), so every blob crosses as it is.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from sparknet_tpu_torch.compiler.graph import NetVars
+
+
+def _tensor(value: Any, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, copy=True)).to(device)
+
+
+def netvars_from_numpy(
+    params: Mapping[str, Any],
+    state: Mapping[str, Mapping[str, Any]] | None = None,
+    device: str | torch.device = "cpu",
+) -> NetVars:
+    """``{layer: [blobs]}`` params (+ ``{layer: {k: v}}`` state) -> NetVars."""
+    return NetVars(
+        params={name: [_tensor(b, device) for b in blobs]
+                for name, blobs in params.items()},
+        state={name: {k: _tensor(v, device) for k, v in s.items()}
+               for name, s in (state or {}).items()},
+    )
+
+
+def netvars_from_solverstate(
+    path_or_arrays: str | os.PathLike | Mapping[str, Any],
+    device: str | torch.device = "cpu",
+) -> NetVars:
+    """A ``.solverstate.npz`` path (or its loaded key->array mapping) ->
+    NetVars with the snapshot's params and state."""
+    if isinstance(path_or_arrays, (str, os.PathLike)):
+        with np.load(path_or_arrays) as z:
+            arrays = {k: z[k] for k in z.files}
+    else:
+        arrays = dict(path_or_arrays)
+    indexed: dict[str, dict[int, Any]] = {}
+    state: dict[str, dict[str, Any]] = {}
+    for key, value in arrays.items():
+        kind, _, rest = key.partition("/")
+        if kind == "param":
+            layer, _, idx = rest.rpartition("/")
+            indexed.setdefault(layer, {})[int(idx)] = value
+        elif kind == "state":
+            layer, _, name = rest.rpartition("/")
+            state.setdefault(layer, {})[name] = value
+    params = {}
+    for layer, blobs in indexed.items():
+        if sorted(blobs) != list(range(len(blobs))):
+            raise ValueError(f"snapshot has param blobs {sorted(blobs)} for "
+                             f"layer {layer!r}; want 0..{len(blobs) - 1}")
+        params[layer] = [blobs[i] for i in range(len(blobs))]
+    return netvars_from_numpy(params, state, device)

@@ -1,0 +1,91 @@
+"""Deploy-time inference wrapper for the Classifier.
+
+Counterpart of ``sparknet_tpu/models/deploy.py`` (ref:
+caffe/python/caffe/classifier.py:11-99, pycaffe.py:155-197
+``_Net_forward_all``).  The handle owns a TEST-phase ``Network`` on one
+device and runs any number of inputs in net-batch-size chunks, padding the
+ragged tail and trimming it from the outputs.  ``.caffemodel``/HDF5 weight
+loading, BatchNorm folding and the int8 path are ROADMAP Queue A4; weights
+come from ``Network.init`` or from the JAX package through ``interop.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sparknet_tpu_torch.common import Phase
+from sparknet_tpu_torch.compiler.graph import Network
+from sparknet_tpu_torch.data import io_utils as cio
+from sparknet_tpu_torch.proto.text_format import Message
+
+
+class DeployNet:
+    """TEST-phase net + Transformer, loaded from a prototxt.
+
+    ``model_file`` is a deploy prototxt path or an already-parsed
+    ``NetParameter`` Message.  ``device=None`` means CUDA and raises without
+    a CUDA device; pass ``device="cpu"`` to run on the CPU.
+    """
+
+    def __init__(
+        self,
+        model_file: str | Message,
+        pretrained_file: str | None = None,
+        mean: np.ndarray | None = None,
+        input_scale: float | None = None,
+        raw_scale: float | None = None,
+        channel_swap: tuple[int, ...] | None = None,
+        device: str | torch.device | None = None,
+    ):
+        if pretrained_file is not None:
+            raise NotImplementedError(
+                "loading .caffemodel/HDF5 weights is not ported yet (ROADMAP "
+                "Queue A4); bring weights in through sparknet_tpu_torch.interop")
+        if isinstance(model_file, Message):
+            net_param = model_file
+        else:
+            from sparknet_tpu_torch.proto_loader import load_net_prototxt
+
+            net_param = load_net_prototxt(model_file)
+        self.network = Network(net_param, Phase.TEST, device=device)
+        self.device = self.network.device
+        self.variables = self.network.init()
+
+        shapes = self.network.feed_shapes()
+        # data inputs only — a deploy net has no label feed, but a net built
+        # from a train prototxt may; keep 4-D image feeds
+        self.inputs = [n for n, s in shapes.items() if len(s) == 4] or list(shapes)
+        self.outputs = self.network.output_blobs()
+        self.feed_shapes = shapes
+
+        in_ = self.inputs[0]
+        self.transformer = cio.Transformer({in_: shapes[in_]})
+        self.transformer.set_transpose(in_, (2, 0, 1))
+        if mean is not None:
+            self.transformer.set_mean(in_, np.asarray(mean, np.float32))
+        if input_scale is not None:
+            self.transformer.set_input_scale(in_, input_scale)
+        if raw_scale is not None:
+            self.transformer.set_raw_scale(in_, raw_scale)
+        if channel_swap is not None:
+            self.transformer.set_channel_swap(in_, channel_swap)
+
+    def forward_all(self, in_: str, data: np.ndarray) -> dict[str, np.ndarray]:
+        """Forward N preprocessed samples in net-batch chunks; concat outputs.
+
+        ref: pycaffe.py:155-197 — batch, forward, drop padding.
+        """
+        batch = self.feed_shapes[in_][0]
+        n = len(data)
+        outs: dict[str, list[np.ndarray]] = {o: [] for o in self.outputs}
+        with torch.inference_mode():
+            for lo in range(0, n, batch):
+                chunk = np.asarray(data[lo : lo + batch], np.float32)
+                if len(chunk) < batch:  # pad the ragged tail; trimmed below
+                    pad = np.zeros((batch - len(chunk),) + chunk.shape[1:], chunk.dtype)
+                    chunk = np.concatenate([chunk, pad])
+                blobs = self.network.apply(self.variables, {in_: chunk}, train=False)[0]
+                for o in self.outputs:
+                    outs[o].append(blobs[o].cpu().numpy())
+        return {o: np.concatenate(v)[:n] for o, v in outs.items()}

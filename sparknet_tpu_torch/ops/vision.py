@@ -1,0 +1,176 @@
+"""Vision layers: Convolution, Pooling, LRN.
+
+Counterpart of ``sparknet_tpu/ops/vision.py``.  Convolution goes to
+``F.conv2d`` (cuDNN on the card), as the JAX package leaves it to XLA.
+Pooling keeps Caffe's ceil-mode shapes and, for AVE, Caffe's padded-divisor
+rule, which differs from ``F.avg_pool2d``'s at the edges.  Cross-channel
+LRN runs the hand-written kernel (``ops/kernels.py``).  Deconvolution,
+STOCHASTIC pooling, Im2col and SPP are ROADMAP Queue A10.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sparknet_tpu_torch.ops import fillers, layout
+from sparknet_tpu_torch.ops.base import Layer, LayerOutput, hw_param, pool_out_dim
+from sparknet_tpu_torch.ops.kernels import lrn_across_channels
+from sparknet_tpu_torch.ops.registry import register
+
+
+@register
+class Convolution(Layer):
+    """ref: caffe/src/caffe/layers/conv_layer.cpp + base_conv_layer.cpp.
+
+    Supports kernel/stride/pad (square or _h/_w), group, dilation, bias_term.
+    Weight blob OIHW = (num_output, in_channels/group, kh, kw); bias (num_output,).
+    """
+
+    TYPE = "Convolution"
+
+    def _conf(self):
+        p = self.lp.get_msg("convolution_param")
+        return dict(
+            num_output=p.get_int("num_output"),
+            group=p.get_int("group", 1),
+            dilation=p.get_int("dilation", 1),
+            bias=p.get_bool("bias_term", True),
+            kernel=hw_param(p, "kernel"),
+            stride=hw_param(p, "stride", default=1),
+            pad=hw_param(p, "pad", default=0),
+            weight_filler=p.get_msg("weight_filler"),
+            bias_filler=p.get_msg("bias_filler"),
+        )
+
+    def init(self, gen, in_shapes):
+        c = self._conf()
+        ch = in_shapes[0][layout.channel_axis(ndim=len(in_shapes[0]))]
+        if ch % c["group"]:
+            raise ValueError(f"{self.name}: channels {ch} not divisible by "
+                             f"group {c['group']}")
+        wshape = (c["num_output"], ch // c["group"], *c["kernel"])
+        params = [fillers.fill(c["weight_filler"], gen, wshape)]
+        if c["bias"]:
+            params.append(fillers.fill(c["bias_filler"], gen, (c["num_output"],)))
+        return params, {}
+
+    def apply(self, params, state, inputs, *, train):
+        c = self._conf()
+        x = inputs[0]
+        bias = params[1].to(x.dtype) if c["bias"] else None
+        y = F.conv2d(x, params[0].to(x.dtype), bias, stride=c["stride"],
+                     padding=c["pad"], dilation=c["dilation"], groups=c["group"])
+        return LayerOutput([y])
+
+
+@functools.lru_cache(maxsize=64)
+def _ave_pool_divisor(h: int, w: int, kh: int, kw: int, sh: int, sw: int, ph: int, pw: int):
+    """Caffe AVE-pool divisor: window size measured in *padded* coordinates,
+    clipped at (H+pad, W+pad) — includes padding on the leading edge
+    (ref: pooling_layer.cpp Forward_cpu AVE branch)."""
+    oh = pool_out_dim(h, kh, ph, sh)
+    ow = pool_out_dim(w, kw, pw, sw)
+    hs = np.arange(oh) * sh - ph
+    ws = np.arange(ow) * sw - pw
+    hlen = np.minimum(hs + kh, h + ph) - hs
+    wlen = np.minimum(ws + kw, w + pw) - ws
+    return np.outer(hlen, wlen).astype(np.float32)
+
+
+def _pool_pads(x, kernel, stride, pad):
+    """(left, right, top, bottom) padding for ``F.pad`` that makes an
+    unpadded floor-mode window over the padded map give Caffe's ceil-mode
+    output: ``pad`` on the leading edges, enough on the trailing edges for
+    the last ceil-mode window."""
+    h, w = x.shape[2], x.shape[3]
+    (kh, kw), (sh, sw), (ph, pw) = kernel, stride, pad
+    oh = pool_out_dim(h, kh, ph, sh)
+    ow = pool_out_dim(w, kw, pw, sw)
+    extra_h = max(0, (oh - 1) * sh + kh - h - ph)
+    extra_w = max(0, (ow - 1) * sw + kw - w - pw)
+    return (pw, extra_w, ph, extra_h)
+
+
+def caffe_avg_pool(x, kernel, stride, pad):
+    """Average pooling with Caffe's ceil shapes and padded-divisor rule:
+    a window sum over the zero-padded map divided by ``_ave_pool_divisor``."""
+    summed = F.avg_pool2d(F.pad(x, _pool_pads(x, kernel, stride, pad)),
+                          kernel, stride, divisor_override=1)
+    div = _ave_pool_divisor(x.shape[2], x.shape[3], *kernel, *stride, *pad)
+    return summed / torch.from_numpy(div).to(device=x.device, dtype=x.dtype)
+
+
+def caffe_max_pool(x, kernel, stride, pad):
+    """Max pooling with Caffe's ceil shapes: the padding never wins."""
+    xp = F.pad(x, _pool_pads(x, kernel, stride, pad), value=float("-inf"))
+    return F.max_pool2d(xp, kernel, stride)
+
+
+@register
+class Pooling(Layer):
+    """MAX / AVE pooling with Caffe ceil-mode shapes; ``global_pooling``
+    collapses the spatial dims (ref: caffe/src/caffe/layers/pooling_layer.cpp).
+    STOCHASTIC pooling is ROADMAP Queue A10."""
+
+    TYPE = "Pooling"
+
+    def _conf(self, in_shape):
+        p = self.lp.get_msg("pooling_param")
+        if p.get_bool("global_pooling", False):
+            ha, wa = layout.spatial_axes()
+            kernel = (in_shape[ha], in_shape[wa])
+            stride, pad = (1, 1), (0, 0)
+        else:
+            kernel = hw_param(p, "kernel")
+            stride = hw_param(p, "stride", default=1)
+            pad = hw_param(p, "pad", default=0)
+        return p.get_str("pool", "MAX"), kernel, stride, pad
+
+    def apply(self, params, state, inputs, *, train):
+        x = inputs[0]
+        method, kernel, stride, pad = self._conf(x.shape)
+        if method == "AVE":
+            y = caffe_avg_pool(x, kernel, stride, pad)
+        elif method == "MAX":
+            y = caffe_max_pool(x, kernel, stride, pad)
+        elif method == "STOCHASTIC":
+            raise NotImplementedError(
+                f"{self.name}: STOCHASTIC pooling is not ported yet "
+                "(ROADMAP Queue A10)")
+        else:
+            raise ValueError(f"{self.name}: unknown pool method {method!r}")
+        return LayerOutput([y])
+
+
+@register
+class LRN(Layer):
+    """Local response normalization (ref: caffe/src/caffe/layers/lrn_layer.cpp).
+
+    ACROSS_CHANNELS: y = x / (k + alpha/n * sum_{window n} x^2)^beta, through
+    the CUDA kernel on the card (``ops/kernels.lrn_across_channels``).
+    WITHIN_CHANNEL:  y = x * (1 + alpha * avepool_{n x n}(x^2))^(-beta), in
+    plain PyTorch (the AVE pool uses pad=(n-1)/2 and Caffe's padded divisor).
+    """
+
+    TYPE = "LRN"
+
+    def apply(self, params, state, inputs, *, train):
+        p = self.lp.get_msg("lrn_param")
+        size = p.get_int("local_size", 5)
+        if size % 2 == 0:
+            # Caffe CHECKs local_size is odd (lrn_layer.cpp LayerSetUp)
+            raise ValueError(f"{self.name}: LRN local_size must be odd, got {size}")
+        alpha = p.get_float("alpha", 1.0)
+        beta = p.get_float("beta", 0.75)
+        k = p.get_float("k", 1.0)
+        region = p.get_str("norm_region", "ACROSS_CHANNELS")
+        x = inputs[0]
+        if region == "WITHIN_CHANNEL":
+            pre_pad = (size - 1) // 2
+            pooled = caffe_avg_pool(x * x, (size, size), (1, 1), (pre_pad, pre_pad))
+            return LayerOutput([x * torch.pow(1.0 + alpha * pooled, -beta)])
+        return LayerOutput([lrn_across_channels(x, size, alpha, beta, k)])

@@ -1,0 +1,69 @@
+"""The port stands alone: it never loads jax or the JAX package, and its
+entry points never fall back to the CPU on their own."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import sparknet_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sparknet_tpu_torch.__path__,
+                                               "sparknet_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import runpy
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_module")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "sparknet_tpu."))
+             or m == "sparknet_tpu")
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().rsplit("\n", 1)[-1].split(" ", 1)
+    assert int(n) >= 20, out.stdout
+    assert bad == "[]", out.stdout
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    """``device=None`` means CUDA; with no CUDA device every entry point
+    raises instead of running on the CPU."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import Phase, resolve_device
+    from sparknet_tpu_torch.compiler.graph import Network
+    from sparknet_tpu_torch.models import Classifier, DeployNet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    deploy = models.lenet(batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Network(deploy, Phase.TEST)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeployNet(deploy)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Classifier(deploy)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    """With no CUDA device the smoke test exits non-zero and prints no
+    result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "no CUDA device" in out.stderr
