@@ -22,15 +22,42 @@ Phases, in order (any failure exits non-zero):
    image requests (10-crop each): probabilities of shape (4, 1000) whose
    rows sum to 1, 2 launches per forward, per-request latency;
 6. profile: the device time of one AlexNet forward by kernel
-   (``torch.profiler``).
+   (``torch.profiler``);
+7. lrn backward kernel: against ``lrn_backward_torch`` at the four b256
+   shapes and the ragged ones, f32 (rtol 1e-5, atol 1e-6) and bf16 (one
+   bf16 ulp), inputs ``relu(randn*50)`` and ``g = randn``; times beside
+   the bound and the autograd backward of ``F.local_response_norm``;
+8. train: a port ``Solver`` with ``fused_update`` on trains the zoo AlexNet
+   (``alexnet_solver``: SGD, momentum 0.9, weight decay 5e-4, step policy)
+   at batch 256, 227x227, dropout on, on one fixed random batch: 1
+   warm-up step and 10 timed ones, each with 2 LRN forward, 2 LRN
+   backward and 1 fused-update launches and a finite loss, a non-zero
+   ``conv1`` weight gradient; then one CaffeNet b256 step with the same
+   checks;
+9. fused update kernel: against ``fused_update_torch`` on the AlexNet
+   arena geometry (the train phase's layout), all six rules x f32/bf16
+   storage x L1/L2 x clip on/off x iter_size 1/2: SGD and Nesterov in f32
+   bitwise, the others within one float32 ulp (``UPDATE_F32_ULPS``), bf16
+   within one bf16 ulp; pad zones stay 0, w and the slots keep their
+   storage (in place); times of SGD f32, Adam f32 and SGD bf16 beside the
+   bound;
+10. train profile: one AlexNet b256 train step by kernel;
+11. fused vs per-blob: 3 AlexNet b256 steps with ``fused_update`` on and 3
+    with it off, from the same weights and batch, dropout ratio 0 and
+    deterministic cuDNN: params and history agree (rtol 1e-5, atol 1e-7).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and runs nothing.  Weights are random, drawn from a fixed seed.
+``--phases`` runs a subset (comma-separated names: card and build always
+run) and then prints no result lines; with no arguments every phase runs.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -234,6 +261,14 @@ def phase_build() -> None:
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
         print(f"  ptxas {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
               f"registers a thread, {spills} bytes of spills")
+        # the instances the main paths run: float32, LRN size 5 beta 0.75;
+        # fused update SGD with L2
+        for fn, n in re.findall(r"Compiling entry function '([^']+)'.*?Used (\d+) "
+                                r"registers", log, flags=re.S):
+            kernel = re.search(r"\d+((?:lrn|fused)_\w+?_kernel)I", fn)
+            if kernel and ("IfLi5ELb1E" in fn or "IfLi0ELi2E" in fn):
+                print(f"    {kernel.group(1)} (float32, main-path instance): "
+                      f"{n} registers a thread")
 
 
 def phase_kernel(card: str) -> dict:
@@ -413,35 +448,444 @@ def phase_serve(card: str) -> int:
     return launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Training slice
+# ---------------------------------------------------------------------------
+
+# The six rules' float32 gate against the plain version: SGD and Nesterov
+# must be bitwise; the sqrt/divide rules are held to one ulp.  Both sides
+# run the same IEEE operations in the same order (the kernel through
+# __fsqrt_rn/__fdiv_rn, the plain version through ATen's sqrt and true
+# division), so 0 is expected; the one ulp allows for an ATen elementwise
+# kernel built with other rounding choices than ours.
+UPDATE_F32_ULPS = {"SGD": 0, "Nesterov": 0, "AdaGrad": 1, "RMSProp": 1,
+                   "AdaDelta": 1, "Adam": 1}
+TRAIN_STEPS = 10
+
+
+def ulps_f32(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in float32 ulps between two float32 tensors (signed
+    zeros count as equal)."""
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def phase_lrn_backward(card: str) -> dict:
+    """LRN backward kernel vs plain at every case; times at the main
+    shapes beside the bound and F.local_response_norm's backward."""
+    from sparknet_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dev = torch.device("cuda")
+    max_err = 0.0
+    cases = [(lab, shp, 5, 0.75, 1.0) for lab, shp in MAIN_CASES] + RAGGED_CASES
+    for label, shape, size, beta, k in cases:
+        x = torch.relu(torch.randn(shape, generator=gen, device=dev) * 50)
+        g = torch.randn(shape, generator=gen, device=dev)
+        ref = kernels.lrn_backward_torch(x, g, size, ALPHA, beta, k)
+        dx = kernels.lrn_backward(x, g, size, ALPHA, beta, k)
+        torch.cuda.synchronize()
+        err = (dx - ref).abs()
+        ok = bool((err <= F32_TOL["atol"] + F32_TOL["rtol"] * ref.abs()).all())
+        max_err = max(max_err, float(err.max()))
+        xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+        refb = kernels.lrn_backward_torch(xb.float(), gb.float(), size, ALPHA,
+                                          beta, k).to(torch.bfloat16).float()
+        dxb = kernels.lrn_backward(xb, gb, size, ALPHA, beta, k).float()
+        torch.cuda.synchronize()
+        errb = (dxb - refb).abs()
+        okb = bool((errb <= bf16_ulp(refb)).all())
+        print(f"lrn_backward {label} {list(shape)} size {size} beta {beta}: f32 "
+              f"max abs err {float(err.max()):.3e} (rtol 1e-5, atol 1e-6) "
+              f"{'ok' if ok else 'FAIL'}, {int((dx != ref).sum())} elements not "
+              f"bitwise equal; bf16 max err in ulps "
+              f"{float((errb / bf16_ulp(refb)).max()):.2f} (tolerance 1) "
+              f"{'ok' if okb else 'FAIL'}")
+        check(ok, f"lrn_backward f32 {label}")
+        check(okb, f"lrn_backward bf16 {label}")
+
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bw, _ = card_peaks(card)
+    for label, shape in MAIN_CASES:
+        x = torch.relu(torch.randn(shape, generator=gen, device=dev) * 50)
+        g = torch.randn(shape, generator=gen, device=dev)
+        t_k = time_ms(lambda: kernels.lrn_backward(x, g, 5, ALPHA, 0.75, 1.0))
+        t_p = time_ms(lambda: kernels.lrn_backward_torch(x, g, 5, ALPHA, 0.75, 1.0))
+        xr = x.clone().requires_grad_(True)
+        yr = F.local_response_norm(xr, 5, ALPHA, 0.75, 1.0)  # graph built once
+        t_l = time_ms(lambda: torch.autograd.grad(yr, xr, g, retain_graph=True))
+        del yr, xr
+        xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+        t_kb = time_ms(lambda: kernels.lrn_backward(xb, gb, 5, ALPHA, 0.75, 1.0))
+        n = x.numel()
+        bound, bound_b = 3 * n * 4 / bw * 1e3, 3 * n * 2 / bw * 1e3
+        print(f"time lrn_backward {label} {list(shape)} f32: kernel {t_k:.4f} ms "
+              f"({100 * bound / t_k:.1f}% of bound), plain {t_p:.4f} ms, "
+              f"F.local_response_norm backward {t_l:.4f} ms, bound {bound:.4f} ms "
+              f"(bytes); bf16 kernel {t_kb:.4f} ms (bound {bound_b:.4f} ms) [{card}]")
+        if label.startswith("alexnet"):
+            totals["ms"] += t_k
+            totals["plain_ms"] += t_p
+            totals["library_ms"] += t_l
+            totals["bound_ms"] += bound
+    return dict(max_abs_err=max_err, bound_by="bytes", **totals)
+
+
+def phase_fused_update(card: str, layout) -> dict:
+    """The fused update kernel vs fused_update_torch on the AlexNet arena
+    geometry; times of SGD f32, Adam f32 and SGD bf16."""
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.solvers.arena import ArenaTables
+    from sparknet_tpu_torch.solvers.updates import adam_correction
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    tables = ArenaTables(layout, dev)
+    real = torch.zeros(layout.total, dtype=torch.bool, device=dev)
+    for e in layout.entries:
+        real[e.offset:e.offset + e.size] = True
+    total = layout.total
+    print(f"fused_update: AlexNet arena {layout.param_count():,} params in "
+          f"{len(layout.entries)} blobs, {total:,} elements after padding "
+          f"({layout.n_tiles} tiles of {layout.tile})")
+
+    def arenas(rule, dtype):
+        def rand(scale, positive=False):
+            t = torch.randn(total, generator=gen, device=dev) * scale
+            t = t.abs() if positive else t
+            return torch.where(real, t, 0.0).to(dtype)
+        w = rand(0.01)
+        g = rand(1e-3)
+        slots = [rand(1e-3, positive=True)
+                 for _ in range(kernels.FUSED_RULE_SLOTS[rule])]
+        return w, g, slots
+
+    def scalars(rule, clip):
+        corr = (adam_correction(0.9, 0.999, 4, dev) if rule == "Adam"
+                else torch.ones((), device=dev))
+        return torch.stack([torch.full((), 0.01, device=dev),
+                            torch.full((), 0.7 if clip else 1.0, device=dev),
+                            corr.float()])
+
+    max_abs = 0.0
+    n_cases = 0
+    for rule in kernels.FUSED_RULE_SLOTS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for reg in ("l2", "l1"):
+                for clip in (False, True):
+                    for iter_size in (1, 2):
+                        st = kernels.UpdateStatics(
+                            momentum=0.9, momentum2=0.999, rms_decay=0.98,
+                            delta=1e-8, iter_size=iter_size, reg=reg, clip=clip)
+                        w, g, slots = arenas(rule, dtype)
+                        sc = scalars(rule, clip)
+                        ref_w, ref_s = kernels.fused_update_torch(
+                            rule, st, w, g, slots, tables.tile_lr,
+                            tables.tile_decay, sc)
+                        ptrs = [t.data_ptr() for t in (w, *slots)]
+                        g0 = g.clone()
+                        kernels.fused_update(rule, st, w, g, slots, tables.tile_lr,
+                                             tables.tile_decay, sc)
+                        torch.cuda.synchronize()
+                        label = (f"{rule} {str(dtype)[6:]} {reg} clip {int(clip)} "
+                                 f"iter_size {iter_size}")
+                        check(ptrs == [t.data_ptr() for t in (w, *slots)],
+                              f"fused_update {label}: not in place")
+                        check(torch.equal(g, g0), f"fused_update {label}: wrote g")
+                        for t in (w, *slots):
+                            check(not bool(t[~real].any()),
+                                  f"fused_update {label}: pad zone not zero")
+                        pairs = list(zip((w, *slots), (ref_w, *ref_s)))
+                        for out, ref in pairs:
+                            max_abs = max(max_abs, float((out.float() - ref.float()).abs().max()))
+                            if dtype == torch.float32:
+                                u = ulps_f32(out, ref)
+                                check(u <= UPDATE_F32_ULPS[rule],
+                                      f"fused_update {label}: {u} ulps, allowed "
+                                      f"{UPDATE_F32_ULPS[rule]}")
+                            else:
+                                err = (out.float() - ref.float()).abs()
+                                check(bool((err <= bf16_ulp(ref.float())).all()),
+                                      f"fused_update {label}: beyond one bf16 ulp")
+                        n_cases += 1
+                        if dtype == torch.float32 and reg == "l2" and not clip \
+                                and iter_size == 1:
+                            print(f"fused_update {label}: "
+                                  f"{'bitwise equal' if all(torch.equal(a, b) for a, b in pairs) else 'within tolerance'}"
+                                  f" to the plain version, pad zones 0, in place")
+                        del w, g, slots, ref_w, ref_s, g0
+    print(f"fused_update: {n_cases} cases agree (SGD/Nesterov f32 bitwise, "
+          f"other f32 rules within {max(UPDATE_F32_ULPS.values())} ulp, bf16 "
+          f"within one bf16 ulp), max abs err {max_abs:.3e}")
+
+    bw, _ = card_peaks(card)
+    times = {}
+    for rule, dtype in (("SGD", torch.float32), ("Adam", torch.float32),
+                        ("SGD", torch.bfloat16)):
+        st = kernels.UpdateStatics(momentum=0.9, reg="l2")
+        w, g, slots = arenas(rule, dtype)
+        sc = scalars(rule, False)
+        t_k = time_ms(lambda: kernels.fused_update(
+            rule, st, w, g, slots, tables.tile_lr, tables.tile_decay, sc))
+        t_p = time_ms(lambda: kernels.fused_update_torch(
+            rule, st, w, g, slots, tables.tile_lr, tables.tile_decay, sc))
+        nbytes = (2 + 2 * len(slots) + 1) * total * w.element_size()
+        bound = nbytes / bw * 1e3
+        times[(rule, str(dtype))] = (t_k, t_p, bound)
+        print(f"time fused_update {rule} {str(dtype)[6:]} L2 on the AlexNet arena: "
+              f"kernel {t_k:.4f} ms ({nbytes / 1e9:.3f} GB, "
+              f"{100 * bound / t_k:.1f}% of bound), plain {t_p:.4f} ms, bound "
+              f"{bound:.4f} ms (bytes) [{card}]")
+        del w, g, slots
+    # a same-bytes reference, not the same function: PyTorch's SGD keeps
+    # the lr out of its momentum buffer, so no PyTorch call computes
+    # Caffe's update (library_ms stays null)
+    p = torch.zeros(total, device=dev, requires_grad=True)
+    p.grad = torch.randn(total, generator=gen, device=dev)
+    opt = torch.optim.SGD([p], lr=0.01, momentum=0.9, weight_decay=5e-4, fused=True)
+    opt.step()
+    t_ref = time_ms(opt.step)
+    print(f"time torch.optim.SGD(fused=True).step() over one flat f32 tensor "
+          f"of the arena's size (same bytes, not the same function): "
+          f"{t_ref:.4f} ms [{card}]")
+    del p, opt
+    t_k, t_p, bound = times[("SGD", "torch.float32")]
+    return dict(max_abs_err=max_abs, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                bound_by="bytes", library_ms=None)
+
+
+def fixed_batch(batch: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    return {
+        "data": torch.randn((batch, 3, 227, 227), generator=gen, device="cuda") * 50,
+        "label": torch.randint(0, 1000, (batch,), generator=gen, device="cuda",
+                               dtype=torch.int32),
+    }
+
+
+def conv1_grad_norm(solver, feeds) -> float:
+    """Norm of conv1's weight gradient after one forward and backward of
+    the train net at the solver's weights, through the LRN autograd
+    Function on the card."""
+    from sparknet_tpu_torch.common import f32_precision
+    from sparknet_tpu_torch.compiler.graph import NetVars
+
+    v = solver.variables
+    params = {ln: [p.detach().clone().requires_grad_(True) for p in pl]
+              for ln, pl in v.params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with f32_precision():
+        _, _, loss = solver.train_net.apply(NetVars(params, v.state), feeds, gen=gen)
+        (g,) = torch.autograd.grad(loss, params["conv1"][0])
+    norm = float(g.norm())
+    check(np.isfinite(norm) and norm > 0, f"conv1 weight gradient norm {norm}")
+    return norm
+
+
+def train_solver(net_param, solver_cfg):
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    return Solver(dataclasses.replace(solver_cfg, average_loss=TRAIN_STEPS,
+                                      random_seed=SEED), net_param)
+
+
+def phase_train(card: str) -> dict:
+    """The slice's path: a port Solver with fused_update on trains AlexNet
+    b256 for 10 steps after a warm-up, then CaffeNet b256 for one."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.ops import kernels
+
+    set_config(fused_update=True, storage_dtype="f32")
+    out = {}
+    for name, steps in (("alexnet", TRAIN_STEPS), ("caffenet", 1)):
+        batch = 256
+        solver = train_solver(getattr(models, name)(batch),
+                              getattr(models, f"{name}_solver")())
+        check(solver.layout is not None, "fused_update did not take")
+        feeds = fixed_batch(batch)
+        if name == "alexnet":
+            solver.step(1, lambda it: feeds)  # warm-up: cuDNN/cuBLAS set-up
+            out["layout"] = solver.layout
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        solver.step(steps, lambda it: feeds)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = (kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES,
+                  kernels.FUSED_UPDATE_LAUNCHES)
+        losses = [float(l) for l in solver._loss_window[-steps:]]
+        check(counts == (2 * steps, 2 * steps, steps),
+              f"{name} launches (lrn fwd, lrn bwd, fused) {counts}, want "
+              f"{(2 * steps, 2 * steps, steps)}")
+        check(all(np.isfinite(losses)), f"{name} losses {losses}")
+        norm = conv1_grad_norm(solver, feeds)
+        print(f"train: {name} b{batch} 227x227, fused_update on, f32, dropout on: "
+              f"{steps} steps, losses {[round(l, 4) for l in losses]}, launches "
+              f"per step: LRN forward {counts[0] // steps}, LRN backward "
+              f"{counts[1] // steps}, fused update {counts[2] // steps}; conv1 "
+              f"weight grad norm {norm:.4e}; {batch * steps / dt:.1f} img/s, "
+              f"{1e3 * dt / steps:.2f} ms/step [{card}]")
+        out[name] = dict(counts=counts, ms_per_step=1e3 * dt / steps)
+        if name == "alexnet":
+            out["step"] = lambda s=solver, f=feeds: s.step(1, lambda it: f)
+            out["alexnet_solver"] = solver
+        del solver
+        gc.collect()
+    set_config(fused_update=False)
+    return out
+
+
+def phase_fused_vs_blob(card: str) -> None:
+    """Fused against per-blob on the card: 3 AlexNet b256 steps each from
+    the same weights and batch, dropout ratio 0, deterministic cuDNN."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+
+    net = models.alexnet(256)
+    for lp in net.get_all("layer"):
+        if lp.get_str("type") == "Dropout":
+            lp.get_msg("dropout_param").set("dropout_ratio", 0.0)
+    feeds = fixed_batch(256)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        results = []
+        for fused in (True, False):
+            set_config(fused_update=fused)
+            solver = train_solver(net, models.alexnet_solver())
+            check((solver.layout is not None) == fused, "fused_update did not take")
+            solver.step(3, lambda it: feeds)
+            results.append((
+                {ln: [p.detach().clone() for p in pl]
+                 for ln, pl in solver.variables.params.items()},
+                {ln: [h[0].detach().clone() for h in hl]
+                 for ln, hl in solver.slots.items()},
+                float(solver._loss_window[-1])))
+            del solver
+            gc.collect()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        set_config(fused_update=False)
+    (pf, hf, lf), (pb, hb, lb) = results
+    worst, bitwise = 0.0, True
+    for ln in pf:
+        for a, b in list(zip(pf[ln], pb[ln])) + list(zip(hf[ln], hb[ln])):
+            bitwise = bitwise and torch.equal(a, b)
+            worst = max(worst, float((a - b).abs().max()))
+            check(torch.allclose(a, b, rtol=1e-5, atol=1e-7),
+                  f"fused vs per-blob {ln}: max abs diff {float((a - b).abs().max()):.3e}")
+    print(f"fused vs per-blob: AlexNet b256, 3 steps, dropout 0, deterministic "
+          f"cuDNN: loss {lf:.6f} vs {lb:.6f}, params and history max abs diff "
+          f"{worst:.3e} (rtol 1e-5, atol 1e-7), "
+          f"{'bitwise equal' if bitwise else 'not bitwise equal'} [{card}]")
+
+
+def phase_train_profile(card: str, step, ms_per_step: float) -> None:
+    """One AlexNet b256 train step by kernel, and where the port's three
+    kernels stand in it."""
+    device_ms, rows = device_breakdown(step, top=1000)
+    if device_ms == 0.0:
+        print("train profile: torch.profiler recorded no device time")
+        return
+    print(f"train profile: one AlexNet b256 train step under torch.profiler: "
+          f"{device_ms:.3f} ms of kernels, {100 * device_ms / ms_per_step:.1f}% "
+          f"of the unprofiled {ms_per_step:.2f} ms/step [{card}]")
+    for ms, name, calls in rows[:10]:
+        print(f"  {ms:8.3f} ms  {100 * ms / device_ms:5.1f}%  x{calls}  {name[:90]}")
+    for key in ("lrn_forward_kernel", "lrn_backward_kernel", "fused_update_kernel"):
+        hits = [(i, r) for i, r in enumerate(rows) if key in r[1]]
+        for i, (ms, name, calls) in hits:
+            print(f"  port kernel {key}: {ms:.3f} ms, "
+                  f"{100 * ms / device_ms:.1f}%, x{calls}, rank {i + 1} of {len(rows)}")
+        if not hits:
+            print(f"  port kernel {key}: not in the profile")
+
+
+PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
+          "fused_update", "train_profile", "fused_vs_blob")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run (default: all)")
+    args = parser.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}; known: {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this smoke test runs "
               "only on a GPU", file=sys.stderr)
         return 2
     import sparknet_tpu_torch  # noqa: F401  (fails here outside a checkout)
 
+    t_start = time.perf_counter()
     card = phase_card()
     phase_build()
-    stats = phase_kernel(card)
-    path_launches, forward, ms_per_forward = phase_path(card)
-    launches = path_launches + phase_serve(card)
-    phase_profile(card, forward, ms_per_forward)
-    kernel_line = {
-        "name": "lrn_across_channels",
-        "route": "cuda",
-        "source": "sparknet_tpu_torch/csrc/lrn.cu",
-        "replaces": "sparknet_tpu/ops/pallas_kernels.py:40",
-        "launches": launches,
-        # times and bound: one AlexNet b256 forward's two calls (norm1 +
-        # norm2), float32; max_abs_err: the largest over every f32 case
-        "max_abs_err": stats["max_abs_err"],
-        "ms": stats["ms"],
-        "plain_ms": stats["plain_ms"],
-        "bound_ms": stats["bound_ms"],
-        "bound_by": stats["bound_by"],
-        "library_ms": stats["library_ms"],
+    stats = {}
+    launches = {"lrn_across_channels": 0, "lrn_backward": 0, "fused_update": 0}
+    if "kernel" in phases:
+        stats["lrn"] = phase_kernel(card)
+    if "path" in phases:
+        path_launches, forward, ms_per_forward = phase_path(card)
+        launches["lrn_across_channels"] += path_launches
+    if "serve" in phases:
+        launches["lrn_across_channels"] += phase_serve(card)
+    if "profile" in phases and "path" in phases:
+        phase_profile(card, forward, ms_per_forward)
+    if "lrn_backward" in phases:
+        stats["lrn_backward"] = phase_lrn_backward(card)
+    if "train" in phases:
+        train = phase_train(card)
+        for name in ("alexnet", "caffenet"):
+            fwd, bwd, upd = train[name]["counts"]
+            launches["lrn_across_channels"] += fwd
+            launches["lrn_backward"] += bwd
+            launches["fused_update"] += upd
+        if "fused_update" in phases:
+            stats["fused_update"] = phase_fused_update(card, train["layout"])
+        if "train_profile" in phases:
+            phase_train_profile(card, train["step"], train["alexnet"]["ms_per_step"])
+        del train
+        gc.collect()
+    if "fused_vs_blob" in phases:
+        phase_fused_vs_blob(card)
+    print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
+    if len(phases) < len(PHASES):
+        return 0
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+    meta = {
+        "lrn_across_channels": ("sparknet_tpu_torch/csrc/lrn.cu",
+                                "sparknet_tpu/ops/pallas_kernels.py:40", "lrn"),
+        "lrn_backward": ("sparknet_tpu_torch/csrc/lrn.cu",
+                         "sparknet_tpu/ops/pallas_kernels.py:185", "lrn_backward"),
+        "fused_update": ("sparknet_tpu_torch/csrc/fused_update.cu",
+                         "sparknet_tpu/ops/pallas_kernels.py:467", "fused_update"),
     }
-    print(json.dumps({"kernels": [kernel_line]}))
+    lines = []
+    for name, (source, replaces, key) in meta.items():
+        st = stats[key]
+        # LRN times and bounds: one AlexNet b256 step's two calls (norm1 +
+        # norm2), float32; fused_update: one SGD f32 update of the AlexNet
+        # arena; max_abs_err: the largest over every f32 case (every case
+        # for fused_update); launches: the main paths (the AlexNet TEST
+        # forwards, the CaffeNet requests, the AlexNet and CaffeNet train
+        # steps), each counted from 0
+        lines.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"], "library_ms": st["library_ms"],
+        })
+    print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

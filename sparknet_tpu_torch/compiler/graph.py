@@ -20,7 +20,7 @@ import torch
 
 from sparknet_tpu_torch.common import Phase, f32_precision, get_config, resolve_device
 from sparknet_tpu_torch.ops import create_layer
-from sparknet_tpu_torch.ops.base import Layer
+from sparknet_tpu_torch.ops.base import Layer, ParamSpec
 from sparknet_tpu_torch.ops.data_layers import InputLayer
 from sparknet_tpu_torch.proto.text_format import Message
 
@@ -86,9 +86,10 @@ class Network:
     """A phase-specific view of a NetParameter on one device.
 
     ``init(gen)`` -> NetVars on the net's device;
-    ``apply(vars, feeds)`` -> (blobs, new_state, total_loss).
+    ``apply(vars, feeds, gen=...)`` -> (blobs, new_state, total_loss).
     ``device=None`` means CUDA and raises without a CUDA device; pass
-    ``device="cpu"`` to run on the CPU.
+    ``device="cpu"`` to run on the CPU.  ``stages``/``level`` are the
+    NetState the phase filter matches (ref: Net::FilterNet).
     """
 
     def __init__(
@@ -96,6 +97,9 @@ class Network:
         net_param: Message,
         phase: Phase = Phase.TRAIN,
         device: str | torch.device | None = None,
+        *,
+        stages: set[str] | None = None,
+        level: int = 0,
     ):
         from sparknet_tpu_torch.proto.upgrade import upgrade_net
 
@@ -105,7 +109,8 @@ class Network:
         self.phase = phase
         self.name = net_param.get_str("name", "net")
         self.layers: list[Layer] = [
-            create_layer(lp, phase) for lp in filter_phase(net_param, phase)
+            create_layer(lp, phase)
+            for lp in filter_phase(net_param, phase, level, stages)
         ]
         for layer in self.layers:
             if any(pm.get_str("name", "") for pm in layer.lp.get_all("param")):
@@ -224,11 +229,17 @@ class Network:
         variables: NetVars,
         feeds: dict[str, Any],
         *,
+        gen: torch.Generator | None = None,
         train: bool | None = None,
         start: str | None = None,
         end: str | None = None,
     ) -> tuple[dict[str, torch.Tensor], State, torch.Tensor]:
         """Forward pass. Returns (all blobs, updated state, total weighted loss).
+
+        ``gen`` is the generator the random layers (TRAIN-phase Dropout)
+        draw from, on the net's device; they raise without one in train
+        mode.  The forward is differentiable: gradients w.r.t. params that
+        require grad come from ``torch.autograd`` (``solvers/solver.py``).
 
         ``feeds`` maps blob names to tensors or numpy arrays; they are moved
         to the net's device.  ``start``/``end`` name the first/last layer to
@@ -268,10 +279,11 @@ class Network:
                         f"layer {layer.name!r} needs blob(s) {missing}; feed "
                         "them or start the run at an earlier layer"
                     )
+                kwargs = {"gen": gen} if layer.NEEDS_GEN else {}
                 out = layer.apply(
                     variables.params.get(layer.name, []),
                     variables.state.get(layer.name, {}),
-                    [blob[b] for b in layer.bottoms], train=train)
+                    [blob[b] for b in layer.bottoms], train=train, **kwargs)
                 if out.state:
                     new_state[layer.name] = out.state
                 for top, o in zip(layer.tops, out.outputs):
@@ -285,6 +297,14 @@ class Network:
         return blob, new_state, total_loss
 
     # ------------------------------------------------------------------
+    def param_specs_for(self, variables: NetVars) -> dict[str, list[ParamSpec]]:
+        """lr_mult/decay_mult per blob per layer, for the solver
+        (ref: net.cpp:470+ AppendParam; params_lr_/params_weight_decay_)."""
+        return {
+            lname: next(l for l in self.layers if l.name == lname).param_specs(len(plist))
+            for lname, plist in variables.params.items()
+        }
+
     def output_blobs(self) -> list[str]:
         """Tops never consumed as a bottom — the net's outputs
         (ref: net.cpp AppendTop/available_blobs bookkeeping)."""

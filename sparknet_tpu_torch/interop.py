@@ -1,6 +1,8 @@
-"""The weights bridge: the JAX package's variables -> the port's.
+"""The bridge between the JAX package's weights and training state and the
+port's.
 
-Two inputs, one output (a ``NetVars`` of float tensors on a given device):
+Into the port, two inputs, one output (a ``NetVars`` of float tensors on a
+given device):
 
 * ``netvars_from_numpy(params, state)`` takes ``{layer: [w, b, ...]}``
   params and ``{layer: {name: value}}`` state whose leaves convert with
@@ -9,7 +11,13 @@ Two inputs, one output (a ``NetVars`` of float tensors on a given device):
   (the key scheme of ``sparknet_tpu/solvers/solver.py`` ``Solver.save``:
   ``param/<layer>/<i>`` and ``state/<layer>/<k>``; layer names may contain
   ``/``).  Solver history (``hist/...``), ``__iter__`` and ``__meta__``
-  belong to the training path and are skipped.
+  are skipped here; the port's ``Solver.restore`` reads all of them.
+
+Out of the port, ``solverstate_from_port(solver, path)`` writes a port
+``Solver``'s training state under the same key scheme (``param/…``,
+``state/…``, ``hist/<layer>/<i>/<j>``, ``__iter__``, ``__meta__``), so the
+JAX ``Solver.restore`` loads it; a snapshot of either package restores into
+the other.
 
 Blob order is Caffe's in both packages (conv OIHW, fc (out, in) in NCHW
 flatten order), so every blob crosses as it is.
@@ -72,3 +80,14 @@ def netvars_from_solverstate(
                              f"layer {layer!r}; want 0..{len(blobs) - 1}")
         params[layer] = [blobs[i] for i in range(len(blobs))]
     return netvars_from_numpy(params, state, device)
+
+
+def solverstate_from_port(solver, path: str | os.PathLike) -> str:
+    """Write ``solver``'s (a port ``Solver``) params, state, history and
+    iteration to ``path`` as a ``.solverstate.npz`` in the JAX package's
+    key scheme, atomically.  Returns the path."""
+    from sparknet_tpu_torch.solvers.solver import _write_npz_atomic
+
+    path = os.fspath(path)
+    _write_npz_atomic(path, solver.snapshot_arrays())
+    return path

@@ -1,7 +1,8 @@
 """Model zoo CNN builders and deploy-time inference.
 
 Each builder returns a ``NetParameter`` Message ready for ``Network``
-(ref: caffe/models/ + caffe/examples/); ``Classifier`` is pycaffe's
+(ref: caffe/models/ + caffe/examples/), each ``*_solver()`` the
+``SolverConfig`` of its published solver.prototxt; ``Classifier`` is pycaffe's
 deploy-time classifier on a torch device.
 """
 
@@ -9,8 +10,13 @@ from sparknet_tpu_torch.models.classifier import Classifier  # noqa: F401
 from sparknet_tpu_torch.models.deploy import DeployNet  # noqa: F401
 from sparknet_tpu_torch.models.zoo import (  # noqa: F401
     alexnet,
+    alexnet_solver,
     caffenet,
+    caffenet_solver,
     cifar10_full,
+    cifar10_full_solver,
     cifar10_quick,
+    cifar10_quick_solver,
     lenet,
+    lenet_solver,
 )

@@ -6,8 +6,8 @@ caffe/examples/cifar10/cifar10_{quick,full}_train_test.prototxt,
 caffe/models/bvlc_alexnet/train_val.prototxt,
 caffe/models/bvlc_reference_caffenet/train_val.prototxt).  Architectures are
 the published ones; data enters through RDD layers and batch is a builder
-argument.  The ``*_solver()`` recipes come with the training path (ROADMAP
-Queue A5); the other families are Queue A10.
+argument.  The ``*_solver()`` recipes are the published solver.prototxt
+settings of each; the other families are ROADMAP Queue A10.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from sparknet_tpu_torch.layers_dsl import (
     _filler,
 )
 from sparknet_tpu_torch.proto.text_format import Message
+from sparknet_tpu_torch.solvers.solver import SolverConfig
 
 
 def _gauss(std: float) -> Message:
@@ -54,6 +55,15 @@ def lenet(batch: int = 64, num_classes: int = 10) -> Message:
         InnerProductLayer("ip2", ["ip1"], num_output=num_classes),
         SoftmaxWithLoss("loss", ["ip2", "label"]),
         AccuracyLayer("accuracy", ["ip2", "label"], phase="TEST"),
+    )
+
+
+def lenet_solver() -> SolverConfig:
+    """ref: caffe/examples/mnist/lenet_solver.prototxt."""
+    return SolverConfig(
+        base_lr=0.01, lr_policy="inv", gamma=1e-4, power=0.75,
+        momentum=0.9, weight_decay=5e-4, max_iter=10000,
+        solver_type="SGD", display=100,
     )
 
 
@@ -86,6 +96,14 @@ def cifar10_quick(batch: int = 100, num_classes: int = 10) -> Message:
     )
 
 
+def cifar10_quick_solver() -> SolverConfig:
+    """ref: caffe/examples/cifar10/cifar10_quick_solver.prototxt."""
+    return SolverConfig(
+        base_lr=1e-3, lr_policy="fixed", momentum=0.9, weight_decay=0.004,
+        max_iter=4000, solver_type="SGD", display=100,
+    )
+
+
 # ---------------------------------------------------------------------------
 # CIFAR-10 full — the CifarApp model (ref:
 # caffe/examples/cifar10/cifar10_full_train_test.prototxt)
@@ -115,6 +133,15 @@ def cifar10_full(batch: int = 100, num_classes: int = 10) -> Message:
                           weight_filler=_gauss(0.01)),
         SoftmaxWithLoss("loss", ["ip1", "label"]),
         AccuracyLayer("accuracy", ["ip1", "label"], phase="TEST"),
+    )
+
+
+def cifar10_full_solver() -> SolverConfig:
+    """ref: caffe/examples/cifar10/cifar10_full_solver.prototxt (the
+    CifarApp recipe)."""
+    return SolverConfig(
+        base_lr=1e-3, lr_policy="fixed", momentum=0.9, weight_decay=0.004,
+        max_iter=60000, solver_type="SGD", display=200,
     )
 
 
@@ -171,6 +198,16 @@ def alexnet(batch: int = 256, num_classes: int = 1000, crop: int = 227) -> Messa
     )
 
 
+def alexnet_solver() -> SolverConfig:
+    """ref: caffe/models/bvlc_alexnet/solver.prototxt (the ImageNet
+    recipe)."""
+    return SolverConfig(
+        base_lr=0.01, lr_policy="step", gamma=0.1, stepsize=100000,
+        momentum=0.9, weight_decay=5e-4, max_iter=450000,
+        solver_type="SGD", display=20,
+    )
+
+
 # ---------------------------------------------------------------------------
 # CaffeNet — the ImageNetApp model (ref:
 # caffe/models/bvlc_reference_caffenet/train_val.prototxt)
@@ -205,3 +242,8 @@ def caffenet(batch: int = 256, num_classes: int = 1000, crop: int = 227) -> Mess
         PoolingLayer("pool5", ["conv5"], Pooling.Max, kernel=(3, 3), stride=(2, 2)),
         *_alex_tail("pool5", num_classes),
     )
+
+
+def caffenet_solver() -> SolverConfig:
+    """ref: caffe/models/bvlc_reference_caffenet/solver.prototxt."""
+    return alexnet_solver()

@@ -46,6 +46,9 @@ class Layer:
     # Layers whose type name ends in "Loss" produce a loss top with default
     # weight 1 (ref: layer.hpp SetLossWeights / caffe.proto loss_weight).
     IS_LOSS: bool = False
+    # Layers that draw random numbers take ``gen`` (a torch.Generator) in
+    # ``apply``; Network.apply passes it to them alone.
+    NEEDS_GEN: bool = False
 
     def __init__(self, lp: Message, phase: Phase):
         self.lp = lp

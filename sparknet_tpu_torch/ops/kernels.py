@@ -13,16 +13,23 @@ Beside each kernel:
 * a plain PyTorch version of the same function (``*_torch``).  The wrapper
   takes it only for a tensor that lies on the CPU; on a CUDA tensor it
   launches the kernel or raises, with no fallback;
-* a launch count (``LRN_LAUNCHES``), raised by one at each launch and
-  nowhere else, so a run can show that its path went through the kernel.
+* a launch count (``LRN_LAUNCHES``, ``LRN_BACKWARD_LAUNCHES``,
+  ``FUSED_UPDATE_LAUNCHES``), raised by one at each launch and nowhere
+  else, so a run can show that its path went through the kernel.
 
-Kernels ported so far: cross-channel LRN forward (replaces
-``sparknet_tpu/ops/pallas_kernels.py::_lrn_kernel``).
+Kernels ported so far, all from ``sparknet_tpu/ops/pallas_kernels.py``:
+
+* cross-channel LRN forward (``csrc/lrn.cu``, replaces ``_lrn_kernel``) and
+  its backward (same source, replaces ``_lrn_fused_bwd``, which is XLA on
+  the TPU), joined by the ``torch.autograd.Function`` ``LRNFunction``;
+* the one-pass fused optimizer update (``csrc/fused_update.cu``, replaces
+  ``_fused_kernel``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -35,7 +42,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel source of the package, one shared library each
-KERNEL_SOURCES = ("lrn",)
+KERNEL_SOURCES = ("lrn", "fused_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,6 +51,14 @@ NVCC_FLAGS = (
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 LRN_LAUNCHES = 0
+LRN_BACKWARD_LAUNCHES = 0
+FUSED_UPDATE_LAUNCHES = 0
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    global LRN_LAUNCHES, LRN_BACKWARD_LAUNCHES, FUSED_UPDATE_LAUNCHES
+    LRN_LAUNCHES = LRN_BACKWARD_LAUNCHES = FUSED_UPDATE_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -117,13 +132,37 @@ def _load(name: str) -> ctypes.CDLL:
                 ctypes.c_void_p,
             ]
             lib.sparknet_lrn_forward.restype = ctypes.c_int
+            lib.sparknet_lrn_backward.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.sparknet_lrn_backward.restype = ctypes.c_int
+        elif name == "fused_update":
+            lib.sparknet_fused_update_tile.argtypes = []
+            lib.sparknet_fused_update_tile.restype = ctypes.c_int
+            lib.sparknet_fused_update.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                *[ctypes.c_float] * 8, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.sparknet_fused_update.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
 
 # ---------------------------------------------------------------------------
-# Cross-channel LRN forward
+# Cross-channel LRN, forward and backward
 # ---------------------------------------------------------------------------
+
+
+def _check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.sparknet_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch: CUDA error {err} ({msg})")
 
 
 def _pow_neg(u: torch.Tensor, beta: float) -> torch.Tensor:
@@ -134,57 +173,73 @@ def _pow_neg(u: torch.Tensor, beta: float) -> torch.Tensor:
     return torch.pow(u, -beta)
 
 
+def _channel_window_sum(t: torch.Tensor, size: int) -> torch.Tensor:
+    """Sum of ``t`` over the channels within (size-1)/2 of each channel, as
+    the JAX package's ``_windowed_channel_sum`` adds them: the centre, then
+    +1 and -1, +2 and -2, with zeros past the channel edges (shifts past
+    C - 1 are skipped, the clamp for C < size)."""
+    c = t.shape[1]
+    acc = t
+    for off in range(1, min((size - 1) // 2, c - 1) + 1):
+        zeros = torch.zeros_like(t[:, :off])
+        acc = acc + torch.cat([t[:, off:], zeros], dim=1)  # c + off
+        acc = acc + torch.cat([zeros, t[:, : c - off]], dim=1)  # c - off
+    return acc
+
+
 def lrn_across_channels_torch(x: torch.Tensor, size: int, alpha: float,
                               beta: float, k: float) -> torch.Tensor:
     """Plain PyTorch cross-channel LRN on an NCHW tensor:
     ``y = x * (k + alpha/size * sum_{|c'-c| <= (size-1)/2} x[c']^2)^-beta``.
 
-    The window sum is the shifted-add form of the JAX package's
-    ``_windowed_channel_sum``: the centre, then +1 and -1, +2 and -2, with
-    zeros past the channel edges (shifts past C - 1 are skipped, the clamp
-    for C < size).  Math is float32 whatever the storage type, as in the
-    kernel; the result is cast back to ``x.dtype``."""
+    The window sum is ``_channel_window_sum``.  Math is float32 whatever the
+    storage type, as in the kernel; the result is cast back to
+    ``x.dtype``."""
     if size % 2 == 0:
         raise ValueError(f"LRN local_size must be odd, got {size}")
     xf = x.float()
-    sq = xf * xf
-    c = sq.shape[1]
-    acc = sq
-    for off in range(1, min((size - 1) // 2, c - 1) + 1):
-        zeros = torch.zeros_like(sq[:, :off])
-        acc = acc + torch.cat([sq[:, off:], zeros], dim=1)  # c + off
-        acc = acc + torch.cat([zeros, sq[:, : c - off]], dim=1)  # c - off
-    scale = k + (alpha / size) * acc
+    scale = k + (alpha / size) * _channel_window_sum(xf * xf, size)
     return (xf * _pow_neg(scale, beta)).to(x.dtype)
 
 
-def lrn_across_channels(x: torch.Tensor, size: int, alpha: float, beta: float,
-                        k: float) -> torch.Tensor:
-    """Cross-channel LRN forward of an NCHW tensor.
+def lrn_backward_torch(x: torch.Tensor, g: torch.Tensor, size: int,
+                       alpha: float, beta: float, k: float) -> torch.Tensor:
+    """Plain PyTorch gradient of ``lrn_across_channels_torch`` w.r.t. ``x``
+    for the incoming gradient ``g``, op for op the JAX package's
+    ``_lrn_fused_bwd``:
 
-    CUDA tensor: launches the kernel of ``csrc/lrn.cu`` on the current
-    stream (f32 or bf16, 4-D, contiguous; anything else raises).  CPU
-    tensor: ``lrn_across_channels_torch``.  Meta tensor (shape inference in
-    ``Network.init``): an empty tensor of the same shape."""
-    global LRN_LAUNCHES
+        scale = k + alpha/size * wsum(x^2);  p = scale^-beta
+        dx = g * p - (2 alpha beta / size) * x * wsum(g * x * p / scale)
+
+    (the window is symmetric, so the adjoint of wsum is wsum).  scale is
+    recomputed from ``x``.  Math is float32; the result has ``x.dtype``."""
     if size % 2 == 0:
         raise ValueError(f"LRN local_size must be odd, got {size}")
-    if x.device.type == "cpu":
-        return lrn_across_channels_torch(x, size, alpha, beta, k)
-    if x.device.type == "meta":
-        return torch.empty_like(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"lrn_across_channels: unsupported device {x.device}")
+    xf, gf = x.float(), g.float()
+    scale = k + (alpha / size) * _channel_window_sum(xf * xf, size)
+    p = _pow_neg(scale, beta)
+    w = _channel_window_sum(gf * xf * p / scale, size)
+    return (gf * p - (2.0 * alpha * beta / size) * xf * w).to(x.dtype)
+
+
+def _lrn_cuda_checks(x: torch.Tensor, size: int, what: str) -> ctypes.CDLL:
     if x.dim() != 4:
-        raise ValueError(f"lrn_across_channels: want NCHW, got shape {tuple(x.shape)}")
+        raise ValueError(f"{what}: want NCHW, got shape {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"lrn_across_channels: want float32 or bfloat16, got {x.dtype}")
+        raise ValueError(f"{what}: want float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("lrn_across_channels: input must be contiguous NCHW")
+        raise ValueError(f"{what}: input must be contiguous NCHW")
     lib = _load("lrn")
     if size > lib.sparknet_lrn_max_size():
-        raise ValueError(f"lrn_across_channels: local_size {size} > "
+        raise ValueError(f"{what}: local_size {size} > "
                          f"{lib.sparknet_lrn_max_size()}, the largest the kernel takes")
+    return lib
+
+
+def _lrn_forward_cuda(x: torch.Tensor, size: int, alpha: float, beta: float,
+                      k: float) -> torch.Tensor:
+    global LRN_LAUNCHES
+    lib = _lrn_cuda_checks(x, size, "lrn_across_channels")
     y = torch.empty_like(x)
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
@@ -192,8 +247,274 @@ def lrn_across_channels(x: torch.Tensor, size: int, alpha: float, beta: float,
         err = lib.sparknet_lrn_forward(
             x.data_ptr(), y.data_ptr(), b, c, h * w, size, alpha / size, beta,
             k, int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        msg = lib.sparknet_cuda_error_string(err).decode()
-        raise RuntimeError(f"lrn_across_channels launch: CUDA error {err} ({msg})")
+    _check_launch(lib, err, "lrn_across_channels")
     LRN_LAUNCHES += 1
     return y
+
+
+def _lrn_backward_cuda(x: torch.Tensor, g: torch.Tensor, size: int,
+                       alpha: float, beta: float, k: float) -> torch.Tensor:
+    global LRN_BACKWARD_LAUNCHES
+    lib = _lrn_cuda_checks(x, size, "lrn_backward")
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"lrn_backward: gradient {tuple(g.shape)} {g.dtype} "
+                         f"{g.device} does not match x {tuple(x.shape)} "
+                         f"{x.dtype} {x.device}")
+    g = g.contiguous()
+    dx = torch.empty_like(x)
+    b, c, h, w = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.sparknet_lrn_backward(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), b, c, h * w, size,
+            alpha / size, beta, k, 2.0 * alpha * beta / size,
+            int(x.dtype == torch.bfloat16), stream)
+    _check_launch(lib, err, "lrn_backward")
+    LRN_BACKWARD_LAUNCHES += 1
+    return dx
+
+
+def lrn_backward(x: torch.Tensor, g: torch.Tensor, size: int, alpha: float,
+                 beta: float, k: float) -> torch.Tensor:
+    """Gradient of the cross-channel LRN w.r.t. its input ``x``.
+
+    CUDA tensor: launches the backward kernel of ``csrc/lrn.cu`` (x and g
+    f32 or bf16 of one type, 4-D; x contiguous).  CPU tensor:
+    ``lrn_backward_torch``."""
+    if size % 2 == 0:
+        raise ValueError(f"LRN local_size must be odd, got {size}")
+    if x.device.type == "cpu":
+        return lrn_backward_torch(x, g, size, alpha, beta, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"lrn_backward: unsupported device {x.device}")
+    return _lrn_backward_cuda(x, g, size, alpha, beta, k)
+
+
+class LRNFunction(torch.autograd.Function):
+    """Cross-channel LRN with its backward: the ``jax.custom_vjp`` of
+    ``lrn_across_channels_fused`` in the JAX package.
+
+    Forward launches the forward kernel on a CUDA tensor (the plain version
+    on a CPU tensor) and saves ``x`` only; the backward recomputes scale
+    from it (``_lrn_fused_bwd``'s choice, which keeps a tensor the size of
+    ``x`` out of memory) and launches the backward kernel (the plain
+    version on the CPU).  Under ``torch.inference_mode`` nothing is saved
+    and the forward is the same one launch."""
+
+    @staticmethod
+    def forward(ctx, x, size, alpha, beta, k):
+        if x.device.type == "cpu":
+            y = lrn_across_channels_torch(x, size, alpha, beta, k)
+        else:
+            y = _lrn_forward_cuda(x, size, alpha, beta, k)
+        ctx.save_for_backward(x)
+        ctx.lrn = (size, alpha, beta, k)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return lrn_backward(x, g, *ctx.lrn), None, None, None, None
+
+
+def lrn_across_channels(x: torch.Tensor, size: int, alpha: float, beta: float,
+                        k: float) -> torch.Tensor:
+    """Cross-channel LRN forward of an NCHW tensor, differentiable.
+
+    CUDA tensor: launches the kernel of ``csrc/lrn.cu`` on the current
+    stream (f32 or bf16, 4-D, contiguous; anything else raises), through
+    ``LRNFunction``, whose backward is the backward kernel.  CPU tensor:
+    the same Function over ``lrn_across_channels_torch`` and
+    ``lrn_backward_torch``.  Meta tensor (shape inference in
+    ``Network.init``): an empty tensor of the same shape."""
+    if size % 2 == 0:
+        raise ValueError(f"LRN local_size must be odd, got {size}")
+    if x.device.type == "meta":
+        return torch.empty_like(x)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lrn_across_channels: unsupported device {x.device}")
+    return LRNFunction.apply(x, size, alpha, beta, k)
+
+
+# ---------------------------------------------------------------------------
+# One-pass fused optimizer update
+# ---------------------------------------------------------------------------
+
+# arena tile: elements per lr_mult/decay table entry (the TPU kernel's 16 x
+# 128 tile, ``pallas_kernels.ARENA_TILE``); every blob is padded to whole
+# tiles, so a tile never spans two blobs
+ARENA_TILE = 2048
+
+# rule name -> number of history slots (``pallas_kernels.FUSED_RULE_SLOTS``)
+FUSED_RULE_SLOTS = {
+    "SGD": 1, "Nesterov": 1, "AdaGrad": 1, "RMSProp": 1,
+    "AdaDelta": 2, "Adam": 2,
+}
+_RULE_IDS = {"SGD": 0, "Nesterov": 1, "AdaGrad": 2, "RMSProp": 3,
+             "AdaDelta": 4, "Adam": 5}
+_REG_IDS = {"none": 0, "l1": 1, "l2": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateStatics:
+    """The solver constants fixed for a run (the rate, clip scale and Adam
+    correction ride the ``scalars`` tensor instead).  ``reg``: 'none' |
+    'l1' | 'l2' (weight_decay == 0 maps to 'none', as the per-blob chain
+    skips it).  ``clip``: whether a clip scale is applied
+    (clip_gradients > 0)."""
+
+    momentum: float = 0.0
+    momentum2: float = 0.999
+    rms_decay: float = 0.99
+    delta: float = 1e-8
+    iter_size: int = 1
+    reg: str = "none"
+    clip: bool = False
+
+
+def _fused_prologue(st: UpdateStatics, w, g, clip_scale, decay):
+    """Clip, normalize, regularize, in Caffe's ApplyUpdate order and in the
+    op order of ``solvers/updates.py`` (the JAX ``_fused_prologue``)."""
+    if st.clip:
+        g = g * clip_scale
+    if st.iter_size > 1:
+        g = g / st.iter_size
+    if st.reg == "l1":
+        g = g + decay * torch.sign(w)
+    elif st.reg == "l2":
+        g = g + decay * w
+    return g
+
+
+def _fused_rule_math(st: UpdateStatics, rule: str, g, slots, lr, corr):
+    """The six Caffe rules on float32 operands, op for op the JAX
+    ``_fused_rule_math``.  Returns (delta_w, new_slots)."""
+    if rule == "SGD":
+        (h,) = slots
+        h = st.momentum * h + lr * g
+        return h, [h]
+    if rule == "Nesterov":
+        (h,) = slots
+        h_new = st.momentum * h + lr * g
+        return (1.0 + st.momentum) * h_new - st.momentum * h, [h_new]
+    if rule == "AdaGrad":
+        (h,) = slots
+        h = h + g * g
+        return lr * g / (torch.sqrt(h) + st.delta), [h]
+    if rule == "RMSProp":
+        (h,) = slots
+        h = st.rms_decay * h + (1.0 - st.rms_decay) * g * g
+        return lr * g / (torch.sqrt(h) + st.delta), [h]
+    if rule == "AdaDelta":
+        h, h2 = slots
+        mu = st.momentum
+        h = mu * h + (1.0 - mu) * g * g
+        val = g * torch.sqrt((h2 + st.delta) / (h + st.delta))
+        h2 = mu * h2 + (1.0 - mu) * val * val
+        return lr * val, [h, h2]
+    if rule == "Adam":
+        m, v = slots
+        b1, b2 = st.momentum, st.momentum2
+        m = b1 * m + (1.0 - b1) * g
+        v = b2 * v + (1.0 - b2) * g * g
+        return (lr * corr) * m / (torch.sqrt(v) + st.delta), [m, v]
+    raise ValueError(f"unknown fused update rule {rule!r}")
+
+
+def fused_update_torch(rule: str, st: UpdateStatics, w, g, slots, tile_lr,
+                       tile_decay, scalars):
+    """Plain PyTorch fused update, the port of the JAX
+    ``_fused_update_xla``: the same single-sweep math over the
+    ``(n_tiles, ARENA_TILE)`` view, float32 whatever the storage type.
+    Returns (new_w, new_slots) in the input types; nothing is written in
+    place."""
+    n = tile_lr.shape[0]
+    w32 = w.reshape(n, -1).float()
+    g32 = g.reshape(n, -1).float()
+    s32 = [s.reshape(n, -1).float() for s in slots]
+    lr = (scalars[0] * tile_lr)[:, None]
+    decay = tile_decay[:, None]
+    g32 = _fused_prologue(st, w32, g32, scalars[1], decay)
+    dw, new_slots = _fused_rule_math(st, rule, g32, s32, lr, scalars[2])
+    new_w = (w32 - dw).to(w.dtype).reshape(w.shape)
+    return new_w, [h.to(s.dtype).reshape(s.shape)
+                   for h, s in zip(new_slots, slots)]
+
+
+def _fused_update_cuda(rule, st, w, g, slots, tile_lr, tile_decay, scalars):
+    global FUSED_UPDATE_LAUNCHES
+    lib = _load("fused_update")
+    if lib.sparknet_fused_update_tile() != ARENA_TILE:
+        raise RuntimeError("csrc/fused_update.cu was built for another tile")
+    arenas = [w, g, *slots]
+    for t in arenas:
+        if t.device != w.device or t.dtype != w.dtype or t.dim() != 1:
+            raise ValueError("fused_update: w, g and the slots must be 1-D "
+                             "arenas of one type on one device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("fused_update: arenas must be contiguous and "
+                             "16-byte aligned")
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_update: want float32 or bfloat16, got {w.dtype}")
+    for t, want in ((tile_lr, tile_lr.shape[0]), (tile_decay, tile_lr.shape[0]),
+                    (scalars, 3)):
+        if (t.device != w.device or t.dtype != torch.float32 or t.dim() != 1
+                or t.shape[0] != want or not t.is_contiguous()):
+            raise ValueError("fused_update: tile tables and scalars must be "
+                             "contiguous float32 on the arenas' device")
+    s0 = slots[0]
+    s1 = slots[1] if len(slots) > 1 else slots[0]
+    m, m2, rms = float(st.momentum), float(st.momentum2), float(st.rms_decay)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = lib.sparknet_fused_update(
+            w.data_ptr(), g.data_ptr(), s0.data_ptr(), s1.data_ptr(),
+            tile_lr.data_ptr(), tile_decay.data_ptr(), scalars.data_ptr(),
+            w.shape[0], _RULE_IDS[rule], _REG_IDS[st.reg], int(st.clip),
+            int(st.iter_size), m, 1.0 + m, 1.0 - m, m2, 1.0 - m2, rms,
+            1.0 - rms, float(st.delta), int(w.dtype == torch.bfloat16), stream)
+    _check_launch(lib, err, "fused_update")
+    FUSED_UPDATE_LAUNCHES += 1
+
+
+def fused_update(rule: str, st: UpdateStatics, w: torch.Tensor,
+                 g: torch.Tensor, slots: list, tile_lr: torch.Tensor,
+                 tile_decay: torch.Tensor, scalars: torch.Tensor) -> None:
+    """One-pass optimizer update over flat arenas, IN PLACE: ``w`` and each
+    of ``slots`` are overwritten with their updated values (the TPU
+    kernel's ``input_output_aliases``); ``g`` is only read.
+
+    ``w``/``g``: [T] param and grad arenas (T a multiple of
+    ``ARENA_TILE``); ``slots``: ``FUSED_RULE_SLOTS[rule]`` [T] history
+    arenas of the same type; ``tile_lr``/``tile_decay``: [T / ARENA_TILE]
+    float32 tables (lr_mult and folded weight_decay * decay_mult per tile);
+    ``scalars``: [3] float32 = (rate, clip_scale, adam_correction), on the
+    arenas' device.
+
+    CUDA tensors: launches the kernel of ``csrc/fused_update.cu``.  CPU
+    tensors: ``fused_update_torch``, copied into ``w`` and ``slots``."""
+    if rule not in FUSED_RULE_SLOTS:
+        raise ValueError(f"unknown fused update rule {rule!r}")
+    if st.reg not in _REG_IDS:
+        raise ValueError(f"unknown regularization {st.reg!r} (none|l1|l2)")
+    if w.shape[0] % ARENA_TILE or w.shape[0] != tile_lr.shape[0] * ARENA_TILE:
+        raise ValueError(
+            f"arena length {w.shape[0]} is not {tile_lr.shape[0]} tiles of "
+            f"ARENA_TILE ({ARENA_TILE}); build it with solvers/arena.build_layout")
+    if len(slots) != FUSED_RULE_SLOTS[rule]:
+        raise ValueError(
+            f"rule {rule!r} takes {FUSED_RULE_SLOTS[rule]} slot arena(s), "
+            f"got {len(slots)}")
+    if any(t.shape != w.shape for t in (g, *slots)):
+        raise ValueError("fused_update: w, g and the slots differ in length")
+    if w.device.type == "cpu":
+        with torch.no_grad():
+            new_w, new_slots = fused_update_torch(rule, st, w, g, slots,
+                                                  tile_lr, tile_decay, scalars)
+            w.copy_(new_w)
+            for s, h in zip(slots, new_slots):
+                s.copy_(h)
+        return
+    if w.device.type != "cuda":
+        raise ValueError(f"fused_update: unsupported device {w.device}")
+    _fused_update_cuda(rule, st, w, g, slots, tile_lr, tile_decay, scalars)

@@ -16,6 +16,9 @@ prototxts keep loading; this is the same ladder over the schema-less
   NetNeedsDataUpgrade): scale/mean_file/crop_size/mirror move from
   data/image_data/window_data params into ``transform_param``.
 
+- **Solver** (ref: UpgradeSolverAsNeeded): the ``solver_type`` enum folds
+  into the string ``type`` field (``upgrade_solver``).
+
 ``upgrade_net`` is idempotent and returns its input unchanged for current
 nets, so loaders can call it unconditionally.
 
@@ -259,6 +262,34 @@ def upgrade_net_data_transformation(net_param: Message) -> None:
             tp.set(f, v)
             dp.fields.pop(f, None)
         lp.set("transform_param", tp)
+
+
+# numeric SolverType enum values (old binary solverstates may carry these);
+# string names reuse the solver module's alias map so the upgrade and the
+# training path can never disagree
+_SOLVER_TYPE_NUMBERS = {
+    0: "SGD", 1: "Nesterov", 2: "AdaGrad", 3: "RMSProp", 4: "AdaDelta", 5: "Adam",
+}
+
+
+def upgrade_solver(solver_param: Message) -> Message:
+    """Fold the deprecated ``solver_type`` enum into the string ``type``
+    field, in place (ref: UpgradeSolverAsNeeded/UpgradeSolverType)."""
+    from sparknet_tpu_torch.solvers.solver import _TYPE_ALIASES
+
+    if solver_param.has("solver_type") and not solver_param.has("type"):
+        st = solver_param.get("solver_type")
+        if isinstance(st, int):
+            if st not in _SOLVER_TYPE_NUMBERS:
+                raise ValueError(f"Unknown solver_type {st!r}")
+            resolved = _SOLVER_TYPE_NUMBERS[st]
+        else:
+            if str(st) not in _TYPE_ALIASES:
+                raise ValueError(f"Unknown solver_type {st!r}")
+            resolved = _TYPE_ALIASES[str(st)]
+        solver_param.set("type", resolved)
+        solver_param.fields.pop("solver_type", None)
+    return solver_param
 
 
 def upgrade_net(net_param: Message) -> Message:

@@ -23,6 +23,8 @@ runpy.run_path("chip_smoke.py", run_name="chip_smoke_module")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "sparknet_tpu."))
              or m == "sparknet_tpu")
+training = sorted(n for n in names if n.startswith("sparknet_tpu_torch.solvers."))
+print(training)
 print(len(names), bad)
 """
 
@@ -32,9 +34,13 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().rsplit("\n", 1)[-1].split(" ", 1)
-    assert int(n) >= 20, out.stdout
+    training, last = out.stdout.strip().split("\n")[-2:]
+    n, bad = last.split(" ", 1)
+    assert int(n) >= 25, out.stdout
     assert bad == "[]", out.stdout
+    # the training slice's modules are among those imported
+    assert training == str([f"sparknet_tpu_torch.solvers.{m}" for m in
+                            ("arena", "lr_policy", "solver", "updates")]), out.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -55,6 +61,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
         DeployNet(deploy)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Classifier(deploy)
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Solver(models.lenet_solver(), deploy)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

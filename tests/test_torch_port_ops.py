@@ -122,11 +122,17 @@ def test_dropout_is_identity_at_test(rng):
 
 
 def test_dropout_train_is_not_ported():
+    """TRAIN-phase Dropout is ported now (the name predates it): without a
+    generator it still refuses to run, and with one it draws a mask
+    (``tests/test_torch_port_solver.py`` holds its statistics)."""
     layer = create_layer(parse(
         """layer { name: "d" type: "Dropout" bottom: "x" top: "x" }"""
     ).get_all("layer")[0], Phase.TRAIN)
-    with pytest.raises(NotImplementedError, match="Queue A5"):
+    with pytest.raises(ValueError, match="needs a generator"):
         layer.apply([], {}, [torch.zeros(2, 3)], train=True)
+    y = layer.apply([], {}, [torch.ones(2, 3)], train=True,
+                    gen=torch.Generator().manual_seed(0)).outputs[0]
+    assert set(y.unique().tolist()) <= {0.0, 2.0}
 
 
 @pytest.mark.parametrize("shape,axis", [((4, 3, 4, 4), 1), ((2, 5, 6), 2),
