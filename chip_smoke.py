@@ -44,7 +44,32 @@ Phases, in order (any failure exits non-zero):
 10. train profile: one AlexNet b256 train step by kernel;
 11. fused vs per-blob: 3 AlexNet b256 steps with ``fused_update`` on and 3
     with it off, from the same weights and batch, dropout ratio 0 and
-    deterministic cuDNN: params and history agree (rtol 1e-5, atol 1e-7).
+    deterministic cuDNN: params and history agree (rtol 1e-5, atol 1e-7);
+12. flash: the flash-attention kernel against ``flash_attention_torch`` at
+    the char LM's prefill shape [32,4,128,16] (causal and not), ragged
+    S = 100, head dims 8, 32, 64 and 128, and [4,16,2048,64] causal (rtol
+    1e-5, atol 1e-6; atol 1e-5 at S = 2048); times beside the bound and
+    ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
+13. paged: the paged-attention kernel against ``paged_attention_torch`` at
+    the char LM's decode shape (shuffled tables, positions at 0, block
+    edges and 127, finite garbage of 1e4 in the null and unowned blocks)
+    and at B 64, H 16, D 64, T 16, MB 128 (rtol 1e-5, atol 1e-6); a row's
+    output is bit for bit unchanged when the other rows' q, tables and
+    positions change; times beside the live-bytes bound;
+14. token: the full-width char LM (seeded init) serves 64 seeded requests
+    through a ``PagedDecoder`` (32 slots, block_tokens 8, full pool):
+    tokens/s, decode-step, TTFT and inter-token percentiles; every ticket
+    resolves, the pool ledger reads 0 leaked and 0 in use; 2 flash
+    launches per prefill and 2 paged launches per decode step; 8 requests
+    decoded alone give the same tokens; the paged logits agree with one
+    full-window forward of prompt + continuation (atol 1e-4) and each token
+    is that forward's argmax where its top-2 margin exceeds 1e-4; the same
+    mix through the ``ContinuousDecoder`` (2 flash launches per step)
+    agrees with the paged tokens up to a position of margin <= 1e-4;
+    ``rope_at`` equals ``rope``'s rows bit for bit; and a prompt prefilled
+    in bucket 2 and in bucket 32 is compared bit for bit;
+15. token profile: one prefill + decode step and one decode step under
+    ``torch.profiler``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -169,6 +194,37 @@ def time_ms(fn, reps: int = REPS, inner: int = 10, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, reps: int = REPS, inner: int = 10) -> float:
+    """Device ms per call of ``fn``, host launch cost excluded: ``inner``
+    calls captured in one CUDA graph, CUDA events around each replay,
+    median of ``reps``.  For calls shorter than their own launch on the
+    host (the char LM's attention kernels), where ``time_ms`` measures the
+    host's issue rate instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / inner)
+    del graph
+    return float(np.median(times))
+
+
 def card_peaks(name: str) -> tuple[float, float]:
     for key, bw, flops in CARD_PEAKS:
         if key in name:
@@ -269,6 +325,14 @@ def phase_build() -> None:
             if kernel and ("IfLi5ELb1E" in fn or "IfLi0ELi2E" in fn):
                 print(f"    {kernel.group(1)} (float32, main-path instance): "
                       f"{n} registers a thread")
+        # the attention kernels: every head-dim instance, with its spills
+        for fn, spill, n in re.findall(
+                r"Compiling entry function '([^']+)'.*?(\d+) bytes spill stores.*?"
+                r"Used (\d+) registers", log, flags=re.S):
+            kernel = re.search(r"\d+((?:flash|paged)_\w+?_kernel)ILi(\d+)E", fn)
+            if kernel:
+                print(f"    {kernel.group(1)} head dim {kernel.group(2)}: {n} "
+                      f"registers a thread, {spill} bytes of spill stores")
 
 
 def phase_kernel(card: str) -> dict:
@@ -806,8 +870,434 @@ def phase_train_profile(card: str, step, ms_per_step: float) -> None:
             print(f"  port kernel {key}: not in the profile")
 
 
+# ---------------------------------------------------------------------------
+# Token-serving slice
+# ---------------------------------------------------------------------------
+
+# the zoo charlm at its own full width, served with charlm's default batch
+# of 32 slots and the decoders' default block of 8 tokens
+CHARLM = dict(slots=32, seq_len=128, vocab=128, embed_dim=64, heads=4,
+              ffn_dim=128, blocks=2)
+BLOCK_TOKENS = 8
+N_REQUESTS = 64
+MARGIN = 1e-4  # top-2 logit margin below which a greedy pick is a tie
+
+
+def attention_within(out, ref, atol: float, rtol: float = 1e-5) -> tuple[bool, float]:
+    err = (out - ref).abs()
+    return bool((err <= atol + rtol * ref.abs()).all()), float(err.max())
+
+
+def flash_bound_ms(shape, causal: bool, card: str) -> tuple[float, str]:
+    """Least time of one attention forward: q, k, v read and o written once
+    over the memory rate, or 4 B H S^2 D flops (halved when causal) over
+    the float32 rate."""
+    bw, flops = card_peaks(card)
+    b, h, s, d = shape
+    t_bytes = 4 * b * h * s * d * 4 / bw * 1e3
+    t_ops = 4 * b * h * s * s * d * (0.5 if causal else 1.0) / flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash(card: str) -> dict:
+    """The flash kernel vs flash_attention_torch at every case; times at
+    the char LM's prefill shape and at one long-context shape."""
+    from sparknet_tpu_torch.common import f32_precision
+    from sparknet_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases = [  # (label, shape, causal, atol)
+        ("charlm prefill", (32, 4, 128, 16), True, 1e-6),
+        ("charlm prefill, not causal", (32, 4, 128, 16), False, 1e-6),
+        ("ragged S=100", (2, 4, 100, 16), True, 1e-6),
+        ("ragged S=100, not causal", (2, 4, 100, 16), False, 1e-6),
+        ("transformer D=8", (4, 4, 128, 8), True, 1e-6),
+        ("D=32 ragged", (2, 2, 77, 32), True, 1e-6),
+        ("D=64", (4, 4, 200, 64), False, 1e-6),
+        ("D=128", (2, 2, 130, 128), True, 1e-6),
+        ("long context", (4, 16, 2048, 64), True, 1e-5),
+    ]
+    max_err = 0.0
+    out = {}
+    with f32_precision():
+        for label, shape, causal, atol in cases:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+            ref = kernels.flash_attention_torch(q, k, v, causal)
+            o = kernels.flash_attention(q, k, v, causal)
+            torch.cuda.synchronize()
+            ok, err = attention_within(o, ref, atol)
+            max_err = max(max_err, err)
+            print(f"flash {label} {list(shape)} causal {int(causal)}: max abs err "
+                  f"{err:.3e} (rtol 1e-5, atol {atol:g}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"flash {label}")
+            if label not in ("charlm prefill", "long context"):
+                continue
+            # the prefill shape is shorter than its launch: device time from
+            # a CUDA graph; the long shape: events over back-to-back calls
+            timer = graph_ms if label == "charlm prefill" else time_ms
+            how = "CUDA graph" if timer is graph_ms else "events"
+            t_k = timer(lambda: kernels.flash_attention(q, k, v, causal))
+            t_p = timer(lambda: kernels.flash_attention_torch(q, k, v, causal))
+            t_l = timer(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+            bound, by = flash_bound_ms(shape, causal, card)
+            print(f"time flash {label} {list(shape)} causal ({how}): kernel {t_k:.4f} ms "
+                  f"({100 * bound / t_k:.1f}% of bound), plain {t_p:.4f} ms, "
+                  f"F.scaled_dot_product_attention {t_l:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}) [{card}]")
+            if timer is graph_ms:
+                print(f"time flash {label} with the host launch (events over 10 "
+                      f"back-to-back calls): kernel "
+                      f"{time_ms(lambda: kernels.flash_attention(q, k, v, causal)):.4f} ms")
+            out[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                              bound_by=by)
+            del ref, o
+    return dict(max_abs_err=max_err, **out["charlm prefill"], long=out["long context"])
+
+
+def paged_case(gen, b, h, d, t, mb, positions, own_only: bool):
+    """q, pools, tables and positions of one paged-attention case: row b
+    owns ceil((pos + 1) / T) blocks of a shuffled pool (all MB of its
+    table when not ``own_only``), its live lines are randn, and every
+    other line (null block, unowned blocks, lines past a position) holds
+    finite garbage of +-1e4."""
+    dev = "cuda"
+    nb = 1 + b * mb
+    k_pool = (torch.rand((nb, t, h, d), generator=gen, device=dev) * 2 - 1) * 1e4
+    v_pool = (torch.rand((nb, t, h, d), generator=gen, device=dev) * 2 - 1) * 1e4
+    perm = torch.randperm(nb - 1, generator=gen, device=dev).to(torch.int32) + 1
+    tables = torch.zeros((b, mb), dtype=torch.int32, device=dev)
+    for row in range(b):
+        pos = int(positions[row])
+        n = pos // t + 1 if own_only else mb
+        blocks = perm[row * mb:row * mb + n]
+        tables[row, :n] = blocks
+        live = torch.randn((n * t, h, d), generator=gen, device=dev)
+        live_v = torch.randn((n * t, h, d), generator=gen, device=dev)
+        live[pos + 1:] = k_pool[blocks.long()].reshape(n * t, h, d)[pos + 1:]
+        live_v[pos + 1:] = v_pool[blocks.long()].reshape(n * t, h, d)[pos + 1:]
+        k_pool[blocks.long()] = live.reshape(n, t, h, d)
+        v_pool[blocks.long()] = live_v.reshape(n, t, h, d)
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    pos_t = torch.tensor(positions, dtype=torch.int32, device=dev)
+    return q, k_pool, v_pool, tables, pos_t
+
+
+def phase_paged(card: str) -> dict:
+    """The paged kernel vs paged_attention_torch at the char LM's decode
+    shape and one long-context shape; row independence bit for bit; times
+    beside the live-bytes bound."""
+    from sparknet_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rs = np.random.RandomState(SEED + 5)
+    bw, _ = card_peaks(card)
+    charlm_pos = [0, 1, 7, 8, 15, 16, 63, 64, 127, 126, 120, 5] + list(
+        rs.randint(0, 128, 20))
+    cases = [  # (label, B, H, D, T, MB, positions, own_only)
+        ("charlm decode", 32, 4, 16, 8, 16, charlm_pos, True),
+        ("long context", 64, 16, 64, 16, 128, list(rs.randint(0, 2048, 64)), False),
+    ]
+    max_err = 0.0
+    out = {}
+    for label, b, h, d, t, mb, positions, own_only in cases:
+        q, kp, vp, tables, pos = paged_case(gen, b, h, d, t, mb, positions, own_only)
+        ref = kernels.paged_attention_torch(q, kp, vp, tables, pos)
+        o = kernels.paged_attention(q, kp, vp, tables, pos)
+        torch.cuda.synchronize()
+        ok, err = attention_within(o, ref, 1e-6)
+        max_err = max(max_err, err)
+        # row independence: change the odd rows' q, tables and positions
+        odd = torch.arange(b, device="cuda") % 2 == 1
+        q2 = torch.where(odd[:, None, None], torch.randn(q.shape, generator=gen,
+                                                         device="cuda"), q)
+        tables2 = torch.where(odd[:, None], tables.flip(0), tables)
+        pos2 = torch.where(odd, torch.randint(0, mb * t, (b,), generator=gen,
+                                              device="cuda").to(torch.int32), pos)
+        o2 = kernels.paged_attention(q2, kp, vp, tables2, pos2)
+        torch.cuda.synchronize()
+        same = torch.equal(o[~odd], o2[~odd])
+        live = sum(int(p) + 1 for p in positions)
+        nbytes = live * h * d * 4 * 2 + 2 * q.numel() * 4 + tables.numel() * 4 + b * 4
+        bound = nbytes / bw * 1e3
+        print(f"paged {label} B {b} H {h} D {d} T {t} MB {mb} (pools "
+              f"{2 * kp.numel() * 4 / 1e9:.3f} GB): max abs err {err:.3e} (rtol "
+              f"1e-5, atol 1e-6) {'ok' if ok else 'FAIL'}; even rows bit for bit "
+              f"unchanged when the odd rows change: {same}")
+        check(ok, f"paged {label}")
+        check(same, f"paged {label}: a row's output depends on other rows")
+        timer = graph_ms if label == "charlm decode" else time_ms
+        how = "CUDA graph" if timer is graph_ms else "events"
+        t_k = timer(lambda: kernels.paged_attention(q, kp, vp, tables, pos))
+        t_p = timer(lambda: kernels.paged_attention_torch(q, kp, vp, tables, pos))
+        idx = tables.long()
+
+        def gather_sdpa():
+            kg = kp[idx].reshape(b, mb * t, h, d).transpose(1, 2)
+            vg = vp[idx].reshape(b, mb * t, h, d).transpose(1, 2)
+            cols = torch.arange(mb * t, device="cuda")
+            mask = (cols[None, :] <= pos.long()[:, None])[:, None, None, :]
+            return F.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask)
+
+        t_y = timer(gather_sdpa)
+        if timer is graph_ms:
+            print(f"time paged {label} with the host launch (events over 10 "
+                  f"back-to-back calls): kernel "
+                  f"{time_ms(lambda: kernels.paged_attention(q, kp, vp, tables, pos)):.4f} ms")
+        print(f"time paged {label} ({how}): kernel {t_k:.4f} ms ({100 * bound / t_k:.1f}% of "
+              f"bound), plain {t_p:.4f} ms, bound {bound:.4f} ms (bytes: "
+              f"{nbytes / 1e6:.3f} MB live); yardstick only, not the same work: "
+              f"gather + F.scaled_dot_product_attention {t_y:.4f} ms [{card}]")
+        out[label] = dict(ms=t_k, plain_ms=t_p, bound_ms=bound, bound_by="bytes",
+                          library_ms=None)
+        del q, kp, vp, tables, pos, ref, o, o2, q2, tables2
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, **out["charlm decode"], long=out["long context"])
+
+
+def request_mix(n: int, seed: int) -> list:
+    """The seeded generation mix of tools/token_bench.py: prompts of 1 to
+    seq_len/4 - 1 tokens, lengths between 1/8 and 1/3 of what is left of
+    the window."""
+    rs = np.random.RandomState(seed)
+    reqs = []
+    for _ in range(n):
+        n_p = int(rs.randint(1, max(2, CHARLM["seq_len"] // 4)))
+        hi = CHARLM["seq_len"] - n_p
+        m = int(rs.randint(max(1, hi // 8), max(2, hi // 3 + 1)))
+        reqs.append((list(rs.randint(0, CHARLM["vocab"], n_p)), m))
+    return reqs
+
+
+def top2_margin(logits: torch.Tensor) -> torch.Tensor:
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def window_logits(rect, seqs: list) -> list:
+    """The rectangle decoder's full-window forward of each id list (right
+    padded, ``slots`` rows a forward): one [len, vocab] tensor each."""
+    out = []
+    n = rect.slots
+    for i in range(0, len(seqs), n):
+        chunk = seqs[i:i + n]
+        data = np.zeros((n, rect.seq_len), np.int32)
+        for r, ids in enumerate(chunk):
+            data[r, :len(ids)] = ids
+        logits = rect.forward_logits(data)
+        out += [logits[r, :len(ids)] for r, ids in enumerate(chunk)]
+    return out
+
+
+def phase_token(card: str) -> dict:
+    """The slice's path: the full-width char LM served by a PagedDecoder,
+    checked against decoding alone, the full-window forward and the
+    rectangle decoder."""
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve.continuous import ContinuousDecoder
+    from sparknet_tpu_torch.serve.paged import PagedDecoder
+
+    kw = dict(CHARLM, block_tokens=BLOCK_TOKENS, seed=SEED)
+    warm = PagedDecoder(**kw)  # weights: the port's seeded init
+    variables = warm.variables
+    n_params = sum(t.numel() for pl in variables.params.values() for t in pl)
+    for p, m in request_mix(4, SEED + 99):  # warm-up: cuBLAS set-up
+        warm.submit(p, m)
+    warm.run()
+    del warm
+    reqs = request_mix(N_REQUESTS, SEED + 6)
+    d = PagedDecoder(**kw, variables=variables)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tickets = [d.submit(p, m) for p, m in reqs]
+    produced = d.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash_n, paged_n = kernels.FLASH_LAUNCHES, kernels.PAGED_LAUNCHES
+    st = d.stats()
+    led = st["ledger"]
+    check(all(t.done() for t in tickets), "a ticket did not resolve")
+    check([len(t.result) for t in tickets] == [m for _, m in reqs], "wrong lengths")
+    check(led["leaked"] == 0 and led["in_use"] == 0, f"pool ledger {led}")
+    check(flash_n == 2 * st["prefills"] and paged_n == 2 * st["steps"],
+          f"launches flash {flash_n} paged {paged_n} for {st['prefills']} prefills, "
+          f"{st['steps']} steps")
+    print(f"token: charlm {CHARLM} ({n_params:,} params), block_tokens "
+          f"{BLOCK_TOKENS}, pool {st['blocks_total'] + 1} blocks "
+          f"({st['pool_hbm_bytes'] / 1e6:.3f} MB); {len(reqs)} requests, prompts "
+          f"{min(len(p) for p, _ in reqs)}-{max(len(p) for p, _ in reqs)} tokens, "
+          f"{produced} tokens generated in {wall * 1e3:.1f} ms: "
+          f"{produced / wall:.1f} tokens/s; {st['prefills']} prefills, "
+          f"{st['steps']} decode steps; launches flash {flash_n} (2 per prefill), "
+          f"paged {paged_n} (2 per decode step); ledger {led} [{card}]")
+    print(f"token: decode step ms p50 {st['decode_step_ms_p50']:.3f} p99 "
+          f"{st['decode_step_ms_p99']:.3f}; prefill ms p50 {st['prefill_ms_p50']:.3f} "
+          f"p99 {st['prefill_ms_p99']:.3f}; TTFT ms p50 {st['ttft_ms_p50']:.3f} p99 "
+          f"{st['ttft_ms_p99']:.3f} (all {len(reqs)} submitted at once); inter-token ms p50 "
+          f"{st['inter_token_ms_p50']:.3f} p99 {st['inter_token_ms_p99']:.3f} "
+          f"(host clock, upload to host copy) [{card}]")
+
+    # the same mix again, keeping every generated token's logits
+    dk = PagedDecoder(**kw, variables=variables, keep_logits=True)
+    kt = [dk.submit(p, m) for p, m in reqs]
+    dk.run()
+    check([t.result for t in kt] == [t.result for t in tickets],
+          "a second run of the mix gave other tokens")
+
+    # interleaved == alone
+    alone = PagedDecoder(**kw, variables=variables)
+    picked = list(range(0, N_REQUESTS, N_REQUESTS // 8))
+    for i in picked:
+        t = alone.submit(*reqs[i])
+        alone.run()
+        check(t.result == tickets[i].result,
+              f"request {i}: interleaved {tickets[i].result} != alone {t.result}")
+    print(f"token: interleaved == alone on token ids for requests {picked}")
+
+    # paged vs one full-window forward of prompt + continuation
+    rect = ContinuousDecoder(**CHARLM, variables=variables)
+    seqs = [p + t.result for (p, _), t in zip(reqs, kt)]
+    fulls = window_logits(rect, seqs)
+    worst, n_ties, n_tok = 0.0, 0, 0
+    for (p, m), t, full in zip(reqs, kt, fulls):
+        ref = full[len(p) - 1:len(p) - 1 + m]
+        got = dk.generation_logits[t.id]
+        err = float((got - ref).abs().max())
+        worst = max(worst, err)
+        margin = top2_margin(ref)
+        picks = ref.argmax(-1).cpu().tolist()
+        for j, (tok, pick, mg) in enumerate(zip(t.result, picks, margin.tolist())):
+            n_tok += 1
+            if mg <= MARGIN:
+                n_ties += 1
+            elif tok != pick:
+                check(False, f"request {t.id} token {j}: paged {tok}, full-window "
+                             f"argmax {pick}, margin {mg:.3e}")
+        check(err <= 1e-4, f"request {t.id}: paged vs full-window logits {err:.3e}")
+    print(f"token: paged vs full-window forward of prompt + continuation: logits max "
+          f"abs diff {worst:.3e} (atol 1e-4) over {n_tok} tokens; every token is the "
+          f"full-window argmax where the top-2 margin exceeds {MARGIN:g} "
+          f"({n_ties} positions at or below it)")
+
+    # the rectangle decoder on the same mix
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rt = [rect.submit(p, m) for p, m in reqs]
+    rect.run()
+    torch.cuda.synchronize()
+    rwall = time.perf_counter() - t0
+    rect_flash = kernels.FLASH_LAUNCHES
+    check(rect_flash == 2 * rect.steps,
+          f"rectangle: {rect_flash} flash launches in {rect.steps} steps")
+    diverged = 0
+    for (p, m), t, r, full in zip(reqs, tickets, rt, fulls):
+        for j, (a, b) in enumerate(zip(t.result, r.result)):
+            if a != b:
+                mg = float(top2_margin(full[len(p) - 1 + j]))
+                print(f"  rectangle diverges from paged at request {t.id} token {j}: "
+                      f"{b} vs {a}, margin {mg:.3e}")
+                check(mg <= MARGIN, f"request {t.id}: rectangle != paged at token "
+                                    f"{j} with margin {mg:.3e}")
+                diverged += 1
+                break
+    print(f"token: rectangle ContinuousDecoder on the same mix: {rect.steps} steps, "
+          f"{rect_flash} flash launches (2 per step), {sum(len(r.result) for r in rt)} "
+          f"tokens in {rwall * 1e3:.1f} ms ({sum(len(r.result) for r in rt) / rwall:.1f} "
+          f"tokens/s); {N_REQUESTS - diverged} of {N_REQUESTS} generations equal to "
+          f"the paged ones, {diverged} part at a top-2 margin <= {MARGIN:g} [{card}]")
+    rope_check()
+    phase_buckets(d)
+    return dict(flash=flash_n + rect_flash, paged=paged_n,
+                step_ms=st["decode_step_ms_p50"], prefill_ms=st["prefill_ms_p50"],
+                reqs=reqs, variables=variables)
+
+
+def rope_check() -> None:
+    """rope_at at position t is rope's row t, bit for bit, on the card: over
+    the whole window at once, and one position a row (the decode step's
+    [B, H, 1, D] shape)."""
+    from sparknet_tpu_torch.ops.attention import rope, rope_at
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    b, s, h = CHARLM["slots"], CHARLM["seq_len"], CHARLM["heads"]
+    x = torch.randn((b, h, s, CHARLM["embed_dim"] // h), generator=gen, device="cuda")
+    full = rope(x)
+    window = torch.arange(s, dtype=torch.int32, device="cuda").expand(b, s)
+    pos = torch.randint(0, s, (b,), generator=gen, device="cuda")
+    rows = torch.arange(b, device="cuda")
+    at = rope_at(x[rows, :, pos][:, :, None], pos[:, None].to(torch.int32))
+    same = torch.equal(rope_at(x, window), full) and torch.equal(at[:, :, 0], full[rows, :, pos])
+    print(f"token: rope_at == rope bit for bit on the card over {list(x.shape)} and "
+          f"at one position a row: {same}")
+    check(same, "rope_at differs from rope on the card")
+
+
+def phase_buckets(d) -> None:
+    """One prompt prefilled in bucket 2 and in bucket 32 on zeroed pools:
+    the written pool lines and the last logits, bit for bit."""
+    from sparknet_tpu_torch.models import build_prefill
+
+    prefill = build_prefill(d.network)
+    s, mb = d.seq_len, d.blocks_per_slot
+    prompt = request_mix(1, SEED + 7)[0][0]
+    outs = []
+    for bucket in (2, d.slots):
+        tokens = torch.zeros((bucket, s), dtype=torch.int32, device="cuda")
+        tokens[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+        lengths = torch.ones(bucket, dtype=torch.int32, device="cuda")
+        lengths[0] = len(prompt)
+        tables = torch.zeros((bucket, mb), dtype=torch.int32, device="cuda")
+        tables[0] = torch.arange(1, mb + 1, dtype=torch.int32)
+        kp, vp = torch.zeros_like(d._k_pool), torch.zeros_like(d._v_pool)
+        last = prefill(d.variables, tokens, lengths, kp, vp, tables)
+        lines = len(prompt)
+        outs.append((last[0].clone(),
+                     kp[:, 1:].reshape(kp.shape[0], -1, *kp.shape[3:])[:, :lines].clone(),
+                     vp[:, 1:].reshape(vp.shape[0], -1, *vp.shape[3:])[:, :lines].clone()))
+    (l2, k2, v2), (l32, k32, v32) = outs
+    diff = max(float((l2 - l32).abs().max()), float((k2 - k32).abs().max()),
+               float((v2 - v32).abs().max()))
+    same = torch.equal(l2, l32) and torch.equal(k2, k32) and torch.equal(v2, v32)
+    print(f"token: bucket invariance, one {len(prompt)}-token prompt prefilled in "
+          f"bucket 2 and in bucket {d.slots}: last logits and written K/V lines "
+          f"{'bit for bit equal' if same else f'differ, max abs diff {diff:.3e}'}; "
+          f"policy: every prefill runs at the {d.slots}-row bucket")
+
+
+def phase_token_profile(card: str, token: dict) -> None:
+    """Where the device time of a prefill + decode step and of a decode
+    step goes."""
+    from sparknet_tpu_torch.serve.paged import PagedDecoder
+
+    d = PagedDecoder(**CHARLM, block_tokens=BLOCK_TOKENS, variables=token["variables"])
+    for p, m in token["reqs"][:CHARLM["slots"]]:
+        d.submit(p, max(m, 4))
+    for label, unprofiled in (
+            (f"prefill of {d.slots} rows + decode step",
+             token["prefill_ms"] + token["step_ms"]),
+            ("decode step", token["step_ms"])):
+        device_ms, rows = device_breakdown(d.step, top=1000)
+        if device_ms == 0.0:
+            print("token profile: torch.profiler recorded no device time")
+            return
+        print(f"token profile: one {label} under torch.profiler: {device_ms:.4f} ms of "
+              f"kernels ({sum(r[2] for r in rows)} launches of {len(rows)} kernels); "
+              f"device-busy share {100 * device_ms / unprofiled:.1f}% of the unprofiled "
+              f"p50 wall {unprofiled:.3f} ms (token phase) [{card}]")
+        for ms, name, calls in rows[:8]:
+            print(f"  {ms:8.4f} ms  {100 * ms / device_ms:5.1f}%  x{calls}  {name[:90]}")
+        for key in ("flash_forward_kernel", "paged_attention_kernel"):
+            for i, (ms, name, calls) in enumerate(rows):
+                if key in name:
+                    print(f"  port kernel {key}: {ms:.4f} ms, {100 * ms / device_ms:.1f}%, "
+                          f"x{calls}, rank {i + 1} of {len(rows)}")
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
-          "fused_update", "train_profile", "fused_vs_blob")
+          "fused_update", "train_profile", "fused_vs_blob", "flash", "paged",
+          "token", "token_profile")
 
 
 def main(argv=None) -> int:
@@ -829,7 +1319,8 @@ def main(argv=None) -> int:
     card = phase_card()
     phase_build()
     stats = {}
-    launches = {"lrn_across_channels": 0, "lrn_backward": 0, "fused_update": 0}
+    launches = {"lrn_across_channels": 0, "lrn_backward": 0, "fused_update": 0,
+                "flash_attention": 0, "paged_attention": 0}
     if "kernel" in phases:
         stats["lrn"] = phase_kernel(card)
     if "path" in phases:
@@ -856,6 +1347,17 @@ def main(argv=None) -> int:
         gc.collect()
     if "fused_vs_blob" in phases:
         phase_fused_vs_blob(card)
+    if "flash" in phases:
+        stats["flash"] = phase_flash(card)
+    if "paged" in phases:
+        stats["paged"] = phase_paged(card)
+    if "token" in phases:
+        token = phase_token(card)
+        launches["flash_attention"] += token["flash"]
+        launches["paged_attention"] += token["paged"]
+        if "token_profile" in phases:
+            phase_token_profile(card, token)
+        del token
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0
@@ -868,16 +1370,23 @@ def main(argv=None) -> int:
                          "sparknet_tpu/ops/pallas_kernels.py:185", "lrn_backward"),
         "fused_update": ("sparknet_tpu_torch/csrc/fused_update.cu",
                          "sparknet_tpu/ops/pallas_kernels.py:467", "fused_update"),
+        "flash_attention": ("sparknet_tpu_torch/csrc/flash_attention.cu",
+                            "sparknet_tpu/ops/pallas_kernels.py:239", "flash"),
+        "paged_attention": ("sparknet_tpu_torch/csrc/paged_attention.cu",
+                            "sparknet_tpu/ops/pallas_kernels.py:785", "paged"),
     }
     lines = []
     for name, (source, replaces, key) in meta.items():
         st = stats[key]
         # LRN times and bounds: one AlexNet b256 step's two calls (norm1 +
         # norm2), float32; fused_update: one SGD f32 update of the AlexNet
-        # arena; max_abs_err: the largest over every f32 case (every case
-        # for fused_update); launches: the main paths (the AlexNet TEST
-        # forwards, the CaffeNet requests, the AlexNet and CaffeNet train
-        # steps), each counted from 0
+        # arena; flash: the char LM's prefill shape [32,4,128,16] causal;
+        # paged: its decode shape (B 32, H 4, D 16, T 8, MB 16);
+        # max_abs_err: the largest over every f32 case (every case for
+        # fused_update, flash and paged); launches: the main paths (the
+        # AlexNet TEST forwards, the CaffeNet requests, the AlexNet and
+        # CaffeNet train steps, the paged token run and the rectangle
+        # run), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -2,7 +2,8 @@
 port's.
 
 Into the port, two inputs, one output (a ``NetVars`` of float tensors on a
-given device):
+given device; ``device=None`` means CUDA and raises without a card, as
+every entry point of the port does, so the tests pass ``device="cpu"``):
 
 * ``netvars_from_numpy(params, state)`` takes ``{layer: [w, b, ...]}``
   params and ``{layer: {name: value}}`` state whose leaves convert with
@@ -31,6 +32,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from sparknet_tpu_torch.common import resolve_device
 from sparknet_tpu_torch.compiler.graph import NetVars
 
 
@@ -41,9 +43,11 @@ def _tensor(value: Any, device) -> torch.Tensor:
 def netvars_from_numpy(
     params: Mapping[str, Any],
     state: Mapping[str, Mapping[str, Any]] | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> NetVars:
-    """``{layer: [blobs]}`` params (+ ``{layer: {k: v}}`` state) -> NetVars."""
+    """``{layer: [blobs]}`` params (+ ``{layer: {k: v}}`` state) -> NetVars
+    on ``device`` (``None``: CUDA, or raise)."""
+    device = resolve_device(device)
     return NetVars(
         params={name: [_tensor(b, device) for b in blobs]
                 for name, blobs in params.items()},
@@ -54,10 +58,12 @@ def netvars_from_numpy(
 
 def netvars_from_solverstate(
     path_or_arrays: str | os.PathLike | Mapping[str, Any],
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> NetVars:
     """A ``.solverstate.npz`` path (or its loaded key->array mapping) ->
-    NetVars with the snapshot's params and state."""
+    NetVars with the snapshot's params and state on ``device`` (``None``:
+    CUDA, or raise)."""
+    device = resolve_device(device)
     if isinstance(path_or_arrays, (str, os.PathLike)):
         with np.load(path_or_arrays) as z:
             arrays = {k: z[k] for k in z.files}

@@ -1,4 +1,4 @@
-"""Model zoo CNN builders and deploy-time inference.
+"""Model zoo builders, cached decode builders and deploy-time inference.
 
 Each builder returns a ``NetParameter`` Message ready for ``Network``
 (ref: caffe/models/ + caffe/examples/), each ``*_solver()`` the
@@ -9,14 +9,22 @@ deploy-time classifier on a torch device.
 from sparknet_tpu_torch.models.classifier import Classifier  # noqa: F401
 from sparknet_tpu_torch.models.deploy import DeployNet  # noqa: F401
 from sparknet_tpu_torch.models.zoo import (  # noqa: F401
+    DecodeSpec,
     alexnet,
     alexnet_solver,
+    build_decode_step,
+    build_prefill,
     caffenet,
     caffenet_solver,
+    charlm,
+    charlm_solver,
     cifar10_full,
     cifar10_full_solver,
     cifar10_quick,
     cifar10_quick_solver,
+    decode_spec,
     lenet,
     lenet_solver,
+    transformer,
+    transformer_solver,
 )

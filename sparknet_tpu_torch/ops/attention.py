@@ -1,0 +1,132 @@
+"""Multi-head self-attention and rotary position embeddings.
+
+Counterpart of ``sparknet_tpu/ops/attention.py``.  Prototxt surface::
+
+    layer {
+      name: "attn" type: "MultiHeadAttention" bottom: "x" top: "y"
+      attention_param { num_heads: 8 causal: true rope: true }
+    }
+
+Input/output blobs are [B, S, E].  Params follow Caffe blob order:
+[W_qkv (3E, E), b_qkv (3E), W_out (E, E), b_out (E)], the JAX layer's, so
+the weights bridge (``interop.py``) maps them one to one.  The attention
+core is ``ops/kernels.flash_attention`` (the flash kernel on the card).
+The JAX layer's sequence parallelism (ring/Ulysses over a 'seq' mesh axis)
+is a parallel mode and is not ported (ROADMAP Queue A12).
+
+The helpers ``project_qkv`` and ``project_out`` are the layer's own
+expressions; the cached decode builders of ``models/zoo.py`` call them, so
+the prompt pass, the decode step and the layer share one implementation
+around their attention cores.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from sparknet_tpu_torch.ops.base import Layer, LayerOutput
+from sparknet_tpu_torch.ops.fillers import fill
+from sparknet_tpu_torch.ops.kernels import flash_attention
+from sparknet_tpu_torch.ops.registry import register
+from sparknet_tpu_torch.proto.text_format import Message
+
+# (half, base, device) -> theta [half] float32.  One tensor per device, so
+# ``rope`` and ``rope_at`` multiply by the same bits.
+_THETA: dict = {}
+
+
+def _theta(half: int, base: float, device: torch.device) -> torch.Tensor:
+    """theta_i = base^(-i/half), in float32, computed once on the CPU (as
+    the JAX package computes it: a float32 divide, then a float32 power)
+    and kept per device."""
+    key = (half, float(base), str(device))
+    t = _THETA.get(key)
+    if t is None:
+        t = torch.pow(torch.tensor(base, dtype=torch.float32),
+                      -torch.arange(half, dtype=torch.float32) / half)
+        t = _THETA[key] = t.to(device)
+    return t
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]  # rotate-half convention
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def rope(x: torch.Tensor, base: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding over ``x`` [B, H, S, D] (D even):
+    position t rotates each head-dim pair (i, i + D/2) by t * theta_i,
+    theta_i = base^(-2i/D) (RoFormer, Su et al. 2021)."""
+    _, _, s, d = x.shape
+    if d % 2:
+        raise ValueError(f"rope needs an even head dim, got {d}")
+    theta = _theta(d // 2, base, x.device)
+    ang = torch.arange(s, dtype=torch.float32, device=x.device)[:, None] * theta[None, :]
+    return _rotate(x, ang)
+
+
+def rope_at(x: torch.Tensor, positions: torch.Tensor,
+            base: float = 10000.0) -> torch.Tensor:
+    """:func:`rope` at explicit absolute positions, the decode path's twin:
+    ``x`` [B, H, W, D], ``positions`` [B, W] integers.  For
+    ``positions[b, w] == t`` the rotation is the same float expression
+    :func:`rope` applies at row t (the same theta tensor, the same float32
+    ``t * theta`` product, the same cos/sin/rotate-half arithmetic), so a K
+    cached through this path equals the K the full-window forward computes
+    at that row, bit for bit."""
+    d = x.shape[-1]
+    if d % 2:
+        raise ValueError(f"rope needs an even head dim, got {d}")
+    theta = _theta(d // 2, base, x.device)
+    ang = positions.to(torch.float32)[..., None] * theta  # [B, W, half]
+    return _rotate(x, ang[:, None])  # broadcast over heads
+
+
+def project_qkv(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
+                heads: int):
+    """[B, S, E] -> q, k, v as [B, H, S, D] views (``x W_qkv^T + b``)."""
+    b, s, e = x.shape
+    qkv = F.linear(x, w_qkv, b_qkv)
+    return [t.reshape(b, s, heads, e // heads).transpose(1, 2)
+            for t in qkv.split(e, dim=-1)]
+
+
+def project_out(o: torch.Tensor, w_out: torch.Tensor,
+                b_out: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, D] attention output -> [B, S, E] (``o W_out^T + b``)."""
+    b, h, s, d = o.shape
+    return F.linear(o.transpose(1, 2).reshape(b, s, h * d), w_out, b_out)
+
+
+@register
+class MultiHeadAttentionLayer(Layer):
+    TYPE = "MultiHeadAttention"
+
+    def __init__(self, lp, phase):
+        super().__init__(lp, phase)
+        p = lp.get_msg("attention_param")
+        self.num_heads = p.get_int("num_heads", 1)
+        self.causal = p.get_bool("causal", False)
+        self.rope = p.get_bool("rope", False)
+        self.weight_filler = (p.get_msg("weight_filler") if p.has("weight_filler")
+                              else Message().set("type", "xavier"))
+
+    def init(self, gen, in_shapes):
+        (_, _, e) = in_shapes[0]
+        if e % self.num_heads != 0:
+            raise ValueError(f"attention embed dim ({e}) must be divisible by "
+                             f"num_heads ({self.num_heads})")
+        w_qkv = fill(self.weight_filler, gen, (3 * e, e))
+        w_out = fill(self.weight_filler, gen, (e, e))
+        return [w_qkv, torch.zeros(3 * e), w_out, torch.zeros(e)], {}
+
+    def apply(self, params, state, inputs, *, train):
+        w_qkv, b_qkv, w_out, b_out = params
+        q, k, v = project_qkv(inputs[0], w_qkv, b_qkv, self.num_heads)
+        if self.rope:
+            q, k = rope(q), rope(k)
+        o = flash_attention(q, k, v, causal=self.causal)
+        return LayerOutput([project_out(o, w_out, b_out)])

@@ -1,4 +1,4 @@
-"""Common layers: InnerProduct, Split, Flatten, Concat.
+"""Common layers: InnerProduct, Embed, Eltwise, Split, Flatten, Concat.
 
 Counterpart of ``sparknet_tpu/ops/blocks.py`` (ref:
 caffe/include/caffe/common_layers.hpp).  InnerProduct is one ``F.linear``
@@ -57,6 +57,60 @@ class InnerProduct(Layer):
         b = params[1].to(x.dtype) if bias else None
         y = F.linear(flat, params[0].to(x.dtype), b)
         return LayerOutput([y.reshape(lead + (n_out,))])
+
+
+@register
+class Embed(Layer):
+    """Embedding lookup (ref: embed_layer.cpp): W blob (input_dim,
+    num_output), output shape = input shape + (num_output,).  The indices
+    are cast to ``long`` first, as the JAX layer casts them to int32:
+    ``Network.init`` propagates shapes with float meta tensors for every
+    feed, and ids may arrive as int32 or float."""
+
+    TYPE = "Embed"
+
+    def init(self, gen, in_shapes):
+        p = self.lp.get_msg("embed_param")
+        shape = (p.get_int("input_dim"), p.get_int("num_output"))
+        params = [fillers.fill(p.get_msg("weight_filler"), gen, shape)]
+        if p.get_bool("bias_term", True):
+            params.append(fillers.fill(p.get_msg("bias_filler"), gen, (shape[1],)))
+        return params, {}
+
+    def apply(self, params, state, inputs, *, train):
+        y = F.embedding(inputs[0].to(torch.long), params[0])
+        if len(params) > 1:
+            y = y + params[1]
+        return LayerOutput([y])
+
+
+@register
+class Eltwise(Layer):
+    """PROD / SUM (with coeffs) / MAX over N bottoms (ref:
+    eltwise_layer.cpp), in the JAX layer's order of operations."""
+
+    TYPE = "Eltwise"
+
+    def apply(self, params, state, inputs, *, train):
+        p = self.lp.get_msg("eltwise_param")
+        op = p.get_str("operation", "SUM")
+        if op == "PROD":
+            y = inputs[0]
+            for x in inputs[1:]:
+                y = y * x
+        elif op == "MAX":
+            y = inputs[0]
+            for x in inputs[1:]:
+                y = torch.maximum(y, x)
+        else:  # SUM
+            coeffs = [float(c) for c in p.get_all("coeff")] or [1.0] * len(inputs)
+            if len(coeffs) != len(inputs):
+                raise ValueError(
+                    f"Eltwise {self.name}: {len(coeffs)} coeffs for {len(inputs)} bottoms")
+            y = coeffs[0] * inputs[0]
+            for c, x in zip(coeffs[1:], inputs[1:]):
+                y = y + c * x
+        return LayerOutput([y])
 
 
 @register

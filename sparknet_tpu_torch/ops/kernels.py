@@ -14,8 +14,9 @@ Beside each kernel:
   takes it only for a tensor that lies on the CPU; on a CUDA tensor it
   launches the kernel or raises, with no fallback;
 * a launch count (``LRN_LAUNCHES``, ``LRN_BACKWARD_LAUNCHES``,
-  ``FUSED_UPDATE_LAUNCHES``), raised by one at each launch and nowhere
-  else, so a run can show that its path went through the kernel.
+  ``FUSED_UPDATE_LAUNCHES``, ``FLASH_LAUNCHES``, ``PAGED_LAUNCHES``),
+  raised by one at each launch and nowhere else, so a run can show that
+  its path went through the kernel.
 
 Kernels ported so far, all from ``sparknet_tpu/ops/pallas_kernels.py``:
 
@@ -23,7 +24,12 @@ Kernels ported so far, all from ``sparknet_tpu/ops/pallas_kernels.py``:
   its backward (same source, replaces ``_lrn_fused_bwd``, which is XLA on
   the TPU), joined by the ``torch.autograd.Function`` ``LRNFunction``;
 * the one-pass fused optimizer update (``csrc/fused_update.cu``, replaces
-  ``_fused_kernel``).
+  ``_fused_kernel``);
+* flash attention forward (``csrc/flash_attention.cu``, replaces
+  ``_flash_kernel``), the prompt pass of token serving and the attention
+  core of ``MultiHeadAttention``;
+* paged decode attention (``csrc/paged_attention.cu``, replaces
+  ``_paged_kernel``), the cached decode step of token serving.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -42,7 +49,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel source of the package, one shared library each
-KERNEL_SOURCES = ("lrn", "fused_update")
+KERNEL_SOURCES = ("lrn", "fused_update", "flash_attention", "paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,12 +60,16 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 LRN_LAUNCHES = 0
 LRN_BACKWARD_LAUNCHES = 0
 FUSED_UPDATE_LAUNCHES = 0
+FLASH_LAUNCHES = 0
+PAGED_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     global LRN_LAUNCHES, LRN_BACKWARD_LAUNCHES, FUSED_UPDATE_LAUNCHES
+    global FLASH_LAUNCHES, PAGED_LAUNCHES
     LRN_LAUNCHES = LRN_BACKWARD_LAUNCHES = FUSED_UPDATE_LAUNCHES = 0
+    FLASH_LAUNCHES = PAGED_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +161,19 @@ def _load(name: str) -> ctypes.CDLL:
                 *[ctypes.c_float] * 8, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.sparknet_fused_update.restype = ctypes.c_int
+        elif name == "flash_attention":
+            lib.sparknet_flash_attention_forward.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+            ]
+            lib.sparknet_flash_attention_forward.restype = ctypes.c_int
+        elif name == "paged_attention":
+            lib.sparknet_paged_attention.argtypes = [
+                *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 5, ctypes.c_float,
+                ctypes.c_void_p,
+            ]
+            lib.sparknet_paged_attention.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -518,3 +542,176 @@ def fused_update(rule: str, st: UpdateStatics, w: torch.Tensor,
     if w.device.type != "cuda":
         raise ValueError(f"fused_update: unsupported device {w.device}")
     _fused_update_cuda(rule, st, w, g, slots, tile_lr, tile_decay, scalars)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention forward
+# ---------------------------------------------------------------------------
+
+# head dims the two attention kernels are instantiated for (the launchers of
+# csrc/flash_attention.cu and csrc/paged_attention.cu switch on these)
+ATTENTION_HEAD_DIMS = (8, 16, 32, 64, 128)
+
+
+def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch attention on [B, H, S, D]: the unblocked stable
+    softmax of the JAX package's ``attention_xla``, float32 math, the
+    causal upper triangle at -1e30; the result has ``q.dtype``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        n = q.shape[2]
+        idx = torch.arange(n, device=q.device)
+        s = torch.where(idx[:, None] >= idx[None, :], s, -1e30)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                        v.float()).to(q.dtype)
+
+
+def _flash_attention_cuda(q, k, v, causal: bool) -> torch.Tensor:
+    global FLASH_LAUNCHES
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: want q, k, v of one [B, H, S, D] "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if any(t.dtype != torch.float32 or t.device != q.device for t in (q, k, v)):
+        raise ValueError("flash_attention: the kernel takes float32 q, k, v "
+                         "on one device")
+    b, h, n, d = q.shape
+    if d not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in "
+                         f"{ATTENTION_HEAD_DIMS}")
+    lib = _load("flash_attention")
+    # the [B*H, S, D] fibres the kernel walks, as _flash_pallas reshapes
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.sparknet_flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, n,
+            d, int(bool(causal)), 1.0 / math.sqrt(d), stream)
+    _check_launch(lib, err, "flash_attention")
+    FLASH_LAUNCHES += 1
+    return o
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The flash kernel's forward inside the autograd graph, so that a
+    gradient through it raises instead of leaving q, k and v (and the
+    projections before them) silently without one.  The kernel has no
+    backward yet (ROADMAP Queue B3: it comes with the char LM's training
+    slice); serving never differentiates and never reaches ``backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        return _flash_attention_cuda(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "flash_attention: the CUDA kernel has no backward yet, so a "
+            "MultiHeadAttention net cannot train on the card (ROADMAP Queue "
+            "B3, the char LM's training slice)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """Attention forward on [B, H, S, D] (``softmax(q k^T / sqrt(D)) v``,
+    the upper triangle masked when ``causal``).
+
+    CUDA tensors: launches the kernel of ``csrc/flash_attention.cu``
+    (float32, head dim in ``ATTENTION_HEAD_DIMS``; anything else raises)
+    through ``FlashAttentionFunction``, whose backward raises.  CPU
+    tensors: ``flash_attention_torch`` (differentiable by autograd).  Meta
+    tensors (shape inference in ``Network.init``): an empty tensor of q's
+    shape."""
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if q.device.type == "cpu":
+        return flash_attention_torch(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return FlashAttentionFunction.apply(q, k, v, causal)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention
+# ---------------------------------------------------------------------------
+
+
+def paged_attention_torch(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, tables: torch.Tensor,
+                          positions: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch paged decode attention, the JAX package's
+    ``paged_attention_xla``: gather each row's blocks in table order, then
+    one stable softmax over its ``MB * T`` columns with columns past
+    ``positions[b]`` at -1e30.
+
+    ``q`` [B, H, D]; pools [NB, T, H, D]; ``tables`` [B, MB] block ids;
+    ``positions`` [B] (row b attends to columns 0..positions[b])."""
+    b, h, d = q.shape
+    t = k_pool.shape[1]
+    mb = tables.shape[1]
+    idx = tables.long()
+    k = k_pool[idx].reshape(b, mb * t, h, d)
+    v = v_pool[idx].reshape(b, mb * t, h, d)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    cols = torch.arange(mb * t, device=q.device)
+    s = torch.where(cols[None, None, :] <= positions.long()[:, None, None], s, -1e30)
+    return torch.einsum("bhs,bshd->bhd", torch.softmax(s, dim=-1),
+                        v.float()).to(q.dtype)
+
+
+def _paged_attention_cuda(q, k_pool, v_pool, tables, positions) -> torch.Tensor:
+    global PAGED_LAUNCHES
+    if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
+            or k_pool.shape[2:] != q.shape[1:]:
+        raise ValueError(f"paged_attention: want q [B, H, D] and pools "
+                         f"[NB, T, H, D], got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
+    b, h, d = q.shape
+    if tables.dim() != 2 or tables.shape[0] != b or tuple(positions.shape) != (b,):
+        raise ValueError(f"paged_attention: want tables [{b}, MB] and "
+                         f"positions [{b}], got {tuple(tables.shape)}, "
+                         f"{tuple(positions.shape)}")
+    for t, dtype in ((q, torch.float32), (k_pool, torch.float32),
+                     (v_pool, torch.float32), (tables, torch.int32),
+                     (positions, torch.int32)):
+        if t.dtype != dtype or t.device != q.device:
+            raise ValueError("paged_attention: the kernel takes float32 q and "
+                             "pools and int32 tables and positions, on one device")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("paged_attention: the pools must be contiguous")
+    if d not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"paged_attention: head dim {d} not in "
+                         f"{ATTENTION_HEAD_DIMS}")
+    lib = _load("paged_attention")
+    q, tables, positions = q.contiguous(), tables.contiguous(), positions.contiguous()
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.sparknet_paged_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), positions.data_ptr(), o.data_ptr(), b, h, d,
+            k_pool.shape[1], tables.shape[1], 1.0 / math.sqrt(d), stream)
+    _check_launch(lib, err, "paged_attention")
+    PAGED_LAUNCHES += 1
+    return o
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    tables: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """One query token a row against a block-paged K/V pool (see
+    ``paged_attention_torch`` for the shapes).  A row's output depends only
+    on its own q, table and position.
+
+    CUDA tensors: launches the kernel of ``csrc/paged_attention.cu``
+    (float32 q and contiguous pools, int32 tables and positions, head dim
+    in ``ATTENTION_HEAD_DIMS``, positions in [0, MB * T) and table entries
+    in [0, NB); the kernel reads no column past a row's position).  CPU
+    tensors: ``paged_attention_torch``.  Forward only."""
+    if q.device.type == "cpu":
+        return paged_attention_torch(q, k_pool, v_pool, tables, positions)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    return _paged_attention_cuda(q, k_pool, v_pool, tables, positions)

@@ -65,13 +65,13 @@ _NOT_YET_PORTED = {
     **{t: "Queue A10" for t in (
         "AbsVal", "ArgMax", "BNLL", "BatchNorm", "BatchReindex", "Bias",
         "ContrastiveLoss", "Data", "Deconvolution", "DummyData", "ELU",
-        "Eltwise", "EuclideanLoss", "Exp", "Filter", "HDF5Data",
+        "EuclideanLoss", "Exp", "Filter", "HDF5Data",
         "HDF5Output", "HingeLoss", "Im2col", "ImageData", "InfogainLoss",
         "Log", "MVN", "MultinomialLogisticLoss", "PReLU", "Power", "Python",
         "Reduction", "Reshape", "SPP", "Scale", "Sigmoid",
         "SigmoidCrossEntropyLoss", "Silence", "Slice", "TanH", "Threshold",
         "Tile", "WindowData")},
-    **{t: "Queue A12" for t in ("Embed", "MoE", "MultiHeadAttention")},
+    "MoE": "Queue A12",
 }
 
 

@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from sparknet_tpu_torch.common import resolve_device
 from sparknet_tpu_torch.ops.kernels import (
     ARENA_TILE,
     FUSED_RULE_SLOTS,
@@ -246,8 +247,10 @@ def unpack_slots(layout: ArenaLayout, arenas: list) -> dict:
     }
 
 
-def init_slot_arenas(layout: ArenaLayout, device="cpu") -> list:
-    """Zero history arenas (the PresolveHistory analog, flat)."""
+def init_slot_arenas(layout: ArenaLayout, device=None) -> list:
+    """Zero history arenas (the PresolveHistory analog, flat) on ``device``
+    (``None``: CUDA, or raise)."""
+    device = resolve_device(device)
     return [torch.zeros((layout.total,), dtype=layout.storage, device=device)
             for _ in range(layout.n_slots)]
 

@@ -51,7 +51,7 @@ def pair():
     jclf = JaxClassifier(jax_parse(DEPLOY), **OPTS)
     clf = Classifier(parse(DEPLOY), device="cpu", **OPTS)
     clf.variables = interop.netvars_from_numpy(jclf.variables.params,
-                                               jclf.variables.state)
+                                               jclf.variables.state, device="cpu")
     return jclf, clf
 
 

@@ -274,7 +274,7 @@ def test_pad_zones_stay_zero_under_every_rule(mult_layouts, rule):
     w = arena.pack(lay, params)
     g = arena.pack(lay, {ln: [torch.randn_like(p) for p in pl]
                          for ln, pl in params.items()})
-    slots = arena.init_slot_arenas(lay)
+    slots = arena.init_slot_arenas(lay, device="cpu")
     real = torch.zeros(lay.total, dtype=torch.bool)
     for e in lay.entries:
         real[e.offset:e.offset + e.size] = True

@@ -24,7 +24,10 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "sparknet_tpu."))
              or m == "sparknet_tpu")
 training = sorted(n for n in names if n.startswith("sparknet_tpu_torch.solvers."))
+serving = sorted(n for n in names if n.startswith("sparknet_tpu_torch.serve.")
+                 or n == "sparknet_tpu_torch.ops.attention")
 print(training)
+print(serving)
 print(len(names), bad)
 """
 
@@ -34,13 +37,16 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    training, last = out.stdout.strip().split("\n")[-2:]
+    training, serving, last = out.stdout.strip().split("\n")[-3:]
     n, bad = last.split(" ", 1)
-    assert int(n) >= 25, out.stdout
+    assert int(n) >= 30, out.stdout
     assert bad == "[]", out.stdout
-    # the training slice's modules are among those imported
+    # the training and token-serving slices' modules are among those imported
     assert training == str([f"sparknet_tpu_torch.solvers.{m}" for m in
                             ("arena", "lr_policy", "solver", "updates")]), out.stdout
+    assert serving == str(["sparknet_tpu_torch.ops.attention"] + [
+        f"sparknet_tpu_torch.serve.{m}" for m in
+        ("batcher", "continuous", "engine", "paged")]), out.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -66,6 +72,38 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Solver(models.lenet_solver(), deploy)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_weights_bridge_and_serving_default_to_cuda(monkeypatch):
+    """The weights bridge, the slot arenas and the token-serving entry
+    points take ``device=None`` as CUDA too, and raise without a card."""
+    import numpy as np
+
+    from sparknet_tpu_torch import interop
+    from sparknet_tpu_torch.ops.base import ParamSpec
+    from sparknet_tpu_torch.serve.continuous import ContinuousDecoder
+    from sparknet_tpu_torch.serve.paged import PagedDecoder, TokenRouter
+    from sparknet_tpu_torch.solvers import arena
+    from sparknet_tpu_torch.solvers.solver import SolverConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = {"ip": [np.ones((2, 3), np.float32)]}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.netvars_from_numpy(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.netvars_from_solverstate({"param/ip/0": params["ip"][0]})
+    layout = arena.build_layout(params, {"ip": [ParamSpec()]}, SolverConfig(),
+                                storage_dtype="f32")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        arena.init_slot_arenas(layout)
+    small = dict(slots=2, seq_len=8, vocab=8, embed_dim=8, heads=2, ffn_dim=8)
+    for entry in (PagedDecoder, ContinuousDecoder, TokenRouter):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(**small)
+    # on the CPU, named explicitly, all of them run
+    v = interop.netvars_from_numpy(params, device="cpu")
+    assert v.params["ip"][0].device.type == "cpu"
+    assert arena.init_slot_arenas(layout, device="cpu")[0].device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

@@ -126,7 +126,8 @@ def test_library_path_names_source_hash():
     assert p.parent == kernels.BUILD_DIR
     assert p.name.startswith("liblrn-") and p.suffix == ".so"
     assert (kernels.CSRC_DIR / "lrn.cu").exists()
-    assert kernels.KERNEL_SOURCES == ("lrn", "fused_update")
+    assert kernels.KERNEL_SOURCES == ("lrn", "fused_update", "flash_attention",
+                                      "paged_attention")
     for name in kernels.KERNEL_SOURCES:
         assert (kernels.CSRC_DIR / f"{name}.cu").exists()
 

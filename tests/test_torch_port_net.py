@@ -65,7 +65,7 @@ def port_side(name):
 def test_forward_matches_jax(name):
     jnet, jvars, feeds, jblobs, jloss = jax_side(name)
     net = port_side(name)
-    variables = interop.netvars_from_numpy(jvars.params, jvars.state)
+    variables = interop.netvars_from_numpy(jvars.params, jvars.state, device="cpu")
     before = kernels.LRN_LAUNCHES
     blobs, state, loss = net.apply(variables, feeds)
     assert kernels.LRN_LAUNCHES == before  # CPU tensors take the plain path
@@ -97,7 +97,7 @@ def test_structure_matches_jax(name):
 def test_partial_execution_matches_full_forward():
     _, jvars, feeds, _, jloss = jax_side("caffenet")
     net = port_side("caffenet")
-    variables = interop.netvars_from_numpy(jvars.params, jvars.state)
+    variables = interop.netvars_from_numpy(jvars.params, jvars.state, device="cpu")
     full, _, loss = net.apply(variables, feeds)
     head, _, head_loss = net.apply(variables, feeds, end="norm2")
     assert "fc8" not in head and float(head_loss) == 0.0
@@ -118,7 +118,7 @@ def test_interop_reads_solverstate_snapshot(tmp_path):
 
     solver = Solver(jax_models.lenet_solver(), jax_models.lenet(batch=3))
     path = solver.save(str(tmp_path / "lenet"))
-    variables = interop.netvars_from_solverstate(path)
+    variables = interop.netvars_from_solverstate(path, device="cpu")
     assert set(variables.params) == set(solver.variables.params)
     for name, blobs in solver.variables.params.items():
         for a, b in zip(variables.params[name], blobs):
@@ -138,12 +138,13 @@ def test_interop_splits_layer_names_with_slashes():
         "hist/inception_3a/1x1/0/0": np.ones((2, 3), np.float32),
         "__iter__": np.asarray(5),
     }
-    v = interop.netvars_from_solverstate(arrays)
+    v = interop.netvars_from_solverstate(arrays, device="cpu")
     assert [tuple(t.shape) for t in v.params["inception_3a/1x1"]] == [(2, 3), (2,)]
     assert float(v.state["bn/a"]["mean"][0]) == 2.0
     assert set(v.params) == {"inception_3a/1x1"} and set(v.state) == {"bn/a"}
     with pytest.raises(ValueError, match="param blobs"):
-        interop.netvars_from_solverstate({"param/x/1": np.ones(2, np.float32)})
+        interop.netvars_from_solverstate({"param/x/1": np.ones(2, np.float32)},
+                                         device="cpu")
 
 
 def test_net_level_inputs_and_phase_filter():

@@ -245,7 +245,7 @@ def test_fillers(ftype, check):
 
 
 @pytest.mark.parametrize("type_,queue", [("BatchNorm", "A10"), ("Deconvolution", "A10"),
-                                         ("MultiHeadAttention", "A12")])
+                                         ("MoE", "A12")])
 def test_unported_type_names_its_queue(type_, queue):
     lp = parse(f'layer {{ name: "l" type: "{type_}" bottom: "x" top: "y" }}').get_all("layer")[0]
     with pytest.raises(NotImplementedError, match=f"Queue {queue}"):
