@@ -25,8 +25,10 @@ Phases, in order (any failure exits non-zero):
    (``torch.profiler``);
 7. lrn backward kernel: against ``lrn_backward_torch`` at the four b256
    shapes and the ragged ones, f32 (rtol 1e-5, atol 1e-6) and bf16 (one
-   bf16 ulp), inputs ``relu(randn*50)`` and ``g = randn``; times beside
-   the bound and the autograd backward of ``F.local_response_norm``;
+   bf16 ulp), inputs ``relu(randn*50)`` and ``g = randn``; bit for bit at
+   operands that send the kernel to its IEEE walk and over a sweep of x
+   scales, k and beta across its fast path's range; times beside the
+   bound and the autograd backward of ``F.local_response_norm``;
 8. train: a port ``Solver`` with ``fused_update`` on trains the zoo AlexNet
    (``alexnet_solver``: SGD, momentum 0.9, weight decay 5e-4, step policy)
    at batch 256, 227x227, dropout on, on one fixed random batch: 1
@@ -47,9 +49,13 @@ Phases, in order (any failure exits non-zero):
     deterministic cuDNN: params and history agree (rtol 1e-5, atol 1e-7);
 12. flash: the flash-attention kernel against ``flash_attention_torch`` at
     the char LM's prefill shape [32,4,128,16] (causal and not), ragged
-    S = 100, head dims 8, 32, 64 and 128, and [4,16,2048,64] causal (rtol
-    1e-5, atol 1e-6; atol 1e-5 at S = 2048); times beside the bound and
-    ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
+    S = 100, head dims 8, 32, 64 and 128, [4,16,2048,64] causal and not,
+    [2,8,1024,128] causal and a ragged [2,4,2000,64] causal (rtol 1e-5,
+    atol 1e-6; atol 1e-5 at S >= 1024); batch entry 0 of the prefill shape
+    bit for bit the same alone and in its batch of 32; times at the
+    prefill shape and the S >= 1024 shapes beside the bound (the 3xTF32
+    tensor-core rate) and ``F.scaled_dot_product_attention`` (a yardstick
+    the port never calls);
 13. paged: the paged-attention kernel against ``paged_attention_torch`` at
     the char LM's decode shape (shuffled tables, positions at 0, block
     edges and 127, finite garbage of 1e4 in the null and unowned blocks)
@@ -114,12 +120,14 @@ RAGGED_CASES = [  # (label, shape, size, beta, k)
 ]
 ALPHA = 1e-4
 
-# (memory bytes/s, float32 FLOP/s outside the tensor cores) by card, from
-# NVIDIA's H100 data sheet; the first name that matches wins.
+# (memory bytes/s, float32 FLOP/s outside the tensor cores, dense TF32
+# tensor-core FLOP/s) by card, from NVIDIA's H100 data sheet (its TF32
+# figures are with sparsity; dense is half); the first name that matches
+# wins.
 CARD_PEAKS = [
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
+    ("H100 PCIe", 2.0e12, 51e12, 378e12),
+    ("H100 NVL", 3.9e12, 60e12, 417.5e12),
+    ("H100", 3.35e12, 67e12, 495e12),
 ]
 
 # bvlc_reference_caffenet/deploy.prototxt: the layers of zoo.caffenet with
@@ -225,10 +233,11 @@ def graph_ms(fn, reps: int = REPS, inner: int = 10) -> float:
     return float(np.median(times))
 
 
-def card_peaks(name: str) -> tuple[float, float]:
-    for key, bw, flops in CARD_PEAKS:
+def card_peaks(name: str) -> tuple[float, float, float]:
+    """(memory bytes/s, float32 FLOP/s, dense TF32 FLOP/s) of the card."""
+    for key, bw, flops, tf32 in CARD_PEAKS:
         if key in name:
-            return bw, flops
+            return bw, flops, tf32
     raise RuntimeError(f"no published peaks for card {name!r}")
 
 
@@ -237,7 +246,7 @@ def lrn_bound_ms(shape, size: int, itemsize: int, name: str) -> tuple[float, str
     output byte written once over the memory rate, or its float32
     operations (per element: 1 square, size-1 adds, 2 for the scale, 4 for
     scale^-0.75, 1 for x*scale^-beta) over the float32 rate."""
-    bw, flops = card_peaks(name)
+    bw, flops, _ = card_peaks(name)
     n = int(np.prod(shape))
     t_bytes = 2 * n * itemsize / bw * 1e3
     t_ops = n * (size + 7) / flops * 1e3
@@ -315,8 +324,10 @@ def phase_build() -> None:
     for name, log in logs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
+        frames = sum(int(m) for m in re.findall(r"(\d+) bytes stack frame", log))
         print(f"  ptxas {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
-              f"registers a thread, {spills} bytes of spills")
+              f"registers a thread, {spills} bytes of spills, {frames} bytes of "
+              f"stack frames")
         # the instances the main paths run: float32, LRN size 5 beta 0.75;
         # fused update SGD with L2
         for fn, n in re.findall(r"Compiling entry function '([^']+)'.*?Used (\d+) "
@@ -325,6 +336,13 @@ def phase_build() -> None:
             if kernel and ("IfLi5ELb1E" in fn or "IfLi0ELi2E" in fn):
                 print(f"    {kernel.group(1)} (float32, main-path instance): "
                       f"{n} registers a thread")
+        # every instance that spills or keeps a stack frame, by name
+        for fn, frame, spill in re.findall(
+                r"Compiling entry function '([^']+)'.*?(\d+) bytes stack frame, "
+                r"(\d+) bytes spill stores", log, flags=re.S):
+            if int(frame) or int(spill):
+                print(f"    {fn}: {frame} bytes stack frame, {spill} bytes of "
+                      f"spill stores")
         # the attention kernels: every head-dim instance, with its spills
         for fn, spill, n in re.findall(
                 r"Compiling entry function '([^']+)'.*?(\d+) bytes spill stores.*?"
@@ -537,6 +555,32 @@ def ulps_f32(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ia - ib).abs().max())
 
 
+LRN_BWD_SEG = 32  # channels a thread of the LRN backward walks (lrn.cu)
+
+
+def fast_walks(x: torch.Tensor, g: torch.Tensor, size: int, beta: float,
+               k: float) -> torch.Tensor:
+    """Which of the LRN backward kernel's walks (image, segment, spatial
+    position) stay on its fast sqrt/division path: every channel of the
+    walk's t range has its operands inside lrn.cu's ``fast_ok`` ranges,
+    u = scale in [2^-20, 2^20] and a = g x p zero or of magnitude in
+    [2^-96, 2^96].  Channels outside [0, C) hold zeros, as in the kernel."""
+    from sparknet_tpu_torch.ops import kernels
+
+    pad = (size - 1) // 2
+    b, c = x.shape[:2]
+    segs = -(-c // LRN_BWD_SEG)
+    ext = segs * LRN_BWD_SEG - c + pad  # zero channels past the end
+    xf = F.pad(x.float().reshape(b, c, -1), (0, 0, pad, ext))
+    gf = F.pad(g.float().reshape(b, c, -1), (0, 0, pad, ext))
+    u = k + (ALPHA / size) * kernels._channel_window_sum(xf * xf, size)
+    a = gf * xf * kernels._pow_neg(u, beta)
+    ok = ((u >= 2.0 ** -20) & (u <= 2.0 ** 20)
+          & ((a == 0) | ((a.abs() >= 2.0 ** -96) & (a.abs() <= 2.0 ** 96))))
+    # walk s reads t at channels [s L - pad, (s + 1) L + pad)
+    return ok.unfold(1, LRN_BWD_SEG + 2 * pad, LRN_BWD_SEG).all(-1)
+
+
 def phase_lrn_backward(card: str) -> dict:
     """LRN backward kernel vs plain at every case; times at the main
     shapes beside the bound and F.local_response_norm's backward."""
@@ -570,9 +614,53 @@ def phase_lrn_backward(card: str) -> dict:
               f"{'ok' if okb else 'FAIL'}")
         check(ok, f"lrn_backward f32 {label}")
         check(okb, f"lrn_backward bf16 {label}")
+    # operands outside the kernel's fast sqrt/division ranges (x scaled by
+    # 1e-35 at every other spatial position, signed zeros in g): those
+    # threads walk again with the IEEE operations; every element stays exact
+    shape = (4, 64, 13, 13)
+    x = torch.relu(torch.randn(shape, generator=gen, device=dev) * 50)
+    x[..., ::2] *= 1e-35
+    g = torch.randn(shape, generator=gen, device=dev)
+    g[:, :, 0] = -0.0
+    ref = kernels.lrn_backward_torch(x, g, 5, ALPHA, 0.75, 1.0)
+    dx = kernels.lrn_backward(x, g, 5, ALPHA, 0.75, 1.0)
+    torch.cuda.synchronize()
+    same = torch.equal(dx, ref) and torch.equal(torch.signbit(dx), torch.signbit(ref))
+    share = 100 * float(fast_walks(x, g, 5, 0.75, 1.0).float().mean())
+    print(f"lrn_backward out-of-range operands {list(shape)} (x scaled by 1e-35 "
+          f"at every other position, g = -0 in a row; {share:.1f}% of walks "
+          f"fast): bit for bit equal to the plain version, signs of zero "
+          f"included: {same}")
+    check(same, "lrn_backward: the IEEE fallback walk differs from the plain version")
+    # the fast walk across its accepted range: x scaled from 1e-3 to 5e4,
+    # where scale nears 2^20, and 1e5, where a quarter of the walks stay
+    # fast and the rest fall back in the same launch; k from 2e-6, near
+    # 2^-20, to 2; beta 0.75 and 0.6.  Bit for bit, signs of zero included,
+    # with the share of walks that stayed on the fast path
+    shape = (4, 64, 27, 27)
+    walks = fast = 0
+    for x_scale in (1e-3, 1.0, 1e2, 1e4, 5e4, 1e5):
+        for k in (2e-6, 1e-4, 1.0, 2.0):
+            for beta in (0.75, 0.6):
+                x = torch.relu(torch.randn(shape, generator=gen, device=dev)) * x_scale
+                g = torch.randn(shape, generator=gen, device=dev)
+                ref = kernels.lrn_backward_torch(x, g, 5, ALPHA, beta, k)
+                dx = kernels.lrn_backward(x, g, 5, ALPHA, beta, k)
+                torch.cuda.synchronize()
+                same = (torch.equal(dx, ref)
+                        and torch.equal(torch.signbit(dx), torch.signbit(ref)))
+                ok_walks = fast_walks(x, g, 5, beta, k)
+                walks += ok_walks.numel()
+                fast += int(ok_walks.sum())
+                print(f"lrn_backward fast-path sweep {list(shape)} x scale {x_scale:g} "
+                      f"k {k:g} beta {beta}: bit for bit {same}, "
+                      f"{100 * float(ok_walks.float().mean()):.1f}% of walks fast")
+                check(same, f"lrn_backward sweep x scale {x_scale:g} k {k:g} beta {beta}")
+    print(f"lrn_backward fast-path sweep: {fast} of {walks} walks on the fast path")
+    check(2 * fast > walks, "lrn_backward sweep: most walks should take the fast path")
 
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    bw, _ = card_peaks(card)
+    bw, _, _ = card_peaks(card)
     for label, shape in MAIN_CASES:
         x = torch.relu(torch.randn(shape, generator=gen, device=dev) * 50)
         g = torch.randn(shape, generator=gen, device=dev)
@@ -685,7 +773,7 @@ def phase_fused_update(card: str, layout) -> dict:
           f"other f32 rules within {max(UPDATE_F32_ULPS.values())} ulp, bf16 "
           f"within one bf16 ulp), max abs err {max_abs:.3e}")
 
-    bw, _ = card_peaks(card)
+    bw, _, _ = card_peaks(card)
     times = {}
     for rule, dtype in (("SGD", torch.float32), ("Adam", torch.float32),
                         ("SGD", torch.bfloat16)):
@@ -890,23 +978,27 @@ def attention_within(out, ref, atol: float, rtol: float = 1e-5) -> tuple[bool, f
 
 def flash_bound_ms(shape, causal: bool, card: str) -> tuple[float, str]:
     """Least time of one attention forward: q, k, v read and o written once
-    over the memory rate, or 4 B H S^2 D flops (halved when causal) over
-    the float32 rate."""
-    bw, flops = card_peaks(card)
+    over the memory rate, or its 4 B H S^2 D flops (halved when causal) at
+    the faster float32-accurate rate: the float32 rate, or the tensor cores'
+    dense TF32 rate over 3 (a 3xTF32 split makes 3 TF32 products of each
+    float32 one)."""
+    bw, flops, tf32 = card_peaks(card)
     b, h, s, d = shape
     t_bytes = 4 * b * h * s * d * 4 / bw * 1e3
-    t_ops = 4 * b * h * s * s * d * (0.5 if causal else 1.0) / flops * 1e3
+    work = 4 * b * h * s * s * d * (0.5 if causal else 1.0)
+    t_ops = min(work / flops, 3 * work / tf32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_flash(card: str) -> dict:
-    """The flash kernel vs flash_attention_torch at every case; times at
-    the char LM's prefill shape and at one long-context shape."""
+    """The flash kernel vs flash_attention_torch at every case; a batch
+    entry alone and in its batch, bit for bit; times at the char LM's
+    prefill shape and at the long-context shapes."""
     from sparknet_tpu_torch.common import f32_precision
     from sparknet_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    cases = [  # (label, shape, causal, atol)
+    cases = [  # (label, shape, causal, atol); atol 1e-5 at S >= 1024
         ("charlm prefill", (32, 4, 128, 16), True, 1e-6),
         ("charlm prefill, not causal", (32, 4, 128, 16), False, 1e-6),
         ("ragged S=100", (2, 4, 100, 16), True, 1e-6),
@@ -916,6 +1008,9 @@ def phase_flash(card: str) -> dict:
         ("D=64", (4, 4, 200, 64), False, 1e-6),
         ("D=128", (2, 2, 130, 128), True, 1e-6),
         ("long context", (4, 16, 2048, 64), True, 1e-5),
+        ("long context, not causal", (4, 16, 2048, 64), False, 1e-5),
+        ("D=128 long", (2, 8, 1024, 128), True, 1e-5),
+        ("ragged long", (2, 4, 2000, 64), True, 1e-5),
     ]
     max_err = 0.0
     out = {}
@@ -930,18 +1025,27 @@ def phase_flash(card: str) -> dict:
             print(f"flash {label} {list(shape)} causal {int(causal)}: max abs err "
                   f"{err:.3e} (rtol 1e-5, atol {atol:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"flash {label}")
-            if label not in ("charlm prefill", "long context"):
+            if label == "charlm prefill":
+                # a row's output depends only on its own fibre: batch entry 0
+                # run alone gives the same bits as in the batch of 32
+                alone = kernels.flash_attention(q[:1], k[:1], v[:1], causal)
+                torch.cuda.synchronize()
+                same = torch.equal(alone[0], o[0])
+                print(f"flash {label}: batch entry 0 alone (B = 1) and in the batch "
+                      f"of {shape[0]}: {'bit for bit equal' if same else 'DIFFER'}")
+                check(same, "flash: batch entry 0 differs alone and in its batch")
+            if label != "charlm prefill" and shape[2] < 1024:
                 continue
             # the prefill shape is shorter than its launch: device time from
-            # a CUDA graph; the long shape: events over back-to-back calls
+            # a CUDA graph; the long shapes: events over back-to-back calls
             timer = graph_ms if label == "charlm prefill" else time_ms
             how = "CUDA graph" if timer is graph_ms else "events"
             t_k = timer(lambda: kernels.flash_attention(q, k, v, causal))
             t_p = timer(lambda: kernels.flash_attention_torch(q, k, v, causal))
             t_l = timer(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
             bound, by = flash_bound_ms(shape, causal, card)
-            print(f"time flash {label} {list(shape)} causal ({how}): kernel {t_k:.4f} ms "
-                  f"({100 * bound / t_k:.1f}% of bound), plain {t_p:.4f} ms, "
+            print(f"time flash {label} {list(shape)} causal {int(causal)} ({how}): kernel "
+                  f"{t_k:.4f} ms ({100 * bound / t_k:.1f}% of bound), plain {t_p:.4f} ms, "
                   f"F.scaled_dot_product_attention {t_l:.4f} ms, bound {bound:.4f} ms "
                   f"({by}) [{card}]")
             if timer is graph_ms:
@@ -990,7 +1094,7 @@ def phase_paged(card: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rs = np.random.RandomState(SEED + 5)
-    bw, _ = card_peaks(card)
+    bw, _, _ = card_peaks(card)
     charlm_pos = [0, 1, 7, 8, 15, 16, 63, 64, 127, 126, 120, 5] + list(
         rs.randint(0, 128, 20))
     cases = [  # (label, B, H, D, T, MB, positions, own_only)

@@ -8,7 +8,9 @@ handed to both packages; layer weights come from the JAX layer's ``init``.
 Tolerances: 1e-5 (rtol and atol) for the attention cores and layers
 (float32, the sums taken in another order); ``rope_at`` against the port's
 own ``rope`` is bit for bit.  On the CPU the wrappers take the plain
-versions, so no kernel launch is counted.
+versions, so no kernel launch is counted.  The flash kernel's 3×TF32
+tensor-core products are emulated in float32 here (TF32 rounding by bit
+masking) to show that the card's gate can tell them from plain TF32.
 """
 
 import jax
@@ -233,6 +235,78 @@ def test_paged_attention_rows_are_independent():
     tables2[1:] = tables2[1:].flip(0)
     pos2[1:] = torch.tensor([2, 9, 0], dtype=torch.int32)
     assert torch.equal(kernels.paged_attention_torch(q2, kp, vp, tables2, pos2)[0], base[0])
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` does: by integer masking
+    of the float32 bits."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rz(x: torch.Tensor) -> torch.Tensor:
+    """float32 truncated to TF32: what a tensor core reads of a float32
+    register handed to it as tf32."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """``a @ b`` as the flash kernel's m16n8k8 products form it: each
+    k-step of 8 adds a_lo·b_hi, a_hi·b_lo and a_hi·b_hi (3×TF32, small
+    terms first; hi rounded to nearest, lo = x - hi truncated) or only the
+    rounded product (terms == 1, plain TF32) to a float32 sum."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        ak, bk = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
+        ah, bh = _tf32_rna(ak), _tf32_rna(bk)
+        if terms == 3:
+            acc = acc + _tf32_rz(ak - ah) @ bh
+            acc = acc + ah @ _tf32_rz(bk - bh)
+        acc = acc + ah @ bh
+    return acc
+
+
+def _tf32_attention(q, k, v, terms: int) -> torch.Tensor:
+    """Causal attention forward with the kernel's products emulated: q
+    pre-scaled by 1/sqrt(D), S = Q·Kᵀ and O = P·V through
+    ``_tf32_matmul``, softmax and the row sums in float32."""
+    s = _tf32_matmul(q * (1.0 / np.sqrt(q.shape[-1])), k.transpose(-1, -2), terms)
+    idx = torch.arange(q.shape[2])
+    s = torch.where(idx[:, None] >= idx[None, :], s, -torch.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return _tf32_matmul(p, v, terms) / p.sum(-1, keepdim=True)
+
+
+def test_three_tf32_products_meet_the_flash_gate_and_one_does_not():
+    """The premise of the flash kernel's tensor-core design: splitting each
+    float32 operand into two TF32 parts and keeping three of the four
+    products meets the card's gate (rtol 1e-5, atol 1e-6) against a
+    float64 reference; one TF32 product (about 3 decimal digits) does not,
+    so the gate tells the two apart."""
+    rs = np.random.RandomState(7)
+    q, k, v = (_t(rs.randn(1, 2, 512, 64).astype(np.float32)) for _ in range(3))
+    s = q.double() @ k.double().transpose(-1, -2) / 8.0
+    idx = torch.arange(512)
+    s = torch.where(idx[:, None] >= idx[None, :], s, -torch.inf)
+    ref = (torch.softmax(s, -1) @ v.double()).numpy()
+    np.testing.assert_allclose(_tf32_attention(q, k, v, 3).numpy(), ref,
+                               rtol=1e-5, atol=1e-6)
+    assert not np.allclose(_tf32_attention(q, k, v, 1).numpy(), ref,
+                           rtol=1e-5, atol=1e-6)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    """The emulation's rounding: 10 stored mantissa bits, ties away from
+    zero, and the split with a truncated lo recovers a float32 value to
+    within 2^-21 of it."""
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2), 1.0 + one_ulp / 4,
+                      1.0 + 3 * one_ulp / 4], dtype=torch.float32)
+    assert _tf32_rna(x).tolist() == [1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 1.0 + one_ulp]
+    y = _t(np.random.RandomState(8).randn(1000).astype(np.float32))
+    hi = _tf32_rna(y)
+    err = (hi + _tf32_rz(y - hi) - y).abs() / y.abs()
+    assert float(err.max()) <= 2.0 ** -21
 
 
 def test_flash_attention_on_meta_is_shape_only():
