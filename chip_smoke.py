@@ -56,12 +56,17 @@ Phases, in order (any failure exits non-zero):
     prefill shape and the S >= 1024 shapes beside the bound (the 3xTF32
     tensor-core rate) and ``F.scaled_dot_product_attention`` (a yardstick
     the port never calls);
-13. paged: the paged-attention kernel against ``paged_attention_torch`` at
-    the char LM's decode shape (shuffled tables, positions at 0, block
-    edges and 127, finite garbage of 1e4 in the null and unowned blocks)
-    and at B 64, H 16, D 64, T 16, MB 128 (rtol 1e-5, atol 1e-6); a row's
-    output is bit for bit unchanged when the other rows' q, tables and
-    positions change; times beside the live-bytes bound;
+13. paged: the paged-attention kernel against ``paged_attention_torch``
+    (rtol 1e-5, atol 1e-6) over a sweep of every head dim (8, 16, 32, 64,
+    128) x block size T (1, 4, 8, 16) at 160 columns a row, positions at
+    0, block edges, both sides of every tile width and the last column;
+    at the char LM's decode shape (shuffled tables, positions at 0, block
+    edges and 127); and at B 64, H 16, D 64, T 16, MB 128 with random
+    positions and with every position at 2047; pools hold finite garbage
+    of 1e4 outside the live lines; at every case a row's output is bit for
+    bit unchanged when the other rows' q, tables and positions change;
+    times of the three timed shapes beside the live-bytes bound, kernel,
+    plain and a gather + SDPA yardstick timed in turns;
 14. token: the full-width char LM (seeded init) serves 64 seeded requests
     through a ``PagedDecoder`` (32 slots, block_tokens 8, full pool):
     tokens/s, decode-step, TTFT and inter-token percentiles; every ticket
@@ -1086,54 +1091,97 @@ def paged_case(gen, b, h, d, t, mb, positions, own_only: bool):
     return q, k_pool, v_pool, tables, pos_t
 
 
+# The paged kernel's sweep: every head dim it takes at every block size
+# in PAGED_SWEEP_T, each at MB * T = 160 columns, so that the positions
+# cover block edges and both sides of every tile width (32, 64, 128).
+PAGED_SWEEP_D = (8, 16, 32, 64, 128)
+PAGED_SWEEP_T = (1, 4, 8, 16)
+
+
+def paged_gate(kernels, gen, label, case) -> float:
+    """The paged kernel against paged_attention_torch on one case (rtol
+    1e-5, atol 1e-6), and row independence: the even rows' outputs bit for
+    bit unchanged when the odd rows' q, tables and positions change.
+    Returns the largest absolute error."""
+    q, kp, vp, tables, pos = case
+    b, mb, t = q.shape[0], tables.shape[1], kp.shape[1]
+    ref = kernels.paged_attention_torch(q, kp, vp, tables, pos)
+    o = kernels.paged_attention(q, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    ok, err = attention_within(o, ref, 1e-6)
+    odd = torch.arange(b, device="cuda") % 2 == 1
+    q2 = torch.where(odd[:, None, None], torch.randn(q.shape, generator=gen,
+                                                     device="cuda"), q)
+    tables2 = torch.where(odd[:, None], tables.flip(0), tables)
+    pos2 = torch.where(odd, torch.randint(0, mb * t, (b,), generator=gen,
+                                          device="cuda").to(torch.int32), pos)
+    o2 = kernels.paged_attention(q2, kp, vp, tables2, pos2)
+    torch.cuda.synchronize()
+    same = torch.equal(o[~odd], o2[~odd])
+    print(f"paged {label}: max abs err {err:.3e} (rtol 1e-5, atol 1e-6) "
+          f"{'ok' if ok else 'FAIL'}; even rows bit for bit unchanged when the "
+          f"odd rows change: {same}")
+    check(ok, f"paged {label}")
+    check(same, f"paged {label}: a row's output depends on other rows")
+    return err
+
+
 def phase_paged(card: str) -> dict:
-    """The paged kernel vs paged_attention_torch at the char LM's decode
-    shape and one long-context shape; row independence bit for bit; times
-    beside the live-bytes bound."""
+    """The paged kernel vs paged_attention_torch over a sweep of every head
+    dim and block size (untimed), at the char LM's decode shape and at one
+    long-context shape with random and with equal positions; row
+    independence bit for bit at every case; times of the three timed
+    shapes beside the live-bytes bound, kernel, plain and yardstick timed
+    in turns (kernel, plain, yardstick, yardstick, plain, kernel)."""
     from sparknet_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rs = np.random.RandomState(SEED + 5)
     bw, _, _ = card_peaks(card)
+    max_err = 0.0
+    # the sweep draws from its own generators, so the timed shapes get the
+    # same positions and data as in earlier versions of this phase
+    sweep_gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    sweep_rs = np.random.RandomState(SEED + 6)
+    for d in PAGED_SWEEP_D:
+        for t in PAGED_SWEEP_T:
+            mb = -(-160 // t)
+            edges = [0, t - 1, t, 31, 32, 33, 63, 64, 65, 127, 128, 129, mb * t - 1]
+            positions = edges + list(sweep_rs.randint(0, mb * t, 3))
+            own_only = t in (1, 8)  # else every table entry is an owned block
+            case = paged_case(sweep_gen, len(positions), 2, d, t, mb, positions,
+                              own_only)
+            max_err = max(max_err, paged_gate(
+                kernels, sweep_gen, f"sweep D {d} T {t} MB {mb} B {len(positions)}", case))
+    print(f"paged sweep: {len(PAGED_SWEEP_D) * len(PAGED_SWEEP_T)} cases, every one within the gate and row "
+          f"independent [{card}]")
+
     charlm_pos = [0, 1, 7, 8, 15, 16, 63, 64, 127, 126, 120, 5] + list(
         rs.randint(0, 128, 20))
     cases = [  # (label, B, H, D, T, MB, positions, own_only)
         ("charlm decode", 32, 4, 16, 8, 16, charlm_pos, True),
         ("long context", 64, 16, 64, 16, 128, list(rs.randint(0, 2048, 64)), False),
+        ("long context, equal positions", 64, 16, 64, 16, 128, [2047] * 64, False),
     ]
-    max_err = 0.0
     out = {}
     for label, b, h, d, t, mb, positions, own_only in cases:
-        q, kp, vp, tables, pos = paged_case(gen, b, h, d, t, mb, positions, own_only)
-        ref = kernels.paged_attention_torch(q, kp, vp, tables, pos)
-        o = kernels.paged_attention(q, kp, vp, tables, pos)
-        torch.cuda.synchronize()
-        ok, err = attention_within(o, ref, 1e-6)
-        max_err = max(max_err, err)
-        # row independence: change the odd rows' q, tables and positions
-        odd = torch.arange(b, device="cuda") % 2 == 1
-        q2 = torch.where(odd[:, None, None], torch.randn(q.shape, generator=gen,
-                                                         device="cuda"), q)
-        tables2 = torch.where(odd[:, None], tables.flip(0), tables)
-        pos2 = torch.where(odd, torch.randint(0, mb * t, (b,), generator=gen,
-                                              device="cuda").to(torch.int32), pos)
-        o2 = kernels.paged_attention(q2, kp, vp, tables2, pos2)
-        torch.cuda.synchronize()
-        same = torch.equal(o[~odd], o2[~odd])
+        q, kp, vp, tables, pos = case = paged_case(gen, b, h, d, t, mb, positions,
+                                                   own_only)
+        print(f"paged {label} B {b} H {h} D {d} T {t} MB {mb} (pools "
+              f"{2 * kp.numel() * 4 / 1e9:.3f} GB)")
+        max_err = max(max_err, paged_gate(kernels, gen, label, case))
         live = sum(int(p) + 1 for p in positions)
         nbytes = live * h * d * 4 * 2 + 2 * q.numel() * 4 + tables.numel() * 4 + b * 4
         bound = nbytes / bw * 1e3
-        print(f"paged {label} B {b} H {h} D {d} T {t} MB {mb} (pools "
-              f"{2 * kp.numel() * 4 / 1e9:.3f} GB): max abs err {err:.3e} (rtol "
-              f"1e-5, atol 1e-6) {'ok' if ok else 'FAIL'}; even rows bit for bit "
-              f"unchanged when the odd rows change: {same}")
-        check(ok, f"paged {label}")
-        check(same, f"paged {label}: a row's output depends on other rows")
         timer = graph_ms if label == "charlm decode" else time_ms
         how = "CUDA graph" if timer is graph_ms else "events"
-        t_k = timer(lambda: kernels.paged_attention(q, kp, vp, tables, pos))
-        t_p = timer(lambda: kernels.paged_attention_torch(q, kp, vp, tables, pos))
         idx = tables.long()
+
+        def kernel():
+            return kernels.paged_attention(q, kp, vp, tables, pos)
+
+        def plain():
+            return kernels.paged_attention_torch(q, kp, vp, tables, pos)
 
         def gather_sdpa():
             kg = kp[idx].reshape(b, mb * t, h, d).transpose(1, 2)
@@ -1142,18 +1190,20 @@ def phase_paged(card: str) -> dict:
             mask = (cols[None, :] <= pos.long()[:, None])[:, None, None, :]
             return F.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask)
 
-        t_y = timer(gather_sdpa)
+        k1, p1, y1 = timer(kernel), timer(plain), timer(gather_sdpa)
+        y2, p2, k2 = timer(gather_sdpa), timer(plain), timer(kernel)
+        t_k, t_p, t_y = (k1 + k2) / 2, (p1 + p2) / 2, (y1 + y2) / 2
         if timer is graph_ms:
             print(f"time paged {label} with the host launch (events over 10 "
-                  f"back-to-back calls): kernel "
-                  f"{time_ms(lambda: kernels.paged_attention(q, kp, vp, tables, pos)):.4f} ms")
-        print(f"time paged {label} ({how}): kernel {t_k:.4f} ms ({100 * bound / t_k:.1f}% of "
-              f"bound), plain {t_p:.4f} ms, bound {bound:.4f} ms (bytes: "
-              f"{nbytes / 1e6:.3f} MB live); yardstick only, not the same work: "
-              f"gather + F.scaled_dot_product_attention {t_y:.4f} ms [{card}]")
+                  f"back-to-back calls): kernel {time_ms(kernel):.4f} ms")
+        print(f"time paged {label} ({how}, in turns): kernel {k1:.4f} / {k2:.4f} ms, "
+              f"mean {t_k:.4f} ({100 * bound / t_k:.1f}% of bound), plain {p1:.4f} / "
+              f"{p2:.4f} ms, bound {bound:.4f} ms (bytes: {nbytes / 1e6:.3f} MB "
+              f"live); yardstick only, not the same work: gather + "
+              f"F.scaled_dot_product_attention {y1:.4f} / {y2:.4f} ms [{card}]")
         out[label] = dict(ms=t_k, plain_ms=t_p, bound_ms=bound, bound_by="bytes",
                           library_ms=None)
-        del q, kp, vp, tables, pos, ref, o, o2, q2, tables2
+        del q, kp, vp, tables, pos, case, idx
         gc.collect()
         torch.cuda.empty_cache()
     return dict(max_abs_err=max_err, **out["charlm decode"], long=out["long context"])

@@ -682,6 +682,9 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, positions) -> torch.Tensor:
                              "pools and int32 tables and positions, on one device")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("paged_attention: the pools must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_attention: the kernel copies 16-byte chunks "
+                         "of the pools, which must be 16-byte aligned")
     if d not in ATTENTION_HEAD_DIMS:
         raise ValueError(f"paged_attention: head dim {d} not in "
                          f"{ATTENTION_HEAD_DIMS}")
@@ -706,10 +709,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     on its own q, table and position.
 
     CUDA tensors: launches the kernel of ``csrc/paged_attention.cu``
-    (float32 q and contiguous pools, int32 tables and positions, head dim
-    in ``ATTENTION_HEAD_DIMS``, positions in [0, MB * T) and table entries
-    in [0, NB); the kernel reads no column past a row's position).  CPU
-    tensors: ``paged_attention_torch``.  Forward only."""
+    (float32 q and contiguous, 16-byte aligned pools, int32 tables and
+    positions, head dim in ``ATTENTION_HEAD_DIMS``, positions in
+    [0, MB * T) and table entries in [0, NB); the kernel reads no column
+    past a row's position).  CPU tensors: ``paged_attention_torch``.
+    Forward only."""
     if q.device.type == "cpu":
         return paged_attention_torch(q, k_pool, v_pool, tables, positions)
     if q.device.type != "cuda":

@@ -194,15 +194,19 @@ def test_flash_attention_plain_matches_jax_kernel_and_xla(shape, causal):
     np.testing.assert_allclose(got, np.asarray(jpk.attention_xla(q, k, v, causal)), **TOL)
 
 
-def _paged_inputs(seed, b=4, h=2, d=16, t=4, mb=5):
+def _paged_inputs(seed, b=4, h=2, d=16, t=4, mb=5, positions=None):
     """Pools full of finite garbage (1e4) except each row's live lines;
     rows own ceil((pos + 1) / T) blocks, the rest of a table is the null
-    block 0."""
+    block 0.  ``positions`` (one a row) defaults to 0, T - 1, T and
+    MB * T - 1."""
     rs = np.random.RandomState(seed)
+    if positions is not None:
+        b = len(positions)
     nb = 1 + b * mb
     k_pool = ((rs.rand(nb, t, h, d) * 2 - 1) * 1e4).astype(np.float32)
     v_pool = ((rs.rand(nb, t, h, d) * 2 - 1) * 1e4).astype(np.float32)
-    positions = np.array([0, t - 1, t, mb * t - 1][:b], np.int32)
+    positions = np.array([0, t - 1, t, mb * t - 1][:b] if positions is None
+                         else positions, np.int32)
     tables = np.zeros((b, mb), np.int32)
     perm = rs.permutation(np.arange(1, nb)).astype(np.int32)
     for row in range(b):
@@ -235,6 +239,108 @@ def test_paged_attention_rows_are_independent():
     tables2[1:] = tables2[1:].flip(0)
     pos2[1:] = torch.tensor([2, 9, 0], dtype=torch.int32)
     assert torch.equal(kernels.paged_attention_torch(q2, kp, vp, tables2, pos2)[0], base[0])
+
+
+def _paged_tiled(q, k_pool, v_pool, tables, positions):
+    """Paged attention in the CUDA kernel's order of sums
+    (``csrc/paged_attention.cu``), in float32: columns in tiles of KT =
+    4 * CW, each of the 4 warps scoring its own CW columns of every tile
+    (CW = 32 / max(1, D / 32)) with its own online softmax (a running max
+    from -1e30, p = 0 past the position, the carry rescaled by exp(m -
+    m')), and the warps' carries merged once at the end, in warp order."""
+    b, h, d = q.shape
+    t, mb = k_pool.shape[1], tables.shape[1]
+    cw = 32 // max(1, d // 32)
+    kt = 4 * cw
+    ntiles = -(-mb * t // kt)
+    idx = tables.long()
+    k = k_pool[idx].reshape(b, mb * t, h, d).transpose(1, 2)
+    v = v_pool[idx].reshape(b, mb * t, h, d).transpose(1, 2)
+    pad = ntiles * kt - mb * t
+    k = torch.nn.functional.pad(k, (0, 0, 0, pad)).reshape(b, h, ntiles, 4, cw, d)
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(b, h, ntiles, 4, cw, d)
+    cols = torch.arange(ntiles * kt).reshape(ntiles, 4, cw)
+    m = torch.full((b, h, 4), -1e30)
+    l = torch.zeros((b, h, 4))
+    acc = torch.zeros((b, h, 4, d))
+    for x in range(ntiles):
+        live = cols[x][None, None] <= positions.long()[:, None, None, None]
+        s = torch.einsum("bhd,bhwjd->bhwj", q, k[:, :, x]) * (1.0 / np.sqrt(d))
+        s = torch.where(live, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(live, torch.exp(s - m_new[..., None]), torch.tensor(0.0))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhwj,bhwjd->bhwd", p, v[:, :, x])
+        m = m_new
+    f = torch.exp(m - m.amax(-1, keepdim=True))
+    num, den = torch.zeros((b, h, d)), torch.zeros((b, h))
+    for w in range(4):
+        num = num + acc[:, :, w] * f[..., w, None]
+        den = den + l[:, :, w] * f[..., w]
+    return num / den[..., None]
+
+
+@pytest.mark.parametrize("d", [8, 128])
+@pytest.mark.parametrize("t", [1, 4])
+def test_paged_kernel_order_of_sums_matches_jax_and_float64(d, t):
+    """The CUDA kernel's tiling and per-warp online softmax, emulated, at
+    positions on block edges, on both sides of a warp's share and of a
+    tile (KT = 128 at D = 8, 32 at D = 128) and at 0 (three warp shares
+    with no live column): within TOL of the XLA version and the Pallas
+    kernel in interpret mode, and within rtol 1e-5 / atol 1e-6 of float64."""
+    mb = 160 // t
+    cw = 32 // max(1, d // 32)
+    kt = 4 * cw
+    positions = [0, t - 1, t, cw - 1, cw, kt - 1, kt, kt + 1, mb * t - 1]
+    args = _paged_inputs(10 + d + t, h=2, d=d, t=t, mb=mb, positions=positions)
+    got = _paged_tiled(*map(_t, args)).numpy()
+    assert np.isfinite(got).all()
+    interp = jpk.paged_attention(*args, force="interpret")
+    np.testing.assert_allclose(got, np.asarray(interp), **TOL)
+    np.testing.assert_allclose(got, np.asarray(jpk.paged_attention_xla(*args)), **TOL)
+    q, kp, vp, tables, pos = (torch.from_numpy(a).double() if a.dtype == np.float32
+                              else torch.from_numpy(a) for a in args)
+    kg = kp[tables.long()].reshape(len(pos), mb * t, 2, d)
+    vg = vp[tables.long()].reshape(len(pos), mb * t, 2, d)
+    s = torch.einsum("bhd,bshd->bhs", q, kg) / np.sqrt(d)
+    s = torch.where(torch.arange(mb * t)[None, None] <= pos.long()[:, None, None], s,
+                    -torch.inf)
+    ref = torch.einsum("bhs,bshd->bhd", torch.softmax(s, -1), vg).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def _misaligned(a):
+    """A contiguous copy of ``a`` one float past the start of a fresh
+    (16-byte aligned) buffer."""
+    out = torch.zeros(a.numel() + 1)[1:].view(a.shape)
+    out.copy_(a)
+    return out
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("misaligned pool", "16-byte aligned"),
+    ("head dim 12", "head dim 12"),
+    ("int64 tables", "int32 tables"),
+    ("strided pool", "contiguous"),
+])
+def test_paged_kernel_wrapper_refuses_what_the_kernel_cannot_take(fault, match):
+    """The CUDA route's checks run before anything is built or launched:
+    the kernel copies the pools in 16-byte chunks, takes the head dims of
+    ATTENTION_HEAD_DIMS, int32 tables and contiguous pools."""
+    q, kp, vp, tables, pos = map(_t, _paged_inputs(3))
+    if fault == "misaligned pool":
+        kp = _misaligned(kp)
+        assert kp.is_contiguous() and kp.data_ptr() % 16
+    elif fault == "head dim 12":
+        q, kp, vp = q[..., :12].contiguous(), kp[..., :12].contiguous(), vp[..., :12].contiguous()
+    elif fault == "int64 tables":
+        tables = tables.long()
+    else:  # the same shape, laid out [T, NB, H, D]
+        kp = kp.transpose(0, 1).contiguous().transpose(0, 1)
+        assert not kp.is_contiguous()
+    with pytest.raises(ValueError, match=match):
+        kernels._paged_attention_cuda(q, kp, vp, tables, pos)
 
 
 def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
