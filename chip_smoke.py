@@ -80,7 +80,36 @@ Phases, in order (any failure exits non-zero):
     ``rope_at`` equals ``rope``'s rows bit for bit; and a prompt prefilled
     in bucket 2 and in bucket 32 is compared bit for bit;
 15. token profile: one prefill + decode step and one decode step under
-    ``torch.profiler``.
+    ``torch.profiler``;
+16. parallel (run after 11): SparkNet's rounds (``parallel.ParallelTrainer``)
+    with the zoo AlexNet, ``alexnet_solver``, fused update, f32, batch 256
+    a worker, seeded batches one per (rank, iteration).  A world of one
+    (NCCL, formed by the trainer, cuda:0), dropout 0 and deterministic
+    cuDNN: tau 1 for 3 rounds and tau 5 for 2 rounds bit for bit equal
+    (params and history) to 3 and 10 ``Solver.step``s of a second Solver
+    from the same weights and batches; EASGD alpha 0.9, one round of tau
+    2, worker and center equal to the formula on 2 Solver steps (rtol
+    1e-6); after the tau-1 check, 3 more rounds and 3 lone Solver steps
+    alternate, twice, timed (what a sync round adds).  Then dropout 0.5, tau 5, 3 timed rounds after a warm-up: ms a
+    round, img/s, the average's all-reduce by CUDA events over the
+    arena's bytes, exactly 10 LRN forward, 10 LRN backward and 5
+    fused-update launches a round, finite losses.  A world of two (gloo,
+    both ranks on cuda:0, spawned, FileStore), dropout 0, deterministic
+    cuDNN, tau 1 (2 rounds), tau 2 (2 rounds), EASGD alpha 0.45 (1 round of
+    tau 2): both ranks' params (the center under EASGD) bit for bit equal
+    after every round, exact launch counts on each rank, and the final
+    arenas against an in-process oracle of the same rounds (two Solvers:
+    the mean of the gradients, of the arenas, or the EASGD formula; rtol
+    1e-5, atol 1e-7); ms a round and the gloo all-reduce's ms.  A failing
+    rank fails the phase.  Head dims between the attention kernels'
+    widths: flash at [2,4,100,12] causal and [2,4,64,48] (zero-padded in
+    the wrapper) and paged at D 12, 24 and 100 on pools allocated at
+    ``kernel_head_dim`` lanes (T 8, 160 columns a row), each against its
+    plain version at the true width (rtol 1e-5, atol 1e-6), every call a
+    counted launch; a ``PagedDecoder`` of embed_dim 48 over 4 heads (D 12)
+    serves 8 seeded requests with 2 flash launches a prefill and 2 paged a
+    decode step, its tokens equal to the ``ContinuousDecoder``'s up to a
+    position of top-2 margin <= 1e-4.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -897,16 +926,24 @@ def phase_train(card: str) -> dict:
     return out
 
 
+def alexnet_net(dropout: float):
+    """The zoo AlexNet at batch 256 with every Dropout at ``dropout``."""
+    from sparknet_tpu_torch import models
+
+    net = models.alexnet(256)
+    for lp in net.get_all("layer"):
+        if lp.get_str("type") == "Dropout":
+            lp.get_msg("dropout_param").set("dropout_ratio", dropout)
+    return net
+
+
 def phase_fused_vs_blob(card: str) -> None:
     """Fused against per-blob on the card: 3 AlexNet b256 steps each from
     the same weights and batch, dropout ratio 0, deterministic cuDNN."""
     from sparknet_tpu_torch import models
     from sparknet_tpu_torch.common import set_config
 
-    net = models.alexnet(256)
-    for lp in net.get_all("layer"):
-        if lp.get_str("type") == "Dropout":
-            lp.get_msg("dropout_param").set("dropout_ratio", 0.0)
+    net = alexnet_net(0.0)
     feeds = fixed_batch(256)
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -1449,9 +1486,473 @@ def phase_token_profile(card: str, token: dict) -> None:
                           f"x{calls}, rank {i + 1} of {len(rows)}")
 
 
+# ---------------------------------------------------------------------------
+# Distributed training slice: SparkNet's rounds on torch.distributed
+# ---------------------------------------------------------------------------
+
+PAR_TAU = 5  # the timed rounds of the world of one
+PAR_TIMED_ROUNDS = 3
+# the world of two on one card (gloo): (mode, tau, rounds, elastic_alpha)
+PAR2_MODES = (("tau1", 1, 2, 0.0), ("tau2", 2, 2, 0.0), ("easgd", 2, 1, 0.45))
+PAR2_TOL = dict(rtol=1e-5, atol=1e-7)  # the fused-vs-per-blob gate
+
+
+def parallel_batch(rank: int, it: int) -> dict:
+    """Worker ``rank``'s seeded AlexNet batch of iteration ``it``: 256
+    images of 227x227 at raw-pixel scale, drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1000 * (rank + 1) + it)
+    return {
+        "data": torch.randn((256, 3, 227, 227), generator=gen, device="cuda") * 50,
+        "label": torch.randint(0, 1000, (256,), generator=gen, device="cuda",
+                               dtype=torch.int32),
+    }
+
+
+def parallel_feeds(rank: int, tau: int):
+    """The trainer's ``data_fn`` for worker ``rank``: [256, ...] feeds at
+    ``tau`` 0 (a Solver's and a sync round's), [tau, 256, ...] otherwise."""
+    def data_fn(it):
+        if not tau:
+            return parallel_batch(rank, it)
+        batches = [parallel_batch(rank, it + i) for i in range(tau)]
+        return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+    return data_fn
+
+
+def arena_diff(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, bool, float]:
+    """(within PAR2_TOL, bit for bit, max abs diff) of two arenas."""
+    return (torch.allclose(got, want, **PAR2_TOL), torch.equal(got, want),
+            float((got - want).abs().max()))
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event ms of single calls of ``fn`` (each synchronised)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def sync_round_cost(card: str, tr, ref, start: int) -> None:
+    """What a tau-1 round adds to a step: the grad all-reduce, the loss's
+    all-reduce and its read on the host.  Rounds of ``tr`` and steps of
+    ``ref`` (a lone Solver) alternate on the same pre-drawn batches, timed
+    by the host clock over synchronised runs of 3."""
+    feeds = {it: parallel_batch(0, it) for it in range(start, start + 6)}
+    ms = {"round": [], "step": []}
+    for k in range(2):
+        for label, run in (("round", lambda: tr.train_round(feeds.__getitem__)),
+                           ("step", lambda: ref.step(1, feeds.__getitem__))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            ms[label].append(1e3 * (time.perf_counter() - t0) / 3)
+    print(f"parallel: world of one (NCCL), tau 1: ms a round {[round(x, 3) for x in ms['round']]} "
+          f"against a lone Solver.step {[round(x, 3) for x in ms['step']]} (dropout 0, "
+          f"deterministic cuDNN, means of 3, alternating) [{card}]")
+
+
+def parallel_world_one(card: str) -> dict:
+    """A world of one on cuda:0 (NCCL, formed by the trainer itself): the
+    rounds bit for bit against a second Solver's steps at dropout 0 with
+    deterministic cuDNN, then timed tau-5 rounds at dropout 0.5."""
+    import torch.distributed as dist
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.parallel import ParallelTrainer
+
+    net0 = alexnet_net(0.0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tau, rounds, alpha in ((1, 3, 0.0), (5, 2, 0.0), (2, 1, 0.9)):
+            solver = train_solver(net0, models.alexnet_solver())
+            ref = train_solver(net0, models.alexnet_solver())
+            tr = ParallelTrainer(solver, tau=tau, elastic_alpha=alpha)
+            check(dist.get_backend() == "nccl" and tr.num_workers == 1,
+                  f"world of one: backend {dist.get_backend()}, {tr.num_workers} workers")
+            c0 = solver._param_arena.clone() if alpha else None
+            losses = [tr.train_round(parallel_feeds(0, tau if tau > 1 or alpha else 0))
+                      for _ in range(rounds)]
+            ref.step(tau * rounds, parallel_feeds(0, 0))
+            check(all(np.isfinite(losses)), f"world of one losses {losses}")
+            if alpha:
+                with torch.no_grad():
+                    d = ref._param_arena - c0
+                    want_x, want_c = ref._param_arena - alpha * d, c0 + alpha * d
+                ok = (torch.allclose(solver._param_arena, want_x, rtol=1e-6, atol=0)
+                      and torch.allclose(tr._center[0], want_c, rtol=1e-6, atol=0))
+                print(f"parallel: world of one (NCCL), EASGD alpha {alpha}, 1 round of "
+                      f"tau {tau}: worker and center against the formula on {tau} "
+                      f"Solver.steps (rtol 1e-6): {'ok' if ok else 'FAIL'}; max abs diff "
+                      f"{float((solver._param_arena - want_x).abs().max()):.3e} / "
+                      f"{float((tr._center[0] - want_c).abs().max()):.3e}")
+                check(ok, "world of one: EASGD against the formula")
+            else:
+                same = torch.equal(solver._param_arena, ref._param_arena) and all(
+                    torch.equal(a, b) for a, b in zip(solver._slot_arenas, ref._slot_arenas))
+                print(f"parallel: world of one (NCCL), tau {tau}, {rounds} rounds against "
+                      f"{tau * rounds} Solver.steps from the same weights and batches: "
+                      f"params and history {'bit for bit equal' if same else 'DIFFER'}; "
+                      f"losses {[round(x, 6) for x in losses]}")
+                check(same, f"world of one: tau {tau} rounds != Solver.steps")
+            if tau == 1:
+                sync_round_cost(card, tr, ref, rounds)
+            tr.close()
+            del solver, ref, tr, c0
+            gc.collect()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+    # the real recipe: dropout 0.5, tau 5, timed after a warm-up round
+    solver = train_solver(alexnet_net(0.5), models.alexnet_solver())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    tr = ParallelTrainer(solver, tau=PAR_TAU)
+    held = torch.cuda.memory_allocated() - held  # the trainer's own device memory
+    data_fn = parallel_feeds(0, PAR_TAU)
+    tr.train_round(data_fn)
+    feeds = {it: data_fn(it) for it in range(tr.iter, tr.iter + PAR_TAU * PAR_TIMED_ROUNDS,
+                                             PAR_TAU)}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [tr.train_round(feeds.__getitem__) for _ in range(PAR_TIMED_ROUNDS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = (kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES,
+              kernels.FUSED_UPDATE_LAUNCHES)
+    want = (2 * PAR_TAU * PAR_TIMED_ROUNDS,) * 2 + (PAR_TAU * PAR_TIMED_ROUNDS,)
+    check(counts == want, f"world of one launches (lrn fwd, lrn bwd, fused) {counts}, "
+                          f"want {want}")
+    check(all(np.isfinite(losses)), f"world of one losses {losses}")
+    buf = solver._param_arena.clone()
+    ar_ms = event_ms(lambda: tr._mean_([buf]))
+    nbytes = solver.layout.total_bytes
+    ms_round = 1e3 * dt / PAR_TIMED_ROUNDS
+    print(f"parallel: world of one (NCCL, cuda:0), AlexNet b256 a worker, dropout 0.5, "
+          f"fused update, tau {PAR_TAU}: {PAR_TIMED_ROUNDS} rounds after a warm-up, "
+          f"{ms_round:.2f} ms a round ({ms_round / PAR_TAU:.2f} ms a step), "
+          f"{256 * PAR_TAU * PAR_TIMED_ROUNDS / dt:.1f} img/s; losses "
+          f"{[round(x, 4) for x in losses]}; launches a round: LRN forward "
+          f"{counts[0] // PAR_TIMED_ROUNDS}, LRN backward {counts[1] // PAR_TIMED_ROUNDS}, "
+          f"fused update {counts[2] // PAR_TIMED_ROUNDS}; the average's all-reduce "
+          f"(NCCL, one rank) {ar_ms:.4f} ms over the {nbytes / 1e6:.1f} MB arena "
+          f"(CUDA events, median of 5), {100 * ar_ms / ms_round:.2f}% of a round; the "
+          f"trainer's own device memory {held} bytes (it steps the Solver's arenas) [{card}]")
+    tr.close()
+    del tr, solver, buf, feeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ms_round=ms_round, allreduce_ms=ar_ms)
+
+
+def parallel_worker(rank: int, work: str) -> None:
+    """One worker of the world of two: gloo, both ranks on cuda:0, joined
+    through a FileStore in ``work``.  Runs every mode of PAR2_MODES from
+    the same seeded weights on its own batches, checks after every round
+    that both ranks hold the same params (the center under EASGD) bit for
+    bit, and writes its arenas, times and launch counts into ``work``.
+    Spawned by ``phase_parallel`` (start method spawn), so it is a
+    module-level function."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.parallel import (
+        ParallelTrainer,
+        data_parallel_group,
+        initialize_distributed,
+    )
+
+    torch.cuda.set_device(0)
+    set_config(fused_update=True, storage_dtype="f32")
+    torch.backends.cudnn.deterministic = True
+    initialize_distributed(backend="gloo", store_path=f"{work}/store", rank=rank,
+                           world_size=2)
+    try:
+        net0 = alexnet_net(0.0)
+        result = {}
+        for mode, tau, rounds, alpha in PAR2_MODES:
+            solver = train_solver(net0, models.alexnet_solver())
+            tr = ParallelTrainer(solver, group=data_parallel_group(2), tau=tau,
+                                 elastic_alpha=alpha)
+            data_fn = parallel_feeds(rank, tau if tau > 1 or alpha else 0)
+            kernels.reset_launch_counts()
+            ms, losses, digests = [], [], []
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(tr.train_round(data_fn))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                shared = tr._center[0] if alpha else solver._param_arena
+                digests.append(hashlib.sha256(shared.cpu().numpy().tobytes()).hexdigest())
+            counts = [kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES,
+                      kernels.FUSED_UPDATE_LAUNCHES]
+            both = [None, None]
+            dist.all_gather_object(both, digests)
+            check(both[0] == both[1], f"world of two, {mode}: the ranks differ after "
+                                      f"a round")
+            buf = solver._param_arena.clone()
+            ar_ms = event_ms(lambda: tr._mean_([buf]), reps=3)
+            if rank == 0 or alpha:
+                torch.save({"arena": solver._param_arena.cpu(),
+                            "center": tr._center[0].cpu() if alpha else None},
+                           f"{work}/{mode}.rank{rank}.pt")
+            result[mode] = dict(ms=ms, losses=losses, counts=counts, allreduce_ms=ar_ms,
+                                nbytes=solver.layout.total_bytes)
+            del tr, solver, buf
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(f"{work}/rank{rank}.json", "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def arena_grad(solver, feeds: dict) -> torch.Tensor:
+    """The grad arena of ``solver``'s train loss on ``feeds`` at its
+    current weights (dropout 0: no generator draws)."""
+    from sparknet_tpu_torch.common import f32_precision
+    from sparknet_tpu_torch.compiler.graph import NetVars
+    from sparknet_tpu_torch.solvers.arena import unpack
+
+    with f32_precision():
+        leaf = solver._param_arena.detach().requires_grad_(True)
+        _, _, loss = solver.train_net.apply(
+            NetVars(unpack(solver.layout, leaf), solver._state), feeds,
+            gen=torch.Generator(device="cuda"))
+        (g,) = torch.autograd.grad(loss, leaf)
+    return g
+
+
+def parallel_oracle(tau: int, rounds: int, alpha: float):
+    """SparkNet's rounds for two workers in this process, from the weights
+    and batches the world of two used: the mean of the two workers'
+    gradients applied to one replica (tau 1), or two Solvers stepping
+    tau times each and then the mean of their arenas, or the EASGD
+    formula.  Returns (worker 0's arena, worker 1's, the center)."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.solvers.solver import build_fused_step
+
+    net0 = alexnet_net(0.0)
+    a = train_solver(net0, models.alexnet_solver())
+    if tau == 1 and not alpha:
+        for it in range(rounds):
+            g1 = arena_grad(a, parallel_batch(1, it))
+            step = build_fused_step(a.config, a.train_net, a.layout, a._tables,
+                                    reduce_grads=lambda g: g.add_(g1).div_(2))
+            a._state, _ = step(a._param_arena, a._slot_arenas, a._state, it,
+                               parallel_batch(0, it), torch.Generator(device="cuda"))
+        return a._param_arena, None, None
+    b = train_solver(net0, models.alexnet_solver())
+    c = a._param_arena.clone()
+    for _ in range(rounds):
+        a.step(tau, parallel_feeds(0, 0))
+        b.step(tau, parallel_feeds(1, 0))
+        with torch.no_grad():
+            if alpha:
+                da, db = a._param_arena - c, b._param_arena - c
+                a._param_arena.sub_(alpha * da)
+                b._param_arena.sub_(alpha * db)
+                c.add_(alpha * (da + db))
+            else:
+                mean = (a._param_arena + b._param_arena) / 2
+                a._param_arena.copy_(mean)
+                b._param_arena.copy_(mean)
+    return a._param_arena, b._param_arena, c
+
+
+def parallel_world_two(card: str) -> dict:
+    """The world of two on one card: two spawned gloo ranks on cuda:0, then
+    the in-process oracle of their rounds."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="sparknet_parallel_") as work:
+        t0 = time.perf_counter()
+        mp.start_processes(parallel_worker, args=(work,), nprocs=2, join=True,
+                           start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(f"{work}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+        counts = [0, 0, 0]
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for mode, tau, rounds, alpha in PAR2_MODES:
+                steps = tau * rounds
+                want = [2 * steps, 2 * steps, steps]
+                for r, res in enumerate(ranks):
+                    got = res[mode]["counts"]
+                    check(got == want, f"world of two, {mode}, rank {r}: launches "
+                                       f"(lrn fwd, lrn bwd, fused) {got}, want {want}")
+                    counts = [c + g for c, g in zip(counts, got)]
+                    check(all(np.isfinite(res[mode]["losses"])),
+                          f"world of two, {mode}, rank {r}: losses {res[mode]['losses']}")
+                want_a, want_b, want_c = parallel_oracle(tau, rounds, alpha)
+                saved = torch.load(f"{work}/{mode}.rank0.pt")
+                gates = [("worker 0", saved["arena"], want_a)]
+                if alpha:
+                    saved1 = torch.load(f"{work}/{mode}.rank1.pt")
+                    gates += [("worker 1", saved1["arena"], want_b),
+                              ("center", saved["center"], want_c)]
+                report = []
+                for label, got, want_t in gates:
+                    ok, same, diff = arena_diff(got.cuda(), want_t)
+                    report.append(f"{label} {'bit for bit' if same else f'max abs diff {diff:.3e}'}")
+                    check(ok, f"world of two, {mode}: {label} against the oracle, max abs "
+                              f"diff {diff:.3e}")
+                del want_a, want_b, want_c, saved
+                gc.collect()
+                torch.cuda.empty_cache()
+                r0 = ranks[0][mode]
+                print(f"parallel: world of two (gloo, both ranks on cuda:0), {mode} (tau "
+                      f"{tau}, alpha {alpha}), {rounds} rounds: ranks bit for bit equal "
+                      f"after every round; against the in-process oracle (rtol 1e-5, atol "
+                      f"1e-7): {', '.join(report)}; ms a round (host clock, both ranks "
+                      f"sharing the card) rank 0 {[round(x, 1) for x in r0['ms']]}, rank 1 "
+                      f"{[round(x, 1) for x in ranks[1][mode]['ms']]}; the gloo all-reduce "
+                      f"of the {r0['nbytes'] / 1e6:.1f} MB arena {r0['allreduce_ms']:.1f} / "
+                      f"{ranks[1][mode]['allreduce_ms']:.1f} ms (CUDA events, median of 3); "
+                      f"losses {[round(x, 4) for x in r0['losses']]}; launches a rank "
+                      f"{r0['counts']} [{card}]")
+        finally:
+            torch.backends.cudnn.deterministic = prev
+    print(f"parallel: world of two spawned, ran and joined in {spawn_s:.1f} s")
+    return dict(counts=counts)
+
+
+def parallel_head_dims(card: str) -> dict:
+    """Head dims between the attention kernels' widths, on the kernels:
+    flash zero-padded inside its wrapper, paged on pools allocated at
+    ``kernel_head_dim`` lanes, each against its plain version at the true
+    width; then a PagedDecoder of head dim 12 against the rectangle
+    decoder, with exact launch counts."""
+    import math
+
+    from sparknet_tpu_torch.common import f32_precision
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve.continuous import ContinuousDecoder
+    from sparknet_tpu_torch.serve.paged import PagedDecoder
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    max_err = 0.0
+    kernels.reset_launch_counts()
+    with f32_precision():
+        for shape, causal in (((2, 4, 100, 12), True), ((2, 4, 64, 48), False)):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+            ref = kernels.flash_attention_torch(q, k, v, causal)
+            o = kernels.flash_attention(q, k, v, causal)
+            torch.cuda.synchronize()
+            ok, err = attention_within(o, ref, 1e-6)
+            max_err = max(max_err, err)
+            print(f"parallel: flash {list(shape)} causal {int(causal)} on the kernel at "
+                  f"head dim {kernels.kernel_head_dim(shape[-1])}: max abs err {err:.3e} "
+                  f"(rtol 1e-5, atol 1e-6) {'ok' if ok else 'FAIL'}")
+            check(ok, f"flash head dim {shape[-1]}")
+        for d in (12, 24, 100):
+            t, mb = 8, 20
+            positions = [0, t - 1, t, 31, 32, 33, 63, 64, 65, 127, 128, 129, mb * t - 1]
+            q, kp, vp, tables, pos = paged_case(gen, len(positions), 2, d, t, mb,
+                                                positions, own_only=True)
+            w = kernels.kernel_head_dim(d)
+            pad = lambda x: F.pad(x, (0, w - d)).contiguous()  # noqa: E731
+            ref = kernels.paged_attention_torch(q, kp, vp, tables, pos)
+            o = kernels.paged_attention(pad(q), pad(kp), pad(vp), tables, pos,
+                                        scale=1.0 / math.sqrt(d))
+            torch.cuda.synchronize()
+            ok, err = attention_within(o[..., :d], ref, 1e-6)
+            ok = ok and not o[..., d:].any()
+            max_err = max(max_err, err)
+            print(f"parallel: paged D {d} on pools of {w} lanes, T {t}, MB {mb}: max abs "
+                  f"err {err:.3e} (rtol 1e-5, atol 1e-6), padded lanes 0: "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"paged head dim {d}")
+    check((kernels.FLASH_LAUNCHES, kernels.PAGED_LAUNCHES) == (2, 3),
+          f"head-dim cases launched flash {kernels.FLASH_LAUNCHES}, paged "
+          f"{kernels.PAGED_LAUNCHES} times, want 2 and 3")
+
+    geo = dict(CHARLM, embed_dim=48)  # 4 heads of 12
+    reqs = request_mix(8, SEED + 12)
+    dec = PagedDecoder(**geo, block_tokens=BLOCK_TOKENS, seed=SEED)
+    check(dec._k_pool.shape[-1] == 16, f"pools of {dec._k_pool.shape[-1]} lanes")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tickets = [dec.submit(p, m) for p, m in reqs]
+    dec.run()
+    st = dec.stats()
+    flash_n, paged_n = kernels.FLASH_LAUNCHES, kernels.PAGED_LAUNCHES
+    check(flash_n == 2 * st["prefills"] and paged_n == 2 * st["steps"],
+          f"head dim 12: launches flash {flash_n} paged {paged_n} for "
+          f"{st['prefills']} prefills, {st['steps']} steps")
+    check(not dec._k_pool[..., 12:].any(), "head dim 12: a padded pool lane is not 0")
+    rect = ContinuousDecoder(**geo, variables=dec.variables)
+    kernels.reset_launch_counts()
+    rt = [rect.submit(p, m) for p, m in reqs]
+    rect.run()
+    rect_flash = kernels.FLASH_LAUNCHES
+    check(rect_flash == 2 * rect.steps, f"head dim 12 rectangle: {rect_flash} flash "
+                                        f"launches in {rect.steps} steps")
+    fulls = window_logits(rect, [p + t.result for (p, _), t in zip(reqs, tickets)])
+    equal = 0
+    for (p, _), t, r, full in zip(reqs, tickets, rt, fulls):
+        mismatch = [j for j, (a, b) in enumerate(zip(t.result, r.result)) if a != b]
+        if mismatch:
+            mg = float(top2_margin(full[len(p) - 1 + mismatch[0]]))
+            check(mg <= MARGIN, f"head dim 12: rectangle != paged at token "
+                                f"{mismatch[0]} with margin {mg:.3e}")
+        else:
+            equal += 1
+    print(f"parallel: PagedDecoder with embed_dim 48 over 4 heads (head dim 12, pools "
+          f"at 16 lanes): {len(reqs)} requests, {st['prefills']} prefills, {st['steps']} "
+          f"decode steps; launches flash {flash_n} (2 a prefill), paged {paged_n} (2 a "
+          f"step); {equal} of {len(reqs)} generations equal to the rectangle "
+          f"decoder's ({rect_flash} flash launches), the rest part at a top-2 margin "
+          f"<= {MARGIN:g} [{card}]")
+    return dict(flash=flash_n + rect_flash, paged=paged_n, max_abs_err=max_err)
+
+
+def phase_parallel(card: str) -> dict:
+    """The distributed slice: SparkNet's rounds with AlexNet b256 a worker,
+    in a world of one (NCCL) and a world of two (gloo) on the card, then
+    the head dims between the attention kernels' widths."""
+    from sparknet_tpu_torch.common import set_config
+
+    t0 = time.perf_counter()
+    set_config(fused_update=True, storage_dtype="f32")
+    try:
+        one = parallel_world_one(card)
+        two = parallel_world_two(card)
+    finally:
+        set_config(fused_update=False)
+    heads = parallel_head_dims(card)
+    print(f"parallel: phase done in {time.perf_counter() - t0:.1f} s")
+    counts = [a + b for a, b in zip(one["counts"], two["counts"])]
+    return dict(lrn=counts[0], lrn_backward=counts[1], fused_update=counts[2],
+                flash=heads["flash"], paged=heads["paged"])
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
-          "fused_update", "train_profile", "fused_vs_blob", "flash", "paged",
-          "token", "token_profile")
+          "fused_update", "train_profile", "fused_vs_blob", "parallel", "flash",
+          "paged", "token", "token_profile")
 
 
 def main(argv=None) -> int:
@@ -1501,6 +2002,13 @@ def main(argv=None) -> int:
         gc.collect()
     if "fused_vs_blob" in phases:
         phase_fused_vs_blob(card)
+    if "parallel" in phases:
+        par = phase_parallel(card)
+        launches["lrn_across_channels"] += par["lrn"]
+        launches["lrn_backward"] += par["lrn_backward"]
+        launches["fused_update"] += par["fused_update"]
+        launches["flash_attention"] += par["flash"]
+        launches["paged_attention"] += par["paged"]
     if "flash" in phases:
         stats["flash"] = phase_flash(card)
     if "paged" in phases:

@@ -16,8 +16,10 @@ ROADMAP Queue A10.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+import torch.nn.functional as F
 
 from sparknet_tpu_torch.common import f32_precision
 from sparknet_tpu_torch.layers_dsl import (
@@ -474,14 +476,17 @@ def build_decode_step(network, end: str = "fc"):
     IN PLACE at ``(tables[b, pos // T], pos % T)`` before it attends
     through ``paged_attention``, as the JAX step does; per-token work is
     O(position), and every row's output is a function of its own token,
-    position and table alone (interleaved == alone)."""
+    position and table alone (interleaved == alone).  Pools wider than the
+    head (``kernel_head_dim``) take K/V in their first ``head_dim`` lanes
+    and stay zero beyond; q is zero-padded alike and the scale is the
+    head's own."""
     from sparknet_tpu_torch.ops.attention import rope_at
     from sparknet_tpu_torch.ops.kernels import paged_attention
 
-    decode_spec(network, end=end)
+    d = decode_spec(network, end=end).head_dim
 
     def step(variables, k_pool, v_pool, tokens, positions, tables):
-        t = k_pool.shape[2]
+        t, w = k_pool.shape[2], k_pool.shape[-1]
         blk = torch.gather(tables, 1, (positions // t).long()[:, None])[:, 0].long()
         off = (positions % t).long()
         pw = positions[:, None]
@@ -489,11 +494,13 @@ def build_decode_step(network, end: str = "fc"):
         def attend(a, layer, q, k, v):
             if layer.rope:
                 q, k = rope_at(q, pw), rope_at(k, pw)
-            k_pool[a].index_put_((blk, off), k[:, :, 0, :])
-            v_pool[a].index_put_((blk, off), v[:, :, 0, :])
-            o = paged_attention(q[:, :, 0, :], k_pool[a], v_pool[a], tables,
-                                positions)
-            return o[:, :, None, :]
+            k_pool[a][..., :d].index_put_((blk, off), k[:, :, 0, :])
+            v_pool[a][..., :d].index_put_((blk, off), v[:, :, 0, :])
+            qq = q[:, :, 0, :]
+            qq = F.pad(qq, (0, w - d)) if w != d else qq
+            o = paged_attention(qq, k_pool[a], v_pool[a], tables, positions,
+                                1.0 / math.sqrt(d))
+            return o[:, :, None, :d]
 
         return _replay(network, variables, tokens, attend, end)
 
@@ -508,11 +515,13 @@ def build_prefill(network, end: str = "fc"):
     ``lengths - 1`` (the first generated token's distribution).  Padded
     positions >= length write garbage K/V into the row's own blocks (or
     the null block past its allocation); a decode step overwrites
-    position p before any row attends to it, so the garbage is dead."""
+    position p before any row attends to it, so the garbage is dead.  K/V
+    go into the pools' first ``head_dim`` lanes (see
+    :func:`build_decode_step`)."""
     from sparknet_tpu_torch.ops.attention import rope
     from sparknet_tpu_torch.ops.kernels import flash_attention
 
-    decode_spec(network, end=end)
+    d = decode_spec(network, end=end).head_dim
 
     def prefill(variables, tokens, lengths, k_pool, v_pool, tables):
         t = k_pool.shape[2]
@@ -524,8 +533,8 @@ def build_prefill(network, end: str = "fc"):
         def attend(a, layer, q, k, v):
             if layer.rope:
                 q, k = rope(q), rope(k)
-            k_pool[a].index_put_((blk, off), k.transpose(1, 2))
-            v_pool[a].index_put_((blk, off), v.transpose(1, 2))
+            k_pool[a][..., :d].index_put_((blk, off), k.transpose(1, 2))
+            v_pool[a][..., :d].index_put_((blk, off), v.transpose(1, 2))
             return flash_attention(q, k, v, causal=layer.causal)
 
         logits = _replay(network, variables, tokens, attend, end)  # [B, S, V]

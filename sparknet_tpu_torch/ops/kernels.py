@@ -44,6 +44,7 @@ import subprocess
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -553,12 +554,37 @@ def fused_update(rule: str, st: UpdateStatics, w: torch.Tensor,
 ATTENTION_HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim an attention kernel runs a head of ``d`` lanes at: the
+    smallest of ``ATTENTION_HEAD_DIMS`` that is >= d, for 1 <= d <= 128.
+    A head is zero-padded to it: a zero lane adds an exact 0 to every
+    q.k sum, and the padded lanes of the output are dropped.  Above 128
+    no kernel is instantiated; ``d`` itself is returned and the CUDA
+    wrappers refuse it."""
+    if d < 1:
+        raise ValueError(f"head dim must be >= 1, got {d}")
+    return next((w for w in ATTENTION_HEAD_DIMS if w >= d), d)
+
+
+def _scale(scale: float | None, d: int) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
+def _refuse_wide_head(name: str, d: int) -> None:
+    if d > ATTENTION_HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head dim {d} > {ATTENTION_HEAD_DIMS[-1]}: "
+                         f"no kernel is instantiated above "
+                         f"{ATTENTION_HEAD_DIMS[-1]} lanes")
+
+
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = False) -> torch.Tensor:
+                          causal: bool = False, scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch attention on [B, H, S, D]: the unblocked stable
     softmax of the JAX package's ``attention_xla``, float32 math, the
-    causal upper triangle at -1e30; the result has ``q.dtype``."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    causal upper triangle at -1e30; the result has ``q.dtype``.  ``scale``
+    multiplies q.k (default 1/sqrt(D); a head zero-padded from d lanes
+    passes 1/sqrt(d))."""
+    scale = _scale(scale, q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
         n = q.shape[2]
@@ -578,10 +604,13 @@ def _flash_attention_cuda(q, k, v, causal: bool) -> torch.Tensor:
         raise ValueError("flash_attention: the kernel takes float32 q, k, v "
                          "on one device")
     b, h, n, d = q.shape
-    if d not in ATTENTION_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in "
-                         f"{ATTENTION_HEAD_DIMS}")
+    _refuse_wide_head("flash_attention", d)
     lib = _load("flash_attention")
+    # a head dim between the kernel's widths runs zero-padded to the next
+    # one, at the true head's scale; the padded lanes of o are dropped
+    w = kernel_head_dim(d)
+    if w != d:
+        q, k, v = (F.pad(t, (0, w - d)) for t in (q, k, v))
     # the [B*H, S, D] fibres the kernel walks, as _flash_pallas reshapes
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
@@ -589,10 +618,10 @@ def _flash_attention_cuda(q, k, v, causal: bool) -> torch.Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.sparknet_flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, n,
-            d, int(bool(causal)), 1.0 / math.sqrt(d), stream)
+            w, int(bool(causal)), 1.0 / math.sqrt(d), stream)
     _check_launch(lib, err, "flash_attention")
     FLASH_LAUNCHES += 1
-    return o
+    return o[..., :d] if w != d else o
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -620,8 +649,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the upper triangle masked when ``causal``).
 
     CUDA tensors: launches the kernel of ``csrc/flash_attention.cu``
-    (float32, head dim in ``ATTENTION_HEAD_DIMS``; anything else raises)
-    through ``FlashAttentionFunction``, whose backward raises.  CPU
+    (float32, head dim up to 128; a head dim between the kernel's widths
+    is zero-padded to ``kernel_head_dim``; anything else raises) through
+    ``FlashAttentionFunction``, whose backward raises.  CPU
     tensors: ``flash_attention_torch`` (differentiable by autograd).  Meta
     tensors (shape inference in ``Network.init``): an empty tensor of q's
     shape."""
@@ -641,28 +671,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_attention_torch(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, tables: torch.Tensor,
-                          positions: torch.Tensor) -> torch.Tensor:
+                          positions: torch.Tensor,
+                          scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch paged decode attention, the JAX package's
     ``paged_attention_xla``: gather each row's blocks in table order, then
     one stable softmax over its ``MB * T`` columns with columns past
     ``positions[b]`` at -1e30.
 
     ``q`` [B, H, D]; pools [NB, T, H, D]; ``tables`` [B, MB] block ids;
-    ``positions`` [B] (row b attends to columns 0..positions[b])."""
+    ``positions`` [B] (row b attends to columns 0..positions[b]);
+    ``scale`` multiplies q.k (default 1/sqrt(D); pools of heads padded
+    from d lanes pass 1/sqrt(d))."""
     b, h, d = q.shape
     t = k_pool.shape[1]
     mb = tables.shape[1]
     idx = tables.long()
     k = k_pool[idx].reshape(b, mb * t, h, d)
     v = v_pool[idx].reshape(b, mb * t, h, d)
-    s = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * _scale(scale, d)
     cols = torch.arange(mb * t, device=q.device)
     s = torch.where(cols[None, None, :] <= positions.long()[:, None, None], s, -1e30)
     return torch.einsum("bhs,bshd->bhd", torch.softmax(s, dim=-1),
                         v.float()).to(q.dtype)
 
 
-def _paged_attention_cuda(q, k_pool, v_pool, tables, positions) -> torch.Tensor:
+def _paged_attention_cuda(q, k_pool, v_pool, tables, positions,
+                          scale: float | None = None) -> torch.Tensor:
     global PAGED_LAUNCHES
     if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
             or k_pool.shape[2:] != q.shape[1:]:
@@ -685,9 +719,13 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, positions) -> torch.Tensor:
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_attention: the kernel copies 16-byte chunks "
                          "of the pools, which must be 16-byte aligned")
+    _refuse_wide_head("paged_attention", d)
     if d not in ATTENTION_HEAD_DIMS:
-        raise ValueError(f"paged_attention: head dim {d} not in "
-                         f"{ATTENTION_HEAD_DIMS}")
+        raise ValueError(
+            f"paged_attention: head dim {d} lies between the kernel's widths "
+            f"{ATTENTION_HEAD_DIMS}: allocate the pools at kernel_head_dim({d}) "
+            f"= {kernel_head_dim(d)} lanes (zero beyond {d}), pad q to it and "
+            f"pass scale=1/sqrt({d}), as PagedDecoder does")
     lib = _load("paged_attention")
     q, tables, positions = q.contiguous(), tables.contiguous(), positions.contiguous()
     o = torch.empty_like(q)
@@ -696,26 +734,30 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, positions) -> torch.Tensor:
         err = lib.sparknet_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), positions.data_ptr(), o.data_ptr(), b, h, d,
-            k_pool.shape[1], tables.shape[1], 1.0 / math.sqrt(d), stream)
+            k_pool.shape[1], tables.shape[1], _scale(scale, d), stream)
     _check_launch(lib, err, "paged_attention")
     PAGED_LAUNCHES += 1
     return o
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                    tables: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+                    tables: torch.Tensor, positions: torch.Tensor,
+                    scale: float | None = None) -> torch.Tensor:
     """One query token a row against a block-paged K/V pool (see
-    ``paged_attention_torch`` for the shapes).  A row's output depends only
-    on its own q, table and position.
+    ``paged_attention_torch`` for the shapes and ``scale``).  A row's
+    output depends only on its own q, table and position.
 
     CUDA tensors: launches the kernel of ``csrc/paged_attention.cu``
     (float32 q and contiguous, 16-byte aligned pools, int32 tables and
     positions, head dim in ``ATTENTION_HEAD_DIMS``, positions in
     [0, MB * T) and table entries in [0, NB); the kernel reads no column
-    past a row's position).  CPU tensors: ``paged_attention_torch``.
+    past a row's position).  A head of another width up to 128 runs in
+    pools allocated at ``kernel_head_dim`` lanes, zero beyond the head,
+    with q padded alike and ``scale`` of the true width: the pools are
+    not copied per call.  CPU tensors: ``paged_attention_torch``.
     Forward only."""
     if q.device.type == "cpu":
-        return paged_attention_torch(q, k_pool, v_pool, tables, positions)
+        return paged_attention_torch(q, k_pool, v_pool, tables, positions, scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    return _paged_attention_cuda(q, k_pool, v_pool, tables, positions)
+    return _paged_attention_cuda(q, k_pool, v_pool, tables, positions, scale)

@@ -1,0 +1,78 @@
+"""Process-group setup: the worker set of data parallelism.
+
+Counterpart of ``sparknet_tpu/parallel/mesh.py``.  Where the JAX package
+cuts a ``Mesh`` over the devices of one program, the port runs one process
+a worker (each owning one replica on its device) and joins them through
+``torch.distributed``: NCCL between cards, gloo on the CPU.  SparkNet got
+its worker set from Spark's executors (ref: CifarApp.scala:27-33); here it
+is the ranks of a process group.
+
+Nothing in a cluster tells a program its address, rank or world size: the
+caller passes them, or sets ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
+``WORLD_SIZE`` for ``env://``, or names a file for a ``FileStore`` (which
+needs no port, so tests and one-host runs cannot collide on one).
+
+Not ported: ``auto_mesh``, ``sized_data_mesh`` and the model/seq axes
+(they come with the elastic trainer and with tensor and sequence
+parallelism, ROADMAP Queue A).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from sparknet_tpu_torch.common import resolve_device
+
+
+def default_backend(device: str | torch.device | None = None) -> str:
+    """NCCL for a CUDA device (``None`` means CUDA, and raises without a
+    card), gloo for the CPU."""
+    return "nccl" if resolve_device(device).type == "cuda" else "gloo"
+
+
+def initialize_distributed(
+    backend: str | None = None,
+    store_path: str | None = None,
+    rank: int | None = None,
+    world_size: int | None = None,
+    device: str | torch.device | None = None,
+) -> None:
+    """Join this process to the default process group.
+
+    ``store_path``: a file every rank names (a ``FileStore``; give ``rank``
+    and ``world_size`` too).  Without it the group forms through
+    ``env://`` (``MASTER_ADDR``, ``MASTER_PORT`` and, unless given here,
+    ``RANK`` and ``WORLD_SIZE``).  ``backend`` defaults to NCCL when the
+    replicas live on CUDA (``device``, ``None`` meaning CUDA) and to gloo
+    on the CPU.  NCCL takes one rank a card; several ranks on one card go
+    through gloo."""
+    if store_path is not None and (rank is None or world_size is None):
+        raise ValueError("a FileStore needs rank and world_size")
+    backend = backend or default_backend(device)
+    if store_path is not None:
+        store = dist.FileStore(str(store_path), int(world_size))
+        dist.init_process_group(backend, store=store, rank=int(rank),
+                                world_size=int(world_size))
+        return
+    kwargs = {}
+    if rank is not None:
+        kwargs["rank"] = int(rank)
+    if world_size is not None:
+        kwargs["world_size"] = int(world_size)
+    dist.init_process_group(backend, init_method="env://", **kwargs)
+
+
+def data_parallel_group(num_workers: int | None = None):
+    """The worker set: the first ``num_workers`` ranks of the default group
+    (all of them by default), the counterpart of ``data_parallel_mesh``.
+    Every rank must call it (``torch.distributed.new_group`` is
+    collective); a rank outside the set gets a group it is not in."""
+    world = dist.get_world_size()
+    if num_workers is None or num_workers == world:
+        return dist.group.WORLD
+    if not 1 <= num_workers <= world:
+        raise ValueError(f"cannot form {num_workers} workers from a world of "
+                         f"{world} (need 1 <= num_workers <= world)")
+    return dist.new_group(ranks=list(range(num_workers)))
+

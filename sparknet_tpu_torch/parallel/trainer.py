@@ -1,0 +1,345 @@
+"""The distributed trainer: SparkNet's algorithm on ``torch.distributed``.
+
+Counterpart of ``sparknet_tpu/parallel/trainer.py``.  The reference's outer
+loop (ref: src/main/scala/apps/CifarApp.scala:95-136):
+
+    broadcast(weights); workers.foreach(setWeights)       # Spark master -> workers
+    workers: train(tau)  # tau local SGD steps            # compute
+    weights = workers.map(getWeights).reduce(add) / n     # workers -> Spark master
+
+runs here as one process a worker.  Each process's wrapped ``Solver`` is
+its worker's replica: the trainer steps it with ``Solver.train_iteration``
+and averages its params (and state) in place; the collect-and-average is an
+all-reduce over the worker group: NCCL between cards, gloo on the CPU or
+for several ranks on one card.
+
+* ``tau == 1``: synchronous data parallelism.  The gradients are averaged
+  between the backward and the update (the Solver's ``reduce_grads``
+  hook: one all-reduce of the grad arena on the fused path, of one flat
+  buffer of the blobs' grads per blob), so every rank applies the same
+  update and the replicas stay identical.
+* ``tau > 1``: tau local steps a worker at iterations ``it .. it+tau-1``,
+  then the mean over workers of the params and the state; the solver
+  history (slots) stays per worker.
+* ``elastic_alpha > 0``: EASGD (Zhang, Choromanska, LeCun 2015): tau local
+  steps, then ``x_i -= a(x_i - c)`` and ``c += a * sum_i(x_i - c)``, the
+  differences taken before the worker update; the center ``c`` is
+  replicated on every rank, the state hard-averaged.
+
+A round makes two all-reduce calls: the params (the param arena itself on
+the fused path, one flat copy of the blobs per blob; the differences
+``x_i - c`` under EASGD, the grads at ``tau == 1``) and one small buffer
+holding the round's loss and the state blobs.
+
+Feeds: each process feeds its own partition, as each Spark executor reads
+its own.  On rank r ``data_fn(it)`` returns ``[B_local, ...]`` arrays
+(``tau == 1``) or ``[tau, B_local, ...]`` (``tau > 1`` and EASGD);
+``sharding.local_shard`` cuts them from a global batch.
+
+Dropout: rank r's Solver has ``worker = r``, so its generator is reseeded
+at every iteration from (seed, r, it) (``solvers.solver.dropout_seed``);
+rank 0 draws the masks a ``Solver`` alone would.  The JAX package folds
+the worker index into its key instead; the two never agree, so parity
+with it runs at dropout 0.
+
+Not ported: ``save``/``restore`` (orbax) and the obs round records;
+``train_rounds`` is a loop of rounds (a CUDA graph of it is ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+import torch.distributed as dist
+
+from sparknet_tpu_torch.compiler.graph import NetVars
+from sparknet_tpu_torch.net import (
+    WeightCollection,
+    collection_to_variables,
+    variables_to_collection,
+)
+from sparknet_tpu_torch.parallel.mesh import default_backend
+
+DataFn = Callable[[int], dict[str, Any]]
+
+
+def _flat(tensors: list) -> torch.Tensor:
+    """One contiguous buffer of ``tensors``: the tensor itself when there is
+    one contiguous tensor (an arena), else a concatenated copy."""
+    if len(tensors) == 1 and tensors[0].is_contiguous():
+        return tensors[0].view(-1)
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _views(flat: torch.Tensor, like: list) -> list:
+    """Views of ``flat`` shaped like each of ``like``, in order."""
+    return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in like]), like)]
+
+
+class ParallelTrainer:
+    """Distributed trainer over a process group, one replica a process: the
+    wrapped ``solver`` itself, which the trainer steps and averages in
+    place (so ``solver.variables``/``solver.slots`` are this worker's
+    replica and history).
+
+    ``group``: the worker set (``data_parallel_group``); by default the
+    whole default group.  With no process group initialized the trainer
+    forms a world of one on the solver's device (NCCL on CUDA, gloo on the
+    CPU) and destroys it on :meth:`close`; the collectives still go
+    through ``torch.distributed``.  :meth:`close` also hands the solver
+    back to stepping alone (no grad hook, worker 0).
+    """
+
+    def __init__(self, solver, group=None, tau: int = 1, elastic_alpha: float = 0.0):
+        cfg = solver.config
+        if cfg.iter_size > 1:
+            raise ValueError(
+                "ParallelTrainer does not support iter_size > 1: the feed "
+                "layout [iter_size, B, ...] conflicts with the trainer's "
+                "batch/tau axis contract. Use a larger per-device batch or "
+                "tau-step accumulation instead.")
+        self.tau = int(tau)
+        if self.tau < 1:
+            raise ValueError(f"tau must be >= 1, got {tau}")
+        num_workers = dist.get_world_size(group) if dist.is_initialized() else 1
+        self.elastic_alpha = float(elastic_alpha)
+        self._elastic = self.elastic_alpha > 0.0
+        if elastic_alpha and not 0.0 < elastic_alpha * num_workers <= 1.0:
+            # EASGD stability: the center's moving rate is beta = p*alpha
+            # and must stay in (0, 1] (Zhang et al. 2015 use beta = 0.9)
+            raise ValueError(
+                f"elastic_alpha={elastic_alpha} violates the stability "
+                f"bound alpha*num_workers <= 1 with "
+                f"{num_workers} workers; use ~0.9/{num_workers}")
+        self.solver = solver
+        self.device = solver.device
+        self._owns_group = not dist.is_initialized()
+        if self._owns_group:
+            dist.init_process_group(default_backend(self.device),
+                                    store=dist.HashStore(), rank=0, world_size=1)
+        self.group = group if group is not None else dist.group.WORLD
+        self.rank = dist.get_rank(self.group)
+        if self.rank < 0:
+            raise ValueError("this process is not in the trainer's group")
+        self.num_workers = dist.get_world_size(self.group)
+        solver.worker = self.rank
+        if self.tau == 1 and not self._elastic:
+            solver.set_reduce_grads(self._mean_grads)
+        # EASGD's center: a replicated copy of the params
+        with torch.no_grad():
+            self._center = ([t.clone() for t in self._param_tensors()]
+                            if self._elastic else None)
+
+    @property
+    def iter(self) -> int:
+        """The next iteration: the replica's own count."""
+        return self.solver.iter
+
+    # -- the replica's tensors, as the collectives move them ---------------
+    def _param_tensors(self) -> list:
+        """The param arena, or every param blob in params-dict order."""
+        s = self.solver
+        if s.layout is not None:
+            return [s._param_arena]
+        return [p for pl in s._params.values() for p in pl]
+
+    def _slot_tensors(self) -> list:
+        s = self.solver
+        if s.layout is not None:
+            return list(s._slot_arenas)
+        return [h for sl in s._slots.values() for hl in sl for h in hl]
+
+    def _state_tensors(self) -> list:
+        return [v for s in self.solver._state.values() for v in s.values()]
+
+    @property
+    def center(self) -> dict | None:
+        """EASGD's center params, blob-wise (None without EASGD)."""
+        if self._center is None:
+            return None
+        if self.solver.layout is not None:
+            from sparknet_tpu_torch.solvers.arena import unpack
+
+            with torch.no_grad():
+                return unpack(self.solver.layout, self._center[0])
+        out, it = {}, iter(self._center)
+        for ln, pl in self.solver._params.items():
+            out[ln] = [next(it) for _ in pl]
+        return out
+
+    # -- collectives -------------------------------------------------------
+    def _all_reduce(self, t: torch.Tensor) -> None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+
+    def _mean_(self, tensors: list) -> None:
+        """Each of ``tensors`` := its mean over the workers, in place, by one
+        all-reduce (SUM, then / workers).  Several tensors go through one
+        flat copy and back into their own storage: the update then reads
+        the same allocations as a lone Solver's, so its vectorised
+        arithmetic rounds the same way."""
+        if not tensors:
+            return
+        flat = _flat(tensors)
+        self._all_reduce(flat)
+        flat.div_(self.num_workers)
+        if flat.data_ptr() != tensors[0].data_ptr():
+            for t, v in zip(tensors, _views(flat, tensors)):
+                t.copy_(v)
+
+    def _mean_grads(self, grads):
+        """The ``reduce_grads`` hook of sync data parallelism: the grad arena
+        (fused) or the list of blob grads, averaged over the workers by one
+        all-reduce."""
+        if isinstance(grads, torch.Tensor):
+            self._all_reduce(grads)
+            return grads.div_(self.num_workers)
+        self._mean_(grads)
+        return grads
+
+    def _mean_loss_and_state(self, loss: torch.Tensor) -> torch.Tensor:
+        """The round's loss and the state blobs, averaged over the workers
+        by one all-reduce of a small buffer; returns the mean loss."""
+        state = self._state_tensors()
+        buf = torch.cat([loss.detach().reshape(1).float()]
+                        + [s.reshape(-1).float() for s in state])
+        self._all_reduce(buf)
+        buf.div_(self.num_workers)
+        for s, v in zip(state, _views(buf[1:], state)):
+            s.copy_(v)
+        return buf[0]
+
+    def _elastic_update(self) -> None:
+        """x_i -= a(x_i - c);  c += a * sum_i(x_i - c), with the differences
+        taken before the worker update (ref: sparknet_tpu trainer's
+        ``_make_elastic_round``)."""
+        a = self.elastic_alpha
+        xs = self._param_tensors()
+        diff = _flat([x - c for x, c in zip(xs, self._center)])
+        for x, d in zip(xs, _views(diff, xs)):
+            x.sub_(a * d)
+        self._all_reduce(diff)
+        for c, d in zip(self._center, _views(diff, xs)):
+            c.add_(a * d)
+
+    # -- rounds ------------------------------------------------------------
+    def train_round(self, data_fn: DataFn) -> float:
+        """One outer iteration; returns the mean loss over the workers (at
+        tau > 1 and under EASGD each worker's mean over its tau steps,
+        averaged).  Every rank must call it."""
+        feeds = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in data_fn(self.iter).items()}
+        if self.tau == 1 and not self._elastic:
+            loss = self.solver.train_iteration(feeds)
+            return float(self._mean_loss_and_state(loss))
+        losses = [self.solver.train_iteration({k: v[i] for k, v in feeds.items()})
+                  for i in range(self.tau)]
+        with torch.no_grad():
+            if self._elastic:
+                self._elastic_update()
+            else:
+                # THE sync: collect + average (ref: CifarApp.scala:132-134)
+                self._mean_(self._param_tensors())
+            loss = self._mean_loss_and_state(torch.stack(losses).mean())
+        return float(loss)
+
+    def train(self, num_outer: int, data_fn: DataFn, callback=None) -> float:
+        loss = 0.0
+        for _ in range(num_outer):
+            loss = self.train_round(data_fn)
+            if callback:
+                callback(self.iter, loss)
+        return loss
+
+    def train_rounds(self, n: int, data_fn: DataFn) -> float:
+        """``n`` rounds (at least one); returns the last round's loss, as
+        the JAX package's scan of rounds does."""
+        loss = 0.0
+        for _ in range(max(n, 1)):
+            loss = self.train_round(data_fn)
+        return loss
+
+    # -- evaluation and weight exchange ------------------------------------
+    def _averaged_variables(self) -> NetVars:
+        """The model the outer loop sees: the replica (identical on every rank
+        after a round), or under EASGD the center with the averaged
+        state."""
+        if self._elastic:
+            return NetVars(params=self.center, state=self.solver._state)
+        return self.solver.variables
+
+    def test(self, num_batches: int, data_fn: DataFn) -> dict[str, float]:
+        """Distributed eval with the reference's sum-then-normalize semantics
+        (ref: Solver::TestAndStoreResult solver.cpp:414-444 +
+        CifarApp.scala:113-115).  Each rank evaluates its own shard
+        (``data_fn(b)`` gives its ``[B_local, ...]`` slice of batch b); a
+        scalar output (a mean over the batch, as the loss and accuracy
+        layers give) is averaged over the workers, an output with a batch
+        axis summed.  Every rank must call it."""
+        net = self.solver.test_net
+        outputs = net.output_blobs()
+        variables = self._averaged_variables()
+        sums: dict[str, float] = {}
+        scalar: dict[str, bool] = {}
+        with torch.inference_mode():
+            for b in range(num_batches):
+                feeds = {k: torch.as_tensor(v, device=self.device)
+                         for k, v in data_fn(b).items()}
+                blobs, _, _ = net.apply(variables, feeds, train=False)
+                for name in outputs:
+                    if name in blobs:
+                        sums[name] = sums.get(name, 0.0) + float(torch.sum(blobs[name]))
+                        scalar[name] = blobs[name].numel() == 1
+        names = sorted(sums)
+        buf = torch.tensor([sums[n] for n in names], dtype=torch.float64,
+                           device=self.device)
+        self._all_reduce(buf)
+        return {n: float(buf[i]) / (self.num_workers if scalar[n] else 1) / num_batches
+                for i, n in enumerate(names)}
+
+    def get_weights(self) -> WeightCollection:
+        """The outer loop's model as host arrays (ref: Net.scala
+        getWeights)."""
+        return variables_to_collection(self._averaged_variables())
+
+    def set_weights(self, wc: WeightCollection) -> None:
+        """Load ``wc`` into this worker's replica (and the EASGD center);
+        the history is kept.  Every rank should load the same weights."""
+        self.solver.variables = collection_to_variables(wc, self.solver.variables)
+        if self._elastic:
+            with torch.no_grad():
+                self._center = [t.clone() for t in self._param_tensors()]
+
+    def sync_to_solver(self) -> None:
+        """Make the wrapped Solver hold the outer loop's model and history,
+        so its ``save`` snapshots them.  At tau > 1 and under EASGD the
+        history is per worker and is averaged in place (a collective: every
+        rank must call it); under EASGD the params become the center.
+        Rounds after it start from what it leaves: call it when training
+        ends or before a snapshot."""
+        with torch.no_grad():
+            if self.tau > 1 or self._elastic:
+                self._mean_(self._slot_tensors())
+            if self._elastic:
+                for x, c in zip(self._param_tensors(), self._center):
+                    x.copy_(c)
+
+    def save(self, prefix: str) -> str:
+        raise NotImplementedError(
+            "ParallelTrainer.save: sharded orbax checkpoints are not ported "
+            "(ROADMAP Queue A, A5); call sync_to_solver() and Solver.save")
+
+    def restore(self, path: str) -> None:
+        raise NotImplementedError(
+            "ParallelTrainer.restore: sharded orbax checkpoints are not "
+            "ported (ROADMAP Queue A, A5); use Solver.restore, then build "
+            "the trainer")
+
+    def close(self) -> None:
+        """Hand the solver back to stepping alone, and destroy the world of
+        one this trainer formed (if it formed one)."""
+        self.solver.set_reduce_grads(None)
+        self.solver.worker = 0
+        if self._owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self._owns_group = False

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from sparknet_tpu_torch.common import resolve_device
+from sparknet_tpu_torch.ops.kernels import kernel_head_dim
 from sparknet_tpu_torch.serve.batcher import Ticket
 from sparknet_tpu_torch.serve.continuous import charlm_network
 from sparknet_tpu_torch.serve.engine import AdmissionRefused, percentile
@@ -206,7 +207,9 @@ class PagedDecoder:
         params_bytes = sum(t.numel() * t.element_size()
                            for pl in self.variables.params.values() for t in pl)
         n_attn = len(self.spec.attn_layers)
-        h, d = self.spec.heads, self.spec.head_dim
+        # the pools hold each head at the attention kernels' width (zero
+        # lanes beyond the head), on every device; priced as allocated
+        h, d = self.spec.heads, kernel_head_dim(self.spec.head_dim)
         self.pool_hbm_bytes = pool_bytes(n_attn, num_blocks, self.block_tokens, h, d)
         predicted = params_bytes + self.pool_hbm_bytes
         budget = int(hbm_bytes * HBM_USABLE_FRAC)

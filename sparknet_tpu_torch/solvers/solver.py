@@ -171,11 +171,16 @@ def _micro_batches(feeds: dict, iter_size: int) -> list[dict]:
     return [{k: v[m] for k, v in feeds.items()} for m in range(iter_size)]
 
 
-def build_train_step(cfg: SolverConfig, net: Network, specs):
+def build_train_step(cfg: SolverConfig, net: Network, specs, reduce_grads=None):
     """The per-blob train step: ``step(variables, slots, it, feeds, gen) ->
     (variables, slots, loss)`` with new params and history (nothing is
     updated in place).  iter_size > 1 accumulates the grads of the
-    micro-batches in the param dtype (ref: solver.cpp:221-224)."""
+    micro-batches in the param dtype (ref: solver.cpp:221-224).
+
+    ``reduce_grads(grads) -> grads``, when given, takes the list of
+    accumulated grads (one a param blob, in params-dict order) between the
+    backward and the update: synchronous data parallelism averages them
+    over the workers there (``parallel/trainer.py``)."""
 
     def train_step(variables: NetVars, slots, it: int, feeds: dict, gen):
         with f32_precision():
@@ -195,6 +200,8 @@ def build_train_step(cfg: SolverConfig, net: Network, specs):
                 loss_sum = loss if loss_sum is None else loss_sum + loss
             if cfg.iter_size > 1:
                 loss = loss_sum / cfg.iter_size
+            if reduce_grads is not None:
+                gsum = reduce_grads(gsum)
             it_grads, k = {}, 0
             for ln, pl in leaves.items():
                 it_grads[ln] = gsum[k:k + len(pl)]
@@ -209,14 +216,18 @@ def build_train_step(cfg: SolverConfig, net: Network, specs):
     return train_step
 
 
-def build_fused_step(cfg: SolverConfig, net: Network, layout, tables):
+def build_fused_step(cfg: SolverConfig, net: Network, layout, tables,
+                     reduce_grads=None):
     """The fused train step: ``step(param_arena, slot_arenas, state, it,
     feeds, gen) -> (state, loss)``, updating ``param_arena`` and
     ``slot_arenas`` IN PLACE with one launch of the fused kernel.  The loss
     is differentiated w.r.t. the param arena (``arena.unpack``'s backward
     packs the grads), so the grad arena arrives in the arena's type with
     zero pad zones.  iter_size > 1 accumulates in float32 whatever the
-    storage type (ref: ``sparknet_tpu/solvers/solver.py:313-329``)."""
+    storage type (ref: ``sparknet_tpu/solvers/solver.py:313-329``).
+    ``reduce_grads(grad_arena) -> grad_arena``, when given, takes the grad
+    arena between the backward and the update (as in
+    :func:`build_train_step`)."""
     from sparknet_tpu_torch.solvers import arena as arena_mod
 
     def fused_step(param_arena, slot_arenas, state, it: int, feeds: dict, gen):
@@ -237,6 +248,8 @@ def build_fused_step(cfg: SolverConfig, net: Network, layout, tables):
             if cfg.iter_size > 1:
                 loss = loss_sum / cfg.iter_size
                 gsum = gsum.to(param_arena.dtype)
+            if reduce_grads is not None:
+                gsum = reduce_grads(gsum)
             rate = learning_rate(cfg, it).to(param_arena.device)
             with torch.no_grad():
                 arena_mod.arena_apply_update(cfg, layout, param_arena, gsum,
@@ -245,6 +258,15 @@ def build_fused_step(cfg: SolverConfig, net: Network, layout, tables):
         return state, loss
 
     return fused_step
+
+
+def dropout_seed(seed: int, it: int, worker: int = 0) -> int:
+    """The seed of the dropout generator at iteration ``it``: a function of
+    (seed, it), so a restored run draws the masks an uninterrupted one
+    would; worker ``worker`` of a distributed trainer adds ``worker << 48``
+    so that the workers draw different masks (worker 0 draws a lone
+    Solver's)."""
+    return seed * 1_000_003 + it + (worker << 48)
 
 
 def _write_npz_atomic(path: str, arrays: dict) -> None:
@@ -282,6 +304,8 @@ class Solver:
     ``variables`` and ``slots`` are blob-wise in both update paths (views
     of the arenas on the fused path, or casts of them with bf16 storage).
     ``layout`` is the fused path's ``ArenaLayout`` (None per blob).
+    ``worker`` is this replica's index in a distributed trainer (0 alone);
+    it offsets the dropout seed (:func:`dropout_seed`).
     """
 
     def __init__(
@@ -322,6 +346,7 @@ class Solver:
                                         feed_shapes)
         self._specs = self.train_net.param_specs_for(variables)
         self._gen = torch.Generator(device=self.device)
+        self.worker = 0
         self.iter = 0
         self.smoothed_loss = 0.0
         self._loss_window: list = []
@@ -333,13 +358,23 @@ class Solver:
             self._tables = arena_mod.ArenaTables(self.layout, self.device)
             self._param_arena = arena_mod.pack(self.layout, variables.params, self.device)
             self._slot_arenas = arena_mod.init_slot_arenas(self.layout, self.device)
-            self._fused_step = build_fused_step(cfg, self.train_net, self.layout,
-                                                self._tables)
         else:
             self.layout = None
             self._params = variables.params
             self._slots = init_slots(cfg.solver_type, variables.params)
-            self._train_step = build_train_step(cfg, self.train_net, self._specs)
+        self.set_reduce_grads(None)
+
+    def set_reduce_grads(self, reduce_grads) -> None:
+        """(Re)build the train step with ``reduce_grads`` between the
+        backward and the update (see :func:`build_fused_step`); ``None``
+        is the plain step.  Synchronous data parallelism averages the grads
+        over the workers there (``parallel/trainer.py``)."""
+        if self.layout is not None:
+            self._fused_step = build_fused_step(self.config, self.train_net, self.layout,
+                                                self._tables, reduce_grads=reduce_grads)
+        else:
+            self._train_step = build_train_step(self.config, self.train_net, self._specs,
+                                                reduce_grads=reduce_grads)
 
     # -- blob-wise views of the training state ---------------------------
     @property
@@ -389,29 +424,36 @@ class Solver:
     def _feeds_on_device(self, feeds: dict) -> dict:
         return {k: torch.as_tensor(v, device=self.device) for k, v in feeds.items()}
 
+    def train_iteration(self, feeds: dict) -> torch.Tensor:
+        """One training iteration at ``self.iter`` on ``feeds``; advances
+        ``iter`` and returns the loss, left on the device.  :meth:`step` is
+        a loop of these, and so are the distributed trainer's rounds."""
+        feeds = self._feeds_on_device(feeds)
+        self._gen.manual_seed(dropout_seed(self._seed, self.iter, self.worker))
+        if self.layout is not None:
+            self._state, loss = self._fused_step(
+                self._param_arena, self._slot_arenas, self._state,
+                self.iter, feeds, self._gen)
+        else:
+            variables, self._slots, loss = self._train_step(
+                NetVars(self._params, self._state), self._slots,
+                self.iter, feeds, self._gen)
+            self._params, self._state = variables.params, variables.state
+        self.iter += 1
+        return loss
+
     def step(self, num_iters: int, data_fn: DataFn, callback=None) -> float:
         """Run ``num_iters`` training iterations (ref: Solver::Step).
         Returns the final smoothed loss; ``callback(iter, loss)`` runs
         after every iteration on the host."""
         cfg = self.config
         for _ in range(num_iters):
-            feeds = self._feeds_on_device(data_fn(self.iter))
-            self._gen.manual_seed(self._seed * 1_000_003 + self.iter)
-            if self.layout is not None:
-                self._state, loss = self._fused_step(
-                    self._param_arena, self._slot_arenas, self._state,
-                    self.iter, feeds, self._gen)
-            else:
-                variables, self._slots, loss = self._train_step(
-                    NetVars(self._params, self._state), self._slots,
-                    self.iter, feeds, self._gen)
-                self._params, self._state = variables.params, variables.state
+            loss = self.train_iteration(data_fn(self.iter))
             # losses stay on the device (no sync per iteration); smoothing
             # window per solver.cpp:235-257
             self._loss_window.append(loss)
             if len(self._loss_window) > cfg.average_loss:
                 self._loss_window.pop(0)
-            self.iter += 1
             if cfg.display and self.iter % cfg.display == 0:
                 print(f"Iteration {self.iter}, loss = {self._smoothed():.6g}, "
                       f"lr = {float(learning_rate(cfg, self.iter)):.6g}")

@@ -321,18 +321,24 @@ def _misaligned(a):
 @pytest.mark.parametrize("fault,match", [
     ("misaligned pool", "16-byte aligned"),
     ("head dim 12", "head dim 12"),
+    ("head dim 160", "head dim 160 > 128"),
     ("int64 tables", "int32 tables"),
     ("strided pool", "contiguous"),
 ])
 def test_paged_kernel_wrapper_refuses_what_the_kernel_cannot_take(fault, match):
     """The CUDA route's checks run before anything is built or launched:
-    the kernel copies the pools in 16-byte chunks, takes the head dims of
-    ATTENTION_HEAD_DIMS, int32 tables and contiguous pools."""
+    the kernel copies the pools in 16-byte chunks, takes heads of at most
+    128 lanes in pools of a width of ATTENTION_HEAD_DIMS (a head between
+    them is padded when the pools are allocated, not copied per call: an
+    unpadded pool is refused with that advice), int32 tables and
+    contiguous pools."""
     q, kp, vp, tables, pos = map(_t, _paged_inputs(3))
     if fault == "misaligned pool":
         kp = _misaligned(kp)
         assert kp.is_contiguous() and kp.data_ptr() % 16
-    elif fault == "head dim 12":
+    elif fault == "head dim 160":
+        q, kp, vp = (torch.cat([t] * 10, dim=-1) for t in (q, kp, vp))
+    elif fault == "head dim 12":  # pools not padded to kernel_head_dim(12) = 16
         q, kp, vp = q[..., :12].contiguous(), kp[..., :12].contiguous(), vp[..., :12].contiguous()
     elif fault == "int64 tables":
         tables = tables.long()
@@ -413,6 +419,77 @@ def test_tf32_rounding_is_nearest_ties_away():
     hi = _tf32_rna(y)
     err = (hi + _tf32_rz(y - hi) - y).abs() / y.abs()
     assert float(err.max()) <= 2.0 ** -21
+
+
+# -- head dims between the kernels' widths ------------------------------------
+
+
+def test_kernel_head_dim():
+    """The smallest kernel width >= d up to 128; d itself above (refused by
+    the CUDA wrappers)."""
+    want = {1: 8, 8: 8, 9: 16, 12: 16, 16: 16, 24: 32, 48: 64, 64: 64,
+            100: 128, 128: 128, 160: 160}
+    assert {d: kernels.kernel_head_dim(d) for d in want} == want
+    assert all(kernels.kernel_head_dim(d) in kernels.ATTENTION_HEAD_DIMS
+               for d in range(1, 129))
+    with pytest.raises(ValueError, match=">= 1"):
+        kernels.kernel_head_dim(0)
+
+
+def _pad(t, w):
+    return torch.nn.functional.pad(t, (0, w - t.shape[-1]))
+
+
+@pytest.mark.parametrize("d", [1, 12, 100])
+def test_padded_flash_twin_with_the_heads_scale_is_the_unpadded_one(d):
+    """Zero lanes to ``kernel_head_dim(d)`` with the scale of the true d:
+    the padded twin's first d lanes are the unpadded twin's within the
+    kernels' gate (rtol 1e-5, atol 1e-6: the zero lanes add exact zeros,
+    but the sums run in another order), its other lanes 0; both agree
+    with the JAX package's ``attention_xla``."""
+    rs = np.random.RandomState(d)
+    q, k, v = (rs.randn(2, 3, 37, d).astype(np.float32) for _ in range(3))
+    w = kernels.kernel_head_dim(d)
+    ref = kernels.flash_attention_torch(_t(q), _t(k), _t(v), causal=True)
+    got = kernels.flash_attention_torch(*(_pad(_t(a), w) for a in (q, k, v)),
+                                        causal=True, scale=1.0 / np.sqrt(d))
+    assert tuple(got.shape) == (2, 3, 37, w) and not got[..., d:].any()
+    np.testing.assert_allclose(got[..., :d].numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[..., :d].numpy(),
+                               np.asarray(jpk.attention_xla(q, k, v, True)), **TOL)
+
+
+@pytest.mark.parametrize("d", [1, 12, 100])
+def test_padded_paged_twin_with_the_heads_scale_is_the_unpadded_one(d):
+    """Pools allocated at ``kernel_head_dim(d)`` lanes, zero beyond d, q
+    padded alike and the scale of the true d: the first d lanes are the
+    unpadded twin's (within the kernels' gate, as for flash) and the JAX
+    package's ``paged_attention_xla``'s."""
+    args = _paged_inputs(d, d=d)
+    w = kernels.kernel_head_dim(d)
+    q, kp, vp, tables, pos = map(_t, args)
+    ref = kernels.paged_attention_torch(q, kp, vp, tables, pos)
+    got = kernels.paged_attention(_pad(q, w), _pad(kp, w), _pad(vp, w), tables, pos,
+                                  scale=1.0 / np.sqrt(d))
+    assert tuple(got.shape) == (4, 2, w) and not got[..., d:].any()
+    np.testing.assert_allclose(got[..., :d].numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[..., :d].numpy(),
+                               np.asarray(jpk.paged_attention_xla(*args)), **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_multihead_attention_with_head_dim_12_matches_jax(causal):
+    """E = 48, 4 heads (D = 12, between the kernels' widths): the layer's
+    forward against the JAX layer's."""
+    flags = " causal: true rope: true" if causal else ""
+    jl, pl = _layers(f'layer {{ name: "attn" type: "MultiHeadAttention" bottom: "x" '
+                     f'top: "y" attention_param {{ num_heads: 4{flags} }} }}')
+    x = np.random.RandomState(12).randn(2, 23, 48).astype(np.float32)
+    jparams, _ = jl.init(jax.random.key(12), [x.shape])
+    jy = jl.apply(jparams, {}, [jnp.asarray(x)], train=False).outputs[0]
+    y = pl.apply([_t(p) for p in jparams], {}, [_t(x)], train=False).outputs[0]
+    assert tuple(y.shape) == (2, 23, 48)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
 
 
 def test_flash_attention_on_meta_is_shape_only():

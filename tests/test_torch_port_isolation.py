@@ -23,7 +23,9 @@ runpy.run_path("chip_smoke.py", run_name="chip_smoke_module")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "sparknet_tpu."))
              or m == "sparknet_tpu")
-training = sorted(n for n in names if n.startswith("sparknet_tpu_torch.solvers."))
+training = sorted(n for n in names if n.startswith(("sparknet_tpu_torch.solvers.",
+                                                    "sparknet_tpu_torch.parallel."))
+                  or n == "sparknet_tpu_torch.net")
 serving = sorted(n for n in names if n.startswith("sparknet_tpu_torch.serve.")
                  or n == "sparknet_tpu_torch.ops.attention")
 print(training)
@@ -41,9 +43,12 @@ def test_port_imports_no_jax():
     n, bad = last.split(" ", 1)
     assert int(n) >= 30, out.stdout
     assert bad == "[]", out.stdout
-    # the training and token-serving slices' modules are among those imported
-    assert training == str([f"sparknet_tpu_torch.solvers.{m}" for m in
-                            ("arena", "lr_policy", "solver", "updates")]), out.stdout
+    # the training, distributed-training and token-serving slices' modules
+    # are among those imported
+    assert training == str(["sparknet_tpu_torch.net"] + [
+        f"sparknet_tpu_torch.parallel.{m}" for m in ("mesh", "sharding", "trainer")] + [
+        f"sparknet_tpu_torch.solvers.{m}" for m in
+        ("arena", "lr_policy", "solver", "updates")]), out.stdout
     assert serving == str(["sparknet_tpu_torch.ops.attention"] + [
         f"sparknet_tpu_torch.serve.{m}" for m in
         ("batcher", "continuous", "engine", "paged")]), out.stdout

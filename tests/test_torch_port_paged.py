@@ -298,3 +298,40 @@ def test_token_ids_match_the_jax_decoder(jax_decoder, weights):
                 break
         else:
             assert a.result == b.result
+
+
+def test_head_dim_12_pools_are_padded_and_match_the_jax_decoder():
+    """``embed_dim`` 48 over 4 heads (D = 12, between the attention
+    kernels' widths): the pools hold each head at 16 lanes, zero beyond
+    12, priced as allocated; the token ids equal the JAX decoder's and the
+    rectangle decoder's (up to a tie, as above)."""
+    from sparknet_tpu.serve.paged import PagedDecoder as JaxPagedDecoder
+
+    geo = dict(GEO, embed_dim=48)
+    jd = JaxPagedDecoder(**geo)
+    w = interop.netvars_from_numpy(jd.variables.params, jd.variables.state, device="cpu")
+    d = PagedDecoder(**geo, variables=w, **CPU)
+    assert d.spec.head_dim == 12 and d._k_pool.shape[-1] == 16
+    assert d.pool_hbm_bytes == d._k_pool.numel() * 4 * 2
+    reqs = _mix(12, 6)
+    jt = [jd.submit(p, m) for p, m in reqs]
+    jd.run()
+    tickets = [d.submit(p, m) for p, m in reqs]
+    d.run()
+    assert not d._k_pool[..., 12:].any() and not d._v_pool[..., 12:].any()
+    assert d._k_pool[..., :12].any()
+    rect = ContinuousDecoder(**{**NET, "embed_dim": 48}, variables=w, device="cpu")
+    rt = [rect.submit(p, m) for p, m in reqs]
+    rect.run()
+    for (p, _), a, b, c in zip(reqs, tickets, jt, rt):
+        for j, (x, y) in enumerate(zip(a.result, b.result)):
+            if x != y:  # a tie in the port's own full-window logits
+                data = np.zeros((GEO["slots"], GEO["seq_len"]), np.int32)
+                ids = p + a.result
+                data[0, :len(ids)] = ids
+                top = torch.topk(rect.forward_logits(data)[0, len(p) - 1 + j], 2).values
+                assert float(top[0] - top[1]) <= MARGIN
+                break
+        else:
+            assert a.result == b.result
+        assert a.result == c.result
