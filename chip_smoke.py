@@ -49,17 +49,29 @@ Phases, in order (any failure exits non-zero):
     deterministic cuDNN: params and history agree (rtol 1e-5, atol 1e-7);
 12. flash: the flash-attention kernel against ``flash_attention_torch`` at
     the char LM's prefill shape [32,4,128,16] (causal and not), ragged
-    S = 100, head dims 8, 32, 64 and 128, [4,16,2048,64] causal and not,
+    S = 100, head dims 8, 32, 64, 128 and 256, [4,16,2048,64] causal and not,
     [2,8,1024,128] causal and a ragged [2,4,2000,64] causal (rtol 1e-5,
     atol 1e-6; atol 1e-5 at S >= 1024); batch entry 0 of the prefill shape
     bit for bit the same alone and in its batch of 32; times at the
     prefill shape and the S >= 1024 shapes beside the bound (the 3xTF32
     tensor-core rate) and ``F.scaled_dot_product_attention`` (a yardstick
     the port never calls);
-13. paged: the paged-attention kernel against ``paged_attention_torch``
+13. flash backward: the backward kernel against
+    ``flash_attention_backward_torch`` on the same q, k, v, o, lse and g
+    at the flash phase's shapes and the padded widths 12 and 200 (rtol
+    1e-5, atol 1e-6 x max|ref| at S < 1024; rtol 1e-4, atol 1e-5 x
+    max|ref| above); the forward's lse against the plain one (1e-5) and
+    its o bit for bit the same with and without lse; two launches bit for
+    bit equal; batch entry 0 of the char LM's shape alone and in its
+    batch; times of the kernel, the plain version and the autograd
+    backward of ``F.scaled_dot_product_attention`` (a yardstick) beside
+    the bound, and of the forward with and without lse;
+14. paged: the paged-attention kernel against ``paged_attention_torch``
     (rtol 1e-5, atol 1e-6) over a sweep of every head dim (8, 16, 32, 64,
-    128) x block size T (1, 4, 8, 16) at 160 columns a row, positions at
-    0, block edges, both sides of every tile width and the last column;
+    128, 256) x block size T (1, 4, 8, 16) at 160 columns a row, positions
+    at 0, block edges, both sides of every tile width and the last column,
+    and pools stored in bfloat16 or float16 (read as stored) at D 8, 16,
+    64 and 256;
     at the char LM's decode shape (shuffled tables, positions at 0, block
     edges and 127); and at B 64, H 16, D 64, T 16, MB 128 with random
     positions and with every position at 2047; pools hold finite garbage
@@ -67,7 +79,7 @@ Phases, in order (any failure exits non-zero):
     bit unchanged when the other rows' q, tables and positions change;
     times of the three timed shapes beside the live-bytes bound, kernel,
     plain and a gather + SDPA yardstick timed in turns;
-14. token: the full-width char LM (seeded init) serves 64 seeded requests
+15. token: the full-width char LM (seeded init) serves 64 seeded requests
     through a ``PagedDecoder`` (32 slots, block_tokens 8, full pool):
     tokens/s, decode-step, TTFT and inter-token percentiles; every ticket
     resolves, the pool ledger reads 0 leaked and 0 in use; 2 flash
@@ -79,9 +91,9 @@ Phases, in order (any failure exits non-zero):
     agrees with the paged tokens up to a position of margin <= 1e-4;
     ``rope_at`` equals ``rope``'s rows bit for bit; and a prompt prefilled
     in bucket 2 and in bucket 32 is compared bit for bit;
-15. token profile: one prefill + decode step and one decode step under
+16. token profile: one prefill + decode step and one decode step under
     ``torch.profiler``;
-16. parallel (run after 11): SparkNet's rounds (``parallel.ParallelTrainer``)
+17. parallel (run after 11): SparkNet's rounds (``parallel.ParallelTrainer``)
     with the zoo AlexNet, ``alexnet_solver``, fused update, f32, batch 256
     a worker, seeded batches one per (rank, iteration).  A world of one
     (NCCL, formed by the trainer, cuda:0), dropout 0 and deterministic
@@ -109,7 +121,26 @@ Phases, in order (any failure exits non-zero):
     counted launch; a ``PagedDecoder`` of embed_dim 48 over 4 heads (D 12)
     serves 8 seeded requests with 2 flash launches a prefill and 2 paged a
     decode step, its tokens equal to the ``ContinuousDecoder``'s up to a
-    position of top-2 margin <= 1e-4.
+    position of top-2 margin <= 1e-4;
+18. charlm train: the full-width char LM (``charlm_solver``: Adam,
+    base_lr 2e-3; fused update, f32, TF32 off) trained through ``TPUNet``
+    on seeded ``char_lm_batches`` of this checkout's README.md and
+    docs/*.md: 20 steps through the kernels against the same 20 with
+    ``flash_attention_torch`` under autograd, each step from the same
+    params and history (every loss rtol 1e-4; params rtol 1e-4, atol 1e-5
+    x max + 1e-2 x base_lr, the one-step Adam tolerance), 3 per-blob against 3
+    fused steps (rtol 1e-5, atol 1e-7), two runs of 5 steps bit for bit,
+    and a world-of-one ``ParallelTrainer`` round at tau 2 bit for bit
+    against 2 ``Solver`` steps (deterministic algorithms for these); then
+    200 timed steps with exactly 2 flash, 2 flash backward and 1 fused
+    update launches a step, ms a step, tokens/s, one step by kernel, and
+    the mean loss of the last 10 steps under 3.3 nats; ``generate_chars``
+    of 64 chars, greedy, through the cached path (1 flash launch a layer,
+    then 1 paged a layer a step), equal to the sliding full forward up to
+    a position of top-2 margin <= 1e-4, and a seeded top-k 5 sample the
+    same twice; a transformer step over 2 heads of 256 lanes (finite loss,
+    non-zero ``w_qkv`` gradient) and a bf16 ``flash_attention`` call bit
+    for bit the float32 kernel on the upcast inputs cast to bf16.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -121,6 +152,7 @@ run) and then prints no result lines; with no arguments every phase runs.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -381,9 +413,12 @@ def phase_build() -> None:
         for fn, spill, n in re.findall(
                 r"Compiling entry function '([^']+)'.*?(\d+) bytes spill stores.*?"
                 r"Used (\d+) registers", log, flags=re.S):
-            kernel = re.search(r"\d+((?:flash|paged)_\w+?_kernel)ILi(\d+)E", fn)
+            kernel = re.search(r"\d+((?:flash|paged)_\w+?_kernel)ILi(\d+)E"
+                               r"(13__nv_bfloat16|6__half)?", fn)
             if kernel:
-                print(f"    {kernel.group(1)} head dim {kernel.group(2)}: {n} "
+                kind = {"13__nv_bfloat16": ", bf16 pools", "6__half": ", f16 pools"}.get(
+                    kernel.group(3), "")
+                print(f"    {kernel.group(1)} head dim {kernel.group(2)}{kind}: {n} "
                       f"registers a thread, {spill} bytes of spill stores")
 
 
@@ -1049,6 +1084,8 @@ def phase_flash(card: str) -> dict:
         ("D=32 ragged", (2, 2, 77, 32), True, 1e-6),
         ("D=64", (4, 4, 200, 64), False, 1e-6),
         ("D=128", (2, 2, 130, 128), True, 1e-6),
+        ("D=256", (2, 2, 130, 256), True, 1e-6),
+        ("D=256, not causal", (1, 2, 77, 256), False, 1e-6),
         ("long context", (4, 16, 2048, 64), True, 1e-5),
         ("long context, not causal", (4, 16, 2048, 64), False, 1e-5),
         ("D=128 long", (2, 8, 1024, 128), True, 1e-5),
@@ -1131,7 +1168,10 @@ def paged_case(gen, b, h, d, t, mb, positions, own_only: bool):
 # The paged kernel's sweep: every head dim it takes at every block size
 # in PAGED_SWEEP_T, each at MB * T = 160 columns, so that the positions
 # cover block edges and both sides of every tile width (32, 64, 128).
-PAGED_SWEEP_D = (8, 16, 32, 64, 128)
+PAGED_SWEEP_D = (8, 16, 32, 64, 128, 256)
+# pools in a 16-bit type, read as stored: (head dim, storage type)
+PAGED_HALF_CASES = ((8, torch.bfloat16), (16, torch.bfloat16), (64, torch.float16),
+                    (256, torch.bfloat16), (256, torch.float16))
 PAGED_SWEEP_T = (1, 4, 8, 16)
 
 
@@ -1192,6 +1232,14 @@ def phase_paged(card: str) -> dict:
                 kernels, sweep_gen, f"sweep D {d} T {t} MB {mb} B {len(positions)}", case))
     print(f"paged sweep: {len(PAGED_SWEEP_D) * len(PAGED_SWEEP_T)} cases, every one within the gate and row "
           f"independent [{card}]")
+    for d, dtype in PAGED_HALF_CASES:
+        t, mb = 8, 20
+        positions = [0, t - 1, t, 31, 32, 33, 63, 64, 65, 127, 128, 129, mb * t - 1]
+        q, kp, vp, tables, pos = paged_case(sweep_gen, len(positions), 2, d, t, mb,
+                                            positions, own_only=True)
+        case = (q, kp.to(dtype), vp.to(dtype), tables, pos)
+        max_err = max(max_err, paged_gate(
+            kernels, sweep_gen, f"{str(dtype)[6:]} pools D {d} T {t} MB {mb}", case))
 
     charlm_pos = [0, 1, 7, 8, 15, 16, 63, 64, 127, 126, 120, 5] + list(
         rs.randint(0, 128, 20))
@@ -1950,9 +1998,452 @@ def phase_parallel(card: str) -> dict:
                 flash=heads["flash"], paged=heads["paged"])
 
 
+# ---------------------------------------------------------------------------
+# Flash attention's backward and the char LM's training slice
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_CASES = [  # (label, shape, causal); the flash phase's shapes and D 12, 200
+    ("charlm", (32, 4, 128, 16), True),
+    ("charlm, not causal", (32, 4, 128, 16), False),
+    ("ragged S=100", (2, 4, 100, 16), True),
+    ("ragged S=100, not causal", (2, 4, 100, 16), False),
+    ("D=8", (4, 4, 128, 8), True),
+    ("D=12, padded to 16", (2, 4, 100, 12), True),
+    ("D=32 ragged", (2, 2, 77, 32), True),
+    ("D=64", (4, 4, 200, 64), False),
+    ("D=128", (2, 2, 130, 128), True),
+    ("D=200, padded to 256", (2, 2, 96, 200), False),
+    ("D=256", (2, 2, 130, 256), True),
+    ("long context", (4, 16, 2048, 64), True),
+    ("long context, not causal", (4, 16, 2048, 64), False),
+    ("D=128 long", (2, 8, 1024, 128), True),
+    ("ragged long", (2, 4, 2000, 64), True),
+]
+FLASH_BWD_TIMED = ("charlm", "long context", "long context, not causal", "D=128 long")
+
+
+def flash_backward_bound_ms(shape, causal: bool, card: str) -> tuple[float, str]:
+    """Least time of one attention backward: q, k, v, o, dO and lse read
+    and dQ, dK, dV written once over the memory rate, or its five
+    [S, S, D] products (10 B H S^2 D flops, halved when causal) at the
+    faster float32-accurate rate (float32, or dense TF32 over 3), as
+    ``flash_bound_ms``."""
+    bw, flops, tf32 = card_peaks(card)
+    b, h, s, d = shape
+    t_bytes = (8 * b * h * s * d + b * h * s) * 4 / bw * 1e3
+    work = 10 * b * h * s * s * d * (0.5 if causal else 1.0)
+    t_ops = min(work / flops, 3 * work / tf32) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def grads_within(got, ref, rtol: float, arel: float) -> tuple[bool, float]:
+    """|got - ref| <= arel * max|ref| + rtol * |ref| everywhere; (ok, max
+    abs err)."""
+    return attention_within(got, ref, arel * float(ref.abs().max()), rtol)
+
+
+def phase_flash_backward(card: str) -> dict:
+    """The backward kernel vs flash_attention_backward_torch on the same
+    q, k, v, o, lse and g at every case; the forward's lse against the
+    plain one, and its o bit for bit the same with and without lse; two
+    launches bit for bit equal; batch entry 0 alone and in its batch;
+    times beside the bound and SDPA's autograd backward."""
+    from sparknet_tpu_torch.common import f32_precision
+    from sparknet_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    max_err, out = 0.0, {}
+    with f32_precision():
+        for label, shape, causal in FLASH_BWD_CASES:
+            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+            o, lse = kernels._flash_attention_cuda(q, k, v, causal, with_lse=True)
+            o_alone = kernels._flash_attention_cuda(q, k, v, causal)
+            _, lse_ref = kernels.flash_attention_forward_lse_torch(q, k, v, causal)
+            ref = kernels.flash_attention_backward_torch(q, k, v, o, lse, g, causal)
+            got = kernels._flash_attention_backward_cuda(q, k, v, o, lse, g, causal)
+            again = kernels._flash_attention_backward_cuda(q, k, v, o, lse, g, causal)
+            torch.cuda.synchronize()
+            rtol, arel = (1e-5, 1e-6) if shape[2] < 1024 else (1e-4, 1e-5)
+            oks, errs = zip(*(grads_within(a, r, rtol, arel) for a, r in zip(got, ref)))
+            lse_ok, lse_err = attention_within(lse, lse_ref, 1e-5)
+            same_o = torch.equal(o, o_alone)
+            twice = all(torch.equal(a, b) for a, b in zip(got, again))
+            max_err = max(max_err, *errs)
+            print(f"flash backward {label} {list(shape)} causal {int(causal)}: max abs err "
+                  f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (rtol {rtol:g}, atol "
+                  f"{arel:g} x max|ref|) {'ok' if all(oks) else 'FAIL'}; forward lse max abs "
+                  f"err {lse_err:.3e} (1e-5) {'ok' if lse_ok else 'FAIL'}, o with lse bit "
+                  f"for bit o without: {same_o}; two launches bit for bit: {twice}")
+            check(all(oks), f"flash backward {label}")
+            check(lse_ok, f"flash forward lse {label}")
+            check(same_o, f"flash forward {label}: o changes when lse is written")
+            check(twice, f"flash backward {label}: two launches differ")
+            if label == "charlm":
+                alone = kernels._flash_attention_backward_cuda(
+                    q[:1], k[:1], v[:1], o[:1], lse[:1], g[:1], causal)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a[0], b[0]) for a, b in zip(alone, got))
+                print(f"flash backward {label}: batch entry 0 alone (B = 1) and in the "
+                      f"batch of {shape[0]}: {'bit for bit equal' if same else 'DIFFER'}")
+                check(same, "flash backward: batch entry 0 differs alone and in its batch")
+            del ref, again
+            if label not in FLASH_BWD_TIMED:
+                continue
+            small = label == "charlm"
+            timer = graph_ms if small else (lambda fn: time_ms(fn, reps=10))
+            how = "CUDA graph" if small else "events"
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+            def sdpa_forward():
+                return F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+            def sdpa_both():
+                return torch.autograd.grad(sdpa_forward(), leaves, g)
+
+            t_k = timer(lambda: kernels._flash_attention_backward_cuda(
+                q, k, v, o, lse, g, causal))
+            t_p = timer(lambda: kernels.flash_attention_backward_torch(
+                q, k, v, o, lse, g, causal))
+            try:
+                t_l = timer(sdpa_both) - timer(sdpa_forward)
+            except RuntimeError as err:  # a backward that will not capture
+                print(f"flash backward {label}: SDPA's backward not timed by "
+                      f"{how} ({str(err)[:120]}); events over back-to-back calls instead")
+                torch.cuda.synchronize()
+                t_l = time_ms(sdpa_both) - time_ms(sdpa_forward)
+            t_lse = timer(lambda: kernels._flash_attention_cuda(q, k, v, causal, True))
+            t_fwd = timer(lambda: kernels._flash_attention_cuda(q, k, v, causal))
+            bound, by = flash_backward_bound_ms(shape, causal, card)
+            print(f"time flash backward {label} {list(shape)} causal {int(causal)} ({how}): "
+                  f"kernel {t_k:.4f} ms ({100 * bound / t_k:.1f}% of bound), plain "
+                  f"{t_p:.4f} ms, autograd backward of F.scaled_dot_product_attention "
+                  f"{t_l:.4f} ms (forward + backward less forward), bound {bound:.4f} ms "
+                  f"({by}); forward with lse {t_lse:.4f} ms, without {t_fwd:.4f} ms [{card}]")
+            out[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                              bound_by=by)
+            del leaves, o, lse, got
+            gc.collect()
+            torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, **out["charlm"])
+
+
+# the char LM trained on the repo's own documentation at the zoo's width
+CHARLM_CMP_STEPS = 20  # kernel against plain
+CHARLM_TIMED_STEPS = 200
+CHARLM_LOSS_GATE = 3.3  # nats: the mean of the last 10 steps (ln 128 = 4.85)
+CHARLM_SAMPLE = 64
+
+
+def charlm_text():
+    """README.md and docs/*.md of this checkout, and a vocab of their
+    127 most frequent chars (id 0 is every other char): ids below the
+    zoo charlm's 128."""
+    import collections
+    from pathlib import Path
+
+    from sparknet_tpu_torch.data import CharVocab, load_corpus
+
+    root = Path(__file__).resolve().parent
+    text = load_corpus([str(root / "README.md")]
+                       + sorted(str(p) for p in (root / "docs").glob("*.md")))
+    common = collections.Counter(text).most_common(CHARLM["vocab"] - 1)
+    return text, CharVocab(sorted(c for c, _ in common))
+
+
+def charlm_handle(fused: bool, batch: int = CHARLM["slots"]):
+    """A TPUNet over the full-width zoo charlm and ``charlm_solver`` (Adam,
+    base_lr 2e-3), weights from SEED, on the card."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.net import TPUNet
+
+    set_config(fused_update=fused, storage_dtype="f32")
+    geo = {k: v for k, v in CHARLM.items() if k != "slots"}
+    cfg = dataclasses.replace(models.charlm_solver(), random_seed=SEED,
+                              average_loss=CHARLM_CMP_STEPS, display=0)
+    return TPUNet(cfg, models.charlm(batch=batch, **geo))
+
+
+@contextlib.contextmanager
+def plain_attention_core():
+    """Every MultiHeadAttention core through flash_attention_torch under
+    autograd, in place of the kernels (as forward_with_plain_lrn swaps the
+    LRN)."""
+    from sparknet_tpu_torch.ops import attention, kernels
+
+    saved = attention.flash_attention
+    attention.flash_attention = kernels.flash_attention_torch
+    try:
+        yield
+    finally:
+        attention.flash_attention = saved
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Deterministic cuDNN and ATen kernels (the embedding's backward among
+    them) for the bit-for-bit gates; TF32 stays off (f32_precision)."""
+    prev = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1], warn_only=prev[2])
+
+
+def solver_state(solver) -> tuple[dict, dict]:
+    """Copies of a Solver's params and history, blob-wise."""
+    params = {ln: [p.detach().clone() for p in pl]
+              for ln, pl in solver.variables.params.items()}
+    slots = {ln: [[h.detach().clone() for h in hl] for hl in sl]
+             for ln, sl in solver.slots.items()}
+    return params, slots
+
+
+def charlm_compare(card: str, batches: list) -> None:
+    """Kernel against plain attention over CHARLM_CMP_STEPS Adam steps,
+    per-blob against fused over 3, two runs of 5 bit for bit, and a
+    world-of-one round at tau 2 against 2 Solver steps."""
+    import torch.distributed as dist
+
+    from sparknet_tpu_torch.parallel import ParallelTrainer
+
+    def run(fused: bool, steps: int, plain: bool = False):
+        net = charlm_handle(fused)
+        net.set_train_data(lambda it: batches[it])
+        with plain_attention_core() if plain else contextlib.nullcontext():
+            net.train(steps)
+        return net
+
+    # in lockstep: before each step the plain run takes the kernel run's
+    # params and history, so that each step is held to the one-step Adam
+    # tolerance from the same weights (over free-running steps Adam
+    # amplifies last-digit differences of near-zero gradients)
+    kern, plain = charlm_handle(True), charlm_handle(True)
+    kern.set_train_data(lambda it: batches[it])
+    plain.set_train_data(lambda it: batches[it])
+    base_lr = kern.solver.config.base_lr
+    worst_loss, worst, ok_loss, ok_params = 0.0, 0.0, True, True
+    for _ in range(CHARLM_CMP_STEPS):
+        with torch.no_grad():
+            plain.solver._param_arena.copy_(kern.solver._param_arena)
+            for x, y in zip(plain.solver._slot_arenas, kern.solver._slot_arenas):
+                x.copy_(y)
+        kern.train(1)
+        lk = float(kern.solver._loss_window[-1])
+        with plain_attention_core():
+            plain.train(1)
+        lp = float(plain.solver._loss_window[-1])
+        worst_loss = max(worst_loss, abs(lk - lp) / abs(lp))
+        ok_loss = ok_loss and abs(lk - lp) <= 1e-4 * abs(lp)
+        for a_list, b_list in zip(kern.solver.variables.params.values(),
+                                  plain.solver.variables.params.values()):
+            for x, y in zip(a_list, b_list):
+                atol = 1e-5 * float(y.abs().max()) + 1e-2 * base_lr
+                ok_params = ok_params and bool(torch.allclose(x, y, rtol=1e-4, atol=atol))
+                worst = max(worst, float((x - y).abs().max()))
+    print(f"charlm train: {CHARLM_CMP_STEPS} Adam steps through the kernels against the "
+          f"same steps with flash_attention_torch under autograd, each from the same "
+          f"params and history: loss max rel diff {worst_loss:.3e} (rtol 1e-4) "
+          f"{'ok' if ok_loss else 'FAIL'}, last loss {lk:.6f}; params max abs diff "
+          f"{worst:.3e} (rtol 1e-4, atol 1e-5 x max + 1e-2 x base_lr) "
+          f"{'ok' if ok_params else 'FAIL'} [{card}]")
+    check(ok_loss, "charlm: kernel and plain losses differ")
+    check(ok_params, "charlm: kernel and plain params differ")
+    del kern, plain
+
+    states = [solver_state(run(fused, 3).solver) for fused in (False, True)]
+    worst, ok = 0.0, True
+    for part in (0, 1):
+        a_side, b_side = states[0][part], states[1][part]
+        for ln in a_side:
+            pairs = zip(a_side[ln], b_side[ln]) if part == 0 else (
+                (a, b) for ha, hb in zip(a_side[ln], b_side[ln]) for a, b in zip(ha, hb))
+            for a, b in pairs:
+                ok = ok and bool(torch.allclose(a, b, rtol=1e-5, atol=1e-7))
+                worst = max(worst, float((a - b).abs().max()))
+    print(f"charlm train: 3 steps per-blob against 3 fused: params and history max abs "
+          f"diff {worst:.3e} (rtol 1e-5, atol 1e-7) {'ok' if ok else 'FAIL'}")
+    check(ok, "charlm: per-blob and fused differ")
+
+    a, b = run(True, 5).solver, run(True, 5).solver
+    same = torch.equal(a._param_arena, b._param_arena) and all(
+        torch.equal(x, y) for x, y in zip(a._slot_arenas, b._slot_arenas))
+    print(f"charlm train: two runs of the same 5 steps: params and history "
+          f"{'bit for bit equal' if same else 'DIFFER'}")
+    check(same, "charlm: two runs of 5 steps differ")
+    del a, b
+
+    solver, ref = charlm_handle(True).solver, charlm_handle(True).solver
+    tr = ParallelTrainer(solver, tau=2)
+    check(dist.get_backend() == "nccl" and tr.num_workers == 1,
+          f"world of one: backend {dist.get_backend()}, {tr.num_workers} workers")
+    loss = tr.train_round(lambda it: {k: np.stack([batches[it][k], batches[it + 1][k]])
+                                      for k in batches[it]})
+    ref.step(2, lambda it: batches[it])
+    same = torch.equal(solver._param_arena, ref._param_arena) and all(
+        torch.equal(x, y) for x, y in zip(solver._slot_arenas, ref._slot_arenas))
+    print(f"charlm train: a world-of-one ParallelTrainer round (NCCL) at tau 2, loss "
+          f"{loss:.6f}, against 2 Solver steps: params and history "
+          f"{'bit for bit equal' if same else 'DIFFER'}")
+    check(same, "charlm: a tau-2 round differs from 2 Solver steps")
+    tr.close()
+    del solver, ref, tr
+    gc.collect()
+
+
+def charlm_sample(card: str, net, vocab) -> dict:
+    """generate_chars from the trained weights: greedy through the cached
+    path (1 flash launch a layer for the prefill, 1 paged a layer a step)
+    against the sliding full forward, and a seeded top-k sample twice."""
+    from sparknet_tpu_torch.models import generate_chars
+    from sparknet_tpu_torch.ops import kernels
+
+    gnet = charlm_handle(True, batch=1)
+    gnet.set_weights(net.get_weights())
+    prompt = "SparkNet averages the weights of "
+    layers = CHARLM["blocks"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    text = generate_chars(gnet, vocab, prompt, CHARLM_SAMPLE, CHARLM["seq_len"],
+                          temperature=0.0)
+    dt = time.perf_counter() - t0
+    counts = (kernels.FLASH_LAUNCHES, kernels.PAGED_LAUNCHES)
+    want = (layers, layers * (CHARLM_SAMPLE - 1))
+    check(counts == want, f"generate_chars launches (flash, paged) {counts}, want {want}")
+    ids = list(vocab.encode(prompt))
+    first_diff, margin = None, None
+    for j in range(CHARLM_SAMPLE):
+        x = np.zeros((1, CHARLM["seq_len"]), np.int32)
+        x[0, :len(ids)] = ids
+        logits = gnet.forward({"data": x, "label": np.zeros_like(x)})["fc"][0, len(ids) - 1]
+        pick = int(logits.argmax())
+        if first_diff is None and vocab.decode([pick]) != text[j]:
+            first_diff, margin = j, float(top2_margin(logits))
+            break
+        ids.append(pick)
+    check(first_diff is None or margin <= MARGIN,
+          f"generate_chars: cached != sliding at char {first_diff}, margin {margin}")
+    top_k = [generate_chars(gnet, vocab, prompt, CHARLM_SAMPLE, CHARLM["seq_len"],
+                            temperature=1.0, top_k=5, seed=SEED + 3) for _ in range(2)]
+    check(top_k[0] == top_k[1], "generate_chars: a seeded top-k sample differs")
+    print(f"charlm sample: greedy {CHARLM_SAMPLE} chars after {prompt!r}: {text!r}; "
+          f"launches flash {counts[0]} (prefill), paged {counts[1]} "
+          f"({layers} a step); {1e3 * dt:.1f} ms; the sliding full forward "
+          + ("agrees on every char" if first_diff is None else
+             f"parts at char {first_diff} with top-2 margin {margin:.3e} <= {MARGIN:g}")
+          + f"; top_k 5 seeded, twice the same: {top_k[0]!r} [{card}]")
+    return dict(flash=counts[0], paged=counts[1])
+
+
+def charlm_wide_heads_and_bf16(card: str) -> None:
+    """A transformer train step over 2 heads of 256 lanes (B3 and B3' at
+    their D = 256 instance), and a bf16 flash_attention call against the
+    float32 kernel on the upcast inputs."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.net import TPUNet
+    from sparknet_tpu_torch.ops import kernels
+
+    set_config(fused_update=False)
+    net = TPUNet(dataclasses.replace(models.transformer_solver(), random_seed=SEED),
+                 models.transformer(batch=4, seq_len=64, vocab=64, embed_dim=512, heads=2,
+                                    ffn_dim=512, blocks=1))
+    rs = np.random.RandomState(SEED + 14)
+    feeds = {"data": rs.randint(0, 64, (4, 64)).astype(np.int32),
+             "label": rs.randint(0, 10, (4,)).astype(np.int32)}
+    kernels.reset_launch_counts()
+    w_qkv = net.backward(feeds)["attn1"][0]
+    net.set_train_data(lambda it: feeds)
+    loss = net.train(1)
+    counts = (kernels.FLASH_LAUNCHES, kernels.FLASH_BACKWARD_LAUNCHES)
+    norm = float(w_qkv.norm())
+    check(counts == (2, 2), f"wide heads: launches (flash, backward) {counts}, want (2, 2)")
+    check(np.isfinite(loss) and np.isfinite(norm) and norm > 0,
+          f"wide heads: loss {loss}, w_qkv gradient norm {norm}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    q, k, v = (torch.randn((2, 4, 100, 16), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    o = kernels.flash_attention(q, k, v, causal=True)
+    ref = kernels.flash_attention(q.float(), k.float(), v.float(), causal=True)
+    same = o.dtype == torch.bfloat16 and torch.equal(o, ref.to(torch.bfloat16))
+    print(f"charlm wide heads: transformer, embed 512 over 2 heads (D 256), one train "
+          f"step: loss {loss:.6f}, w_qkv gradient norm {norm:.4e}, launches flash "
+          f"{counts[0]}, backward {counts[1]}; bf16 flash_attention [2,4,100,16] causal "
+          f"against the float32 kernel on the upcast inputs cast to bf16: "
+          f"{'bit for bit equal' if same else 'DIFFER'} [{card}]")
+    check(same, "bf16 flash_attention differs from the float32 kernel")
+
+
+def phase_charlm_train(card: str) -> dict:
+    """The slice's path: the full-width char LM trained through TPUNet on
+    char_lm_batches of the repo's documentation, f32, TF32 off,
+    fused_update on; gates against plain attention, per-blob, a second run
+    and a tau-2 round; 200 timed steps that must learn; sampling; wide
+    heads and bf16 inputs."""
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.data import char_lm_batches
+    from sparknet_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    text, vocab = charlm_text()
+    batch, seq = CHARLM["slots"], CHARLM["seq_len"]
+    feed = char_lm_batches(text, vocab, batch, seq, seed=SEED)
+    batches = [next(feed) for _ in range(CHARLM_CMP_STEPS)]
+    print(f"charlm train: corpus README.md + docs/*.md, {len(text)} chars, vocab "
+          f"{vocab.size}; batch {batch} x seq_len {seq}")
+    try:
+        with deterministic_algorithms():
+            charlm_compare(card, batches)
+        net = charlm_handle(True)
+        net.set_train_data(lambda it: batches[it])
+        net.train(CHARLM_CMP_STEPS)  # warm-up on the compared batches
+        net.set_train_data(feed)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        net.train(CHARLM_TIMED_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = (kernels.FLASH_LAUNCHES, kernels.FLASH_BACKWARD_LAUNCHES,
+                  kernels.FUSED_UPDATE_LAUNCHES)
+        n = CHARLM_TIMED_STEPS
+        check(counts == (2 * n, 2 * n, n), f"charlm launches (flash, backward, fused) "
+                                           f"{counts}, want {(2 * n, 2 * n, n)}")
+        losses = [float(x) for x in net.solver._loss_window[-10:]]
+        mean10 = float(np.mean(losses))
+        ms = 1e3 * dt / n
+        print(f"charlm train: {n} timed steps after {CHARLM_CMP_STEPS}, "
+              f"{ms:.3f} ms/step, {batch * seq / (ms / 1e3):.1f} tokens/s; launches a "
+              f"step: flash {counts[0] // n}, flash backward {counts[1] // n}, fused "
+              f"update {counts[2] // n}; mean loss of the last 10 steps {mean10:.4f} nats "
+              f"(gate < {CHARLM_LOSS_GATE}; ln 128 = 4.852) [{card}]")
+        check(mean10 < CHARLM_LOSS_GATE, f"charlm did not learn: {mean10:.4f} nats")
+        device_ms, rows = device_breakdown(lambda: net.train(1), top=12)
+        if device_ms:
+            print(f"charlm train profile: one step under torch.profiler: {device_ms:.3f} "
+                  f"ms of kernels, {100 * device_ms / ms:.1f}% of the unprofiled "
+                  f"{ms:.3f} ms/step [{card}]")
+            for t, name, calls in rows:
+                print(f"  {t:8.3f} ms  {100 * t / device_ms:5.1f}%  x{calls}  {name[:90]}")
+        else:
+            print("charlm train profile: torch.profiler recorded no device time")
+        sample = charlm_sample(card, net, vocab)
+        charlm_wide_heads_and_bf16(card)
+    finally:
+        set_config(fused_update=False)
+    print(f"charlm train: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return dict(flash=counts[0] + sample["flash"], backward=counts[1],
+                fused_update=counts[2], paged=sample["paged"], ms_per_step=ms)
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "flash",
-          "paged", "token", "token_profile")
+          "flash_backward", "paged", "token", "token_profile", "charlm_train")
 
 
 def main(argv=None) -> int:
@@ -1975,7 +2466,8 @@ def main(argv=None) -> int:
     phase_build()
     stats = {}
     launches = {"lrn_across_channels": 0, "lrn_backward": 0, "fused_update": 0,
-                "flash_attention": 0, "paged_attention": 0}
+                "flash_attention": 0, "flash_attention_backward": 0,
+                "paged_attention": 0}
     if "kernel" in phases:
         stats["lrn"] = phase_kernel(card)
     if "path" in phases:
@@ -2011,6 +2503,8 @@ def main(argv=None) -> int:
         launches["paged_attention"] += par["paged"]
     if "flash" in phases:
         stats["flash"] = phase_flash(card)
+    if "flash_backward" in phases:
+        stats["flash_backward"] = phase_flash_backward(card)
     if "paged" in phases:
         stats["paged"] = phase_paged(card)
     if "token" in phases:
@@ -2020,6 +2514,12 @@ def main(argv=None) -> int:
         if "token_profile" in phases:
             phase_token_profile(card, token)
         del token
+    if "charlm_train" in phases:
+        charlm = phase_charlm_train(card)
+        launches["flash_attention"] += charlm["flash"]
+        launches["flash_attention_backward"] += charlm["backward"]
+        launches["fused_update"] += charlm["fused_update"]
+        launches["paged_attention"] += charlm["paged"]
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0
@@ -2034,6 +2534,9 @@ def main(argv=None) -> int:
                          "sparknet_tpu/ops/pallas_kernels.py:467", "fused_update"),
         "flash_attention": ("sparknet_tpu_torch/csrc/flash_attention.cu",
                             "sparknet_tpu/ops/pallas_kernels.py:239", "flash"),
+        "flash_attention_backward": ("sparknet_tpu_torch/csrc/flash_attention.cu",
+                                     "sparknet_tpu/ops/pallas_kernels.py:342",
+                                     "flash_backward"),
         "paged_attention": ("sparknet_tpu_torch/csrc/paged_attention.cu",
                             "sparknet_tpu/ops/pallas_kernels.py:785", "paged"),
     }
@@ -2043,12 +2546,14 @@ def main(argv=None) -> int:
         # LRN times and bounds: one AlexNet b256 step's two calls (norm1 +
         # norm2), float32; fused_update: one SGD f32 update of the AlexNet
         # arena; flash: the char LM's prefill shape [32,4,128,16] causal;
-        # paged: its decode shape (B 32, H 4, D 16, T 8, MB 16);
-        # max_abs_err: the largest over every f32 case (every case for
-        # fused_update, flash and paged); launches: the main paths (the
-        # AlexNet TEST forwards, the CaffeNet requests, the AlexNet and
-        # CaffeNet train steps, the paged token run and the rectangle
-        # run), each counted from 0
+        # flash_attention_backward: the char LM's training shape
+        # [32,4,128,16] causal; paged: its decode shape (B 32, H 4, D 16,
+        # T 8, MB 16); max_abs_err: the largest over every f32 case (every
+        # case for fused_update, flash, its backward and paged); launches:
+        # the main paths (the AlexNet TEST forwards, the CaffeNet
+        # requests, the AlexNet and CaffeNet train steps, the trainer's
+        # rounds, the paged token run and the rectangle run, the char LM's
+        # timed training steps and its sampling), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -2,7 +2,8 @@
 // a block-paged K/V pool.
 //
 // Replaces the TPU kernel sparknet_tpu/ops/pallas_kernels.py::_paged_kernel
-// (launched by _paged_pallas).  Inputs, float32 except the int32 tables:
+// (launched by _paged_pallas).  Inputs, float32 except the int32 tables
+// (the pools may also be bfloat16 or float16: see the end of this note):
 //
 //   q          [B, H, D]      one query token per row (slot)
 //   k/v pools  [NB, T, H, D]  K/V in blocks of T tokens
@@ -74,16 +75,26 @@
 // tiling, each warp's share, the lane groups and the merge), with no
 // atomics, so interleaved decode gives the same bits as decoding alone.
 //
-// The head dims are the zoo's (8 for transformer, 16 for charlm) and 32, 64
-// and 128; any other raises in the wrapper (ops/kernels.py) and returns
+// The head dims are the zoo's (8 for transformer, 16 for charlm) and 32,
+// 64, 128 and 256 (at D = 256: 16 columns a tile, 8 lanes a column, 104 KB
+// of ring); any other raises in the wrapper (ops/kernels.py) and returns
 // cudaErrorInvalidValue here, as does a pool not 16-byte aligned.
+//
+// Pools of bfloat16 or float16 (the TPU kernel casts each block it loads,
+// :804-805) are never copied or cast as a whole: an instance on the pools'
+// storage type copies their lines as stored into the ring (half the bytes,
+// the same 16-byte chunks) and converts each value to float32 as it reads
+// it from shared memory; q and o stay float32 (the wrapper casts q).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -92,7 +103,10 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 3;  // K/V tiles in the shared-memory ring
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int D>
+// T: the pools' storage type (float, __nv_bfloat16 or __half); the ring
+// holds pool lines as stored, and each value is converted to float32 as it
+// is read from shared memory
+template <int D, typename T>
 struct PagedCfg {
   static constexpr int kG = D <= 32 ? 1 : D / 32;      // lanes a column, scoring
   static constexpr int kDL = D / kG;                   // dims a lane, scoring
@@ -100,19 +114,35 @@ struct PagedCfg {
   static constexpr int kKT = kWarps * kCW;             // columns a tile
   static constexpr int kVL = D < 32 ? 1 : D / 32;      // dims a lane, P V
   static constexpr int kGroups = D < 32 ? 32 / D : 1;  // lane groups, P V
-  static constexpr int kKS = D + 4 * kG;               // K row stride, words
-  static constexpr int kVS = D;                        // V row stride, words
-  static constexpr int kCPR = D / 4;                   // 16-byte chunks a row
+  static constexpr int kEPC = 16 / (int)sizeof(T);     // elements a 16-byte chunk
+  static constexpr int kKS = D + kEPC * kG;            // K row stride, elements
+  static constexpr int kVS = D;                        // V row stride, elements
+  static constexpr int kCPR = D / kEPC;                // 16-byte chunks a row
   static constexpr int kCopies = kKT * kCPR / kThreads;  // K (and V) copies a thread a tile
-  static constexpr int kStage = kKT * (kKS + kVS);     // floats a stage
-  static constexpr int kSmem = kStages * kStage * 4;   // ring bytes
+  static constexpr int kStage = kKT * (kKS + kVS);     // elements a stage
+  static constexpr int kSmem = kStages * kStage * (int)sizeof(T);  // ring bytes
   static_assert(kKT <= kThreads && kKT * kCPR % kThreads == 0,
                 "a tile's columns and copies must spread over the CTA");
 };
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// four consecutive elements of shared memory as float32 (16-byte aligned
+// for float, 8-byte for the 16-bit types)
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
+  if constexpr (std::is_same<T, float>::value) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    return make_float4(to_f32(p[0]), to_f32(p[1]), to_f32(p[2]), to_f32(p[3]));
+  }
+}
+
 // 16 bytes from global to shared memory, or 16 zero bytes when !live (no
 // global byte is read then)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool live) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(live ? 16 : 0)
@@ -147,18 +177,18 @@ __device__ __forceinline__ void plan_tile(unsigned (*rows_s)[KT],
 // 16-byte copies, consecutive threads on consecutive chunks of a line.  A
 // thread copies chunk ch of columns col0, col0 + kColStep, ..., so its
 // addresses are a few bases plus constant offsets.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void issue_tile(
-    float* ring, const unsigned (*rows_s)[PagedCfg<D>::kKT], const float* kp,
-    const float* vp, int x, int pos, long long row_stride, long long head_off) {
-  using C = PagedCfg<D>;
+    T* ring, const unsigned (*rows_s)[PagedCfg<D, T>::kKT], const T* kp,
+    const T* vp, int x, int pos, long long row_stride, long long head_off) {
+  using C = PagedCfg<D, T>;
   constexpr int kColStep = kThreads / C::kCPR;
   const unsigned col0 = threadIdx.x / C::kCPR, ch = threadIdx.x % C::kCPR;
-  float* sk = ring + (x % kStages) * C::kStage + col0 * C::kKS + 4 * ch;
-  float* sv = ring + (x % kStages) * C::kStage + C::kKT * C::kKS + col0 * C::kVS + 4 * ch;
+  T* sk = ring + (x % kStages) * C::kStage + col0 * C::kKS + C::kEPC * ch;
+  T* sv = ring + (x % kStages) * C::kStage + C::kKT * C::kKS + col0 * C::kVS + C::kEPC * ch;
   const unsigned* rows = rows_s[x % kStages] + col0;
-  const float* kh = kp + head_off + 4 * ch;
-  const float* vh = vp + head_off + 4 * ch;
+  const T* kh = kp + head_off + C::kEPC * ch;
+  const T* vh = vp + head_off + C::kEPC * ch;
   const int c0 = x * C::kKT + (int)col0;
 #pragma unroll
   for (int r = 0; r < C::kCopies; ++r) {
@@ -169,20 +199,20 @@ __device__ __forceinline__ void issue_tile(
   }
 }
 
-template <int D>
+template <int D, typename KV>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const float* __restrict__ q,
-                           const float* __restrict__ kp,
-                           const float* __restrict__ vp,
+                           const KV* __restrict__ kp,
+                           const KV* __restrict__ vp,
                            const int* __restrict__ tables,
                            const int* __restrict__ positions,
                            float* __restrict__ o, int H, int T, int MB,
                            float scale) {
-  using C = PagedCfg<D>;
+  using C = PagedCfg<D, KV>;
   constexpr int G = C::kG, DL = C::kDL, CW = C::kCW, KT = C::kKT,
                 VL = C::kVL, KS = C::kKS, VS = C::kVS;
   extern __shared__ float4 ring4[];
-  float* ring = reinterpret_cast<float*>(ring4);
+  KV* ring = reinterpret_cast<KV*>(ring4);
   // pool row of each column of a tile, by slot: below 2^32, since a pool of
   // 2^32 rows of H * D >= 8 floats would not fit on a card
   __shared__ unsigned rows_s[kStages][KT];
@@ -198,7 +228,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long row_stride = (long long)H * D;  // one token of a block
   const long long head_off = (long long)h * D;
 
-  if (tid < D) q_s[tid] = q[((long long)b * H + h) * D + tid];
+  for (int d = tid; d < D; d += kThreads) q_s[d] = q[((long long)b * H + h) * D + d];
   // scoring role: column jc of the warp's share, part g: q's and K's
   // 16-byte chunks g, g + G, g + 2G, ...
   const int jc = lane / G, g = lane % G;
@@ -209,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 #pragma unroll
   for (int x = 0; x < kStages - 1; ++x) {
-    if (x < ntiles) issue_tile<D>(ring, rows_s, kp, vp, x, pos, row_stride, head_off);
+    if (x < ntiles) issue_tile<D, KV>(ring, rows_s, kp, vp, x, pos, row_stride, head_off);
     cp_async_commit();
   }
 
@@ -222,21 +252,21 @@ __global__ void __launch_bounds__(kThreads)
     // of tile x + kStages - 1 are free to overwrite and read
     __syncthreads();
     if (x + kStages - 1 < ntiles)
-      issue_tile<D>(ring, rows_s, kp, vp, x + kStages - 1, pos, row_stride, head_off);
+      issue_tile<D, KV>(ring, rows_s, kp, vp, x + kStages - 1, pos, row_stride, head_off);
     cp_async_commit();
     if (x + kStages < ntiles) plan_tile<KT>(rows_s, tbl, x + kStages, pos, T);
 
     const int c0 = x * KT + warp * CW;  // the warp's first column
     if (c0 > pos) continue;              // warp-uniform: nothing live
-    const float* sk = ring + (x % kStages) * C::kStage + warp * CW * KS;
-    const float* sv = ring + (x % kStages) * C::kStage + KT * KS + warp * CW * VS;
+    const KV* sk = ring + (x % kStages) * C::kStage + warp * CW * KS;
+    const KV* sv = ring + (x % kStages) * C::kStage + KT * KS + warp * CW * VS;
 
-    const float* kr = sk + jc * KS;
+    const KV* kr = sk + jc * KS;
     float part = 0.f;
 #pragma unroll
     for (int i = 0; i < DL / 4; ++i) {
       const float4 qv = *reinterpret_cast<const float4*>(q_s + 4 * (g + G * i));
-      const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * (g + G * i));
+      const float4 kv = load4(kr + 4 * (g + G * i));
       part = fmaf(qv.x, kv.x, part);
       part = fmaf(qv.y, kv.y, part);
       part = fmaf(qv.z, kv.z, part);
@@ -259,19 +289,23 @@ __global__ void __launch_bounds__(kThreads)
     for (int jj = 0; jj < CW / C::kGroups; ++jj) {
       const int j = jj * C::kGroups + grp;
       const float pj = __shfl_sync(kFull, p, j * G);
-      const float* vr = sv + j * VS + dv;
-      if constexpr (VL == 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(vr);
-        acc[0] = fmaf(pj, vv.x, acc[0]);
-        acc[1] = fmaf(pj, vv.y, acc[1]);
-        acc[2] = fmaf(pj, vv.z, acc[2]);
-        acc[3] = fmaf(pj, vv.w, acc[3]);
-      } else if constexpr (VL == 2) {
+      const KV* vr = sv + j * VS + dv;
+      if constexpr (VL % 4 == 0) {
+#pragma unroll
+        for (int u = 0; u < VL; u += 4) {
+          const float4 vv = load4(vr + u);
+          acc[u] = fmaf(pj, vv.x, acc[u]);
+          acc[u + 1] = fmaf(pj, vv.y, acc[u + 1]);
+          acc[u + 2] = fmaf(pj, vv.z, acc[u + 2]);
+          acc[u + 3] = fmaf(pj, vv.w, acc[u + 3]);
+        }
+      } else if constexpr (VL == 2 && std::is_same<KV, float>::value) {
         const float2 vv = *reinterpret_cast<const float2*>(vr);
         acc[0] = fmaf(pj, vv.x, acc[0]);
         acc[1] = fmaf(pj, vv.y, acc[1]);
       } else {
-        acc[0] = fmaf(pj, vr[0], acc[0]);
+#pragma unroll
+        for (int u = 0; u < VL; ++u) acc[u] = fmaf(pj, to_f32(vr[u]), acc[u]);
       }
     }
     m = m_new;
@@ -291,7 +325,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < VL; ++k) acc_s[warp][dv + k] = acc[k];
   }
   __syncthreads();
-  if (tid < D) {  // the warps' carries merged in warp order
+  for (int d = tid; d < D; d += kThreads) {  // the warps' carries merged in warp order
     float mt = m_s[0];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) mt = fmaxf(mt, m_s[w]);
@@ -299,10 +333,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float f = expf(m_s[w] - mt);
-      a = fmaf(acc_s[w][tid], f, a);
+      a = fmaf(acc_s[w][d], f, a);
       den = fmaf(l_s[w], f, den);
     }
-    o[((long long)b * H + h) * D + tid] = a / den;  // column 0 is live: den > 0
+    o[((long long)b * H + h) * D + d] = a / den;  // column 0 is live: den > 0
   }
 }
 
@@ -310,9 +344,9 @@ constexpr int kMaxDevices = 64;
 
 // Dynamic shared memory past 48 KB must be allowed for each kernel on each
 // device: done at the first launch on a device, then remembered.
-template <int D>
+template <int D, typename T>
 cudaError_t allow_smem() {
-  constexpr int smem = PagedCfg<D>::kSmem;
+  constexpr int smem = PagedCfg<D, T>::kSmem;
   if (smem <= 48 * 1024) return cudaSuccess;
   static std::atomic<bool> allowed[kMaxDevices];
   int dev = 0;
@@ -320,37 +354,55 @@ cudaError_t allow_smem() {
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && allowed[dev].load(std::memory_order_acquire))
     return cudaSuccess;
-  err = cudaFuncSetAttribute(paged_attention_kernel<D>,
+  err = cudaFuncSetAttribute(paged_attention_kernel<D, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && dev < kMaxDevices)
     allowed[dev].store(true, std::memory_order_release);
   return err;
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* kp, const float* vp,
+template <int D, typename T>
+cudaError_t launch(const float* q, const void* kp, const void* vp,
                    const int* tables, const int* positions, float* o, int B,
-                   int H, int T, int MB, float scale, cudaStream_t s) {
-  const cudaError_t err = allow_smem<D>();
+                   int H, int Tk, int MB, float scale, cudaStream_t s) {
+  const cudaError_t err = allow_smem<D, T>();
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B);
-  paged_attention_kernel<D><<<grid, kThreads, PagedCfg<D>::kSmem, s>>>(
-      q, kp, vp, tables, positions, o, H, T, MB, scale);
+  paged_attention_kernel<D, T><<<grid, kThreads, PagedCfg<D, T>::kSmem, s>>>(
+      q, static_cast<const T*>(kp), static_cast<const T*>(vp), tables,
+      positions, o, H, Tk, MB, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_width(int d, const float* q, const void* kp, const void* vp,
+                         const int* tables, const int* positions, float* o,
+                         int B, int H, int Tk, int MB, float scale,
+                         cudaStream_t s) {
+  switch (d) {
+    case 8: return launch<8, T>(q, kp, vp, tables, positions, o, B, H, Tk, MB, scale, s);
+    case 16: return launch<16, T>(q, kp, vp, tables, positions, o, B, H, Tk, MB, scale, s);
+    case 32: return launch<32, T>(q, kp, vp, tables, positions, o, B, H, Tk, MB, scale, s);
+    case 64: return launch<64, T>(q, kp, vp, tables, positions, o, B, H, Tk, MB, scale, s);
+    case 128: return launch<128, T>(q, kp, vp, tables, positions, o, B, H, Tk, MB, scale, s);
+    case 256: return launch<256, T>(q, kp, vp, tables, positions, o, B, H, Tk, MB, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, o: contiguous float32 [b, h, d]; k_pool, v_pool: contiguous float32
-// [num_blocks, t, h, d], 16-byte aligned; tables: contiguous int32 [b, mb]
-// of block ids in [0, num_blocks); positions: int32 [b].  scale:
-// 1 / sqrt(d).  Returns a cudaError_t.
+// q, o: contiguous float32 [b, h, d]; k_pool, v_pool: contiguous [num_blocks,
+// t, h, d] of kv_dtype (0 float32, 1 bfloat16, 2 float16), 16-byte aligned;
+// tables: contiguous int32 [b, mb] of block ids in [0, num_blocks);
+// positions: int32 [b].  scale: 1 / sqrt of the true head dim.  Returns a
+// cudaError_t.
 int sparknet_paged_attention(const void* q, const void* k_pool,
                              const void* v_pool, const void* tables,
                              const void* positions, void* o, int b, int h,
-                             int d, int t, int mb, float scale,
+                             int d, int t, int mb, int kv_dtype, float scale,
                              void* stream) {
   // mb * t + 128: the last tile's column indices stay in int range
   if (b <= 0 || b > 65535 || h <= 0 || t <= 0 || mb <= 0 ||
@@ -359,18 +411,14 @@ int sparknet_paged_attention(const void* q, const void* k_pool,
       reinterpret_cast<uintptr_t>(v_pool) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k_pool);
-  const float* vf = static_cast<const float*>(v_pool);
   const int* tb = static_cast<const int*>(tables);
   const int* ps = static_cast<const int*>(positions);
   float* of = static_cast<float*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 8: return (int)launch<8>(qf, kf, vf, tb, ps, of, b, h, t, mb, scale, st);
-    case 16: return (int)launch<16>(qf, kf, vf, tb, ps, of, b, h, t, mb, scale, st);
-    case 32: return (int)launch<32>(qf, kf, vf, tb, ps, of, b, h, t, mb, scale, st);
-    case 64: return (int)launch<64>(qf, kf, vf, tb, ps, of, b, h, t, mb, scale, st);
-    case 128: return (int)launch<128>(qf, kf, vf, tb, ps, of, b, h, t, mb, scale, st);
+  switch (kv_dtype) {
+    case 0: return (int)launch_width<float>(d, qf, k_pool, v_pool, tb, ps, of, b, h, t, mb, scale, st);
+    case 1: return (int)launch_width<__nv_bfloat16>(d, qf, k_pool, v_pool, tb, ps, of, b, h, t, mb, scale, st);
+    case 2: return (int)launch_width<__half>(d, qf, k_pool, v_pool, tb, ps, of, b, h, t, mb, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,13 +1,15 @@
-"""Model zoo builders, cached decode builders and deploy-time inference.
+"""Model zoo builders, cached decode builders, sampling and deploy-time inference.
 
 Each builder returns a ``NetParameter`` Message ready for ``Network``
 (ref: caffe/models/ + caffe/examples/), each ``*_solver()`` the
 ``SolverConfig`` of its published solver.prototxt; ``Classifier`` is pycaffe's
-deploy-time classifier on a torch device.
+deploy-time classifier on a torch device; ``generate_chars`` samples from a
+trained char LM.
 """
 
 from sparknet_tpu_torch.models.classifier import Classifier  # noqa: F401
 from sparknet_tpu_torch.models.deploy import DeployNet  # noqa: F401
+from sparknet_tpu_torch.models.generate import generate_chars  # noqa: F401
 from sparknet_tpu_torch.models.zoo import (  # noqa: F401
     DecodeSpec,
     alexnet,

@@ -1,22 +1,30 @@
-"""The weight exchange object of SparkNet's outer loop, on the host.
+"""The framework's net-handle API.
 
-Counterpart of the host-only part of ``sparknet_tpu/net.py``:
-``WeightCollection`` (ref: src/main/scala/libs/Net.scala:14-47, the object
-the reference broadcasts to and collects from its workers) and the two
-conversions between it and a ``NetVars``.  The collection holds numpy
-arrays on the host; ``collection_to_variables`` puts them on the
-template's device.  The rest of ``net.py`` (the Net handle, caffemodel
-and HDF5 I/O) is not ported yet (ROADMAP Queue A, A9).
+Counterpart of ``sparknet_tpu/net.py``: the ``TPUNet`` handle (ref:
+src/main/scala/libs/Net.scala:49-65: setTrainData/setTestData/train/test/
+forward/backward/setWeights/getWeights) over the port's ``Solver``, and
+``WeightCollection`` (ref: Net.scala:14-47, the object the reference
+broadcasts to and collects from its workers) with the two conversions
+between it and a ``NetVars``.  The collection holds numpy arrays on the
+host; ``collection_to_variables`` puts them on the template's device.
+
+``forward`` and ``backward`` run eagerly on the handle's device;
+``backward`` differentiates with ``torch.autograd`` (through the kernels'
+backwards on the card: the LRN's and flash attention's).  Not ported yet
+(ROADMAP Queue A4): ``.caffemodel`` and HDF5 weights, whose methods raise,
+and the weights-file persistence of Net.scala:234-240.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
 
 from sparknet_tpu_torch.compiler.graph import NetVars
+from sparknet_tpu_torch.proto.text_format import Message
+from sparknet_tpu_torch.solvers.solver import Solver, SolverConfig
 
 
 class WeightCollection:
@@ -26,6 +34,24 @@ class WeightCollection:
 
     def __init__(self, weights: dict[str, list[np.ndarray]]):
         self.weights = weights
+
+    def scalar_divide(self, v: float) -> "WeightCollection":
+        """ref: Net.scala:17-25 (in place in the reference; a new collection
+        here, as in the JAX package)."""
+        return WeightCollection(
+            {k: [a / v for a in arrs] for k, arrs in self.weights.items()})
+
+    def add(self, other: "WeightCollection") -> "WeightCollection":
+        """Elementwise sum of two collections of one structure (ref:
+        Net.scala:27-46); raises if their layers or blob counts differ."""
+        if set(self.weights) != set(other.weights):
+            raise ValueError("WeightCollection.add: the layer sets differ")
+        out = {}
+        for k, arrs in self.weights.items():
+            if len(arrs) != len(other.weights[k]):
+                raise ValueError(f"WeightCollection.add: blob count differs at {k}")
+            out[k] = [a + b for a, b in zip(arrs, other.weights[k])]
+        return WeightCollection(out)
 
     def __getitem__(self, layer: str) -> list[np.ndarray]:
         return self.weights[layer]
@@ -64,7 +90,7 @@ def collection_to_variables(wc: WeightCollection, template: NetVars) -> NetVars:
     """WeightCollection -> NetVars shaped, typed and placed like
     ``template``."""
     def put(a, like: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a)).to(like.device, like.dtype).reshape(like.shape)
+        return torch.from_numpy(np.array(a)).to(like.device, like.dtype).reshape(like.shape)
 
     params = {lname: [put(a, p) for a, p in zip(wc[lname], plist)]
               for lname, plist in template.params.items()}
@@ -73,3 +99,136 @@ def collection_to_variables(wc: WeightCollection, template: NetVars) -> NetVars:
         arrs = wc[lname][len(template.params.get(lname, [])):]
         state[lname] = {k: put(a, v) for (k, v), a in zip(state_items(s), arrs)}
     return NetVars(params=params, state=state)
+
+
+_NOT_PORTED = ("{}: .caffemodel and HDF5 weights are not ported yet (ROADMAP "
+               "Queue A4); move weights with get_weights/set_weights or "
+               "sparknet_tpu_torch.interop")
+
+
+class TPUNet:
+    """The CaffeNet-equivalent handle (ref: Net.scala:67-250): owns the
+    solver (its TRAIN and TEST nets and the training state) and the data
+    hookups.  ``device=None`` means CUDA and raises without a card; pass
+    ``device="cpu"`` to run on the CPU."""
+
+    def __init__(
+        self,
+        solver_param: Message | SolverConfig,
+        net_param: Message,
+        feed_shapes: dict[str, tuple] | None = None,
+        device: str | torch.device | None = None,
+    ):
+        self.solver = Solver(solver_param, net_param, feed_shapes, device=device)
+        self.device = self.solver.device
+        self.train_net = self.solver.train_net
+        self.test_net = self.solver.test_net
+        self._train_iter: Iterator[dict] | Callable[[int], dict] | None = None
+        self._test_iter: Iterator[dict] | None = None
+        self._test_len = 0
+
+    # -- data hookup (ref: Net.scala setTrainData/setTestData :78-100) ----
+    def set_train_data(self, batches: Iterator[dict] | Callable[[int], dict]):
+        """``batches``: an iterator of feed dicts, or fn(iteration) -> feed
+        dict."""
+        self._train_iter = batches
+
+    def set_test_data(self, batches: Iterator[dict], length: int):
+        self._test_iter = batches
+        self._test_len = length
+
+    @staticmethod
+    def _data_fn(src) -> Callable[[int], dict]:
+        return src if callable(src) else (lambda it: next(src))
+
+    # -- training/eval (ref: Net.scala train :102-105, test :107-119) -----
+    def train(self, num_steps: int) -> float:
+        """``num_steps`` solver iterations; returns the smoothed loss."""
+        if self._train_iter is None:
+            raise RuntimeError("call set_train_data first")
+        return self.solver.step(num_steps, self._data_fn(self._train_iter))
+
+    def test(self) -> dict[str, float]:
+        if self._test_iter is None:
+            raise RuntimeError("call set_test_data first")
+        return self.solver.test(self._test_len, self._data_fn(self._test_iter))
+
+    # -- inference (ref: Net.scala forward :121-123 + getData :173-191) ---
+    def forward(self, feeds: dict[str, Any], start: str | None = None,
+                end: str | None = None) -> dict[str, torch.Tensor]:
+        """Forward on the TEST-phase graph; returns ALL blobs (the getData
+        dump the Featurizer uses, ref: FeaturizerApp.scala:88-102).
+
+        ``start``/``end`` run a sub-range of layers (ref:
+        Net::ForwardFromTo net.cpp:565-583; pycaffe ``net.forward(start=...,
+        end=...)``): feed the start layer's bottom blobs, read any blob the
+        range produces."""
+        with torch.no_grad():
+            return self.test_net.apply(self.solver.variables, feeds, train=False,
+                                       start=start, end=end)[0]
+
+    def backward(self, feeds: dict[str, Any], start: str | None = None,
+                 end: str | None = None, wrt: str = "params") -> dict[str, Any]:
+        """Gradient of the executed range's loss on the TRAIN graph (ref:
+        Net.scala backward :125-127), by ``torch.autograd``.
+
+        ``start``/``end`` restrict the differentiated range (ref:
+        Net::BackwardFromTo net.cpp:635-646).  ``wrt="params"`` (default)
+        returns {layer: [d(loss)/d(blob)]} over every param blob (zeros for
+        blobs outside the range); ``wrt="inputs"`` returns d(loss)/d(each
+        floating-point fed blob), the bottom diffs a mid-graph
+        BackwardFromTo hands back.  Random layers draw from a generator
+        seeded with 0."""
+        if wrt not in ("params", "inputs"):
+            raise ValueError(f"wrt must be 'params' or 'inputs', got {wrt!r}")
+        net = self.train_net
+        variables = self.solver.variables
+        arrs = {k: torch.as_tensor(v, device=self.device) for k, v in feeds.items()}
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        if wrt == "params":
+            leaves = {ln: [p.detach().requires_grad_(True) for p in pl]
+                      for ln, pl in variables.params.items()}
+            wanted = [p for pl in leaves.values() for p in pl]
+            _, _, loss = net.apply(NetVars(leaves, variables.state), arrs, gen=gen,
+                                   start=start, end=end)
+        else:
+            diff = {k: v.detach().requires_grad_(True) for k, v in arrs.items()
+                    if v.is_floating_point()}
+            if not diff:
+                raise ValueError(
+                    "wrt='inputs' needs at least one floating-point feed to "
+                    f"differentiate; got {list(arrs)} (cast integer image blobs "
+                    "to float first)")
+            wanted = list(diff.values())
+            _, _, loss = net.apply(variables, {**arrs, **diff}, gen=gen,
+                                   start=start, end=end)
+        grads = torch.autograd.grad(loss, wanted, allow_unused=True) \
+            if loss.requires_grad else [None] * len(wanted)
+        grads = [torch.zeros_like(w) if g is None else g for w, g in zip(wanted, grads)]
+        if wrt == "inputs":
+            return dict(zip(diff, grads))
+        out, k = {}, 0
+        for ln, pl in leaves.items():
+            out[ln] = grads[k:k + len(pl)]
+            k += len(pl)
+        return out
+
+    # -- weight exchange (ref: Net.scala:131-171) --------------------------
+    def get_weights(self) -> WeightCollection:
+        return variables_to_collection(self.solver.variables)
+
+    def set_weights(self, wc: WeightCollection) -> None:
+        self.solver.variables = collection_to_variables(wc, self.solver.variables)
+
+    # -- zoo interchange: not ported yet (ROADMAP Queue A4) ----------------
+    def save_caffemodel(self, path: str) -> str:
+        raise NotImplementedError(_NOT_PORTED.format("save_caffemodel"))
+
+    def load_caffemodel(self, path: str, strict_shapes: bool = True) -> list[str]:
+        raise NotImplementedError(_NOT_PORTED.format("load_caffemodel"))
+
+    def save_hdf5(self, path: str) -> None:
+        raise NotImplementedError(_NOT_PORTED.format("save_hdf5"))
+
+    def load_hdf5(self, path: str) -> list[str]:
+        raise NotImplementedError(_NOT_PORTED.format("load_hdf5"))

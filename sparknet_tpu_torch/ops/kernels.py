@@ -14,7 +14,8 @@ Beside each kernel:
   takes it only for a tensor that lies on the CPU; on a CUDA tensor it
   launches the kernel or raises, with no fallback;
 * a launch count (``LRN_LAUNCHES``, ``LRN_BACKWARD_LAUNCHES``,
-  ``FUSED_UPDATE_LAUNCHES``, ``FLASH_LAUNCHES``, ``PAGED_LAUNCHES``),
+  ``FUSED_UPDATE_LAUNCHES``, ``FLASH_LAUNCHES``,
+  ``FLASH_BACKWARD_LAUNCHES``, ``PAGED_LAUNCHES``),
   raised by one at each launch and nowhere else, so a run can show that
   its path went through the kernel.
 
@@ -27,7 +28,9 @@ Kernels ported so far, all from ``sparknet_tpu/ops/pallas_kernels.py``:
   ``_fused_kernel``);
 * flash attention forward (``csrc/flash_attention.cu``, replaces
   ``_flash_kernel``), the prompt pass of token serving and the attention
-  core of ``MultiHeadAttention``;
+  core of ``MultiHeadAttention``, and its backward (same source, replaces
+  ``_flash_diff_bwd``, which is XLA on the TPU), joined by
+  ``FlashAttentionFunction``;
 * paged decode attention (``csrc/paged_attention.cu``, replaces
   ``_paged_kernel``), the cached decode step of token serving.
 """
@@ -62,15 +65,16 @@ LRN_LAUNCHES = 0
 LRN_BACKWARD_LAUNCHES = 0
 FUSED_UPDATE_LAUNCHES = 0
 FLASH_LAUNCHES = 0
+FLASH_BACKWARD_LAUNCHES = 0
 PAGED_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     global LRN_LAUNCHES, LRN_BACKWARD_LAUNCHES, FUSED_UPDATE_LAUNCHES
-    global FLASH_LAUNCHES, PAGED_LAUNCHES
+    global FLASH_LAUNCHES, FLASH_BACKWARD_LAUNCHES, PAGED_LAUNCHES
     LRN_LAUNCHES = LRN_BACKWARD_LAUNCHES = FUSED_UPDATE_LAUNCHES = 0
-    FLASH_LAUNCHES = PAGED_LAUNCHES = 0
+    FLASH_LAUNCHES = FLASH_BACKWARD_LAUNCHES = PAGED_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -164,14 +168,18 @@ def _load(name: str) -> ctypes.CDLL:
             lib.sparknet_fused_update.restype = ctypes.c_int
         elif name == "flash_attention":
             lib.sparknet_flash_attention_forward.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                *[ctypes.c_void_p] * 5, ctypes.c_longlong, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
             ]
             lib.sparknet_flash_attention_forward.restype = ctypes.c_int
+            lib.sparknet_flash_attention_backward.argtypes = [
+                *[ctypes.c_void_p] * 10, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+            ]
+            lib.sparknet_flash_attention_backward.restype = ctypes.c_int
         elif name == "paged_attention":
             lib.sparknet_paged_attention.argtypes = [
-                *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 5, ctypes.c_float,
+                *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 6, ctypes.c_float,
                 ctypes.c_void_p,
             ]
             lib.sparknet_paged_attention.restype = ctypes.c_int
@@ -546,19 +554,24 @@ def fused_update(rule: str, st: UpdateStatics, w: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Flash attention forward
+# Flash attention, forward and backward
 # ---------------------------------------------------------------------------
 
 # head dims the two attention kernels are instantiated for (the launchers of
 # csrc/flash_attention.cu and csrc/paged_attention.cu switch on these)
-ATTENTION_HEAD_DIMS = (8, 16, 32, 64, 128)
+ATTENTION_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+# input types the attention wrappers take: the kernels compute in float32,
+# and bfloat16 or float16 operands are cast (flash: in the wrapper; paged:
+# q in the wrapper, the pools as the kernel reads them)
+ATTENTION_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_KV_DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def kernel_head_dim(d: int) -> int:
     """The head dim an attention kernel runs a head of ``d`` lanes at: the
-    smallest of ``ATTENTION_HEAD_DIMS`` that is >= d, for 1 <= d <= 128.
+    smallest of ``ATTENTION_HEAD_DIMS`` that is >= d, for 1 <= d <= 256.
     A head is zero-padded to it: a zero lane adds an exact 0 to every
-    q.k sum, and the padded lanes of the output are dropped.  Above 128
+    q.k sum, and the padded lanes of the output are dropped.  Above 256
     no kernel is instantiated; ``d`` itself is returned and the CUDA
     wrappers refuse it."""
     if d < 1:
@@ -572,9 +585,21 @@ def _scale(scale: float | None, d: int) -> float:
 
 def _refuse_wide_head(name: str, d: int) -> None:
     if d > ATTENTION_HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head dim {d} > {ATTENTION_HEAD_DIMS[-1]}: "
-                         f"no kernel is instantiated above "
-                         f"{ATTENTION_HEAD_DIMS[-1]} lanes")
+        raise ValueError(
+            f"{name}: head dim {d} > {ATTENTION_HEAD_DIMS[-1]}: the attention "
+            f"kernels are instantiated up to {ATTENTION_HEAD_DIMS[-1]} lanes "
+            f"(the flash forward's Q and K/V tiles fill a CTA's shared memory "
+            f"there, and its O accumulator the register file)")
+
+
+def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+    """scale * q k^T in float32, the causal upper triangle at -1e30."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        n = q.shape[2]
+        idx = torch.arange(n, device=q.device)
+        s = torch.where(idx[:, None] >= idx[None, :], s, -1e30)
+    return s
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -584,84 +609,203 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal upper triangle at -1e30; the result has ``q.dtype``.  ``scale``
     multiplies q.k (default 1/sqrt(D); a head zero-padded from d lanes
     passes 1/sqrt(d))."""
-    scale = _scale(scale, q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        n = q.shape[2]
-        idx = torch.arange(n, device=q.device)
-        s = torch.where(idx[:, None] >= idx[None, :], s, -1e30)
+    s = _scores(q, k, causal, _scale(scale, q.shape[-1]))
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
                         v.float()).to(q.dtype)
 
 
-def _flash_attention_cuda(q, k, v, causal: bool) -> torch.Tensor:
-    global FLASH_LAUNCHES
+def flash_attention_forward_lse_torch(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, causal: bool = False,
+                                      scale: float | None = None):
+    """``flash_attention_torch`` and each row's log-sum-exp of the scaled
+    scores, float32 [B, H, S]: the forward kernel's ``lse`` output, the
+    backward's input."""
+    s = _scores(q, k, causal, _scale(scale, q.shape[-1]))
+    o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.float())
+    return o.to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_backward_torch(q, k, v, o, lse, g, causal: bool = False,
+                                   scale: float | None = None):
+    """Plain PyTorch gradient of ``flash_attention_torch`` for the upstream
+    gradient ``g``, the formula the backward kernel computes, written out
+    (no autograd), float32 math:
+
+        P = exp(scale q k^T - lse)  (the causal upper triangle at -1e30)
+        dV = P^T g;  dS = P * (g v^T - rowsum(g * o));  dQ = scale dS k;
+        dK = scale dS^T q
+
+    ``o`` and ``lse`` are the forward's (``flash_attention_forward_lse_torch``).
+    Returns (dq, dk, dv) in the types of q, k and v."""
+    scale = _scale(scale, q.shape[-1])
+    gf = g.float()
+    p = torch.exp(_scores(q, k, causal, scale) - lse.float()[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, v.float())
+    ds = p * (dp - (gf * o.float()).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_checks(name: str, q, k, v) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention: want q, k, v of one [B, H, S, D] "
-                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if any(t.dtype != torch.float32 or t.device != q.device for t in (q, k, v)):
-        raise ValueError("flash_attention: the kernel takes float32 q, k, v "
-                         "on one device")
-    b, h, n, d = q.shape
-    _refuse_wide_head("flash_attention", d)
+        raise ValueError(f"{name}: want q, k, v of one [B, H, S, D] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if any(t.dtype not in ATTENTION_DTYPES or t.device != q.device
+           for t in (q, k, v)):
+        raise ValueError(f"{name}: the kernel takes float32, bfloat16 or "
+                         f"float16 q, k, v on one device, got "
+                         f"{[str(t.dtype) for t in (q, k, v)]}")
+    _refuse_wide_head(name, q.shape[-1])
+
+
+def _flash_operand(t: torch.Tensor, w: int) -> torch.Tensor:
+    """The [B*H, S, w] fibres a kernel walks, as ``_flash_pallas`` reshapes
+    them: float32 (the Pallas body casts each tile), zero-padded from the
+    head's lanes to the kernel's width ``w``, contiguous."""
+    t = t.float()
+    if t.shape[-1] != w:
+        t = F.pad(t, (0, w - t.shape[-1]))
+    return t.contiguous()
+
+
+def _flash_forward_launch(q, k, v, causal: bool, scale: float, with_lse: bool):
+    """One launch of the forward kernel on operands ``_flash_operand``
+    made: (o, lse) float32 at their width, lse [B, H, S] only when
+    ``with_lse`` (else None, and the kernel writes none)."""
+    global FLASH_LAUNCHES
     lib = _load("flash_attention")
-    # a head dim between the kernel's widths runs zero-padded to the next
-    # one, at the true head's scale; the padded lanes of o are dropped
-    w = kernel_head_dim(d)
-    if w != d:
-        q, k, v = (F.pad(t, (0, w - d)) for t in (q, k, v))
-    # the [B*H, S, D] fibres the kernel walks, as _flash_pallas reshapes
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    b, h, n, w = q.shape
     o = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.sparknet_flash_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, n,
-            w, int(bool(causal)), 1.0 / math.sqrt(d), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), b * h, n, w,
+            int(bool(causal)), scale, stream)
     _check_launch(lib, err, "flash_attention")
     FLASH_LAUNCHES += 1
-    return o[..., :d] if w != d else o
+    return o, lse
+
+
+def _flash_backward_launch(q, k, v, o, lse, g, causal: bool, scale: float):
+    """One launch of the backward (its delta pre-pass, dK/dV and dQ
+    kernels) on operands ``_flash_operand`` made, ``o`` and ``lse`` as the
+    forward launch gave them: (dq, dk, dv) float32 at their width."""
+    global FLASH_BACKWARD_LAUNCHES
+    if any(t.data_ptr() % 16 for t in (q, k, v, g)):
+        raise ValueError("flash_attention_backward: the kernel loads 16-byte "
+                         "vectors of q, k, v and g, which must be 16-byte aligned")
+    lib = _load("flash_attention")
+    b, h, n, w = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.sparknet_flash_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b * h, n, w, int(bool(causal)),
+            scale, stream)
+    _check_launch(lib, err, "flash_attention_backward")
+    FLASH_BACKWARD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def _flash_forward(q, k, v, causal: bool, with_lse: bool):
+    """The forward kernel on q, k, v as a caller holds them: a head between
+    the kernel's widths runs zero-padded, at the true head's scale;
+    bfloat16 or float16 operands are cast to float32.  Returns the kernel's
+    operands, o (float32, padded) and lse (or None)."""
+    _flash_checks("flash_attention", q, k, v)
+    d = q.shape[-1]
+    w = kernel_head_dim(d)
+    operands = [_flash_operand(t, w) for t in (q, k, v)]
+    o, lse = _flash_forward_launch(*operands, causal, 1.0 / math.sqrt(d), with_lse)
+    return operands, o, lse
+
+
+def _flash_attention_cuda(q, k, v, causal: bool, with_lse: bool = False):
+    """``_flash_forward`` with the padded lanes of o dropped and o cast back
+    to q's type.  Returns o, or (o, lse) with ``with_lse``."""
+    _, o, lse = _flash_forward(q, k, v, causal, with_lse)
+    o = o[..., :q.shape[-1]].to(q.dtype)
+    return (o, lse) if with_lse else o
+
+
+def _flash_attention_backward_cuda(q, k, v, o, lse, g, causal: bool):
+    """The backward kernel on tensors as a caller holds them, with the
+    forward wrapper's checks, padding and casts: (dq, dk, dv) in the types
+    and shapes of q, k and v (the padded lanes, exact zeros, dropped)."""
+    _flash_checks("flash_attention_backward", q, k, v)
+    d = q.shape[-1]
+    if o.shape != q.shape or g.shape != q.shape or tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"flash_attention_backward: want o and g of q's shape "
+                         f"{tuple(q.shape)} and lse {tuple(q.shape[:3])}, got "
+                         f"{tuple(o.shape)}, {tuple(g.shape)}, {tuple(lse.shape)}")
+    if any(t.device != q.device for t in (o, lse, g)):
+        raise ValueError("flash_attention_backward: o, lse and g must lie on q's device")
+    w = kernel_head_dim(d)
+    grads = _flash_backward_launch(
+        *(_flash_operand(t, w) for t in (q, k, v, o)), lse.float().contiguous(),
+        _flash_operand(g, w), causal, 1.0 / math.sqrt(d))
+    return tuple(t[..., :d].to(x.dtype) for t, x in zip(grads, (q, k, v)))
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """The flash kernel's forward inside the autograd graph, so that a
-    gradient through it raises instead of leaving q, k and v (and the
-    projections before them) silently without one.  The kernel has no
-    backward yet (ROADMAP Queue B3: it comes with the char LM's training
-    slice); serving never differentiates and never reaches ``backward``."""
+    """The flash kernel inside the autograd graph: the ``jax.custom_vjp``
+    of ``_flash_diff`` in the JAX package.  The forward launches the
+    forward kernel with its ``lse`` output and saves the kernel's operands
+    (float32, padded to the kernel's width), o and lse; the backward
+    launches the backward kernel on them and drops the padded lanes."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        return _flash_attention_cuda(q, k, v, causal)
+        operands, o, lse = _flash_forward(q, k, v, causal, True)
+        ctx.save_for_backward(*operands, o, lse)
+        ctx.attn = (causal, q.shape[-1], q.dtype, k.dtype, v.dtype)
+        return o[..., :q.shape[-1]].to(q.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "flash_attention: the CUDA kernel has no backward yet, so a "
-            "MultiHeadAttention net cannot train on the card (ROADMAP Queue "
-            "B3, the char LM's training slice)")
+        qp, kp, vp, o, lse = ctx.saved_tensors
+        causal, d, *dtypes = ctx.attn
+        grads = _flash_backward_launch(qp, kp, vp, o, lse,
+                                       _flash_operand(g, qp.shape[-1]), causal,
+                                       1.0 / math.sqrt(d))
+        return (*(t[..., :d].to(dt) for t, dt in zip(grads, dtypes)), None)
+
+
+def _flash_attention_route(q, k, v, causal: bool) -> torch.Tensor:
+    """The route of CUDA tensors: through ``FlashAttentionFunction`` when a
+    gradient may flow to q, k or v, else one forward launch that writes no
+    lse (serving: the prefill and the rectangle decoder)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal)
+    return _flash_attention_cuda(q, k, v, causal)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """Attention forward on [B, H, S, D] (``softmax(q k^T / sqrt(D)) v``,
-    the upper triangle masked when ``causal``).
+    the upper triangle masked when ``causal``), differentiable.
 
-    CUDA tensors: launches the kernel of ``csrc/flash_attention.cu``
-    (float32, head dim up to 128; a head dim between the kernel's widths
-    is zero-padded to ``kernel_head_dim``; anything else raises) through
-    ``FlashAttentionFunction``, whose backward raises.  CPU
-    tensors: ``flash_attention_torch`` (differentiable by autograd).  Meta
-    tensors (shape inference in ``Network.init``): an empty tensor of q's
-    shape."""
+    CUDA tensors: launches the kernels of ``csrc/flash_attention.cu``
+    (float32, bfloat16 or float16 q, k, v, computed in float32; head dim
+    up to 256, a head between the kernel's widths zero-padded to
+    ``kernel_head_dim``; anything else raises), the backward kernel under
+    autograd (``FlashAttentionFunction``).  CPU tensors:
+    ``flash_attention_torch`` (differentiable by autograd).  Meta tensors
+    (shape inference in ``Network.init``): an empty tensor of q's shape."""
     if q.device.type == "meta":
         return torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return FlashAttentionFunction.apply(q, k, v, causal)
+    return _flash_attention_route(q, k, v, causal)
 
 
 # ---------------------------------------------------------------------------
@@ -708,12 +852,13 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, positions,
         raise ValueError(f"paged_attention: want tables [{b}, MB] and "
                          f"positions [{b}], got {tuple(tables.shape)}, "
                          f"{tuple(positions.shape)}")
-    for t, dtype in ((q, torch.float32), (k_pool, torch.float32),
-                     (v_pool, torch.float32), (tables, torch.int32),
-                     (positions, torch.int32)):
-        if t.dtype != dtype or t.device != q.device:
-            raise ValueError("paged_attention: the kernel takes float32 q and "
-                             "pools and int32 tables and positions, on one device")
+    if (q.dtype not in ATTENTION_DTYPES or k_pool.dtype not in ATTENTION_DTYPES
+            or v_pool.dtype != k_pool.dtype
+            or any(t.dtype != torch.int32 for t in (tables, positions))
+            or any(t.device != q.device for t in (k_pool, v_pool, tables, positions))):
+        raise ValueError("paged_attention: the kernel takes float32, bfloat16 or "
+                         "float16 q and pools (both pools of one type) and int32 "
+                         "tables and positions, on one device")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("paged_attention: the pools must be contiguous")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
@@ -727,17 +872,20 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, positions,
             f"= {kernel_head_dim(d)} lanes (zero beyond {d}), pad q to it and "
             f"pass scale=1/sqrt({d}), as PagedDecoder does")
     lib = _load("paged_attention")
-    q, tables, positions = q.contiguous(), tables.contiguous(), positions.contiguous()
-    o = torch.empty_like(q)
+    # q is cast here; the pools are read in their own type by the kernel
+    qf = q.float().contiguous()
+    tables, positions = tables.contiguous(), positions.contiguous()
+    o = torch.empty_like(qf)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.sparknet_paged_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), positions.data_ptr(), o.data_ptr(), b, h, d,
-            k_pool.shape[1], tables.shape[1], _scale(scale, d), stream)
+            k_pool.shape[1], tables.shape[1], _KV_DTYPE_IDS[k_pool.dtype],
+            _scale(scale, d), stream)
     _check_launch(lib, err, "paged_attention")
     PAGED_LAUNCHES += 1
-    return o
+    return o.to(q.dtype)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -748,10 +896,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     output depends only on its own q, table and position.
 
     CUDA tensors: launches the kernel of ``csrc/paged_attention.cu``
-    (float32 q and contiguous, 16-byte aligned pools, int32 tables and
-    positions, head dim in ``ATTENTION_HEAD_DIMS``, positions in
-    [0, MB * T) and table entries in [0, NB); the kernel reads no column
-    past a row's position).  A head of another width up to 128 runs in
+    (float32, bfloat16 or float16 q, computed in float32 and returned in
+    q's type; contiguous, 16-byte aligned pools of one of those types,
+    read as stored, never copied; int32 tables and positions; head dim in
+    ``ATTENTION_HEAD_DIMS``, positions in [0, MB * T) and table entries in
+    [0, NB); the kernel reads no column past a row's position).  A head of
+    another width up to 256 runs in
     pools allocated at ``kernel_head_dim`` lanes, zero beyond the head,
     with q padded alike and ``scale`` of the true width: the pools are
     not copied per call.  CPU tensors: ``paged_attention_torch``.

@@ -321,23 +321,25 @@ def _misaligned(a):
 @pytest.mark.parametrize("fault,match", [
     ("misaligned pool", "16-byte aligned"),
     ("head dim 12", "head dim 12"),
-    ("head dim 160", "head dim 160 > 128"),
+    ("head dim 160", "head dim 160 lies between"),
+    ("head dim 320", "head dim 320 > 256"),
     ("int64 tables", "int32 tables"),
     ("strided pool", "contiguous"),
 ])
 def test_paged_kernel_wrapper_refuses_what_the_kernel_cannot_take(fault, match):
     """The CUDA route's checks run before anything is built or launched:
     the kernel copies the pools in 16-byte chunks, takes heads of at most
-    128 lanes in pools of a width of ATTENTION_HEAD_DIMS (a head between
-    them is padded when the pools are allocated, not copied per call: an
-    unpadded pool is refused with that advice), int32 tables and
-    contiguous pools."""
+    256 lanes in pools of a width of ATTENTION_HEAD_DIMS (a head between
+    them, 12 or 160 lanes, is padded when the pools are allocated, not
+    copied per call: an unpadded pool is refused with that advice), int32
+    tables and contiguous pools."""
     q, kp, vp, tables, pos = map(_t, _paged_inputs(3))
     if fault == "misaligned pool":
         kp = _misaligned(kp)
         assert kp.is_contiguous() and kp.data_ptr() % 16
-    elif fault == "head dim 160":
-        q, kp, vp = (torch.cat([t] * 10, dim=-1) for t in (q, kp, vp))
+    elif fault in ("head dim 160", "head dim 320"):
+        n = int(fault.split()[-1]) // 16
+        q, kp, vp = (torch.cat([t] * n, dim=-1) for t in (q, kp, vp))
     elif fault == "head dim 12":  # pools not padded to kernel_head_dim(12) = 16
         q, kp, vp = q[..., :12].contiguous(), kp[..., :12].contiguous(), vp[..., :12].contiguous()
     elif fault == "int64 tables":
@@ -425,13 +427,13 @@ def test_tf32_rounding_is_nearest_ties_away():
 
 
 def test_kernel_head_dim():
-    """The smallest kernel width >= d up to 128; d itself above (refused by
+    """The smallest kernel width >= d up to 256; d itself above (refused by
     the CUDA wrappers)."""
     want = {1: 8, 8: 8, 9: 16, 12: 16, 16: 16, 24: 32, 48: 64, 64: 64,
-            100: 128, 128: 128, 160: 160}
+            100: 128, 128: 128, 160: 256, 200: 256, 256: 256, 320: 320}
     assert {d: kernels.kernel_head_dim(d) for d in want} == want
     assert all(kernels.kernel_head_dim(d) in kernels.ATTENTION_HEAD_DIMS
-               for d in range(1, 129))
+               for d in range(1, 257))
     with pytest.raises(ValueError, match=">= 1"):
         kernels.kernel_head_dim(0)
 

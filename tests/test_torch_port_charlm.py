@@ -21,7 +21,7 @@ from sparknet_tpu.compiler.graph import Network as JaxNetwork  # noqa: E402
 
 from sparknet_tpu_torch import interop, models  # noqa: E402
 from sparknet_tpu_torch.common import Phase, get_config, set_config  # noqa: E402
-from sparknet_tpu_torch.compiler.graph import Network  # noqa: E402
+from sparknet_tpu_torch.compiler.graph import Network, NetVars  # noqa: E402
 from sparknet_tpu_torch.ops import kernels  # noqa: E402
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -171,36 +171,58 @@ def test_decode_spec_geometry_and_refusals(charlm_pair):
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_training_through_the_cuda_flash_route_raises(fused, monkeypatch):
-    """The flash kernel has no backward: a TRAIN step of a charlm whose
-    attention cores take the CUDA route raises, on the per-blob and the
-    fused update path, instead of training with the attention projections
-    frozen.  The CPU stands in for the card: the launcher is the plain
-    version, and the layer's attention core is the route a CUDA tensor
-    takes."""
+def test_training_through_the_cuda_flash_route_trains(fused, monkeypatch):
+    """A charlm TRAIN step whose attention cores take the CUDA route
+    (``FlashAttentionFunction``: the forward kernel with its lse, the
+    backward kernel under autograd) trains, on the per-blob and the fused
+    update path: 2 forward and 2 backward launches a step, and the params
+    after 2 steps equal those of the plain route's Solver from the same
+    weights (rtol 1e-5, atol 1e-6: the backward's formula against
+    autograd's, float32 sums in another order).  The CPU stands in for the
+    card: the two launchers are the plain versions."""
     from sparknet_tpu_torch.ops import attention
     from sparknet_tpu_torch.solvers.solver import Solver
 
-    monkeypatch.setattr(kernels, "_flash_attention_cuda",
-                        lambda q, k, v, causal: kernels.flash_attention_torch(q, k, v, causal))
-    monkeypatch.setattr(attention, "flash_attention",
-                        lambda q, k, v, causal=False:
-                        kernels.FlashAttentionFunction.apply(q, k, v, causal))
+    launches = []
+
+    def forward(q, k, v, causal, scale, with_lse):
+        launches.append("forward")
+        o, lse = kernels.flash_attention_forward_lse_torch(q, k, v, causal, scale)
+        return o, lse if with_lse else None
+
+    def backward(*args):
+        launches.append("backward")
+        return kernels.flash_attention_backward_torch(*args)
+
     rs = np.random.RandomState(9)
-    feeds = {"data": rs.randint(0, 32, (3, 16)).astype(np.int32),
-             "label": rs.randint(0, 32, (3, 16)).astype(np.int32)}
+    feeds = [{"data": rs.randint(0, 32, (3, 16)).astype(np.int32),
+              "label": rs.randint(0, 32, (3, 16)).astype(np.int32)} for _ in range(2)]
     saved = get_config().fused_update
     set_config(fused_update=fused)
     try:
+        plain = Solver(models.charlm_solver(), models.charlm(**CHARLM), device="cpu")
+        v = plain.variables  # views of the arena on the fused path: copy
+        start = NetVars({ln: [p.clone() for p in pl] for ln, pl in v.params.items()},
+                        v.state)
+        plain.step(2, lambda it: feeds[it])
         solver = Solver(models.charlm_solver(), models.charlm(**CHARLM), device="cpu")
-        with pytest.raises(NotImplementedError, match="no backward"):
-            solver.step(1, lambda it: feeds)
+        solver.variables = start
+        monkeypatch.setattr(kernels, "_flash_forward_launch", forward)
+        monkeypatch.setattr(kernels, "_flash_backward_launch", backward)
+        monkeypatch.setattr(attention, "flash_attention", kernels._flash_attention_route)
+        solver.step(2, lambda it: feeds[it])
     finally:
         set_config(fused_update=saved)
-    # serving through the same route needs no backward
-    with torch.no_grad():
-        blobs = solver.test_net.apply(solver.variables, feeds)[0]
-    assert torch.isfinite(blobs["fc"]).all()
+    assert launches == ["forward", "forward", "backward", "backward"] * 2
+    assert np.isfinite(solver.smoothed_loss)
+    got, want = solver.variables.params, plain.variables.params
+    moved = 0
+    for ln in want:
+        for a, b, s0 in zip(got[ln], want[ln], start.params[ln]):
+            np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=ln)
+            moved += int(not torch.equal(a, s0))
+    assert moved == sum(len(pl) for pl in want.values())  # every blob trained
 
 
 def test_solver_recipes():

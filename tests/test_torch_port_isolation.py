@@ -28,8 +28,11 @@ training = sorted(n for n in names if n.startswith(("sparknet_tpu_torch.solvers.
                   or n == "sparknet_tpu_torch.net")
 serving = sorted(n for n in names if n.startswith("sparknet_tpu_torch.serve.")
                  or n == "sparknet_tpu_torch.ops.attention")
+charlm = sorted(n for n in names if n in ("sparknet_tpu_torch.data.text",
+                                          "sparknet_tpu_torch.models.generate"))
 print(training)
 print(serving)
+print(charlm)
 print(len(names), bad)
 """
 
@@ -39,12 +42,12 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    training, serving, last = out.stdout.strip().split("\n")[-3:]
+    training, serving, charlm, last = out.stdout.strip().split("\n")[-4:]
     n, bad = last.split(" ", 1)
     assert int(n) >= 30, out.stdout
     assert bad == "[]", out.stdout
-    # the training, distributed-training and token-serving slices' modules
-    # are among those imported
+    # the training, distributed-training, token-serving and char-LM
+    # training slices' modules are among those imported
     assert training == str(["sparknet_tpu_torch.net"] + [
         f"sparknet_tpu_torch.parallel.{m}" for m in ("mesh", "sharding", "trainer")] + [
         f"sparknet_tpu_torch.solvers.{m}" for m in
@@ -52,6 +55,8 @@ def test_port_imports_no_jax():
     assert serving == str(["sparknet_tpu_torch.ops.attention"] + [
         f"sparknet_tpu_torch.serve.{m}" for m in
         ("batcher", "continuous", "engine", "paged")]), out.stdout
+    assert charlm == str(["sparknet_tpu_torch.data.text",
+                          "sparknet_tpu_torch.models.generate"]), out.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -76,6 +81,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Solver(models.lenet_solver(), deploy)
+    from sparknet_tpu_torch.net import TPUNet
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TPUNet(models.charlm_solver(), models.charlm(batch=1, seq_len=8))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
