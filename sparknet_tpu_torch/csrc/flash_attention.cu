@@ -1,6 +1,6 @@
 // Flash attention for Hopper (sm_90a): the forward (blocked online softmax)
-// on the tensor cores with float32 accuracy, and its backward (further
-// down) in float32 FMAs.
+// and its backward (further down), both on the tensor cores with float32
+// accuracy.
 //
 // Replaces the TPU kernel sparknet_tpu/ops/pallas_kernels.py::_flash_kernel
 // (launched by _flash_pallas).  For q, k, v of shape [B, H, S, D], float32:
@@ -434,177 +434,135 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 //
 // Replaces sparknet_tpu/ops/pallas_kernels.py::_flash_diff_bwd, which on the
 // TPU is XLA's VJP of the unblocked attention_xla (it builds the [S, S]
-// scores).  Here P and dS are recomputed a tile at a time and never leave
-// shared memory.  Three launches: delta (one warp a row); dK and dV, one
-// CTA per (fibre, key tile) walking the query tiles that can see its keys;
-// dQ, one CTA per (fibre, query tile) walking the key tiles its rows can
-// see.  Each CTA owns its outputs, so there are no atomics, and every sum
-// is taken in an order fixed by the shapes (over d, then over the tiles in
-// index order): two runs give the same bits, and a fibre's gradients do
-// not depend on the other fibres of its batch.
+// scores).  Here P and dS are recomputed a tile at a time in registers.
+// Three launches: delta (one warp a row); dK and dV, one CTA per (fibre,
+// key tile) walking the query tiles that can see its keys; dQ, one CTA per
+// (fibre, query tile, heaviest causal tiles first) walking the key tiles
+// its rows can see.  dK/dV and dQ sum over different axes, so one walk
+// would need atomics across CTAs; two walks let each CTA own its outputs
+// and take every sum in an order fixed by the shapes (over d in k-steps,
+// then over the tiles in index order): two runs give the same bits, and a
+// fibre's gradients do not depend on the other fibres of its batch.
 //
 // What bounds it: operations.  Five [S, S, D] products (about 10 S^2 D
-// flops a fibre, halved when causal; S = q k^T and dO v^T are computed in
-// both walks, so the kernels do 7).  This version does them as float32
-// FMAs (exact to float32, not on the tensor cores), register-tiled so that
-// a thread's shared-memory loads are 16-byte vectors each feeding several
-// FMAs: the scores of a BQ x BK tile as 16 x 16 threads of TM x TN (each
-// d-step of 4 loads TM + TM + TN + TN vectors for 8 TM TN FMAs), and the
-// gradient tiles as threads of a few keys (or rows) by vectors of dims.
+// flops a fibre, halved when causal); S = q k^T and dO v^T are recomputed
+// in both walks, so the kernels do 7.  All seven run on the tensor cores as
+// the forward's: mma.sync.m16n8k8.tf32 in a 3xTF32 split (split(),
+// mma_3xtf32()), 165 TFLOP/s of float32-accurate work at most.
+//
+// Both walks are shaped like the forward: 4 warps, a warp owns 16 rows of
+// the product's M (query rows in the dQ walk, keys in the dK/dV walk), and
+// the walked tiles come through two cp.async stages.  A tile of either
+// walk is two products with k = the head dims, then one or two with k = the
+// walked rows:
+//
+//  - dims_product(): S = Q K^T and dP = dO V^T (dQ walk), S^T = K Q^T and
+//    dP^T = V dO^T (dK/dV walk).  A and B are rows of tiles in shared memory
+//    (row stride D + 4 words) read with k = dims t and t + 4 of each
+//    8-dim step, the m16n8k8 layout as it is: a warp's scalar loads of
+//    lane (g, t) hit bank 4g + t, 32 distinct banks.  Each k-step is summed
+//    from zero and added in float32, as the forward's Q K^T;
+//  - the elementwise step on the C fragments: P = exp(scale s - lse) (0
+//    where masked) and dS = P (dP - delta), with lse and delta of the
+//    fragment's rows (dQ walk: two rows a lane, in registers) or columns
+//    (dK/dV walk: from the query tile's lse and delta in shared memory);
+//  - rows_product(): dQ += dS K, dV += P^T dO, dK += dS^T Q.  Their k is
+//    the walked rows, permuted as the forward's P V (logical k = t, t + 4
+//    of lane t are rows 2t, 2t + 1), so the C fragment of P or dS is the A
+//    fragment as it stands: P and dS never leave registers.  B is read as
+//    the forward reads V (rows 2t, 2t + 1, dim g: bank 8t + g).  kPvGroup
+//    k-steps are summed on the tensor cores from zero, then added in
+//    float32.
+//
+// A causal warp skips the tiles that none of its rows can see (the skip is
+// warp-uniform, as the forward's), and masks only the tiles that cross its
+// diagonal or the ragged end.  Accumulators are D / 8 fragments a thread,
+// two of them (dK, dV) in the dK/dV walk: 128 registers at D = 128; at D =
+// 256 two warps share 16 keys and each keeps dK and dV of half the dims
+// (kDS), computing S^T and dP^T both: every head dim runs on the tensor
+// cores.
+//
+// Tiles: the dQ walk's K/V tiles of kKT keys, the dK/dV walk's Q/dO tiles
+// of kQT queries, chosen so that the shared memory fits the card (two CTAs
+// an SM up to D = 64, one at 128 and 256); BwdCfg below.
 
-constexpr int kBwdThreads = 256;
+constexpr int kBwdThreads = 256;  // the delta kernel's
 
-// the tiles of one head dim: a BQ x BK score tile over 16 x 16 threads,
-// float vectors of V along d
-template <int D_, int BQ_, int BK_, int V_>
-struct BwdTiles {
-  static constexpr int kBQ = BQ_, kBK = BK_, kV = V_;
-  static constexpr int kTM = BQ_ / 16, kTN = BK_ / 16;  // score microtile
-  static constexpr int kDX = D_ / V_ < 16 ? D_ / V_ : 16;  // threads along d
-  static constexpr int kNV = D_ / (V_ * kDX);             // vectors a thread
-  static constexpr int kKC = BK_ * kDX / kBwdThreads;     // keys a thread (dK, dV)
-  static constexpr int kRQ = BQ_ * kDX / kBwdThreads;     // rows a thread (dQ)
-  static constexpr int kRS = D_ + 4;   // Q, dO, K, V row stride, words
-  static constexpr int kPS = BK_ + 4;  // P and dS row stride (the dK/dV walk)
-  static constexpr int kTS = BQ_ + 4;  // dS^T row stride (the dQ walk)
-  static constexpr int kTiles = (2 * BQ_ + 2 * BK_) * kRS;
-  static constexpr int kSmemKV = (kTiles + 2 * BQ_ * kPS + 2 * BQ_) * (int)sizeof(float);
-  static constexpr int kSmemQ = (kTiles + BK_ * kTS + 2 * BQ_) * (int)sizeof(float);
-  static_assert(BQ_ % 16 == 0 && BK_ % 16 == 0, "score tiles of 16 x 16 threads");
-  static_assert(kDX * kNV * V_ == D_ && kKC >= 1 && kRQ >= 1 &&
-                    (kBwdThreads / kDX) * kKC == BK_ &&
-                    (kBwdThreads / kDX) * kRQ == BQ_,
-                "gradient tiles must spread over the CTA");
-  static_assert(kKC == 1 || kKC == 2 || kKC == 4, "vector loads of keys");
-  static_assert(kRQ == 1 || kRQ == 2 || kRQ == 4, "vector loads of rows");
+template <int D>
+struct BwdCfg {
+  static constexpr int kRS = D + 4;                           // row stride, words
+  static constexpr int kKT = D <= 64 ? 64 : D == 128 ? 32 : 16;  // dQ walk: keys a tile
+  static constexpr int kDS = D == 256 ? 2 : 1;  // dK/dV walk: warps sharing 16 keys
+  static constexpr int kKC = 16 * kWarps / kDS;  // dK/dV walk: keys a CTA
+  static constexpr int kQT = D <= 64 ? 64 : 32;  // dK/dV walk: queries a tile
+  static constexpr int kStageQ = 2 * kKT * kRS;             // K, V
+  static constexpr int kStageKV = 2 * kQT * kRS + 2 * kQT;  // Q, dO, lse, delta
+  static constexpr int kSmemQ = (2 * kStageQ + 2 * kBQ * kRS) * (int)sizeof(float);
+  static constexpr int kSmemKV = (2 * kStageKV + 2 * kKC * kRS) * (int)sizeof(float);
+  static_assert(kStageKV % 4 == 0, "16-byte aligned stages");
 };
 
-template <int D> struct BwdCfg;
-template <> struct BwdCfg<8> : BwdTiles<8, 64, 64, 2> {};
-template <> struct BwdCfg<16> : BwdTiles<16, 64, 64, 4> {};
-template <> struct BwdCfg<32> : BwdTiles<32, 64, 64, 4> {};
-template <> struct BwdCfg<64> : BwdTiles<64, 64, 64, 4> {};
-template <> struct BwdCfg<128> : BwdTiles<128, 64, 64, 4> {};
-template <> struct BwdCfg<256> : BwdTiles<256, 32, 32, 4> {};
-
-// N consecutive floats of shared memory (N * 4-byte aligned) into registers
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float (&out)[N]) {
-  if constexpr (N == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-  } else if constexpr (N == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    out[0] = x.x; out[1] = x.y;
-  } else {
-    static_assert(N == 1, "vectors of 1, 2 or 4");
-    out[0] = p[0];
+// c = A B^T over the D dims: A the 16 rows at `a`, B the NT * 8 rows at `b`
+// (shared memory, row stride D + 4).  Each 8-dim k-step is a 3xTF32 product
+// summed from zero, then added to c in float32.
+template <int D, int NT>
+__device__ __forceinline__ void dims_product(float (&c)[NT][4], const float* a,
+                                             const float* b, int g, int t) {
+  constexpr int RS = D + 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    // A: rows g and g + 8 at dims kk*8 + t ([0], [1]) and + 4 ([2], [3])
+    const float* a0 = a + g * RS + kk * 8 + t;
+    uint32_t ah[4], al[4];
+    split(a0[0], ah[0], al[0]);
+    split(a0[8 * RS], ah[1], al[1]);
+    split(a0[4], ah[2], al[2]);
+    split(a0[8 * RS + 4], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      // B^T: row nt*8 + g at dims kk*8 + t and + 4
+      const float* b0 = b + (nt * 8 + g) * RS + kk * 8 + t;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_3xtf32(d, ah, al, b0[0], b0[4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[nt][e] = __fadd_rn(c[nt][e], d[e]);
+    }
   }
 }
 
-// rows [r0, r0 + rows) of a [S, D] fibre (16-byte aligned) into shared
-// memory at row stride D + 4, by 16-byte vectors; rows past S are zero
-template <int D>
-__device__ __forceinline__ void bwd_load_rows(float* dst, const float* src,
-                                              int r0, int rows, int S) {
-  constexpr int kPerRow = D / 4;
-  for (int c = threadIdx.x; c < rows * kPerRow; c += kBwdThreads) {
-    const int row = c / kPerRow, col = (c % kPerRow) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + row < S)
-      x = *reinterpret_cast<const float4*>(src + (long long)(r0 + row) * D + col);
-    *reinterpret_cast<float4*>(dst + row * (D + 4) + col) = x;
-  }
-}
-
-// shared memory of both walks: K, V (BK rows), Q, dO (BQ rows), then P and
-// dS ([BQ, BK + 4], the dK/dV walk) or dS^T ([BK, BQ + 4], the dQ walk),
-// then lse and delta of the query tile
-template <int D>
-struct BwdSmem {
-  float *ks, *vs, *qs, *dos, *ps, *dss, *lse_s, *delta_s;
-  __device__ BwdSmem(float* smem, bool for_dq) {
-    using C = BwdCfg<D>;
-    ks = smem;
-    vs = ks + C::kBK * C::kRS;
-    qs = vs + C::kBK * C::kRS;
-    dos = qs + C::kBQ * C::kRS;
-    ps = dos + C::kBQ * C::kRS;
-    dss = for_dq ? ps : ps + C::kBQ * C::kPS;
-    lse_s = for_dq ? ps + C::kBK * C::kTS : dss + C::kBQ * C::kPS;
-    delta_s = lse_s + C::kBQ;
-  }
-};
-
-template <int D>
-__device__ __forceinline__ void bwd_load_query_tile(
-    const BwdSmem<D>& sm, const float* qb, const float* dob, const float* lse,
-    const float* delta, int i0, int S) {
-  constexpr int BQ = BwdCfg<D>::kBQ;
-  bwd_load_rows<D>(sm.qs, qb, i0, BQ, S);
-  bwd_load_rows<D>(sm.dos, dob, i0, BQ, S);
-  if (threadIdx.x < BQ) {
-    const int r = i0 + threadIdx.x;
-    sm.lse_s[threadIdx.x] = r < S ? lse[r] : 0.f;
-    sm.delta_s[threadIdx.x] = r < S ? delta[r] : 0.f;
-  }
-}
-
-// P and dS of query rows [i0, i0 + BQ) against keys [j0, j0 + BK), from the
-// tiles in shared memory: into P and dS row-major (the dK/dV walk), or into
-// dS^T (the dQ walk).  Thread (ty, tx) of 16 x 16: rows ty + 16 i, keys
-// tx + 16 j; each score is a float32 FMA chain over d in order, the same in
-// both walks.
-template <int D, bool kForDq>
-__device__ __forceinline__ void bwd_scores(const BwdSmem<D>& sm, int i0,
-                                           int j0, int S, int causal,
-                                           float scale) {
-  using C = BwdCfg<D>;
-  constexpr int TM = C::kTM, TN = C::kTN, V = C::kV, RS = C::kRS;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[TM][TN], dp[TM][TN];
+// acc += F B: F's C fragments f (16 rows by the NT * 8 walked rows, from
+// dims_product) as A fragments, B the walked rows at `b` (shared memory,
+// row stride D + 4) over ND * 8 dims.  k = walked rows 2t, 2t + 1 for lane
+// t (the forward's P V); kPvGroup k-steps summed from zero, then added to
+// acc in float32.
+template <int D, int NT, int ND>
+__device__ __forceinline__ void rows_product(float (&acc)[ND][4],
+                                             const float (&f)[NT][4],
+                                             const float* b, int g, int t) {
+  constexpr int RS = D + 4, G = NT < kPvGroup ? NT : kPvGroup;
+  static_assert(NT % G == 0, "k-step groups must tile a walked tile");
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int kt0 = 0; kt0 < NT; kt0 += G) {
+    uint32_t fh[G][4], fl[G][4];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += V) {
-    float q[TM][V], g[TM][V], kk[TN][V], vv[TN][V];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      lds<V>(sm.qs + (ty + 16 * i) * RS + d, q[i]);
-      lds<V>(sm.dos + (ty + 16 * i) * RS + d, g[i]);
+    for (int q = 0; q < G; ++q) {
+      split(f[kt0 + q][0], fh[q][0], fl[q][0]);
+      split(f[kt0 + q][2], fh[q][1], fl[q][1]);
+      split(f[kt0 + q][1], fh[q][2], fl[q][2]);
+      split(f[kt0 + q][3], fh[q][3], fl[q][3]);
     }
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      lds<V>(sm.ks + (tx + 16 * j) * RS + d, kk[j]);
-      lds<V>(sm.vs + (tx + 16 * j) * RS + d, vv[j]);
-    }
+    for (int dn = 0; dn < ND; ++dn) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int e = 0; e < V; ++e)
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          s[i][j] = fmaf(q[i][e], kk[j][e], s[i][j]);
-          dp[i][j] = fmaf(g[i][e], vv[j][e], dp[i][j]);
-        }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + 16 * i, row = i0 + r;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = tx + 16 * j, key = j0 + c;
-      const bool live = key < S && row < S && (!causal || key <= row);
-      const float p = live ? expf(s[i][j] * scale - sm.lse_s[r]) : 0.f;
-      const float ds = p * (dp[i][j] - sm.delta_s[r]);
-      if constexpr (kForDq) {
-        sm.dss[c * C::kTS + r] = ds;
-      } else {
-        sm.ps[r * C::kPS + c] = p;
-        sm.dss[r * C::kPS + c] = ds;
+      for (int q = 0; q < G; ++q) {
+        const float* b0 = b + ((kt0 + q) * 8 + 2 * t) * RS + dn * 8 + g;
+        mma_3xtf32(d, fh[q], fl[q], b0[0], b0[RS]);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] = __fadd_rn(acc[dn][e], d[e]);
     }
   }
 }
@@ -627,11 +585,30 @@ __global__ void __launch_bounds__(kBwdThreads)
   if (lane == 0) delta[row] = acc;
 }
 
-// dK and dV of keys [j0, j0 + BK) of fibre blockIdx.x.  Thread: keys
-// cy KC .. cy KC + KC - 1 (cy = tid / DX) by the V-vectors of dims
-// V (dx + DX m) (dx = tid % DX).
+// the dK/dV walk's query tile at i0 into a stage: Q, dO (kQT rows), then
+// lse and delta (kQT each; 4-byte copies, a fibre's rows are not 16-byte
+// aligned); rows past S are zero
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__device__ __forceinline__ void load_query_tile(float* st, const float* qb,
+                                                const float* dob, const float* lb,
+                                                const float* db, int i0, int S) {
+  using C = BwdCfg<D>;
+  constexpr int QT = C::kQT;
+  load_rows<D>(st, C::kRS, qb, i0, QT, S, true);
+  load_rows<D>(st + QT * C::kRS, C::kRS, dob, i0, QT, S, true);
+  float* ls = st + 2 * QT * C::kRS;
+  for (int c = threadIdx.x; c < 2 * QT; c += kThreads) {
+    const int row = i0 + c % QT;
+    const bool valid = row < S;
+    cp_async(ls + c, (c < QT ? lb : db) + (valid ? row : 0), false, valid);
+  }
+}
+
+// dK and dV of keys [k0, k0 + kKC) of fibre blockIdx.x: warp w owns keys
+// k0 + 16 (w / kDS) + [0, 16) and the dims [D / kDS * (w % kDS), + D / kDS)
+// of their gradients; it walks the query tiles that can see its keys.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
     flash_backward_dkv_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
@@ -641,71 +618,102 @@ __global__ void __launch_bounds__(kBwdThreads)
                               float* __restrict__ dk, float* __restrict__ dv,
                               int S, int causal, float scale) {
   using C = BwdCfg<D>;
-  constexpr int BQ = C::kBQ, BK = C::kBK, RS = C::kRS, PS = C::kPS;
-  constexpr int KC = C::kKC, NV = C::kNV, V = C::kV, DX = C::kDX;
+  constexpr int QT = C::kQT, NT = QT / 8, RS = C::kRS, DS = C::kDS;
+  constexpr int KC = C::kKC, DW = D / DS, ND = DW / 8;
   extern __shared__ float4 smem4[];
-  const BwdSmem<D> sm(reinterpret_cast<float*>(smem4), false);
-  const int j0 = blockIdx.y * BK;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* ks = smem + 2 * C::kStageKV;
+  float* vs = ks + KC * RS;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kg = warp / DS, d0 = DW * (warp % DS);
+  const int k0 = blockIdx.y * KC;
+  const int wkey = k0 + 16 * kg;  // the warp's first key
+  const int key0 = wkey + g, key1 = key0 + 8;
   const long long base = (long long)blockIdx.x * S * D;
   const long long rbase = (long long)blockIdx.x * S;
-  const int dx = threadIdx.x % DX, cy = threadIdx.x / DX;
-  bwd_load_rows<D>(sm.ks, k + base, j0, BK, S);
-  bwd_load_rows<D>(sm.vs, v + base, j0, BK, S);
-  float acc_k[KC][NV][V], acc_v[KC][NV][V];
+  const float *qb = q + base, *dob = dout + base;
+  const float *lb = lse + rbase, *db = delta + rbase;
+  // queries above k0 cannot see these keys when causal
+  const int istart = causal ? k0 / QT * QT : 0;
+  const int ntiles = (S - istart + QT - 1) / QT;
+
+  load_rows<D>(ks, RS, k + base, k0, KC, S, true);
+  load_rows<D>(vs, RS, v + base, k0, KC, S, true);
+  load_query_tile<D>(smem, qb, dob, lb, db, istart, S);
+  cp_async_commit();
+
+  float acc_k[ND][4], acc_v[ND][4];
 #pragma unroll
-  for (int u = 0; u < KC; ++u)
+  for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
-    for (int m = 0; m < NV; ++m)
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc_k[u][m][e] = acc_v[u][m][e] = 0.f;
-  // rows above j0 cannot see these keys when causal
-  for (int i0 = causal ? j0 / BQ * BQ : 0; i0 < S; i0 += BQ) {
-    __syncthreads();  // the last tile's readers are done
-    bwd_load_query_tile<D>(sm, q + base, dout + base, lse + rbase,
-                           delta + rbase, i0, S);
+    for (int e = 0; e < 4; ++e) acc_k[dn][e] = acc_v[dn][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int i0 = istart + it * QT;
+    if (it + 1 < ntiles)
+      load_query_tile<D>(smem + ((it + 1) & 1) * C::kStageKV, qb, dob, lb, db,
+                         i0 + QT, S);
+    cp_async_commit();
+    cp_async_wait_one();  // this tile (and K, V) has landed
     __syncthreads();
-    bwd_scores<D, false>(sm, i0, j0, S, causal, scale);
-    __syncthreads();
-#pragma unroll 2
-    for (int r = 0; r < BQ; ++r) {
-      float p[KC], ds[KC];
-      lds<KC>(sm.ps + r * PS + cy * KC, p);
-      lds<KC>(sm.dss + r * PS + cy * KC, ds);
+    const float* qs = smem + (it & 1) * C::kStageKV;
+    const float* dos = qs + QT * RS;
+    const float* ls = dos + QT * RS;
+    const float* dls = ls + QT;
+
+    if (!causal || i0 + QT - 1 >= wkey) {  // warp-uniform: a query sees a key
+      float st[NT][4], dpt[NT][4];
+      dims_product<D, NT>(st, ks + 16 * kg * RS, qs, g, t);
+      dims_product<D, NT>(dpt, vs + 16 * kg * RS, dos, g, t);
+      // st[nt][e]: key e < 2 ? key0 : key1, query i0 + nt*8 + 2t + (e & 1)
+      const bool edge = i0 + QT > S || (causal && i0 < wkey + 15);
 #pragma unroll
-      for (int m = 0; m < NV; ++m) {
-        float g[V], x[V];
-        lds<V>(sm.dos + r * RS + V * (dx + DX * m), g);
-        lds<V>(sm.qs + r * RS + V * (dx + DX * m), x);
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = nt * 8 + 2 * t;
+        const float2 l = *reinterpret_cast<const float2*>(ls + c);
+        const float2 dl = *reinterpret_cast<const float2*>(dls + c);
 #pragma unroll
-        for (int u = 0; u < KC; ++u)
-#pragma unroll
-          for (int e = 0; e < V; ++e) {
-            acc_v[u][m][e] = fmaf(p[u], g[e], acc_v[u][m][e]);
-            acc_k[u][m][e] = fmaf(ds[u], x[e], acc_k[u][m][e]);
-          }
+        for (int e = 0; e < 4; ++e) {
+          const int query = i0 + c + (e & 1);
+          const bool live =
+              !edge || (query < S && (!causal || query >= (e < 2 ? key0 : key1)));
+          const float p =
+              live ? expf(fmaf(st[nt][e], scale, -(e & 1 ? l.y : l.x))) : 0.f;
+          st[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - (e & 1 ? dl.y : dl.x));
+        }
       }
+      rows_product<D, NT, ND>(acc_v, st, dos + d0, g, t);
+      rows_product<D, NT, ND>(acc_k, dpt, qs + d0, g, t);
     }
+    __syncthreads();  // this buffer is refilled two tiles on
   }
+
 #pragma unroll
-  for (int u = 0; u < KC; ++u) {
-    const int key = j0 + cy * KC + u;
-    if (key >= S) continue;
-#pragma unroll
-    for (int m = 0; m < NV; ++m)
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const long long at = base + (long long)key * D + V * (dx + DX * m) + e;
-        dk[at] = scale * acc_k[u][m][e];
-        dv[at] = acc_v[u][m][e];
-      }
+  for (int dn = 0; dn < ND; ++dn) {
+    const long long col = d0 + dn * 8 + 2 * t;
+    if (key0 < S) {
+      *reinterpret_cast<float2*>(dk + base + (long long)key0 * D + col) =
+          make_float2(scale * acc_k[dn][0], scale * acc_k[dn][1]);
+      *reinterpret_cast<float2*>(dv + base + (long long)key0 * D + col) =
+          make_float2(acc_v[dn][0], acc_v[dn][1]);
+    }
+    if (key1 < S) {
+      *reinterpret_cast<float2*>(dk + base + (long long)key1 * D + col) =
+          make_float2(scale * acc_k[dn][2], scale * acc_k[dn][3]);
+      *reinterpret_cast<float2*>(dv + base + (long long)key1 * D + col) =
+          make_float2(acc_v[dn][2], acc_v[dn][3]);
+    }
   }
 }
 
-// dQ of query rows [i0, i0 + BQ) of fibre blockIdx.x, heaviest causal
-// tiles first.  Thread: rows ry RQ .. ry RQ + RQ - 1 (ry = tid / DX) by the
-// V-vectors of dims V (dx + DX m).
+// dQ of query rows [q0, q0 + kBQ) of fibre blockIdx.x, heaviest causal
+// tiles first: warp w owns rows q0 + 16 w + [0, 16) and walks the K/V tiles
+// its rows can see.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     flash_backward_dq_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
@@ -715,55 +723,86 @@ __global__ void __launch_bounds__(kBwdThreads)
                              float* __restrict__ dq, int S, int causal,
                              float scale) {
   using C = BwdCfg<D>;
-  constexpr int BQ = C::kBQ, BK = C::kBK, RS = C::kRS, TS = C::kTS;
-  constexpr int RQ = C::kRQ, NV = C::kNV, V = C::kV, DX = C::kDX;
+  constexpr int BK = C::kKT, NT = BK / 8, KD = D / 8, RS = C::kRS;
   extern __shared__ float4 smem4[];
-  const BwdSmem<D> sm(reinterpret_cast<float*>(smem4), true);
-  const int i0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qs = smem + 2 * C::kStageQ;
+  float* dos = qs + kBQ * RS;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
   const long long base = (long long)blockIdx.x * S * D;
   const long long rbase = (long long)blockIdx.x * S;
-  const int dx = threadIdx.x % DX, ry = threadIdx.x / DX;
-  bwd_load_query_tile<D>(sm, q + base, dout + base, lse + rbase,
-                         delta + rbase, i0, S);
-  float acc[RQ][NV][V];
+  const float *kb = k + base, *vb = v + base;
+  const int wrow = q0 + 16 * warp;  // the warp's first row
+  const int r0 = wrow + g, r1 = r0 + 8;
+  // keys [0, kend) are seen by some row of this CTA
+  const int kend = causal ? min(q0 + kBQ, S) : S;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  load_rows<D>(qs, RS, q + base, q0, kBQ, S, true);
+  load_rows<D>(dos, RS, dout + base, q0, kBQ, S, true);
+  load_rows<D>(smem, RS, kb, 0, BK, S, true);
+  load_rows<D>(smem + BK * RS, RS, vb, 0, BK, S, true);
+  cp_async_commit();
+
+  const float lse0 = r0 < S ? lse[rbase + r0] : 0.f;
+  const float lse1 = r1 < S ? lse[rbase + r1] : 0.f;
+  const float dl0 = r0 < S ? delta[rbase + r0] : 0.f;
+  const float dl1 = r1 < S ? delta[rbase + r1] : 0.f;
+  const int last0 = causal ? min(r0, S - 1) : S - 1;
+  const int last1 = causal ? min(r1, S - 1) : S - 1;
+  float acc[KD][4];
 #pragma unroll
-  for (int u = 0; u < RQ; ++u)
-#pragma unroll
-    for (int m = 0; m < NV; ++m)
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[u][m][e] = 0.f;
-  const int kend = causal ? min(i0 + BQ, S) : S;
-  for (int j0 = 0; j0 < kend; j0 += BK) {
-    __syncthreads();  // the last tile's readers are done
-    bwd_load_rows<D>(sm.ks, k + base, j0, BK, S);
-    bwd_load_rows<D>(sm.vs, v + base, j0, BK, S);
-    __syncthreads();
-    bwd_scores<D, true>(sm, i0, j0, S, causal, scale);
-    __syncthreads();
-#pragma unroll 2
-    for (int c = 0; c < BK; ++c) {
-      float ds[RQ];
-      lds<RQ>(sm.dss + c * TS + ry * RQ, ds);
-#pragma unroll
-      for (int m = 0; m < NV; ++m) {
-        float kk[V];
-        lds<V>(sm.ks + c * RS + V * (dx + DX * m), kk);
-#pragma unroll
-        for (int u = 0; u < RQ; ++u)
-#pragma unroll
-          for (int e = 0; e < V; ++e) acc[u][m][e] = fmaf(ds[u], kk[e], acc[u][m][e]);
-      }
+  for (int dn = 0; dn < KD; ++dn)
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int j0 = it * BK;
+    if (it + 1 < ntiles) {
+      float* nk = smem + ((it + 1) & 1) * C::kStageQ;
+      load_rows<D>(nk, RS, kb, j0 + BK, BK, S, true);
+      load_rows<D>(nk + BK * RS, RS, vb, j0 + BK, BK, S, true);
     }
+    cp_async_commit();
+    cp_async_wait_one();  // this tile (and Q, dO) has landed
+    __syncthreads();
+    const float* ks = smem + (it & 1) * C::kStageQ;
+    const float* vs = ks + BK * RS;
+
+    if (!causal || j0 <= wrow + 15) {  // warp-uniform: a live key for a row
+      float s[NT][4], dp[NT][4];
+      dims_product<D, NT>(s, qs + 16 * warp * RS, ks, g, t);
+      dims_product<D, NT>(dp, dos + 16 * warp * RS, vs, g, t);
+      // s[nt][e]: row e < 2 ? r0 : r1, key j0 + nt*8 + 2t + (e & 1); dS in s
+      const bool edge = j0 + BK > S || (causal && j0 + BK - 1 > wrow);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi = e >= 2;
+          const int key = j0 + nt * 8 + 2 * t + (e & 1);
+          const bool live = !edge || key <= (hi ? last1 : last0);
+          const float p = live ? expf(fmaf(s[nt][e], scale, -(hi ? lse1 : lse0))) : 0.f;
+          s[nt][e] = p * (dp[nt][e] - (hi ? dl1 : dl0));
+        }
+      }
+      rows_product<D, NT, KD>(acc, s, ks, g, t);
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
   }
+
+  float* qrow = dq + base;
 #pragma unroll
-  for (int u = 0; u < RQ; ++u) {
-    const int row = i0 + ry * RQ + u;
-    if (row >= S) continue;
-#pragma unroll
-    for (int m = 0; m < NV; ++m)
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        dq[base + (long long)row * D + V * (dx + DX * m) + e] = scale * acc[u][m][e];
+  for (int dn = 0; dn < KD; ++dn) {
+    const long long col = dn * 8 + 2 * t;
+    if (r0 < S)
+      *reinterpret_cast<float2*>(qrow + (long long)r0 * D + col) =
+          make_float2(scale * acc[dn][0], scale * acc[dn][1]);
+    if (r1 < S)
+      *reinterpret_cast<float2*>(qrow + (long long)r1 * D + col) =
+          make_float2(scale * acc[dn][2], scale * acc[dn][3]);
   }
 }
 
@@ -787,12 +826,12 @@ cudaError_t launch_backward(const float* q, const float* k, const float* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_backward_dkv_kernel<D>
-      <<<dim3(bh, (S + C::kBK - 1) / C::kBK), kBwdThreads, C::kSmemKV, s>>>(
+      <<<dim3(bh, (S + C::kKC - 1) / C::kKC), kThreads, C::kSmemKV, s>>>(
           q, k, v, dout, lse, delta, dk, dv, S, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_backward_dq_kernel<D>
-      <<<dim3(bh, (S + C::kBQ - 1) / C::kBQ), kBwdThreads, C::kSmemQ, s>>>(
+      <<<dim3(bh, (S + kBQ - 1) / kBQ), kThreads, C::kSmemQ, s>>>(
           q, k, v, dout, lse, delta, dq, S, causal, scale);
   return cudaGetLastError();
 }
@@ -858,8 +897,8 @@ int sparknet_flash_attention_backward(const void* q, const void* k,
                                       void* delta, long long bh, long long s,
                                       int d, int causal, float scale,
                                       void* stream) {
-  // 32-row query tiles at D = 256; 16-byte loads of every fibre
-  if (!shape_ok(bh, s, BwdCfg<256>::kBQ) ||
+  // 32-key tiles at D = 256; 16-byte loads of every fibre
+  if (!shape_ok(bh, s, BwdCfg<256>::kKC) ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
