@@ -482,19 +482,24 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 // (kDS), computing S^T and dP^T both: every head dim runs on the tensor
 // cores.
 //
-// Tiles: the dQ walk's K/V tiles of kKT keys, the dK/dV walk's Q/dO tiles
-// of kQT queries, chosen so that the shared memory fits the card (two CTAs
-// an SM up to D = 64, one at 128 and 256); BwdCfg below.
+// Tiles (BwdCfg): the dQ walk's K/V tiles of kKT keys, the dK/dV walk's
+// Q/dO tiles of kQT queries: 64 up to D = 32, 32 above (16 for the dQ walk
+// at D = 256), so that two CTAs share an SM up to D = 64 (one at 128 and
+// 256, whose tiles fill 135 and 200 KB).  32-row tiles keep D = 64 off
+// spills and were 10 % faster there than 64; at D = 128 two CTAs an SM, by
+// 16-row tiles or by one cp.async stage, were slower than one.  Chaining
+// two dims k-steps in the tensor cores' accumulator saves a tenth of the
+// time and misses the dQ gate (PERF.md).
 
 constexpr int kBwdThreads = 256;  // the delta kernel's
 
 template <int D>
 struct BwdCfg {
   static constexpr int kRS = D + 4;                           // row stride, words
-  static constexpr int kKT = D <= 64 ? 64 : D == 128 ? 32 : 16;  // dQ walk: keys a tile
+  static constexpr int kKT = D <= 32 ? 64 : D <= 128 ? 32 : 16;  // dQ walk: keys a tile
   static constexpr int kDS = D == 256 ? 2 : 1;  // dK/dV walk: warps sharing 16 keys
   static constexpr int kKC = 16 * kWarps / kDS;  // dK/dV walk: keys a CTA
-  static constexpr int kQT = D <= 64 ? 64 : 32;  // dK/dV walk: queries a tile
+  static constexpr int kQT = D <= 32 ? 64 : 32;  // dK/dV walk: queries a tile
   static constexpr int kStageQ = 2 * kKT * kRS;             // K, V
   static constexpr int kStageKV = 2 * kQT * kRS + 2 * kQT;  // Q, dO, lse, delta
   static constexpr int kSmemQ = (2 * kStageQ + 2 * kBQ * kRS) * (int)sizeof(float);

@@ -17,6 +17,10 @@ to 1e-6 may land on either side of a bfloat16 boundary).
 its two launchers replaced by the plain versions (the kernels need the
 card): padding to the kernel's width, the true head's scale, the dropped
 lanes and the casts are the wrapper's own code.
+
+The backward kernel's order of sums (3xTF32 tensor-core products, k-steps
+grouped as its two walks group them) is emulated here against a float64
+reference at the card's gates; one TF32 term is shown to miss them.
 """
 
 import jax
@@ -29,6 +33,7 @@ torch = pytest.importorskip("torch")
 from sparknet_tpu.ops import pallas_kernels as jpk  # noqa: E402
 
 from sparknet_tpu_torch.ops import kernels  # noqa: E402
+from test_torch_port_attention import _tf32_rna, _tf32_rz  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -235,3 +240,93 @@ def test_backward_wrapper_refuses_mismatched_saved_tensors():
     with pytest.raises(ValueError, match="o and g"):
         kernels._flash_attention_backward_cuda(q, k, v, q, torch.zeros(1, 2, 8), g[..., :4],
                                                True)
+
+
+# -- the backward kernel's products, emulated ---------------------------------
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, terms: int, group: int) -> torch.Tensor:
+    """``a @ b`` as the backward kernel's m16n8k8 products form it: k in
+    steps of 8, each ``group`` steps summed from zero (3xTF32: a_lo·b_hi and
+    a_hi·b_lo, then a_hi·b_hi; hi rounded to nearest, lo = x - hi
+    truncated; or the rounded product alone when ``terms`` is 1) and then
+    added to a float32 sum.  The walks group 1 step when k is the head's
+    dims (S, dP) and 4 (32 rows) when k is the keys or queries walked (dQ,
+    dK, dV)."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8 * group):
+        ak, bk = a[..., k0:k0 + 8 * group], b[..., k0:k0 + 8 * group, :]
+        ah, bh = _tf32_rna(ak), _tf32_rna(bk)
+        d = ah @ bh
+        if terms == 3:
+            d = (_tf32_rz(ak - ah) @ bh + ah @ _tf32_rz(bk - bh)) + d
+        acc = acc + d
+    return acc
+
+
+def _emulated_backward(q, k, v, o, lse, g, causal: bool, terms: int):
+    """The kernel's gradients from float32 q, k, v, o, lse and g: S and dP
+    by k-steps of the dims, P = exp(scale S - lse) (0 where masked), dS =
+    P (dP - delta) in float32, dQ, dK and dV by groups of 32 walked rows."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    s = _tf32_product(q, k.transpose(-1, -2), terms, 1)
+    p = torch.exp(s * scale - lse[..., None])
+    if causal:
+        idx = torch.arange(q.shape[2])
+        p = torch.where(idx[:, None] >= idx[None, :], p, 0.0)
+    dp = _tf32_product(g, v.transpose(-1, -2), terms, 1)
+    ds = p * (dp - (g * o).sum(-1, keepdim=True))
+    dq = _tf32_product(ds, k, terms, 4) * scale
+    dk = _tf32_product(ds.transpose(-1, -2), q, terms, 4) * scale
+    dv = _tf32_product(p.transpose(-1, -2), g, terms, 4)
+    return dq, dk, dv
+
+
+def _float64_backward(q, k, v, g, causal: bool):
+    """(o, lse) rounded to float32, as the forward gives them, and the
+    float64 gradients."""
+    q, k, v, g = (t.double() for t in (q, k, v, g))
+    s = q @ k.transpose(-1, -2) / np.sqrt(q.shape[-1])
+    if causal:
+        idx = torch.arange(q.shape[2])
+        s = torch.where(idx[:, None] >= idx[None, :], s, -torch.inf)
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    o = p @ v
+    ds = p * (g @ v.transpose(-1, -2) - (g * o).sum(-1, keepdim=True))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    grads = (ds @ k * scale, ds.transpose(-1, -2) @ q * scale, p.transpose(-1, -2) @ g)
+    return o.float(), lse.float(), grads
+
+
+def _emulation_within_gate(n: int, causal: bool, terms: int):
+    """Whether each emulated gradient meets the card's gate against float64
+    (rtol 1e-5 and 1e-6 x max|ref| below S = 1024, 1e-4 and 1e-5 from
+    there); and each one's largest ratio of error to tolerance."""
+    rs = np.random.RandomState(n + causal)
+    q, k, v, g = (_t(rs.randn(1, 2, n, 64).astype(np.float32)) for _ in range(4))
+    o, lse, refs = _float64_backward(q, k, v, g, causal)
+    rtol, arel = (1e-5, 1e-6) if n < 1024 else (1e-4, 1e-5)
+    ratios = []
+    for got, ref in zip(_emulated_backward(q, k, v, o, lse, g, causal, terms), refs):
+        tol = arel * float(ref.abs().max()) + rtol * ref.abs()
+        ratios.append(float(((got.double() - ref).abs() / tol).max()))
+    return [r <= 1.0 for r in ratios], ratios
+
+
+@pytest.mark.parametrize("n,causal", [(128, True), (128, False), (1024, True), (1024, False)])
+def test_three_tf32_backward_products_meet_the_gate(n, causal):
+    """The premise of the backward kernel's tensor-core walks: 3xTF32
+    products, each dims k-step summed from zero and each 4 k-steps of the
+    walked rows, meet the flash_backward phase's gates against float64 for
+    dQ, dK and dV."""
+    oks, ratios = _emulation_within_gate(n, causal, 3)
+    assert all(oks), dict(zip(("dq", "dk", "dv"), ratios))
+
+
+def test_one_tf32_backward_term_misses_the_gate():
+    """One TF32 product (about 3 decimal digits) misses the same gate for
+    every gradient, causal or not, so the gate tells the two designs apart."""
+    for causal in (True, False):
+        oks, ratios = _emulation_within_gate(128, causal, 1)
+        assert not any(oks), dict(zip(("dq", "dk", "dv"), ratios))
