@@ -364,19 +364,21 @@ def _tf32_rz(x: torch.Tensor) -> torch.Tensor:
     return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
-def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
-    """``a @ b`` as the flash kernel's m16n8k8 products form it: each
-    k-step of 8 adds a_lo·b_hi, a_hi·b_lo and a_hi·b_hi (3×TF32, small
-    terms first; hi rounded to nearest, lo = x - hi truncated) or only the
-    rounded product (terms == 1, plain TF32) to a float32 sum."""
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int,
+                 group: int = 1) -> torch.Tensor:
+    """``a @ b`` as the flash kernels' m16n8k8 products form it: k in steps
+    of 8, each ``group`` steps summed from zero (a_lo·b_hi and a_hi·b_lo,
+    then a_hi·b_hi: 3×TF32, small terms first; hi rounded to nearest, lo =
+    x - hi truncated; or only the rounded product when ``terms`` is 1,
+    plain TF32) and then added to a float32 sum."""
     acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
-    for k0 in range(0, a.shape[-1], 8):
-        ak, bk = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
+    for k0 in range(0, a.shape[-1], 8 * group):
+        ak, bk = a[..., k0:k0 + 8 * group], b[..., k0:k0 + 8 * group, :]
         ah, bh = _tf32_rna(ak), _tf32_rna(bk)
+        d = ah @ bh
         if terms == 3:
-            acc = acc + _tf32_rz(ak - ah) @ bh
-            acc = acc + ah @ _tf32_rz(bk - bh)
-        acc = acc + ah @ bh
+            d = (_tf32_rz(ak - ah) @ bh + ah @ _tf32_rz(bk - bh)) + d
+        acc = acc + d
     return acc
 
 

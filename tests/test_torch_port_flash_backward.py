@@ -33,7 +33,7 @@ torch = pytest.importorskip("torch")
 from sparknet_tpu.ops import pallas_kernels as jpk  # noqa: E402
 
 from sparknet_tpu_torch.ops import kernels  # noqa: E402
-from test_torch_port_attention import _tf32_rna, _tf32_rz  # noqa: E402
+from test_torch_port_attention import _tf32_matmul  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -245,40 +245,22 @@ def test_backward_wrapper_refuses_mismatched_saved_tensors():
 # -- the backward kernel's products, emulated ---------------------------------
 
 
-def _tf32_product(a: torch.Tensor, b: torch.Tensor, terms: int, group: int) -> torch.Tensor:
-    """``a @ b`` as the backward kernel's m16n8k8 products form it: k in
-    steps of 8, each ``group`` steps summed from zero (3xTF32: a_lo·b_hi and
-    a_hi·b_lo, then a_hi·b_hi; hi rounded to nearest, lo = x - hi
-    truncated; or the rounded product alone when ``terms`` is 1) and then
-    added to a float32 sum.  The walks group 1 step when k is the head's
-    dims (S, dP) and 4 (32 rows) when k is the keys or queries walked (dQ,
-    dK, dV)."""
-    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
-    for k0 in range(0, a.shape[-1], 8 * group):
-        ak, bk = a[..., k0:k0 + 8 * group], b[..., k0:k0 + 8 * group, :]
-        ah, bh = _tf32_rna(ak), _tf32_rna(bk)
-        d = ah @ bh
-        if terms == 3:
-            d = (_tf32_rz(ak - ah) @ bh + ah @ _tf32_rz(bk - bh)) + d
-        acc = acc + d
-    return acc
-
-
 def _emulated_backward(q, k, v, o, lse, g, causal: bool, terms: int):
     """The kernel's gradients from float32 q, k, v, o, lse and g: S and dP
-    by k-steps of the dims, P = exp(scale S - lse) (0 where masked), dS =
-    P (dP - delta) in float32, dQ, dK and dV by groups of 32 walked rows."""
+    summed by k-steps of 8 dims, P = exp(scale S - lse) (0 where masked),
+    dS = P (dP - delta) in float32, dQ, dK and dV summed by groups of 4
+    k-steps (32 walked keys or queries), as the walks sum them."""
     scale = 1.0 / np.sqrt(q.shape[-1])
-    s = _tf32_product(q, k.transpose(-1, -2), terms, 1)
+    s = _tf32_matmul(q, k.transpose(-1, -2), terms, 1)
     p = torch.exp(s * scale - lse[..., None])
     if causal:
         idx = torch.arange(q.shape[2])
         p = torch.where(idx[:, None] >= idx[None, :], p, 0.0)
-    dp = _tf32_product(g, v.transpose(-1, -2), terms, 1)
+    dp = _tf32_matmul(g, v.transpose(-1, -2), terms, 1)
     ds = p * (dp - (g * o).sum(-1, keepdim=True))
-    dq = _tf32_product(ds, k, terms, 4) * scale
-    dk = _tf32_product(ds.transpose(-1, -2), q, terms, 4) * scale
-    dv = _tf32_product(p.transpose(-1, -2), g, terms, 4)
+    dq = _tf32_matmul(ds, k, terms, 4) * scale
+    dk = _tf32_matmul(ds.transpose(-1, -2), q, terms, 4) * scale
+    dv = _tf32_matmul(p.transpose(-1, -2), g, terms, 4)
     return dq, dk, dv
 
 
