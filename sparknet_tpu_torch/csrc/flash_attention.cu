@@ -460,8 +460,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 //    dP^T = V dO^T (dK/dV walk).  A and B are rows of tiles in shared memory
 //    (row stride D + 4 words) read with k = dims t and t + 4 of each
 //    8-dim step, the m16n8k8 layout as it is: a warp's scalar loads of
-//    lane (g, t) hit bank 4g + t, 32 distinct banks.  Each k-step is summed
-//    from zero and added in float32, as the forward's Q K^T;
+//    lane (g, t) hit bank 4g + t, 32 distinct banks;
 //  - the elementwise step on the C fragments: P = exp(scale s - lse) (0
 //    where masked) and dS = P (dP - delta), with lse and delta of the
 //    fragment's rows (dQ walk: two rows a lane, in registers) or columns
@@ -470,9 +469,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 //    the walked rows, permuted as the forward's P V (logical k = t, t + 4
 //    of lane t are rows 2t, 2t + 1), so the C fragment of P or dS is the A
 //    fragment as it stands: P and dS never leave registers.  B is read as
-//    the forward reads V (rows 2t, 2t + 1, dim g: bank 8t + g).  kPvGroup
-//    k-steps are summed on the tensor cores from zero, then added in
-//    float32.
+//    the forward reads V (rows 2t, 2t + 1, dim g: bank 8t + g);
+//  - in both, kBwdGroup k-steps are chained on the tensor cores from zero,
+//    their small terms first (mma_3xtf32_steps), and added in float32.
+//    The forward sums each k-step of Q K^T from zero: four chained k-steps
+//    issue a quarter of its float32 adds and meet the same gates.
 //
 // A causal warp skips the tiles that none of its rows can see (the skip is
 // warp-uniform, as the forward's), and masks only the tiles that cross its
@@ -487,11 +488,14 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 // at D = 256), so that two CTAs share an SM up to D = 64 (one at 128 and
 // 256, whose tiles fill 135 and 200 KB).  32-row tiles keep D = 64 off
 // spills and were 10 % faster there than 64; at D = 128 two CTAs an SM, by
-// 16-row tiles or by one cp.async stage, were slower than one.  Chaining
-// two dims k-steps in the tensor cores' accumulator saves a tenth of the
-// time and misses the dQ gate (PERF.md).
+// 16-row tiles or by one cp.async stage, were slower than one; walked
+// tiles split once a CTA into hi and lo planes (no split a warp) were
+// slower at D = 64 (PERF.md).
 
 constexpr int kBwdThreads = 256;  // the delta kernel's
+// k-steps a backward product chains on the tensor cores before each float32
+// add (mma_3xtf32_steps)
+constexpr int kBwdGroup = 4;
 
 template <int D>
 struct BwdCfg {
@@ -507,30 +511,59 @@ struct BwdCfg {
   static_assert(kStageKV % 4 == 0, "16-byte aligned stages");
 };
 
+// d += the 3xTF32 products of G k-steps, chained on the tensor cores: the
+// 2G small terms (a_lo b_hi, a_hi b_lo) first, then the G large ones.  The
+// accumulator truncates what is added to it, so a small term added after a
+// large one loses the bits it carries: in that order (the forward's) two
+// chained k-steps miss the dQ gate; in this one four meet it.
+template <int G>
+__device__ __forceinline__ void mma_3xtf32_steps(float (&d)[4],
+                                                 const uint32_t (&ah)[G][4],
+                                                 const uint32_t (&al)[G][4],
+                                                 const uint32_t (&bh)[G][2],
+                                                 const uint32_t (&bl)[G][2]) {
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    mma_tf32(d, al[u], bh[u][0], bh[u][1]);
+    mma_tf32(d, ah[u], bl[u][0], bl[u][1]);
+  }
+#pragma unroll
+  for (int u = 0; u < G; ++u) mma_tf32(d, ah[u], bh[u][0], bh[u][1]);
+}
+
 // c = A B^T over the D dims: A the 16 rows at `a`, B the NT * 8 rows at `b`
-// (shared memory, row stride D + 4).  Each 8-dim k-step is a 3xTF32 product
-// summed from zero, then added to c in float32.
+// (shared memory, row stride D + 4).  Each kBwdGroup 8-dim k-steps are
+// summed from zero (mma_3xtf32_steps), then added to c in float32.
 template <int D, int NT>
 __device__ __forceinline__ void dims_product(float (&c)[NT][4], const float* a,
                                              const float* b, int g, int t) {
-  constexpr int RS = D + 4;
+  constexpr int RS = D + 4, G = D / 8 < kBwdGroup ? D / 8 : kBwdGroup;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
+  for (int kk0 = 0; kk0 < D / 8; kk0 += G) {
     // A: rows g and g + 8 at dims kk*8 + t ([0], [1]) and + 4 ([2], [3])
-    const float* a0 = a + g * RS + kk * 8 + t;
-    uint32_t ah[4], al[4];
-    split(a0[0], ah[0], al[0]);
-    split(a0[8 * RS], ah[1], al[1]);
-    split(a0[4], ah[2], al[2]);
-    split(a0[8 * RS + 4], ah[3], al[3]);
+    uint32_t ah[G][4], al[G][4];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const float* a0 = a + g * RS + (kk0 + u) * 8 + t;
+      split(a0[0], ah[u][0], al[u][0]);
+      split(a0[8 * RS], ah[u][1], al[u][1]);
+      split(a0[4], ah[u][2], al[u][2]);
+      split(a0[8 * RS + 4], ah[u][3], al[u][3]);
+    }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       // B^T: row nt*8 + g at dims kk*8 + t and + 4
-      const float* b0 = b + (nt * 8 + g) * RS + kk * 8 + t;
+      uint32_t bh[G][2], bl[G][2];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const float* b0 = b + (nt * 8 + g) * RS + (kk0 + u) * 8 + t;
+        split(b0[0], bh[u][0], bl[u][0]);
+        split(b0[4], bh[u][1], bl[u][1]);
+      }
       float d[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_3xtf32(d, ah, al, b0[0], b0[4]);
+      mma_3xtf32_steps<G>(d, ah, al, bh, bl);
 #pragma unroll
       for (int e = 0; e < 4; ++e) c[nt][e] = __fadd_rn(c[nt][e], d[e]);
     }
@@ -540,13 +573,13 @@ __device__ __forceinline__ void dims_product(float (&c)[NT][4], const float* a,
 // acc += F B: F's C fragments f (16 rows by the NT * 8 walked rows, from
 // dims_product) as A fragments, B the walked rows at `b` (shared memory,
 // row stride D + 4) over ND * 8 dims.  k = walked rows 2t, 2t + 1 for lane
-// t (the forward's P V); kPvGroup k-steps summed from zero, then added to
-// acc in float32.
+// t (the forward's P V); each kBwdGroup k-steps summed from zero
+// (mma_3xtf32_steps), then added to acc in float32.
 template <int D, int NT, int ND>
 __device__ __forceinline__ void rows_product(float (&acc)[ND][4],
                                              const float (&f)[NT][4],
                                              const float* b, int g, int t) {
-  constexpr int RS = D + 4, G = NT < kPvGroup ? NT : kPvGroup;
+  constexpr int RS = D + 4, G = NT < kBwdGroup ? NT : kBwdGroup;
   static_assert(NT % G == 0, "k-step groups must tile a walked tile");
 #pragma unroll
   for (int kt0 = 0; kt0 < NT; kt0 += G) {
@@ -560,12 +593,15 @@ __device__ __forceinline__ void rows_product(float (&acc)[ND][4],
     }
 #pragma unroll
     for (int dn = 0; dn < ND; ++dn) {
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      uint32_t bh[G][2], bl[G][2];
 #pragma unroll
       for (int q = 0; q < G; ++q) {
         const float* b0 = b + ((kt0 + q) * 8 + 2 * t) * RS + dn * 8 + g;
-        mma_3xtf32(d, fh[q], fl[q], b0[0], b0[RS]);
+        split(b0[0], bh[q][0], bl[q][0]);
+        split(b0[RS], bh[q][1], bl[q][1]);
       }
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_3xtf32_steps<G>(d, fh, fl, bh, bl);
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dn][e] = __fadd_rn(acc[dn][e], d[e]);
     }

@@ -246,17 +246,17 @@ def test_backward_wrapper_refuses_mismatched_saved_tensors():
 
 
 def _emulated_backward(q, k, v, o, lse, g, causal: bool, terms: int):
-    """The kernel's gradients from float32 q, k, v, o, lse and g: S and dP
-    summed by k-steps of 8 dims, P = exp(scale S - lse) (0 where masked),
-    dS = P (dP - delta) in float32, dQ, dK and dV summed by groups of 4
-    k-steps (32 walked keys or queries), as the walks sum them."""
+    """The kernel's gradients from float32 q, k, v, o, lse and g, each
+    product summed by groups of 4 k-steps (32 dims for S and dP, 32 walked
+    keys or queries for dQ, dK and dV) as the walks sum them; P = exp(scale
+    S - lse) (0 where masked) and dS = P (dP - delta) in float32."""
     scale = 1.0 / np.sqrt(q.shape[-1])
-    s = _tf32_matmul(q, k.transpose(-1, -2), terms, 1)
+    s = _tf32_matmul(q, k.transpose(-1, -2), terms, 4)
     p = torch.exp(s * scale - lse[..., None])
     if causal:
         idx = torch.arange(q.shape[2])
         p = torch.where(idx[:, None] >= idx[None, :], p, 0.0)
-    dp = _tf32_matmul(g, v.transpose(-1, -2), terms, 1)
+    dp = _tf32_matmul(g, v.transpose(-1, -2), terms, 4)
     ds = p * (dp - (g * o).sum(-1, keepdim=True))
     dq = _tf32_matmul(ds, k, terms, 4) * scale
     dk = _tf32_matmul(ds.transpose(-1, -2), q, terms, 4) * scale
@@ -299,9 +299,8 @@ def _emulation_within_gate(n: int, causal: bool, terms: int):
 @pytest.mark.parametrize("n,causal", [(128, True), (128, False), (1024, True), (1024, False)])
 def test_three_tf32_backward_products_meet_the_gate(n, causal):
     """The premise of the backward kernel's tensor-core walks: 3xTF32
-    products, each dims k-step summed from zero and each 4 k-steps of the
-    walked rows, meet the flash_backward phase's gates against float64 for
-    dQ, dK and dV."""
+    products, summed from zero by groups of 4 k-steps, meet the
+    flash_backward phase's gates against float64 for dQ, dK and dV."""
     oks, ratios = _emulation_within_gate(n, causal, 3)
     assert all(oks), dict(zip(("dq", "dk", "dv"), ratios))
 
