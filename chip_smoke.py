@@ -2036,10 +2036,13 @@ def flash_backward_bound_ms(shape, causal: bool, card: str) -> tuple[float, str]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def grads_within(got, ref, rtol: float, arel: float) -> tuple[bool, float]:
+def grads_within(got, ref, rtol: float, arel: float) -> tuple[bool, float, float]:
     """|got - ref| <= arel * max|ref| + rtol * |ref| everywhere; (ok, max
-    abs err)."""
-    return attention_within(got, ref, arel * float(ref.abs().max()), rtol)
+    abs err, the largest ratio of error to that tolerance: the margin a
+    design change spends)."""
+    atol = arel * float(ref.abs().max())
+    ok, err = attention_within(got, ref, atol, rtol)
+    return ok, err, float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
 
 
 def phase_flash_backward(card: str) -> dict:
@@ -2064,14 +2067,16 @@ def phase_flash_backward(card: str) -> dict:
             again = kernels._flash_attention_backward_cuda(q, k, v, o, lse, g, causal)
             torch.cuda.synchronize()
             rtol, arel = (1e-5, 1e-6) if shape[2] < 1024 else (1e-4, 1e-5)
-            oks, errs = zip(*(grads_within(a, r, rtol, arel) for a, r in zip(got, ref)))
+            oks, errs, shares = zip(*(grads_within(a, r, rtol, arel)
+                                      for a, r in zip(got, ref)))
             lse_ok, lse_err = attention_within(lse, lse_ref, 1e-5)
             same_o = torch.equal(o, o_alone)
             twice = all(torch.equal(a, b) for a, b in zip(got, again))
             max_err = max(max_err, *errs)
             print(f"flash backward {label} {list(shape)} causal {int(causal)}: max abs err "
                   f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (rtol {rtol:g}, atol "
-                  f"{arel:g} x max|ref|) {'ok' if all(oks) else 'FAIL'}; forward lse max abs "
+                  f"{arel:g} x max|ref|; at most {max(shares):.3f} of it) "
+                  f"{'ok' if all(oks) else 'FAIL'}; forward lse max abs "
                   f"err {lse_err:.3e} (1e-5) {'ok' if lse_ok else 'FAIL'}, o with lse bit "
                   f"for bit o without: {same_o}; two launches bit for bit: {twice}")
             check(all(oks), f"flash backward {label}")
@@ -2423,12 +2428,14 @@ def phase_charlm_train(card: str) -> dict:
               f"update {counts[2] // n}; mean loss of the last 10 steps {mean10:.4f} nats "
               f"(gate < {CHARLM_LOSS_GATE}; ln 128 = 4.852) [{card}]")
         check(mean10 < CHARLM_LOSS_GATE, f"charlm did not learn: {mean10:.4f} nats")
-        device_ms, rows = device_breakdown(lambda: net.train(1), top=12)
+        device_ms, rows = device_breakdown(lambda: net.train(1), top=1000)
         if device_ms:
+            bwd = sum(t for t, name, _ in rows if "flash_backward" in name)
             print(f"charlm train profile: one step under torch.profiler: {device_ms:.3f} "
                   f"ms of kernels, {100 * device_ms / ms:.1f}% of the unprofiled "
-                  f"{ms:.3f} ms/step [{card}]")
-            for t, name, calls in rows:
+                  f"{ms:.3f} ms/step; the flash backward's three kernels {bwd:.4f} ms, "
+                  f"{100 * bwd / device_ms:.2f}% of the kernels [{card}]")
+            for t, name, calls in rows[:12]:
                 print(f"  {t:8.3f} ms  {100 * t / device_ms:5.1f}%  x{calls}  {name[:90]}")
         else:
             print("charlm train profile: torch.profiler recorded no device time")
