@@ -448,7 +448,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 // flops a fibre, halved when causal); S = q k^T and dO v^T are recomputed
 // in both walks, so the kernels do 7.  All seven run on the tensor cores as
 // the forward's: mma.sync.m16n8k8.tf32 in a 3xTF32 split (split(),
-// mma_3xtf32()), 165 TFLOP/s of float32-accurate work at most.
+// mma_tf32()), 165 TFLOP/s of float32-accurate work at most.
 //
 // Both walks are shaped like the forward: 4 warps, a warp owns 16 rows of
 // the product's M (query rows in the dQ walk, keys in the dK/dV walk), and
