@@ -83,9 +83,12 @@
 //
 // The head dims are the zoo's (8 for transformer, 16 for charlm) and 32,
 // 64, 128 and 256 (a head between them is zero-padded by the wrapper,
-// ops/kernels.py); any other returns cudaErrorInvalidValue here.  At D =
-// 256 the O accumulator alone is 128 registers a thread: ptxas's spills
-// are printed by chip_smoke.py and kept in PERF.md.
+// ops/kernels.py), and above 256 any multiple of kDC = 128 lanes, run by
+// the chunked kernels (flash_forward_wide_kernel and the wide walks of the
+// backward, below; the wrapper pads a wider head to the next multiple);
+// any other returns cudaErrorInvalidValue here.  At D = 256 the O
+// accumulator alone is 128 registers a thread: ptxas's spills are printed
+// by chip_smoke.py and kept in PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -170,21 +173,145 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// rows [r0, r0 + rows) of a [S, D] fibre into shared memory at row stride
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// D lanes of rows [r0, r0 + rows) of a fibre of row stride ld (D, or the
+// whole head when D is one chunk of it) into shared memory at row stride
 // `stride`; rows past S are zero-filled.  vec16: 16-byte copies (every
 // pointer 16-byte aligned), else 4-byte ones.
 template <int D>
 __device__ __forceinline__ void load_rows(float* dst, int stride,
                                           const float* src, int r0, int rows,
-                                          int S, bool vec16) {
+                                          int S, bool vec16, int ld = D) {
   const int w = vec16 ? 4 : 1;
   const int per_row = D / w;
   for (int c = threadIdx.x; c < rows * per_row; c += kThreads) {
     const int row = c / per_row;
     const int col = (c % per_row) * w;
     const bool valid = r0 + row < S;
-    const float* p = src + (valid ? (long long)(r0 + row) * D + col : 0);
+    const float* p = src + (valid ? (long long)(r0 + row) * ld + col : 0);
     cp_async(dst + row * stride + col, p, vec16, valid);
+  }
+}
+
+// A warp's key tile of scores s (rows r0 = row g and r1 = g + 8 of its 16,
+// keys j0 + nt*8 + 2t + (e & 1)): keys past each row's last live key (its
+// diagonal when causal, else S - 1) to -inf.
+template <int NT>
+__device__ __forceinline__ void mask_scores(float (&s)[NT][4], int j0, int t,
+                                            int last0, int last1) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = j0 + nt * 8 + 2 * t + (e & 1);
+      if (key > (e < 2 ? last0 : last1)) s[nt][e] = -INFINITY;
+    }
+  }
+}
+
+// The online softmax over one key tile of a warp's scores s, then O += P
+// V: V's tile at `vs` (row stride VS), acc the warp's O fragments over KD
+// 8-lane steps, (m, l) each row's running max and (lane-partial) sum.
+template <int NT, int KD, int VS>
+__device__ __forceinline__ void softmax_pv(float (&s)[NT][4], float (&acc)[KD][4],
+                                           float& m0, float& m1, float& l0,
+                                           float& l1, const float* vs, int g,
+                                           int t) {
+  static_assert(NT % kPvGroup == 0, "P V groups must tile a key tile");
+  float mt0 = -INFINITY, mt1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    mt0 = fmaxf(mt0, fmaxf(s[nt][0], s[nt][1]));
+    mt1 = fmaxf(mt1, fmaxf(s[nt][2], s[nt][3]));
+  }
+#pragma unroll
+  for (int w = 1; w <= 2; w <<= 1) {
+    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, w));
+    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, w));
+  }
+  const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+  const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = expf(s[nt][0] - mn0);
+    s[nt][1] = expf(s[nt][1] - mn0);
+    s[nt][2] = expf(s[nt][2] - mn1);
+    s[nt][3] = expf(s[nt][3] - mn1);
+    ps0 += s[nt][0] + s[nt][1];
+    ps1 += s[nt][2] + s[nt][3];
+  }
+  l0 = l0 * corr0 + ps0;
+  l1 = l1 * corr1 + ps1;
+  m0 = mn0;
+  m1 = mn1;
+#pragma unroll
+  for (int dn = 0; dn < KD; ++dn) {
+    acc[dn][0] *= corr0;
+    acc[dn][1] *= corr0;
+    acc[dn][2] *= corr1;
+    acc[dn][3] *= corr1;
+  }
+  // O += P V, k = keys permuted as for S: the C fragment of s[kt] is the A
+  // fragment of P (row g: keys 2t, 2t+1; row g + 8 likewise).  kPvGroup
+  // k-steps are summed on the tensor cores from zero, then added to O in
+  // float32.
+#pragma unroll
+  for (int kt0 = 0; kt0 < NT; kt0 += kPvGroup) {
+    uint32_t ph[kPvGroup][4], pl[kPvGroup][4];
+#pragma unroll
+    for (int q = 0; q < kPvGroup; ++q) {
+      split(s[kt0 + q][0], ph[q][0], pl[q][0]);
+      split(s[kt0 + q][2], ph[q][1], pl[q][1]);
+      split(s[kt0 + q][1], ph[q][2], pl[q][2]);
+      split(s[kt0 + q][3], ph[q][3], pl[q][3]);
+    }
+#pragma unroll
+    for (int dn = 0; dn < KD; ++dn) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < kPvGroup; ++q) {
+        const float* v0 = vs + ((kt0 + q) * 8 + 2 * t) * VS + g;
+        mma_3xtf32(d, ph[q], pl[q], v0[dn * 8], v0[VS + dn * 8]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] = __fadd_rn(acc[dn][e], d[e]);
+    }
+  }
+}
+
+// The end of a warp's rows: l summed over the quad, o = acc / l written at
+// lanes col0 + [0, KD * 8) of rows r0 and r1 (row stride ld, at ob), and,
+// when lse is not null, each row's log-sum-exp m + log l.
+template <int KD>
+__device__ __forceinline__ void write_rows(const float (&acc)[KD][4], float m0,
+                                           float m1, float l0, float l1,
+                                           float* ob, float* lse, int ld,
+                                           int col0, int r0, int r1, int S,
+                                           int t) {
+#pragma unroll
+  for (int w = 1; w <= 2; w <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  }
+  if (lse != nullptr && t == 0) {  // m and l are the quad's, on every lane
+    if (r0 < S) lse[r0] = m0 + logf(l0);
+    if (r1 < S) lse[r1] = m1 + logf(l1);
+  }
+#pragma unroll
+  for (int dn = 0; dn < KD; ++dn) {
+    const int col = col0 + dn * 8 + 2 * t;
+    if (r0 < S) {
+      ob[(long long)r0 * ld + col] = acc[dn][0] / l0;
+      ob[(long long)r0 * ld + col + 1] = acc[dn][1] / l0;
+    }
+    if (r1 < S) {
+      ob[(long long)r1 * ld + col] = acc[dn][2] / l1;
+      ob[(long long)r1 * ld + col + 1] = acc[dn][3] / l1;
+    }
   }
 }
 
@@ -289,103 +416,142 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       }
       // s[nt][e]: row e < 2 ? r0 : r1, key j0 + nt*8 + 2t + (e & 1)
-      if (j0 + BK > S || (causal && j0 + BK - 1 > wrow)) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = j0 + nt * 8 + 2 * t + (e & 1);
-            if (key > (e < 2 ? last0 : last1)) s[nt][e] = -INFINITY;
-          }
-        }
-      }
-      float mt0 = -INFINITY, mt1 = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        mt0 = fmaxf(mt0, fmaxf(s[nt][0], s[nt][1]));
-        mt1 = fmaxf(mt1, fmaxf(s[nt][2], s[nt][3]));
-      }
-#pragma unroll
-      for (int w = 1; w <= 2; w <<= 1) {
-        mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, w));
-        mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, w));
-      }
-      const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
-      const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        s[nt][0] = expf(s[nt][0] - mn0);
-        s[nt][1] = expf(s[nt][1] - mn0);
-        s[nt][2] = expf(s[nt][2] - mn1);
-        s[nt][3] = expf(s[nt][3] - mn1);
-        ps0 += s[nt][0] + s[nt][1];
-        ps1 += s[nt][2] + s[nt][3];
-      }
-      l0 = l0 * corr0 + ps0;
-      l1 = l1 * corr1 + ps1;
-      m0 = mn0;
-      m1 = mn1;
-#pragma unroll
-      for (int dn = 0; dn < KD; ++dn) {
-        acc[dn][0] *= corr0;
-        acc[dn][1] *= corr0;
-        acc[dn][2] *= corr1;
-        acc[dn][3] *= corr1;
-      }
-      // O += P V, k = keys permuted as for S: the C fragment of s[kt] is
-      // the A fragment of P (row g: keys 2t, 2t+1; row g + 8 likewise).
-      // kPvGroup k-steps are summed on the tensor cores from zero, then
-      // added to O in float32.
-#pragma unroll
-      for (int kt0 = 0; kt0 < NT; kt0 += kPvGroup) {
-        uint32_t ph[kPvGroup][4], pl[kPvGroup][4];
-#pragma unroll
-        for (int q = 0; q < kPvGroup; ++q) {
-          split(s[kt0 + q][0], ph[q][0], pl[q][0]);
-          split(s[kt0 + q][2], ph[q][1], pl[q][1]);
-          split(s[kt0 + q][1], ph[q][2], pl[q][2]);
-          split(s[kt0 + q][3], ph[q][3], pl[q][3]);
-        }
-#pragma unroll
-        for (int dn = 0; dn < KD; ++dn) {
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int q = 0; q < kPvGroup; ++q) {
-            const float* v0 = vs + ((kt0 + q) * 8 + 2 * t) * C::kVS + g;
-            mma_3xtf32(d, ph[q], pl[q], v0[dn * 8], v0[C::kVS + dn * 8]);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[dn][e] = __fadd_rn(acc[dn][e], d[e]);
-        }
-      }
+      if (j0 + BK > S || (causal && j0 + BK - 1 > wrow))
+        mask_scores<NT>(s, j0, t, last0, last1);
+      softmax_pv<NT, KD, C::kVS>(s, acc, m0, m1, l0, l1, vs, g, t);
     }
     __syncthreads();  // this buffer is refilled two tiles on
   }
+  write_rows<KD>(acc, m0, m1, l0, l1, o + base,
+                 lse == nullptr ? nullptr : lse + (long long)blockIdx.x * S, D,
+                 0, r0, r1, S, t);
+}
 
+// ---------------------------------------------------------------------------
+// Heads wider than 256 lanes (the forward, then both walks of the backward
+// further down).  The head is D = nc * kDC lanes (the wrapper zero-pads it
+// to a multiple of kDC), and a third grid axis runs over its nc chunks of
+// output lanes: a CTA computes the scores over all D dims, reading Q and K
+// one chunk at a time through shared memory (S's k-steps in the order of
+// the narrow instances: each summed from zero, then added in float32), and
+// accumulates only its own chunk of O.  Every chunk's CTA forms the same
+// scores, softmax and l bit for bit; chunk 0 writes the lse.  A query row's
+// result still depends only on its own fibre, with no atomics: two
+// launches, and a batch entry alone or in its batch, give the same bits.
+//
+// What it costs: each of the nc CTAs of a query tile recomputes S, so Q K^T
+// is done nc times (about (nc + 1) / 2 times the narrow kernel's work at
+// D = 512, causal or not), and Q is read again for every key tile.  The
+// tiles are the D = 128 instance's (32 keys a tile, Q and K chunks at row
+// stride kDC + 8, V at kDC + 4): two Q/K stages and one V tile take 121 KB,
+// one CTA an SM.  These widths are correctness first: no shipped
+// configuration reaches them.
+constexpr int kDC = 128;  // lanes a chunk
+
+struct WideCfg {
+  static constexpr int kBK = 32;                  // keys a tile
+  static constexpr int kQKS = kDC + 8;            // Q and K chunk row stride
+  static constexpr int kVS = kDC + 4;             // V row stride
+  static constexpr int kStageQK = (kBQ + kBK) * kQKS;  // floats a Q/K stage
+  static constexpr int kSmem = (2 * kStageQK + kBK * kVS) * (int)sizeof(float);
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_forward_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v, float* __restrict__ o,
+                              float* __restrict__ lse, int S, int D, int causal,
+                              float scale, int vec16) {
+  using C = WideCfg;
+  constexpr int BK = C::kBK, NT = BK / 8, KD = kDC / 8;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* vs = smem + 2 * C::kStageQK;
+
+  const int nc = D / kDC, oc = blockIdx.z;  // chunks, and this CTA's own
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
+  const long long base = (long long)blockIdx.x * S * D;
+  const float* qb = q + base;
+  const float* kb = k + base;
+  const float* vb = v + base + oc * kDC;
+  const int wrow = q0 + 16 * warp;
+  const int r0 = wrow + g, r1 = r0 + 8;
+  const int kend = causal ? min(q0 + kBQ, S) : S;
+  const int ntiles = (kend + BK - 1) / BK;
+  const int nsteps = ntiles * nc;  // step it * nc + cc: chunk cc of tile it
+
+  auto load_qk = [&](int f) {
+    float* st = smem + (f & 1) * C::kStageQK;
+    const int cc = f % nc;
+    load_rows<kDC>(st, C::kQKS, qb + cc * kDC, q0, kBQ, S, vec16, D);
+    load_rows<kDC>(st + kBQ * C::kQKS, C::kQKS, kb + cc * kDC, f / nc * BK, BK,
+                   S, vec16, D);
+  };
+  load_qk(0);
+  load_rows<kDC>(vs, C::kVS, vb, 0, BK, S, vec16, D);
+  cp_async_commit();
+
+  float acc[KD][4];
 #pragma unroll
-  for (int w = 1; w <= 2; w <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
-  }
-  float* ob = o + base;
-  if (lse != nullptr && t == 0) {  // m and l are the quad's, on every lane
-    const long long rb = (long long)blockIdx.x * S;
-    if (r0 < S) lse[rb + r0] = m0 + logf(l0);
-    if (r1 < S) lse[rb + r1] = m1 + logf(l1);
-  }
+  for (int dn = 0; dn < KD; ++dn)
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const int last0 = causal ? min(r0, S - 1) : S - 1;
+  const int last1 = causal ? min(r1, S - 1) : S - 1;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int j0 = it * BK;
+    const bool live = !causal || j0 <= wrow + 15;  // warp-uniform
+    float s[NT][4];
 #pragma unroll
-  for (int dn = 0; dn < KD; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (r0 < S) {
-      ob[(long long)r0 * D + col] = acc[dn][0] / l0;
-      ob[(long long)r0 * D + col + 1] = acc[dn][1] / l0;
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int cc = 0; cc < nc; ++cc) {
+      const int f = it * nc + cc;
+      if (f + 1 < nsteps) load_qk(f + 1);
+      cp_async_commit();
+      cp_async_wait_one();  // step f (and, at cc = 0, this tile's V) landed
+      __syncthreads();
+      if (live) {
+        const float* qs = smem + (f & 1) * C::kStageQK;
+        const float* ks = qs + kBQ * C::kQKS;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          uint32_t ah[4], al[4];
+          const float2 a0 = *reinterpret_cast<const float2*>(
+              qs + (16 * warp + g) * C::kQKS + kk * 8 + 2 * t);
+          const float2 a1 = *reinterpret_cast<const float2*>(
+              qs + (16 * warp + g + 8) * C::kQKS + kk * 8 + 2 * t);
+          split(a0.x * scale, ah[0], al[0]);
+          split(a1.x * scale, ah[1], al[1]);
+          split(a0.y * scale, ah[2], al[2]);
+          split(a1.y * scale, ah[3], al[3]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float2 b = *reinterpret_cast<const float2*>(
+                ks + (nt * 8 + g) * C::kQKS + kk * 8 + 2 * t);
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_3xtf32(d, ah, al, b.x, b.y);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nt][e] = __fadd_rn(s[nt][e], d[e]);
+          }
+        }
+      }
+      __syncthreads();  // stage f & 1 is refilled at step f + 2
     }
-    if (r1 < S) {
-      ob[(long long)r1 * D + col] = acc[dn][2] / l1;
-      ob[(long long)r1 * D + col + 1] = acc[dn][3] / l1;
+    if (live) {
+      if (j0 + BK > S || (causal && j0 + BK - 1 > wrow))
+        mask_scores<NT>(s, j0, t, last0, last1);
+      softmax_pv<NT, KD, C::kVS>(s, acc, m0, m1, l0, l1, vs, g, t);
     }
+    __syncthreads();  // V's tile is refilled next
+    if (it + 1 < ntiles) load_rows<kDC>(vs, C::kVS, vb, j0 + BK, BK, S, vec16, D);
+    cp_async_commit();
   }
+  write_rows<KD>(acc, m0, m1, l0, l1, o + base,
+                 lse == nullptr || oc != 0 ? nullptr : lse + (long long)blockIdx.x * S,
+                 D, oc * kDC, r0, r1, S, t);
 }
 
 constexpr int kMaxDevices = 64;
@@ -420,6 +586,19 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   const dim3 grid(bh, (S + kBQ - 1) / kBQ);
   flash_forward_kernel<D><<<grid, kThreads, smem, s>>>(q, k, v, o, lse, S,
                                                         causal, scale, vec16);
+  return cudaGetLastError();
+}
+
+// the forward at a head wider than 256 lanes (flash_forward_wide_kernel)
+cudaError_t launch_wide(const float* q, const float* k, const float* v, float* o,
+                        float* lse, int bh, int S, int D, int causal, float scale,
+                        int vec16, cudaStream_t s) {
+  static std::atomic<bool> allowed[kMaxDevices];
+  const cudaError_t err = allow_smem(flash_forward_wide_kernel, WideCfg::kSmem, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (S + kBQ - 1) / kBQ, D / kDC);
+  flash_forward_wide_kernel<<<grid, kThreads, WideCfg::kSmem, s>>>(
+      q, k, v, o, lse, S, D, causal, scale, vec16);
   return cudaGetLastError();
 }
 
@@ -533,13 +712,17 @@ __device__ __forceinline__ void mma_3xtf32_steps(float (&d)[4],
 
 // c = A B^T over the D dims: A the 16 rows at `a`, B the NT * 8 rows at `b`
 // (shared memory, row stride D + 4).  Each kBwdGroup 8-dim k-steps are
-// summed from zero (mma_3xtf32_steps), then added to c in float32.
-template <int D, int NT>
+// summed from zero (mma_3xtf32_steps), then added to c in float32.  With
+// kZero false, c is not zeroed first: a head wider than one chunk adds its
+// chunks' products in order, the sums of one product over all its dims.
+template <int D, int NT, bool kZero = true>
 __device__ __forceinline__ void dims_product(float (&c)[NT][4], const float* a,
                                              const float* b, int g, int t) {
   constexpr int RS = D + 4, G = D / 8 < kBwdGroup ? D / 8 : kBwdGroup;
+  if constexpr (kZero) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+    for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+  }
 #pragma unroll
   for (int kk0 = 0; kk0 < D / 8; kk0 += G) {
     // A: rows g and g + 8 at dims kk*8 + t ([0], [1]) and + 4 ([2], [3])
@@ -608,13 +791,80 @@ __device__ __forceinline__ void rows_product(float (&acc)[ND][4],
   }
 }
 
+// The dK/dV walk's elementwise step on a warp's tile: S^T (st) and dP^T
+// (dpt), keys key0/key1 by queries i0 + nt*8 + 2t + (e & 1), become P^T =
+// exp(scale s - lse) (0 where masked: past S, or above the diagonal when
+// causal; checked only on an edge tile) and dS^T = P^T (dP^T - delta), with
+// lse and delta of the query tile at ls and dls in shared memory.
+template <int NT>
+__device__ __forceinline__ void dkv_probs(float (&st)[NT][4], float (&dpt)[NT][4],
+                                          const float* ls, const float* dls,
+                                          int i0, int key0, int key1, int S,
+                                          int causal, bool edge, float scale,
+                                          int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(ls + c);
+    const float2 dl = *reinterpret_cast<const float2*>(dls + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int query = i0 + c + (e & 1);
+      const bool live =
+          !edge || (query < S && (!causal || query >= (e < 2 ? key0 : key1)));
+      const float p = live ? expf(fmaf(st[nt][e], scale, -(e & 1 ? l.y : l.x))) : 0.f;
+      st[nt][e] = p;
+      dpt[nt][e] = p * (dpt[nt][e] - (e & 1 ? dl.y : dl.x));
+    }
+  }
+}
+
+// The dQ walk's elementwise step on a warp's tile: S (s), rows r0/r1 by keys
+// j0 + nt*8 + 2t + (e & 1), becomes dS = P (dP - delta), P = exp(scale s -
+// lse) (0 past each row's last live key; checked only on an edge tile).
+template <int NT>
+__device__ __forceinline__ void dq_probs(float (&s)[NT][4], const float (&dp)[NT][4],
+                                         int j0, int last0, int last1, float lse0,
+                                         float lse1, float dl0, float dl1,
+                                         bool edge, float scale, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool hi = e >= 2;
+      const int key = j0 + nt * 8 + 2 * t + (e & 1);
+      const bool live = !edge || key <= (hi ? last1 : last0);
+      const float p = live ? expf(fmaf(s[nt][e], scale, -(hi ? lse1 : lse0))) : 0.f;
+      s[nt][e] = p * (dp[nt][e] - (hi ? dl1 : dl0));
+    }
+  }
+}
+
+// A warp's ND 8-lane steps of rows r0 and r1 (acc, times `mult`) into
+// out[row * ld + col0 + ...], rows past S left out.
+template <int ND>
+__device__ __forceinline__ void write_pairs(const float (&acc)[ND][4], float mult,
+                                            float* out, long long ld, long long col0,
+                                            int r0, int r1, int S, int t) {
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn) {
+    const long long col = col0 + dn * 8 + 2 * t;
+    if (r0 < S)
+      *reinterpret_cast<float2*>(out + r0 * ld + col) =
+          make_float2(mult * acc[dn][0], mult * acc[dn][1]);
+    if (r1 < S)
+      *reinterpret_cast<float2*>(out + r1 * ld + col) =
+          make_float2(mult * acc[dn][2], mult * acc[dn][3]);
+  }
+}
+
 // delta[row] = sum_d dO[row, d] o[row, d]: one warp a row, lanes over d,
 // then a fixed xor tree
-template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
     flash_backward_delta_kernel(const float* __restrict__ o,
                                 const float* __restrict__ dout,
-                                float* __restrict__ delta, long long rows) {
+                                float* __restrict__ delta, long long rows,
+                                int D) {
   const long long row = (long long)blockIdx.x * (kBwdThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -710,44 +960,15 @@ __global__ void __launch_bounds__(kThreads, 2)
       dims_product<D, NT>(dpt, vs + 16 * kg * RS, dos, g, t);
       // st[nt][e]: key e < 2 ? key0 : key1, query i0 + nt*8 + 2t + (e & 1)
       const bool edge = i0 + QT > S || (causal && i0 < wkey + 15);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = nt * 8 + 2 * t;
-        const float2 l = *reinterpret_cast<const float2*>(ls + c);
-        const float2 dl = *reinterpret_cast<const float2*>(dls + c);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int query = i0 + c + (e & 1);
-          const bool live =
-              !edge || (query < S && (!causal || query >= (e < 2 ? key0 : key1)));
-          const float p =
-              live ? expf(fmaf(st[nt][e], scale, -(e & 1 ? l.y : l.x))) : 0.f;
-          st[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - (e & 1 ? dl.y : dl.x));
-        }
-      }
+      dkv_probs<NT>(st, dpt, ls, dls, i0, key0, key1, S, causal, edge, scale, t);
       rows_product<D, NT, ND>(acc_v, st, dos + d0, g, t);
       rows_product<D, NT, ND>(acc_k, dpt, qs + d0, g, t);
     }
     __syncthreads();  // this buffer is refilled two tiles on
   }
 
-#pragma unroll
-  for (int dn = 0; dn < ND; ++dn) {
-    const long long col = d0 + dn * 8 + 2 * t;
-    if (key0 < S) {
-      *reinterpret_cast<float2*>(dk + base + (long long)key0 * D + col) =
-          make_float2(scale * acc_k[dn][0], scale * acc_k[dn][1]);
-      *reinterpret_cast<float2*>(dv + base + (long long)key0 * D + col) =
-          make_float2(acc_v[dn][0], acc_v[dn][1]);
-    }
-    if (key1 < S) {
-      *reinterpret_cast<float2*>(dk + base + (long long)key1 * D + col) =
-          make_float2(scale * acc_k[dn][2], scale * acc_k[dn][3]);
-      *reinterpret_cast<float2*>(dv + base + (long long)key1 * D + col) =
-          make_float2(acc_v[dn][2], acc_v[dn][3]);
-    }
-  }
+  write_pairs<ND>(acc_k, scale, dk + base, D, d0, key0, key1, S, t);
+  write_pairs<ND>(acc_v, 1.f, dv + base, D, d0, key0, key1, S, t);
 }
 
 // dQ of query rows [q0, q0 + kBQ) of fibre blockIdx.x, heaviest causal
@@ -818,33 +1039,199 @@ __global__ void __launch_bounds__(kThreads, 2)
       dims_product<D, NT>(dp, dos + 16 * warp * RS, vs, g, t);
       // s[nt][e]: row e < 2 ? r0 : r1, key j0 + nt*8 + 2t + (e & 1); dS in s
       const bool edge = j0 + BK > S || (causal && j0 + BK - 1 > wrow);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool hi = e >= 2;
-          const int key = j0 + nt * 8 + 2 * t + (e & 1);
-          const bool live = !edge || key <= (hi ? last1 : last0);
-          const float p = live ? expf(fmaf(s[nt][e], scale, -(hi ? lse1 : lse0))) : 0.f;
-          s[nt][e] = p * (dp[nt][e] - (hi ? dl1 : dl0));
-        }
-      }
+      dq_probs<NT>(s, dp, j0, last0, last1, lse0, lse1, dl0, dl1, edge, scale, t);
       rows_product<D, NT, KD>(acc, s, ks, g, t);
     }
     __syncthreads();  // this buffer is refilled two tiles on
   }
 
-  float* qrow = dq + base;
+  write_pairs<KD>(acc, scale, dq + base, D, 0, r0, r1, S, t);
+}
+
+// The backward's two walks at a head of D = nc * kDC lanes, D > 256: a
+// third grid axis over the nc chunks of each walk's outputs.  A tile of
+// either walk forms S and dP over all the dims, each chunk of its operands
+// streamed through one shared-memory stage (dims_product without zeroing,
+// chunk by chunk: the narrow instances' order of sums over the dims), then
+// P and dS, then the rows products into the CTA's own chunk, whose operand
+// rows (Q and dO, or K) come in a second buffer with the tile.  The stage
+// is single-buffered: it takes 101 KB (the walked tile's two chunks and
+// the CTA's own rows' two chunks), and a second one would not fit beside
+// the own-chunk buffer.  Tiles and warps are the D = 128 instance's: 64
+// keys a dK/dV CTA against 32-query tiles, 64 queries a dQ CTA against
+// 32-key tiles; each warp owns 16 rows and kDC lanes of its outputs.
+struct WideBwdCfg {
+  static constexpr int kRS = kDC + 4;   // row stride, words
+  static constexpr int kKC = kBQ;       // dK/dV walk: keys a CTA
+  static constexpr int kQT = 32;        // dK/dV walk: queries a tile
+  static constexpr int kKT = 32;        // dQ walk: keys a tile
+  // dK/dV walk: stage K, V (kKC rows), Q, dO (kQT rows); own Q, dO; lse, delta
+  static constexpr int kStageKV = 2 * (kKC + kQT) * kRS;
+  static constexpr int kSmemKV = (kStageKV + 2 * kQT * kRS + 2 * kQT) * (int)sizeof(float);
+  // dQ walk: stage Q, dO (kBQ rows), K, V (kKT rows); own K
+  static constexpr int kStageQ = 2 * (kBQ + kKT) * kRS;
+  static constexpr int kSmemQ = (kStageQ + kKT * kRS) * (int)sizeof(float);
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_backward_dkv_wide_kernel(const float* __restrict__ q,
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   const float* __restrict__ dout,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   float* __restrict__ dk, float* __restrict__ dv,
+                                   int S, int D, int causal, float scale) {
+  using C = WideBwdCfg;
+  constexpr int QT = C::kQT, NT = QT / 8, RS = C::kRS, KC = C::kKC, ND = kDC / 8;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* ks = smem;  // the stage: K, V, Q, dO chunks
+  float* vs = ks + KC * RS;
+  float* qs = vs + KC * RS;
+  float* dos = qs + QT * RS;
+  float* qo = smem + C::kStageKV;  // the own chunk of Q and dO, lse, delta
+  float* doo = qo + QT * RS;
+  float* ls = doo + QT * RS;
+  float* dls = ls + QT;
+
+  const int nc = D / kDC, oc = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.y * KC;
+  const int wkey = k0 + 16 * warp;
+  const int key0 = wkey + g, key1 = key0 + 8;
+  const long long base = (long long)blockIdx.x * S * D;
+  const long long rbase = (long long)blockIdx.x * S;
+  const float *qb = q + base, *dob = dout + base, *kb = k + base, *vb = v + base;
+  const float *lb = lse + rbase, *db = delta + rbase;
+  const int istart = causal ? k0 / QT * QT : 0;
+  const int ntiles = (S - istart + QT - 1) / QT;
+
+  float acc_k[ND][4], acc_v[ND][4];
 #pragma unroll
-  for (int dn = 0; dn < KD; ++dn) {
-    const long long col = dn * 8 + 2 * t;
-    if (r0 < S)
-      *reinterpret_cast<float2*>(qrow + (long long)r0 * D + col) =
-          make_float2(scale * acc[dn][0], scale * acc[dn][1]);
-    if (r1 < S)
-      *reinterpret_cast<float2*>(qrow + (long long)r1 * D + col) =
-          make_float2(scale * acc[dn][2], scale * acc[dn][3]);
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[dn][e] = acc_v[dn][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int i0 = istart + it * QT;
+    const bool seen = !causal || i0 + QT - 1 >= wkey;  // warp-uniform
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+    for (int cc = 0; cc < nc; ++cc) {
+      if (cc == 0) {  // the tile's own chunk, lse and delta, read after the walk
+        load_rows<kDC>(qo, RS, qb + oc * kDC, i0, QT, S, true, D);
+        load_rows<kDC>(doo, RS, dob + oc * kDC, i0, QT, S, true, D);
+        for (int c = threadIdx.x; c < 2 * QT; c += kThreads) {
+          const int row = i0 + c % QT;
+          const bool valid = row < S;
+          cp_async(ls + c, (c < QT ? lb : db) + (valid ? row : 0), false, valid);
+        }
+      }
+      load_rows<kDC>(ks, RS, kb + cc * kDC, k0, KC, S, true, D);
+      load_rows<kDC>(vs, RS, vb + cc * kDC, k0, KC, S, true, D);
+      load_rows<kDC>(qs, RS, qb + cc * kDC, i0, QT, S, true, D);
+      load_rows<kDC>(dos, RS, dob + cc * kDC, i0, QT, S, true, D);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      if (seen) {
+        dims_product<kDC, NT, false>(st, ks + 16 * warp * RS, qs, g, t);
+        dims_product<kDC, NT, false>(dpt, vs + 16 * warp * RS, dos, g, t);
+      }
+      __syncthreads();  // the stage is refilled next
+    }
+    if (seen) {
+      const bool edge = i0 + QT > S || (causal && i0 < wkey + 15);
+      dkv_probs<NT>(st, dpt, ls, dls, i0, key0, key1, S, causal, edge, scale, t);
+      rows_product<kDC, NT, ND>(acc_v, st, doo, g, t);
+      rows_product<kDC, NT, ND>(acc_k, dpt, qo, g, t);
+    }
+    __syncthreads();  // the own chunk is refilled next
   }
+
+  write_pairs<ND>(acc_k, scale, dk + base, D, oc * kDC, key0, key1, S, t);
+  write_pairs<ND>(acc_v, 1.f, dv + base, D, oc * kDC, key0, key1, S, t);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_backward_dq_wide_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta,
+                                  float* __restrict__ dq, int S, int D,
+                                  int causal, float scale) {
+  using C = WideBwdCfg;
+  constexpr int BK = C::kKT, NT = BK / 8, KD = kDC / 8, RS = C::kRS;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qs = smem;  // the stage: Q, dO, K, V chunks
+  float* dos = qs + kBQ * RS;
+  float* ks = dos + kBQ * RS;
+  float* vs = ks + BK * RS;
+  float* ko = smem + C::kStageQ;  // the own chunk of K
+
+  const int nc = D / kDC, oc = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
+  const long long base = (long long)blockIdx.x * S * D;
+  const long long rbase = (long long)blockIdx.x * S;
+  const float *qb = q + base, *dob = dout + base, *kb = k + base, *vb = v + base;
+  const int wrow = q0 + 16 * warp;
+  const int r0 = wrow + g, r1 = r0 + 8;
+  const int kend = causal ? min(q0 + kBQ, S) : S;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  const float lse0 = r0 < S ? lse[rbase + r0] : 0.f;
+  const float lse1 = r1 < S ? lse[rbase + r1] : 0.f;
+  const float dl0 = r0 < S ? delta[rbase + r0] : 0.f;
+  const float dl1 = r1 < S ? delta[rbase + r1] : 0.f;
+  const int last0 = causal ? min(r0, S - 1) : S - 1;
+  const int last1 = causal ? min(r1, S - 1) : S - 1;
+  float acc[KD][4];
+#pragma unroll
+  for (int dn = 0; dn < KD; ++dn)
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int j0 = it * BK;
+    const bool seen = !causal || j0 <= wrow + 15;  // warp-uniform
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    for (int cc = 0; cc < nc; ++cc) {
+      if (cc == 0) load_rows<kDC>(ko, RS, kb + oc * kDC, j0, BK, S, true, D);
+      load_rows<kDC>(qs, RS, qb + cc * kDC, q0, kBQ, S, true, D);
+      load_rows<kDC>(dos, RS, dob + cc * kDC, q0, kBQ, S, true, D);
+      load_rows<kDC>(ks, RS, kb + cc * kDC, j0, BK, S, true, D);
+      load_rows<kDC>(vs, RS, vb + cc * kDC, j0, BK, S, true, D);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      if (seen) {
+        dims_product<kDC, NT, false>(s, qs + 16 * warp * RS, ks, g, t);
+        dims_product<kDC, NT, false>(dp, dos + 16 * warp * RS, vs, g, t);
+      }
+      __syncthreads();  // the stage is refilled next
+    }
+    if (seen) {
+      const bool edge = j0 + BK > S || (causal && j0 + BK - 1 > wrow);
+      dq_probs<NT>(s, dp, j0, last0, last1, lse0, lse1, dl0, dl1, edge, scale, t);
+      rows_product<kDC, NT, KD>(acc, s, ko, g, t);
+    }
+    __syncthreads();  // the own chunk is refilled next
+  }
+
+  write_pairs<KD>(acc, scale, dq + base, D, oc * kDC, r0, r1, S, t);
 }
 
 template <int D>
@@ -861,9 +1248,9 @@ cudaError_t launch_backward(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   const long long rows = (long long)bh * S;
   constexpr int kRowsABlock = kBwdThreads / 32;
-  flash_backward_delta_kernel<D>
+  flash_backward_delta_kernel
       <<<(unsigned)((rows + kRowsABlock - 1) / kRowsABlock), kBwdThreads, 0, s>>>(
-          o, dout, delta, rows);
+          o, dout, delta, rows, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_backward_dkv_kernel<D>
@@ -877,8 +1264,40 @@ cudaError_t launch_backward(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// the three launches of the backward at a head wider than 256 lanes: the
+// delta pass, then the wide walks
+cudaError_t launch_backward_wide(const float* q, const float* k, const float* v,
+                                 const float* o, const float* lse,
+                                 const float* dout, float* dq, float* dk,
+                                 float* dv, float* delta, int bh, int S, int D,
+                                 int causal, float scale, cudaStream_t s) {
+  using C = WideBwdCfg;
+  static std::atomic<bool> allowed_kv[kMaxDevices], allowed_q[kMaxDevices];
+  cudaError_t err = allow_smem(flash_backward_dkv_wide_kernel, C::kSmemKV, allowed_kv);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_backward_dq_wide_kernel, C::kSmemQ, allowed_q);
+  if (err != cudaSuccess) return err;
+  const long long rows = (long long)bh * S;
+  constexpr int kRowsABlock = kBwdThreads / 32;
+  flash_backward_delta_kernel
+      <<<(unsigned)((rows + kRowsABlock - 1) / kRowsABlock), kBwdThreads, 0, s>>>(
+          o, dout, delta, rows, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_backward_dkv_wide_kernel
+      <<<dim3(bh, (S + C::kKC - 1) / C::kKC, D / kDC), kThreads, C::kSmemKV, s>>>(
+          q, k, v, dout, lse, delta, dk, dv, S, D, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_backward_dq_wide_kernel
+      <<<dim3(bh, (S + kBQ - 1) / kBQ, D / kDC), kThreads, C::kSmemQ, s>>>(
+          q, k, v, dout, lse, delta, dq, S, D, causal, scale);
+  return cudaGetLastError();
+}
+
 // the launch of head dim d: the instances of every head dim the wrapper
-// takes (ops/kernels.py ATTENTION_HEAD_DIMS)
+// takes up to 256 lanes (ops/kernels.py ATTENTION_HEAD_DIMS); a wider head
+// goes to the wide kernels before this switch
 #define SPARKNET_FLASH_DISPATCH(d, CALL) \
   switch (d) {                           \
     case 8: return (int)CALL(8);         \
@@ -890,10 +1309,12 @@ cudaError_t launch_backward(const float* q, const float* k, const float* v,
     default: return (int)cudaErrorInvalidValue; \
   }
 
-// bh fibres on the grid's x axis, s rows in tiles of `tile` on its y axis
-bool shape_ok(long long bh, long long s, int tile) {
+// bh fibres on the grid's x axis, s rows in tiles of `tile` on its y axis,
+// a wide head's chunks on its z axis
+bool shape_ok(long long bh, long long s, int d, int tile) {
   return bh > 0 && s > 0 && bh <= INT32_MAX && s <= INT32_MAX / 256 &&
-         (s + tile - 1) / tile <= 65535;
+         (s + tile - 1) / tile <= 65535 && d > 0 &&
+         (d <= 256 || (d % kDC == 0 && d / kDC <= 65535));
 }
 
 }  // namespace
@@ -903,13 +1324,14 @@ extern "C" {
 // q, k, v, o: contiguous float32 [bh, s, d] on the device (bh = batch *
 // heads).  lse: float32 [bh, s], written with each row's log-sum-exp of
 // scale q k^T (the backward's input) when not null.  causal: 0 or 1.
-// scale: the factor on q k^T (1 / sqrt of the true head dim).  Returns a
+// scale: the factor on q k^T (1 / sqrt of the true head dim).  d: 8, 16,
+// 32, 64, 128, 256, or a multiple of 128 above 256.  Returns a
 // cudaError_t.
 int sparknet_flash_attention_forward(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      long long bh, long long s, int d,
                                      int causal, float scale, void* stream) {
-  if (!shape_ok(bh, s, kBQ)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(bh, s, d, kBQ)) return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -921,6 +1343,7 @@ int sparknet_flash_attention_forward(const void* q, const void* k,
   // so the base pointers decide
   const int vec16 =
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0 ? 1 : 0;
+  if (d > 256) return (int)launch_wide(qf, kf, vf, of, lf, nbh, ns, d, c, scale, vec16, st);
 #define SPARKNET_FWD(D) launch<D>(qf, kf, vf, of, lf, nbh, ns, c, scale, vec16, st)
   SPARKNET_FLASH_DISPATCH(d, SPARKNET_FWD)
 #undef SPARKNET_FWD
@@ -939,7 +1362,7 @@ int sparknet_flash_attention_backward(const void* q, const void* k,
                                       int d, int causal, float scale,
                                       void* stream) {
   // 32-key tiles at D = 256; 16-byte loads of every fibre
-  if (!shape_ok(bh, s, BwdCfg<256>::kKC) ||
+  if (!shape_ok(bh, s, d, BwdCfg<256>::kKC) ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
@@ -954,6 +1377,9 @@ int sparknet_flash_attention_backward(const void* q, const void* k,
   float* df = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nbh = (int)bh, ns = (int)s, c = causal ? 1 : 0;
+  if (d > 256)
+    return (int)launch_backward_wide(qf, kf, vf, of, lf, gf, dqf, dkf, dvf, df, nbh,
+                                     ns, d, c, scale, st);
 #define SPARKNET_BWD(D) \
   launch_backward<D>(qf, kf, vf, of, lf, gf, dqf, dkf, dvf, df, nbh, ns, c, scale, st)
   SPARKNET_FLASH_DISPATCH(d, SPARKNET_BWD)

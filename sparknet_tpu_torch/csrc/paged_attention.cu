@@ -77,8 +77,10 @@
 //
 // The head dims are the zoo's (8 for transformer, 16 for charlm) and 32,
 // 64, 128 and 256 (at D = 256: 16 columns a tile, 8 lanes a column, 104 KB
-// of ring); any other raises in the wrapper (ops/kernels.py) and returns
-// cudaErrorInvalidValue here, as does a pool not 16-byte aligned.
+// of ring), and above 256 any multiple of 128 lanes whose shared memory
+// fits a block (the chunked kernel further down); any other raises in the
+// wrapper (ops/kernels.py) and returns cudaErrorInvalidValue here, as does
+// a pool not 16-byte aligned.
 //
 // Pools of bfloat16 or float16 (the TPU kernel casts each block it loads,
 // :804-805) are never copied or cast as a whole: an instance on the pools'
@@ -199,6 +201,45 @@ __device__ __forceinline__ void issue_tile(
   }
 }
 
+// A column's score part: the fmaf sum of a lane's DL dims of q (float32 in
+// shared memory) and of the column's K row, its 16-byte chunks g, g + G,
+// g + 2G, ...; then the G parts of the column summed by xor shuffles.
+template <int G, int DL, typename KV>
+__device__ __forceinline__ float score_part(const float* q_s, const KV* kr, int g) {
+  float part = 0.f;
+#pragma unroll
+  for (int i = 0; i < DL / 4; ++i) {
+    const float4 qv = *reinterpret_cast<const float4*>(q_s + 4 * (g + G * i));
+    const float4 kv = load4(kr + 4 * (g + G * i));
+    part = fmaf(qv.x, kv.x, part);
+    part = fmaf(qv.y, kv.y, part);
+    part = fmaf(qv.z, kv.z, part);
+    part = fmaf(qv.w, kv.w, part);
+  }
+#pragma unroll
+  for (int w = 1; w < G; w <<= 1) part += __shfl_xor_sync(kFull, part, w);
+  return part;
+}
+
+// The four warps' carries (O at acc_s + w * D, and m, l) merged in warp
+// order by exp(m_w - max m) into o[0, D).  Column 0 is live, so den > 0.
+__device__ __forceinline__ void merge_carries(const float* acc_s, const float* m_s,
+                                              const float* l_s, float* o, int D) {
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    float mt = m_s[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) mt = fmaxf(mt, m_s[w]);
+    float a = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(m_s[w] - mt);
+      a = fmaf(acc_s[w * D + d], f, a);
+      den = fmaf(l_s[w], f, den);
+    }
+    o[d] = a / den;
+  }
+}
+
 template <int D, typename KV>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const float* __restrict__ q,
@@ -261,19 +302,7 @@ __global__ void __launch_bounds__(kThreads)
     const KV* sk = ring + (x % kStages) * C::kStage + warp * CW * KS;
     const KV* sv = ring + (x % kStages) * C::kStage + KT * KS + warp * CW * VS;
 
-    const KV* kr = sk + jc * KS;
-    float part = 0.f;
-#pragma unroll
-    for (int i = 0; i < DL / 4; ++i) {
-      const float4 qv = *reinterpret_cast<const float4*>(q_s + 4 * (g + G * i));
-      const float4 kv = load4(kr + 4 * (g + G * i));
-      part = fmaf(qv.x, kv.x, part);
-      part = fmaf(qv.y, kv.y, part);
-      part = fmaf(qv.z, kv.z, part);
-      part = fmaf(qv.w, kv.w, part);
-    }
-#pragma unroll
-    for (int w = 1; w < G; w <<= 1) part += __shfl_xor_sync(kFull, part, w);
+    const float part = score_part<G, DL>(q_s, sk + jc * KS, g);
     const bool live = c0 + jc <= pos;
     const float s = live ? part * scale : -1e30f;
     float mx = s;
@@ -325,19 +354,167 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < VL; ++k) acc_s[warp][dv + k] = acc[k];
   }
   __syncthreads();
-  for (int d = tid; d < D; d += kThreads) {  // the warps' carries merged in warp order
-    float mt = m_s[0];
+  merge_carries(&acc_s[0][0], m_s, l_s, o + ((long long)b * H + h) * D, D);
+}
+
+// ---------------------------------------------------------------------------
+// Heads wider than 256 lanes: D = nc * kDC (the pools are allocated at a
+// multiple of kDC lanes, ops/kernels.py kernel_head_dim).  A CTA still
+// takes one (row, head) and each warp keeps one online softmax over all D
+// lanes, but the pool's lanes are read a chunk at a time: the ring's items
+// are a tile's K chunks 0 .. nc - 1, then its V chunks, each KT columns of
+// kDC lanes, through two stages (the item after the one being used is in
+// flight).  The chunk's lane roles are the D = 128 instance's (G = 4 lanes
+// a column scoring 32 dims each, 8 columns a warp, 32 a tile; 4 dims a
+// lane in P V).  A column's score is the sum of its chunks' partial dot
+// products, added in chunk order; after the last K chunk the warp updates
+// its max, l and the rescale of O, and each V chunk adds P V into O's
+// chunk.  O (4 warps x D floats) lives in shared memory, each lane reading
+// and writing only its own lanes, and q is staged there once: 2 x 18 KB of
+// ring plus 20 D bytes, 46 KB at D = 512 (float32 pools).  The exactness
+// contract holds as above: every sum in an order fixed by the position.
+// These widths are correctness first: no shipped configuration reaches
+// them, and the tile's K lines are read once for the scores and the V
+// lines once for P V, as at the narrow widths.
+constexpr int kDC = 128;  // lanes a chunk
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
+
+template <typename T>
+struct PagedWideCfg {
+  using C = PagedCfg<kDC, T>;
+  static constexpr int kStage = C::kKT * C::kKS;  // elements: one K or V chunk
+  static constexpr int kRing = 2 * kStage * (int)sizeof(T);
+  // bytes: the ring, q [D] and the warps' O [kWarps, D], float32
+  static int smem(int D) { return kRing + (1 + kWarps) * D * (int)sizeof(float); }
+};
+
+// Item i of tile x into ring stage i % 2: K chunk i (i < nc) or V chunk
+// i - nc, as issue_tile copies a narrow tile (16-byte copies, columns past
+// pos zero-filled).
+template <typename T>
+__device__ __forceinline__ void issue_chunk(T* ring, const unsigned* rows_s,
+                                            const T* kp, const T* vp, int x,
+                                            int i, int nc, int pos,
+                                            long long row_stride,
+                                            long long head_off) {
+  using C = PagedCfg<kDC, T>;
+  constexpr int kColStep = kThreads / C::kCPR;
+  const unsigned col0 = threadIdx.x / C::kCPR, ch = threadIdx.x % C::kCPR;
+  T* dst = ring + (i % 2) * PagedWideCfg<T>::kStage + col0 * C::kKS + C::kEPC * ch;
+  const T* src = (i < nc ? kp : vp) + head_off + (i % nc) * kDC + C::kEPC * ch;
+  const int c0 = x * C::kKT + (int)col0;
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) mt = fmaxf(mt, m_s[w]);
-    float a = 0.f, den = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(m_s[w] - mt);
-      a = fmaf(acc_s[w][d], f, a);
-      den = fmaf(l_s[w], f, den);
-    }
-    o[((long long)b * H + h) * D + d] = a / den;  // column 0 is live: den > 0
+  for (int r = 0; r < C::kCopies; ++r) {
+    const long long off = (long long)rows_s[col0 + r * kColStep] * row_stride;
+    cp_async16(dst + r * kColStep * C::kKS, src + off, c0 + r * kColStep <= pos);
   }
+}
+
+template <typename KV>
+__global__ void __launch_bounds__(kThreads)
+    paged_attention_wide_kernel(const float* __restrict__ q,
+                                const KV* __restrict__ kp,
+                                const KV* __restrict__ vp,
+                                const int* __restrict__ tables,
+                                const int* __restrict__ positions,
+                                float* __restrict__ o, int H, int T, int MB,
+                                int D, float scale) {
+  using C = PagedCfg<kDC, KV>;
+  constexpr int G = C::kG, DL = C::kDL, CW = C::kCW, KT = C::kKT, VL = C::kVL,
+                RS = C::kKS;
+  static_assert(C::kGroups == 1 && VL == 4, "P V: 4 dims a lane of a chunk");
+  extern __shared__ float4 smem4[];
+  KV* ring = reinterpret_cast<KV*>(smem4);
+  float* q_s = reinterpret_cast<float*>(ring + 2 * PagedWideCfg<KV>::kStage);
+  float* acc_s = q_s + D;  // [kWarps][D]
+  __shared__ unsigned rows_s[KT];
+  __shared__ float m_s[kWarps], l_s[kWarps];
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int* tbl = tables + (long long)b * MB;
+  const int pos = max(0, min(positions[b], MB * T - 1));
+  const int ntiles = pos / KT + 1;
+  const int nc = D / kDC, nitems = 2 * nc;
+  const long long row_stride = (long long)H * D;
+  const long long head_off = (long long)h * D;
+
+  for (int d = tid; d < D; d += kThreads) q_s[d] = q[((long long)b * H + h) * D + d];
+  for (int d = tid; d < kWarps * D; d += kThreads) acc_s[d] = 0.f;
+  const int jc = lane / G, g = lane % G;  // scoring: column jc, part g
+  const int dv = lane * VL;               // P V: dims dv .. dv + 3 of a chunk
+  float* acc = acc_s + warp * D;
+  float m = -1e30f, l = 0.f;
+
+  for (int x = 0; x < ntiles; ++x) {
+    __syncthreads();  // every copy of tile x - 1 has read its rows
+    if (tid < KT) {
+      const int c = x * KT + tid;
+      rows_s[tid] = c <= pos ? (unsigned)tbl[c / T] * (unsigned)T + (unsigned)(c % T) : 0u;
+    }
+    __syncthreads();
+    issue_chunk<KV>(ring, rows_s, kp, vp, x, 0, nc, pos, row_stride, head_off);
+    cp_async_commit();
+    const int c0 = x * KT + warp * CW;  // the warp's first column
+    const bool live = c0 + jc <= pos;
+    float s = 0.f, p = 0.f;
+    for (int i = 0; i < nitems; ++i) {
+      if (i + 1 < nitems)
+        issue_chunk<KV>(ring, rows_s, kp, vp, x, i + 1, nc, pos, row_stride, head_off);
+      cp_async_commit();
+      cp_async_wait<1>();  // this thread's copies of item i landed
+      __syncthreads();     // everyone's
+      const KV* st = ring + (i % 2) * PagedWideCfg<KV>::kStage + warp * CW * RS;
+      if (c0 <= pos) {  // warp-uniform: a live column in the warp's share
+        if (i < nc) {   // K chunk i: the column's partial score
+          s += score_part<G, DL>(q_s + i * kDC, st + jc * RS, g);
+          if (i == nc - 1) {  // the scores are whole: the online softmax
+            const float sc = live ? s * scale : -1e30f;
+            float mx = sc;
+#pragma unroll
+            for (int w = 16; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, w));
+            const float m_new = fmaxf(m, mx);
+            const float corr = expf(m - m_new);
+            p = live ? expf(sc - m_new) : 0.f;
+            l = fmaf(l, corr, g == 0 ? p : 0.f);
+            for (int cv = 0; cv < nc; ++cv) {
+              float4* a = reinterpret_cast<float4*>(acc + cv * kDC + dv);
+              float4 av = *a;
+              av.x *= corr;
+              av.y *= corr;
+              av.z *= corr;
+              av.w *= corr;
+              *a = av;
+            }
+            m = m_new;
+          }
+        } else {  // V chunk i - nc: O's chunk += P V
+          float4* a = reinterpret_cast<float4*>(acc + (i - nc) * kDC + dv);
+          float4 av = *a;
+#pragma unroll
+          for (int j = 0; j < CW; ++j) {
+            const float pj = __shfl_sync(kFull, p, j * G);
+            const float4 vv = load4(st + j * RS + dv);
+            av.x = fmaf(pj, vv.x, av.x);
+            av.y = fmaf(pj, vv.y, av.y);
+            av.z = fmaf(pj, vv.z, av.z);
+            av.w = fmaf(pj, vv.w, av.w);
+          }
+          *a = av;
+        }
+      }
+      __syncthreads();  // stage i % 2 is refilled at item i + 2
+    }
+  }
+
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) l += __shfl_xor_sync(kFull, l, w);
+  if (lane == 0) {
+    m_s[warp] = m;
+    l_s[warp] = l;
+  }
+  __syncthreads();
+  merge_carries(acc_s, m_s, l_s, o + ((long long)b * H + h) * D, D);
 }
 
 constexpr int kMaxDevices = 64;
@@ -374,11 +551,45 @@ cudaError_t launch(const float* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
+// the wide kernel: its shared memory grows with D, so the allowance is
+// raised to the largest size launched so far on the device
+template <typename T>
+cudaError_t launch_wide(const float* q, const void* kp, const void* vp,
+                        const int* tables, const int* positions, float* o, int B,
+                        int H, int Tk, int MB, int D, float scale, cudaStream_t s) {
+  const int smem = PagedWideCfg<T>::smem(D);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  static std::atomic<int> allowed[kMaxDevices];
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= kMaxDevices || allowed[dev].load(std::memory_order_acquire) < smem) {
+      err = cudaFuncSetAttribute(paged_attention_wide_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      if (dev < kMaxDevices) {
+        int seen = allowed[dev].load(std::memory_order_acquire);
+        while (seen < smem && !allowed[dev].compare_exchange_weak(seen, smem)) {
+        }
+      }
+    }
+  }
+  paged_attention_wide_kernel<T><<<dim3(H, B), kThreads, smem, s>>>(
+      q, static_cast<const T*>(kp), static_cast<const T*>(vp), tables, positions, o,
+      H, Tk, MB, D, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_width(int d, const float* q, const void* kp, const void* vp,
                          const int* tables, const int* positions, float* o,
                          int B, int H, int Tk, int MB, float scale,
                          cudaStream_t s) {
+  if (d > 256)
+    return d % kDC ? cudaErrorInvalidValue
+                   : launch_wide<T>(q, kp, vp, tables, positions, o, B, H, Tk, MB, d,
+                                    scale, s);
   switch (d) {
     case 8: return launch<8, T>(q, kp, vp, tables, positions, o, B, H, Tk, MB, scale, s);
     case 16: return launch<16, T>(q, kp, vp, tables, positions, o, B, H, Tk, MB, scale, s);

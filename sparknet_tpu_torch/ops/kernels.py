@@ -557,9 +557,15 @@ def fused_update(rule: str, st: UpdateStatics, w: torch.Tensor,
 # Flash attention, forward and backward
 # ---------------------------------------------------------------------------
 
-# head dims the two attention kernels are instantiated for (the launchers of
-# csrc/flash_attention.cu and csrc/paged_attention.cu switch on these)
+# head dims the two attention kernels are instantiated for up to 256 lanes
+# (the launchers of csrc/flash_attention.cu and csrc/paged_attention.cu
+# switch on these); a wider head runs on their chunked kernels, at a
+# multiple of ATTENTION_CHUNK lanes
 ATTENTION_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+ATTENTION_CHUNK = 128
+# the widest head the paged kernel takes: its two-stage chunk ring, q and
+# the four warps' O (20 bytes a lane) fill a block's 227 KB of shared memory
+PAGED_MAX_HEAD_DIM = 9728
 # input types the attention wrappers take: the kernels compute in float32,
 # and bfloat16 or float16 operands are cast (flash: in the wrapper; paged:
 # q in the wrapper, the pools as the kernel reads them)
@@ -569,27 +575,20 @@ _KV_DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 def kernel_head_dim(d: int) -> int:
     """The head dim an attention kernel runs a head of ``d`` lanes at: the
-    smallest of ``ATTENTION_HEAD_DIMS`` that is >= d, for 1 <= d <= 256.
-    A head is zero-padded to it: a zero lane adds an exact 0 to every
-    q.k sum, and the padded lanes of the output are dropped.  Above 256
-    no kernel is instantiated; ``d`` itself is returned and the CUDA
-    wrappers refuse it."""
+    smallest of ``ATTENTION_HEAD_DIMS`` that is >= d for 1 <= d <= 256,
+    and above 256 the next multiple of ``ATTENTION_CHUNK`` (the chunked
+    kernels read a head in chunks of that many lanes).  A head is
+    zero-padded to it: a zero lane adds an exact 0 to every q.k sum, and
+    the padded lanes of the output are dropped."""
     if d < 1:
         raise ValueError(f"head dim must be >= 1, got {d}")
-    return next((w for w in ATTENTION_HEAD_DIMS if w >= d), d)
+    if d > ATTENTION_HEAD_DIMS[-1]:
+        return -(-d // ATTENTION_CHUNK) * ATTENTION_CHUNK
+    return next(w for w in ATTENTION_HEAD_DIMS if w >= d)
 
 
 def _scale(scale: float | None, d: int) -> float:
     return 1.0 / math.sqrt(d) if scale is None else float(scale)
-
-
-def _refuse_wide_head(name: str, d: int) -> None:
-    if d > ATTENTION_HEAD_DIMS[-1]:
-        raise ValueError(
-            f"{name}: head dim {d} > {ATTENTION_HEAD_DIMS[-1]}: the attention "
-            f"kernels are instantiated up to {ATTENTION_HEAD_DIMS[-1]} lanes "
-            f"(the flash forward's Q and K/V tiles fill a CTA's shared memory "
-            f"there, and its O accumulator the register file)")
 
 
 def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
@@ -629,22 +628,31 @@ def flash_attention_backward_torch(q, k, v, o, lse, g, causal: bool = False,
                                    scale: float | None = None):
     """Plain PyTorch gradient of ``flash_attention_torch`` for the upstream
     gradient ``g``, the formula the backward kernel computes, written out
-    (no autograd), float32 math:
+    (no autograd):
 
         P = exp(scale q k^T - lse)  (the causal upper triangle at -1e30)
         dV = P^T g;  dS = P * (g v^T - rowsum(g * o));  dQ = scale dS k;
         dK = scale dS^T q
 
-    ``o`` and ``lse`` are the forward's (``flash_attention_forward_lse_torch``).
-    Returns (dq, dk, dv) in the types of q, k and v."""
+    in float64 (every float32 input is exact there), each gradient rounded
+    once to its type: the reference the kernel is held to.  A float32
+    version's own sums over a head of 512 lanes miss the kernel's gate
+    against float64 (PERF.md), so float32 math here could not tell a right
+    kernel from a wrong one at wide heads.  ``o`` and ``lse`` are the
+    forward's (``flash_attention_forward_lse_torch``).  Returns (dq, dk,
+    dv) in the types of q, k and v."""
     scale = _scale(scale, q.shape[-1])
-    gf = g.float()
-    p = torch.exp(_scores(q, k, causal, scale) - lse.float()[..., None])
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
-    dp = torch.einsum("bhqd,bhkd->bhqk", gf, v.float())
-    ds = p * (dp - (gf * o.float()).sum(-1, keepdim=True))
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    qd, kd, vd, od, gd = (t.double() for t in (q, k, v, o, g))
+    s = torch.einsum("bhqd,bhkd->bhqk", qd, kd) * scale
+    if causal:
+        idx = torch.arange(q.shape[2], device=q.device)
+        s = torch.where(idx[:, None] >= idx[None, :], s, -1e30)
+    p = torch.exp(s - lse.double()[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gd)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gd, vd)
+    ds = p * (dp - (gd * od).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kd) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qd) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -657,7 +665,7 @@ def _flash_checks(name: str, q, k, v) -> None:
         raise ValueError(f"{name}: the kernel takes float32, bfloat16 or "
                          f"float16 q, k, v on one device, got "
                          f"{[str(t.dtype) for t in (q, k, v)]}")
-    _refuse_wide_head(name, q.shape[-1])
+    kernel_head_dim(q.shape[-1])
 
 
 def _flash_operand(t: torch.Tensor, w: int) -> torch.Tensor:
@@ -793,10 +801,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the upper triangle masked when ``causal``), differentiable.
 
     CUDA tensors: launches the kernels of ``csrc/flash_attention.cu``
-    (float32, bfloat16 or float16 q, k, v, computed in float32; head dim
-    up to 256, a head between the kernel's widths zero-padded to
-    ``kernel_head_dim``; anything else raises), the backward kernel under
-    autograd (``FlashAttentionFunction``).  CPU tensors:
+    (float32, bfloat16 or float16 q, k, v, computed in float32; a head
+    between the kernel's widths zero-padded to ``kernel_head_dim``, one
+    above 256 lanes run by the chunked kernels; anything else raises),
+    the backward kernel under autograd (``FlashAttentionFunction``).  CPU tensors:
     ``flash_attention_torch`` (differentiable by autograd).  Meta tensors
     (shape inference in ``Network.init``): an empty tensor of q's shape."""
     if q.device.type == "meta":
@@ -864,13 +872,18 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, positions,
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_attention: the kernel copies 16-byte chunks "
                          "of the pools, which must be 16-byte aligned")
-    _refuse_wide_head("paged_attention", d)
-    if d not in ATTENTION_HEAD_DIMS:
+    if d > PAGED_MAX_HEAD_DIM:
+        raise ValueError(
+            f"paged_attention: head dim {d} > {PAGED_MAX_HEAD_DIM}: the "
+            f"kernel's chunk ring, q and its warps' output no longer fit a "
+            f"block's shared memory")
+    if d != kernel_head_dim(d):
         raise ValueError(
             f"paged_attention: head dim {d} lies between the kernel's widths "
-            f"{ATTENTION_HEAD_DIMS}: allocate the pools at kernel_head_dim({d}) "
-            f"= {kernel_head_dim(d)} lanes (zero beyond {d}), pad q to it and "
-            f"pass scale=1/sqrt({d}), as PagedDecoder does")
+            f"({ATTENTION_HEAD_DIMS}, then multiples of {ATTENTION_CHUNK}): "
+            f"allocate the pools at kernel_head_dim({d}) = {kernel_head_dim(d)} "
+            f"lanes (zero beyond {d}), pad q to it and pass scale=1/sqrt({d}), "
+            f"as PagedDecoder does")
     lib = _load("paged_attention")
     # q is cast here; the pools are read in their own type by the kernel
     qf = q.float().contiguous()
@@ -899,10 +912,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     (float32, bfloat16 or float16 q, computed in float32 and returned in
     q's type; contiguous, 16-byte aligned pools of one of those types,
     read as stored, never copied; int32 tables and positions; head dim in
-    ``ATTENTION_HEAD_DIMS``, positions in [0, MB * T) and table entries in
-    [0, NB); the kernel reads no column past a row's position).  A head of
-    another width up to 256 runs in
-    pools allocated at ``kernel_head_dim`` lanes, zero beyond the head,
+    ``ATTENTION_HEAD_DIMS`` or, above 256 lanes, a multiple of
+    ``ATTENTION_CHUNK`` up to ``PAGED_MAX_HEAD_DIM`` (the chunked kernel);
+    positions in [0, MB * T) and table entries in [0, NB); the kernel
+    reads no column past a row's position).  A head of another width runs
+    in pools allocated at ``kernel_head_dim`` lanes, zero beyond the head,
     with q padded alike and ``scale`` of the true width: the pools are
     not copied per call.  CPU tensors: ``paged_attention_torch``.
     Forward only."""

@@ -182,7 +182,11 @@ def test_eltwise_refuses_coeff_count_mismatch():
 
 @pytest.mark.parametrize("shape,causal", [((2, 4, 100, 16), False),
                                           ((2, 4, 100, 16), True),
-                                          ((1, 2, 256, 32), True)])
+                                          ((1, 2, 256, 32), True),
+                                          # heads above 256 lanes (the
+                                          # chunked kernels' widths)
+                                          ((1, 2, 40, 320), True),
+                                          ((1, 1, 33, 512), False)])
 def test_flash_attention_plain_matches_jax_kernel_and_xla(shape, causal):
     rs = np.random.RandomState(sum(shape))
     q, k, v = (rs.randn(*shape).astype(np.float32) for _ in range(3))
@@ -219,9 +223,10 @@ def _paged_inputs(seed, b=4, h=2, d=16, t=4, mb=5, positions=None):
     return q, k_pool, v_pool, tables, positions
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_paged_attention_plain_matches_jax_kernel_and_xla(seed):
-    args = _paged_inputs(seed)
+@pytest.mark.parametrize("seed,d", [(0, 16), (1, 16), (2, 320), (3, 512)],
+                         ids=["0", "1", "d320", "d512"])
+def test_paged_attention_plain_matches_jax_kernel_and_xla(seed, d):
+    args = _paged_inputs(seed, d=d)
     got = kernels.paged_attention(*map(_t, args)).numpy()
     np.testing.assert_array_equal(got, kernels.paged_attention_torch(*map(_t, args)).numpy())
     interp = jpk.paged_attention(*args, force="interpret")
@@ -247,10 +252,14 @@ def _paged_tiled(q, k_pool, v_pool, tables, positions):
     4 * CW, each of the 4 warps scoring its own CW columns of every tile
     (CW = 32 / max(1, D / 32)) with its own online softmax (a running max
     from -1e30, p = 0 past the position, the carry rescaled by exp(m -
-    m')), and the warps' carries merged once at the end, in warp order."""
+    m')), and the warps' carries merged once at the end, in warp order.
+    A head above 256 lanes is read in chunks of 128 (the chunked kernel):
+    CW is the 128-lane instance's, and a column's score is the sum of its
+    chunks' dot products, added in chunk order."""
     b, h, d = q.shape
     t, mb = k_pool.shape[1], tables.shape[1]
-    cw = 32 // max(1, d // 32)
+    chunk = kernels.ATTENTION_CHUNK if d > kernels.ATTENTION_HEAD_DIMS[-1] else d
+    cw = 32 // max(1, chunk // 32)
     kt = 4 * cw
     ntiles = -(-mb * t // kt)
     idx = tables.long()
@@ -265,7 +274,9 @@ def _paged_tiled(q, k_pool, v_pool, tables, positions):
     acc = torch.zeros((b, h, 4, d))
     for x in range(ntiles):
         live = cols[x][None, None] <= positions.long()[:, None, None, None]
-        s = torch.einsum("bhd,bhwjd->bhwj", q, k[:, :, x]) * (1.0 / np.sqrt(d))
+        s = sum(torch.einsum("bhd,bhwjd->bhwj", q[..., c:c + chunk],
+                             k[:, :, x, ..., c:c + chunk])
+                for c in range(0, d, chunk)) * (1.0 / np.sqrt(d))
         s = torch.where(live, s, torch.tensor(-1e30))
         m_new = torch.maximum(m, s.amax(-1))
         corr = torch.exp(m - m_new)
@@ -281,16 +292,17 @@ def _paged_tiled(q, k_pool, v_pool, tables, positions):
     return num / den[..., None]
 
 
-@pytest.mark.parametrize("d", [8, 128])
+@pytest.mark.parametrize("d", [8, 128, 512])
 @pytest.mark.parametrize("t", [1, 4])
 def test_paged_kernel_order_of_sums_matches_jax_and_float64(d, t):
     """The CUDA kernel's tiling and per-warp online softmax, emulated, at
     positions on block edges, on both sides of a warp's share and of a
-    tile (KT = 128 at D = 8, 32 at D = 128) and at 0 (three warp shares
-    with no live column): within TOL of the XLA version and the Pallas
-    kernel in interpret mode, and within rtol 1e-5 / atol 1e-6 of float64."""
+    tile (KT = 128 at D = 8, 32 at D = 128 and at D = 512, which is read
+    in chunks of 128 lanes) and at 0 (three warp shares with no live
+    column): within TOL of the XLA version and the Pallas kernel in
+    interpret mode, and within rtol 1e-5 / atol 1e-6 of float64."""
     mb = 160 // t
-    cw = 32 // max(1, d // 32)
+    cw = 32 // max(1, min(d, kernels.ATTENTION_CHUNK) // 32)
     kt = 4 * cw
     positions = [0, t - 1, t, cw - 1, cw, kt - 1, kt, kt + 1, mb * t - 1]
     args = _paged_inputs(10 + d + t, h=2, d=d, t=t, mb=mb, positions=positions)
@@ -322,22 +334,23 @@ def _misaligned(a):
     ("misaligned pool", "16-byte aligned"),
     ("head dim 12", "head dim 12"),
     ("head dim 160", "head dim 160 lies between"),
-    ("head dim 320", "head dim 320 > 256"),
+    ("head dim 320", "head dim 320 lies between"),
+    ("head dim 9856", "head dim 9856 > 9728"),
     ("int64 tables", "int32 tables"),
     ("strided pool", "contiguous"),
 ])
 def test_paged_kernel_wrapper_refuses_what_the_kernel_cannot_take(fault, match):
     """The CUDA route's checks run before anything is built or launched:
-    the kernel copies the pools in 16-byte chunks, takes heads of at most
-    256 lanes in pools of a width of ATTENTION_HEAD_DIMS (a head between
-    them, 12 or 160 lanes, is padded when the pools are allocated, not
-    copied per call: an unpadded pool is refused with that advice), int32
-    tables and contiguous pools."""
+    the kernel copies the pools in 16-byte chunks, takes pools of a width
+    of ATTENTION_HEAD_DIMS or, above 256 lanes, a multiple of 128 up to
+    PAGED_MAX_HEAD_DIM (a head between them, 12, 160 or 320 lanes, is
+    padded when the pools are allocated, not copied per call: an unpadded
+    pool is refused with that advice), int32 tables and contiguous pools."""
     q, kp, vp, tables, pos = map(_t, _paged_inputs(3))
     if fault == "misaligned pool":
         kp = _misaligned(kp)
         assert kp.is_contiguous() and kp.data_ptr() % 16
-    elif fault in ("head dim 160", "head dim 320"):
+    elif fault in ("head dim 160", "head dim 320", "head dim 9856"):
         n = int(fault.split()[-1]) // 16
         q, kp, vp = (torch.cat([t] * n, dim=-1) for t in (q, kp, vp))
     elif fault == "head dim 12":  # pools not padded to kernel_head_dim(12) = 16
@@ -429,13 +442,17 @@ def test_tf32_rounding_is_nearest_ties_away():
 
 
 def test_kernel_head_dim():
-    """The smallest kernel width >= d up to 256; d itself above (refused by
-    the CUDA wrappers)."""
+    """The smallest kernel width >= d up to 256; above, the next multiple
+    of the chunked kernels' 128 lanes."""
     want = {1: 8, 8: 8, 9: 16, 12: 16, 16: 16, 24: 32, 48: 64, 64: 64,
-            100: 128, 128: 128, 160: 256, 200: 256, 256: 256, 320: 320}
+            100: 128, 128: 128, 160: 256, 200: 256, 256: 256, 257: 384,
+            320: 384, 384: 384, 385: 512, 512: 512, 640: 640, 1000: 1024}
     assert {d: kernels.kernel_head_dim(d) for d in want} == want
     assert all(kernels.kernel_head_dim(d) in kernels.ATTENTION_HEAD_DIMS
                for d in range(1, 257))
+    assert all(kernels.kernel_head_dim(d) % kernels.ATTENTION_CHUNK == 0
+               and 0 <= kernels.kernel_head_dim(d) - d < kernels.ATTENTION_CHUNK
+               for d in range(257, 2049))
     with pytest.raises(ValueError, match=">= 1"):
         kernels.kernel_head_dim(0)
 
@@ -444,7 +461,7 @@ def _pad(t, w):
     return torch.nn.functional.pad(t, (0, w - t.shape[-1]))
 
 
-@pytest.mark.parametrize("d", [1, 12, 100])
+@pytest.mark.parametrize("d", [1, 12, 100, 320])
 def test_padded_flash_twin_with_the_heads_scale_is_the_unpadded_one(d):
     """Zero lanes to ``kernel_head_dim(d)`` with the scale of the true d:
     the padded twin's first d lanes are the unpadded twin's within the
@@ -463,7 +480,7 @@ def test_padded_flash_twin_with_the_heads_scale_is_the_unpadded_one(d):
                                np.asarray(jpk.attention_xla(q, k, v, True)), **TOL)
 
 
-@pytest.mark.parametrize("d", [1, 12, 100])
+@pytest.mark.parametrize("d", [1, 12, 100, 320])
 def test_padded_paged_twin_with_the_heads_scale_is_the_unpadded_one(d):
     """Pools allocated at ``kernel_head_dim(d)`` lanes, zero beyond d, q
     padded alike and the scale of the true d: the first d lanes are the

@@ -6,10 +6,11 @@ kernel, the formula written out) against ``jax.vjp`` of the JAX package's
 (whose VJP is ``_flash_diff_bwd``), and against autograd of the port's own
 ``flash_attention_torch``; the plain forward's ``lse`` against
 ``logsumexp`` of the scores.  Inputs are seeded numpy arrays.  Tolerance:
-rtol 1e-5 and an absolute 1e-6 of the reference's largest |value| (float32
-sums in another order).  bfloat16 inputs: the port's plain versions cast to
-float32 first, so their result is the float32 result on the upcast inputs
-rounded once to bfloat16 (checked bit for bit); against JAX's bfloat16 VJP
+rtol 1e-5 and an absolute 1e-6 of the reference's largest |value| (the
+JAX package's float32 sums against the plain backward's float64 ones).
+bfloat16 inputs: the port's plain versions upcast first, so their result
+is the result on the upcast inputs rounded to bfloat16 (checked bit for
+bit against the float32 result cast to bfloat16); against JAX's bfloat16 VJP
 they agree within one bfloat16 ulp (the two roundings of values that agree
 to 1e-6 may land on either side of a bfloat16 boundary).
 
@@ -70,6 +71,8 @@ CASES = [  # (shape, causal): ragged S (not a multiple of any tile), D 1, 12, 16
     ((2, 3, 37, 16), True), ((2, 3, 37, 16), False),
     ((1, 2, 64, 12), True), ((1, 2, 50, 12), False),
     ((2, 2, 29, 1), True), ((1, 3, 64, 16), True),
+    # heads above 256 lanes (the chunked kernels' widths)
+    ((1, 2, 37, 320), True), ((1, 1, 50, 512), False),
 ]
 
 
@@ -159,12 +162,12 @@ def plain_launchers(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("d", [12, 16, 200])
+@pytest.mark.parametrize("d", [12, 16, 200, 320, 512])
 def test_cuda_route_pads_slices_and_matches_autograd(d, plain_launchers):
-    """Heads of 12 and 200 lanes run at 16 and 256 (the true head's
-    scale); the gradients come back at the head's exact shape, equal to
-    autograd of the plain forward, and the padded lanes' gradients are
-    exact zeros."""
+    """Heads of 12, 200 and 320 lanes run at 16, 256 and 384 (the true
+    head's scale; 512 as it is); the gradients come back at the head's
+    exact shape, equal to autograd of the plain forward, and the padded
+    lanes' gradients are exact zeros."""
     q, k, v, g = _inputs((2, 2, 33, d), d)
     leaves = [_t(a).requires_grad_(True) for a in (q, k, v)]
     o = kernels._flash_attention_route(*leaves, True)
@@ -212,7 +215,7 @@ def test_cuda_route_casts_bfloat16_inputs(plain_launchers):
 
 
 @pytest.mark.parametrize("fault,match", [
-    ("head dim 320", "head dim 320 > 256"),
+    ("head dim 0", "head dim must be >= 1"),
     ("int64 q", "float32, bfloat16 or float16"),
     ("shapes differ", "one \\[B, H, S, D\\] shape"),
 ])
@@ -220,8 +223,8 @@ def test_flash_wrappers_refuse_what_the_kernels_cannot_take(fault, match):
     """Checked before anything is built or launched, by the forward and
     the backward wrapper alike."""
     q, k, v, g = (_t(a) for a in _inputs((1, 2, 8, 16), 9))
-    if fault == "head dim 320":
-        q, k, v, g = (torch.cat([t] * 20, dim=-1) for t in (q, k, v, g))
+    if fault == "head dim 0":
+        q, k, v, g = (t[..., :0] for t in (q, k, v, g))
     elif fault == "int64 q":
         q = q.long()
     else:
@@ -281,12 +284,15 @@ def _float64_backward(q, k, v, g, causal: bool):
     return o.float(), lse.float(), grads
 
 
-def _emulation_within_gate(n: int, causal: bool, terms: int):
+def _emulation_within_gate(n: int, causal: bool, terms: int, d: int = 64):
     """Whether each emulated gradient meets the card's gate against float64
     (rtol 1e-5 and 1e-6 x max|ref| below S = 1024, 1e-4 and 1e-5 from
-    there); and each one's largest ratio of error to tolerance."""
-    rs = np.random.RandomState(n + causal)
-    q, k, v, g = (_t(rs.randn(1, 2, n, 64).astype(np.float32)) for _ in range(4))
+    there); and each one's largest ratio of error to tolerance.  A head
+    above 256 lanes runs chunked (128 lanes a chunk, each chunk's four
+    groups of 4 k-steps added in order), which is this same order of sums
+    over its dims."""
+    rs = np.random.RandomState(n + causal + (d if d != 64 else 0))
+    q, k, v, g = (_t(rs.randn(1, 2, n, d).astype(np.float32)) for _ in range(4))
     o, lse, refs = _float64_backward(q, k, v, g, causal)
     rtol, arel = (1e-5, 1e-6) if n < 1024 else (1e-4, 1e-5)
     ratios = []
@@ -296,12 +302,17 @@ def _emulation_within_gate(n: int, causal: bool, terms: int):
     return [r <= 1.0 for r in ratios], ratios
 
 
-@pytest.mark.parametrize("n,causal", [(128, True), (128, False), (1024, True), (1024, False)])
-def test_three_tf32_backward_products_meet_the_gate(n, causal):
+@pytest.mark.parametrize("n,causal,d", [(128, True, 64), (128, False, 64),
+                                        (1024, True, 64), (1024, False, 64),
+                                        (128, True, 512), (100, False, 320)],
+                         ids=["128-True", "128-False", "1024-True", "1024-False",
+                              "128-True-d512", "100-False-d320"])
+def test_three_tf32_backward_products_meet_the_gate(n, causal, d):
     """The premise of the backward kernel's tensor-core walks: 3xTF32
     products, summed from zero by groups of 4 k-steps, meet the
-    flash_backward phase's gates against float64 for dQ, dK and dV."""
-    oks, ratios = _emulation_within_gate(n, causal, 3)
+    flash_backward phase's gates against float64 for dQ, dK and dV, at
+    D = 64 and at heads of 512 and 320 lanes (the chunked walks)."""
+    oks, ratios = _emulation_within_gate(n, causal, 3, d)
     assert all(oks), dict(zip(("dq", "dk", "dv"), ratios))
 
 

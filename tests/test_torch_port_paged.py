@@ -300,27 +300,29 @@ def test_token_ids_match_the_jax_decoder(jax_decoder, weights):
             assert a.result == b.result
 
 
-def test_head_dim_12_pools_are_padded_and_match_the_jax_decoder():
-    """``embed_dim`` 48 over 4 heads (D = 12, between the attention
-    kernels' widths): the pools hold each head at 16 lanes, zero beyond
-    12, priced as allocated; the token ids equal the JAX decoder's and the
+def _padded_pools_match_the_jax_decoder(embed_dim: int, heads: int, lanes: int):
+    """A decoder whose head dim ``embed_dim / heads`` is not a kernel
+    width: its pools hold each head at ``lanes``, zero beyond the head,
+    priced as allocated; its token ids equal the JAX decoder's and the
     rectangle decoder's (up to a tie, as above)."""
     from sparknet_tpu.serve.paged import PagedDecoder as JaxPagedDecoder
 
-    geo = dict(GEO, embed_dim=48)
+    hd = embed_dim // heads
+    geo = dict(GEO, embed_dim=embed_dim, heads=heads)
     jd = JaxPagedDecoder(**geo)
     w = interop.netvars_from_numpy(jd.variables.params, jd.variables.state, device="cpu")
     d = PagedDecoder(**geo, variables=w, **CPU)
-    assert d.spec.head_dim == 12 and d._k_pool.shape[-1] == 16
+    assert d.spec.head_dim == hd and d._k_pool.shape[-1] == lanes
     assert d.pool_hbm_bytes == d._k_pool.numel() * 4 * 2
     reqs = _mix(12, 6)
     jt = [jd.submit(p, m) for p, m in reqs]
     jd.run()
     tickets = [d.submit(p, m) for p, m in reqs]
     d.run()
-    assert not d._k_pool[..., 12:].any() and not d._v_pool[..., 12:].any()
-    assert d._k_pool[..., :12].any()
-    rect = ContinuousDecoder(**{**NET, "embed_dim": 48}, variables=w, device="cpu")
+    assert not d._k_pool[..., hd:].any() and not d._v_pool[..., hd:].any()
+    assert d._k_pool[..., :hd].any()
+    rect = ContinuousDecoder(**{**NET, "embed_dim": embed_dim, "heads": heads},
+                             variables=w, device="cpu")
     rt = [rect.submit(p, m) for p, m in reqs]
     rect.run()
     for (p, _), a, b, c in zip(reqs, tickets, jt, rt):
@@ -335,3 +337,17 @@ def test_head_dim_12_pools_are_padded_and_match_the_jax_decoder():
         else:
             assert a.result == b.result
         assert a.result == c.result
+
+
+def test_head_dim_12_pools_are_padded_and_match_the_jax_decoder():
+    """``embed_dim`` 48 over 4 heads (D = 12, between the attention
+    kernels' widths): the pools hold each head at 16 lanes."""
+    _padded_pools_match_the_jax_decoder(48, 4, 16)
+
+
+@pytest.mark.parametrize("embed_dim,lanes", [(640, 384), (1024, 512)],
+                         ids=["d320", "d512"])
+def test_wide_head_pools_match_the_jax_decoder(embed_dim, lanes):
+    """Heads above 256 lanes (2 heads of 320 and of 512, the chunked paged
+    kernel's widths): 320 is held at 384 lanes, 512 as it is."""
+    _padded_pools_match_the_jax_decoder(embed_dim, 2, lanes)
