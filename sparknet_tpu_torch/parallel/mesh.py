@@ -12,9 +12,10 @@ caller passes them, or sets ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
 ``WORLD_SIZE`` for ``env://``, or names a file for a ``FileStore`` (which
 needs no port, so tests and one-host runs cannot collide on one).
 
-Not ported: ``auto_mesh``, ``sized_data_mesh`` and the model/seq axes
-(they come with the elastic trainer and with tensor and sequence
-parallelism, ROADMAP Queue A).
+``worker_group`` re-cuts the worker set of the elastic trainer
+(``parallel/elastic.py``), the counterpart of ``sized_data_mesh``.  Not
+ported: ``auto_mesh`` and the model/seq axes (they come with tensor and
+sequence parallelism, ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -69,10 +70,34 @@ def data_parallel_group(num_workers: int | None = None):
     Every rank must call it (``torch.distributed.new_group`` is
     collective); a rank outside the set gets a group it is not in."""
     world = dist.get_world_size()
-    if num_workers is None or num_workers == world:
-        return dist.group.WORLD
+    if num_workers is None:
+        num_workers = world
     if not 1 <= num_workers <= world:
         raise ValueError(f"cannot form {num_workers} workers from a world of "
                          f"{world} (need 1 <= num_workers <= world)")
-    return dist.new_group(ranks=list(range(num_workers)))
+    return worker_group(range(num_workers))
+
+
+def worker_group(ranks, cache: dict | None = None):
+    """The process group of the worker set ``ranks`` of the default group,
+    the counterpart of ``sized_data_mesh`` (which re-cuts a device pool
+    into a mesh of a given width): the whole default group is ``WORLD``;
+    any other set is made by ``torch.distributed.new_group``, once a set
+    when ``cache`` (a dict the caller keeps for one process group) is
+    given, as the JAX package keeps one mesh and program a width.
+    ``new_group`` is collective: every rank of the default group must ask
+    for the same sets in the same order, also a rank outside the set (it
+    gets a group it is not in)."""
+    key = tuple(sorted(int(r) for r in ranks))
+    world = dist.get_world_size()
+    if not key or key[0] < 0 or key[-1] >= world or len(set(key)) != len(key):
+        raise ValueError(f"ranks {list(key)} are not a worker set of a world of {world}")
+    if key == tuple(range(world)):
+        return dist.group.WORLD
+    if cache is not None and key in cache:
+        return cache[key]
+    group = dist.new_group(ranks=list(key))
+    if cache is not None:
+        cache[key] = group
+    return group
 

@@ -77,6 +77,45 @@ def _views(flat: torch.Tensor, like: list) -> list:
     return [v.view(t.shape) for v, t in zip(flat.split([t.numel() for t in like]), like)]
 
 
+def all_reduce_mean_(tensors: list, group, divisor: float, weight: float = 1.0) -> None:
+    """Each of ``tensors`` := (sum over the group's ranks of weight * t) /
+    divisor, in place, by one all-reduce (SUM).  ``weight`` is this rank's
+    (1.0 multiplies nothing: the plain mean is sum / workers).  Several
+    tensors go through one flat copy and back into their own storage: the
+    update then reads the same allocations as a lone Solver's, so its
+    vectorised arithmetic rounds the same way."""
+    if not tensors:
+        return
+    flat = _flat(tensors)
+    if weight != 1.0:
+        flat.mul_(weight)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat.div_(divisor)
+    if flat.data_ptr() != tensors[0].data_ptr():
+        for t, v in zip(tensors, _views(flat, tensors)):
+            t.copy_(v)
+
+
+def param_tensors(solver) -> list:
+    """A Solver's params as the collectives move them: the param arena, or
+    every param blob in params-dict order."""
+    if solver.layout is not None:
+        return [solver._param_arena]
+    return [p for pl in solver._params.values() for p in pl]
+
+
+def slot_tensors(solver) -> list:
+    """A Solver's history: the slot arenas, or every slot blob in order."""
+    if solver.layout is not None:
+        return list(solver._slot_arenas)
+    return [h for sl in solver._slots.values() for hl in sl for h in hl]
+
+
+def state_tensors(solver) -> list:
+    """A Solver's state blobs (running statistics), in order."""
+    return [v for s in solver._state.values() for v in s.values()]
+
+
 class ParallelTrainer:
     """Distributed trainer over a process group, one replica a process: the
     wrapped ``solver`` itself, which the trainer steps and averages in
@@ -128,30 +167,13 @@ class ParallelTrainer:
             solver.set_reduce_grads(self._mean_grads)
         # EASGD's center: a replicated copy of the params
         with torch.no_grad():
-            self._center = ([t.clone() for t in self._param_tensors()]
+            self._center = ([t.clone() for t in param_tensors(self.solver)]
                             if self._elastic else None)
 
     @property
     def iter(self) -> int:
         """The next iteration: the replica's own count."""
         return self.solver.iter
-
-    # -- the replica's tensors, as the collectives move them ---------------
-    def _param_tensors(self) -> list:
-        """The param arena, or every param blob in params-dict order."""
-        s = self.solver
-        if s.layout is not None:
-            return [s._param_arena]
-        return [p for pl in s._params.values() for p in pl]
-
-    def _slot_tensors(self) -> list:
-        s = self.solver
-        if s.layout is not None:
-            return list(s._slot_arenas)
-        return [h for sl in s._slots.values() for hl in sl for h in hl]
-
-    def _state_tensors(self) -> list:
-        return [v for s in self.solver._state.values() for v in s.values()]
 
     @property
     def center(self) -> dict | None:
@@ -174,18 +196,8 @@ class ParallelTrainer:
 
     def _mean_(self, tensors: list) -> None:
         """Each of ``tensors`` := its mean over the workers, in place, by one
-        all-reduce (SUM, then / workers).  Several tensors go through one
-        flat copy and back into their own storage: the update then reads
-        the same allocations as a lone Solver's, so its vectorised
-        arithmetic rounds the same way."""
-        if not tensors:
-            return
-        flat = _flat(tensors)
-        self._all_reduce(flat)
-        flat.div_(self.num_workers)
-        if flat.data_ptr() != tensors[0].data_ptr():
-            for t, v in zip(tensors, _views(flat, tensors)):
-                t.copy_(v)
+        all-reduce (``all_reduce_mean_``)."""
+        all_reduce_mean_(tensors, self.group, self.num_workers)
 
     def _mean_grads(self, grads):
         """The ``reduce_grads`` hook of sync data parallelism: the grad arena
@@ -200,7 +212,7 @@ class ParallelTrainer:
     def _mean_loss_and_state(self, loss: torch.Tensor) -> torch.Tensor:
         """The round's loss and the state blobs, averaged over the workers
         by one all-reduce of a small buffer; returns the mean loss."""
-        state = self._state_tensors()
+        state = state_tensors(self.solver)
         buf = torch.cat([loss.detach().reshape(1).float()]
                         + [s.reshape(-1).float() for s in state])
         self._all_reduce(buf)
@@ -214,7 +226,7 @@ class ParallelTrainer:
         taken before the worker update (ref: sparknet_tpu trainer's
         ``_make_elastic_round``)."""
         a = self.elastic_alpha
-        xs = self._param_tensors()
+        xs = param_tensors(self.solver)
         diff = _flat([x - c for x, c in zip(xs, self._center)])
         for x, d in zip(xs, _views(diff, xs)):
             x.sub_(a * d)
@@ -239,7 +251,7 @@ class ParallelTrainer:
                 self._elastic_update()
             else:
                 # THE sync: collect + average (ref: CifarApp.scala:132-134)
-                self._mean_(self._param_tensors())
+                self._mean_(param_tensors(self.solver))
             loss = self._mean_loss_and_state(torch.stack(losses).mean())
         return float(loss)
 
@@ -308,7 +320,7 @@ class ParallelTrainer:
         self.solver.variables = collection_to_variables(wc, self.solver.variables)
         if self._elastic:
             with torch.no_grad():
-                self._center = [t.clone() for t in self._param_tensors()]
+                self._center = [t.clone() for t in param_tensors(self.solver)]
 
     def sync_to_solver(self) -> None:
         """Make the wrapped Solver hold the outer loop's model and history,
@@ -319,9 +331,9 @@ class ParallelTrainer:
         ends or before a snapshot."""
         with torch.no_grad():
             if self.tau > 1 or self._elastic:
-                self._mean_(self._slot_tensors())
+                self._mean_(slot_tensors(self.solver))
             if self._elastic:
-                for x, c in zip(self._param_tensors(), self._center):
+                for x, c in zip(param_tensors(self.solver), self._center):
                     x.copy_(c)
 
     def save(self, prefix: str) -> str:

@@ -49,7 +49,7 @@ def test_port_imports_no_jax():
     # the training, distributed-training, token-serving and char-LM
     # training slices' modules are among those imported
     assert training == str(["sparknet_tpu_torch.net"] + [
-        f"sparknet_tpu_torch.parallel.{m}" for m in ("mesh", "sharding", "trainer")] + [
+        f"sparknet_tpu_torch.parallel.{m}" for m in ("elastic", "mesh", "sharding", "trainer")] + [
         f"sparknet_tpu_torch.solvers.{m}" for m in
         ("arena", "lr_policy", "solver", "updates")]), out.stdout
     assert serving == str(["sparknet_tpu_torch.ops.attention"] + [
