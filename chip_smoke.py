@@ -49,35 +49,40 @@ Phases, in order (any failure exits non-zero):
     deterministic cuDNN: params and history agree (rtol 1e-5, atol 1e-7);
 12. flash: the flash-attention kernel against ``flash_attention_torch`` at
     the char LM's prefill shape [32,4,128,16] (causal and not), ragged
-    S = 100, head dims 8, 32, 64, 128 and 256, [4,16,2048,64] causal and not,
-    [2,8,1024,128] causal and a ragged [2,4,2000,64] causal (rtol 1e-5,
-    atol 1e-6; atol 1e-5 at S >= 1024); batch entry 0 of the prefill shape
-    bit for bit the same alone and in its batch of 32; times at the
-    prefill shape and the S >= 1024 shapes beside the bound (the 3xTF32
-    tensor-core rate) and ``F.scaled_dot_product_attention`` (a yardstick
-    the port never calls);
+    S = 100, head dims 8, 32, 64, 128 and 256, heads of 320 (padded to
+    384) and 512 lanes (the chunked kernel) at a ragged S and at S = 1024,
+    [4,16,2048,64] causal and not, [2,8,1024,128] causal and a ragged
+    [2,4,2000,64] causal (rtol 1e-5, atol 1e-6; atol 1e-5 at S >= 1024);
+    batch entry 0 of the prefill shape and of the wide heads' cases bit for
+    bit the same alone and in its batch, and two launches of them bit for
+    bit; times at the prefill shape and the S >= 1024 shapes beside the
+    bound (the 3xTF32 tensor-core rate) and
+    ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
 13. flash backward: the backward kernel against
     ``flash_attention_backward_torch`` on the same q, k, v, o, lse and g
-    at the flash phase's shapes and the padded widths 12 and 200 (rtol
-    1e-5, atol 1e-6 x max|ref| at S < 1024; rtol 1e-4, atol 1e-5 x
-    max|ref| above); the forward's lse against the plain one (1e-5) and
-    its o bit for bit the same with and without lse; two launches bit for
-    bit equal; batch entry 0 of the char LM's shape alone and in its
-    batch; times of the kernel, the plain version and the autograd
+    at the flash phase's shapes and the padded widths 12, 200 and 320 and
+    512 (rtol 1e-5, atol 1e-6 x max|ref| at S < 1024; rtol 1e-4, atol
+    1e-5 x max|ref| above; the plain version computes in float64); the
+    forward's lse against the plain one (1e-5) and its o bit for bit the
+    same with and without lse; two launches bit for bit equal; batch entry
+    0 of the char LM's shape and of the wide heads alone and in its batch;
+    times of the kernel, the plain version and the autograd
     backward of ``F.scaled_dot_product_attention`` (a yardstick) beside
     the bound, and of the forward with and without lse;
 14. paged: the paged-attention kernel against ``paged_attention_torch``
     (rtol 1e-5, atol 1e-6) over a sweep of every head dim (8, 16, 32, 64,
-    128, 256) x block size T (1, 4, 8, 16) at 160 columns a row, positions
-    at 0, block edges, both sides of every tile width and the last column,
-    and pools stored in bfloat16 or float16 (read as stored) at D 8, 16,
-    64 and 256;
+    128, 256 and 512, the chunked kernel) x block size T (1, 4, 8, 16) at
+    160 columns a row, positions at 0, block edges, both sides of every
+    tile width and the last column, pools stored in bfloat16 or float16
+    (read as stored) at D 8, 16, 64, 256 and 512, and a head of 320 lanes
+    on pools of 384 at 160 and 1024 columns;
     at the char LM's decode shape (shuffled tables, positions at 0, block
     edges and 127); and at B 64, H 16, D 64, T 16, MB 128 with random
     positions and with every position at 2047; pools hold finite garbage
     of 1e4 outside the live lines; at every case a row's output is bit for
     bit unchanged when the other rows' q, tables and positions change;
-    times of the three timed shapes beside the live-bytes bound, kernel,
+    and at B 16, H 4, D 512, T 16, MB 64 (random positions below 1024);
+    times of the four timed shapes beside the live-bytes bound, kernel,
     plain and a gather + SDPA yardstick timed in turns;
 15. token: the full-width char LM (seeded init) serves 64 seeded requests
     through a ``PagedDecoder`` (32 slots, block_tokens 8, full pool):
@@ -122,7 +127,23 @@ Phases, in order (any failure exits non-zero):
     serves 8 seeded requests with 2 flash launches a prefill and 2 paged a
     decode step, its tokens equal to the ``ContinuousDecoder``'s up to a
     position of top-2 margin <= 1e-4;
-18. charlm train: the full-width char LM (``charlm_solver``: Adam,
+18. elastic (run after 17): SparkNet's elastic rounds
+    (``parallel.ElasticTrainer``) in a pool of three gloo ranks on cuda:0
+    (spawned, FileStore), the zoo AlexNet at full width, ``alexnet_solver``,
+    fused update, f32, dropout 0, deterministic cuDNN, batch 256 a worker
+    from seeded shards (``data_fn(g)``), tau 2: with no plan, 2 width-3
+    rounds bit for bit equal to 2 ``ParallelTrainer`` rounds of the same
+    shards (params and history); then 5 rounds of the plan (round 1 delays
+    worker 2 by 2 steps, so it misses one round and rejoins at round 2 with
+    weight 0.5; round 3 kills worker 0; round 4 joins a fresh worker): the
+    active ranks' params bit for bit equal after every round, every round
+    within rtol 1e-5 / atol 1e-7 of an in-process oracle (one Solver a
+    worker, the weighted mean, in lockstep with the pool's consensus), the
+    shard ids consumed ``range(cursor)`` once each, and 4 LRN forward, 4
+    LRN backward and 2 fused-update launches a round on each active rank
+    (0 on an idle one); ms a round by width, the boundary's ms and the
+    weighted all-reduce's ms;
+19. charlm train: the full-width char LM (``charlm_solver``: Adam,
     base_lr 2e-3; fused update, f32, TF32 off) trained through ``TPUNet``
     on seeded ``char_lm_batches`` of this checkout's README.md and
     docs/*.md: 20 steps through the kernels against the same 20 with
@@ -138,9 +159,11 @@ Phases, in order (any failure exits non-zero):
     of 64 chars, greedy, through the cached path (1 flash launch a layer,
     then 1 paged a layer a step), equal to the sliding full forward up to
     a position of top-2 margin <= 1e-4, and a seeded top-k 5 sample the
-    same twice; a transformer step over 2 heads of 256 lanes (finite loss,
-    non-zero ``w_qkv`` gradient) and a bf16 ``flash_attention`` call bit
-    for bit the float32 kernel on the upcast inputs cast to bf16.
+    same twice; transformer steps over 2 heads of 256, 320 (padded to 384)
+    and 512 lanes (every gradient against plain attention from the same
+    weights, rtol 1e-4, atol 1e-5 x max|ref|; the loss rtol 1e-4; exactly
+    2 flash and 2 backward launches) and a bf16 ``flash_attention`` call
+    bit for bit the float32 kernel on the upcast inputs cast to bf16.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -156,6 +179,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -419,6 +443,13 @@ def phase_build() -> None:
                 kind = {"13__nv_bfloat16": ", bf16 pools", "6__half": ", f16 pools"}.get(
                     kernel.group(3), "")
                 print(f"    {kernel.group(1)} head dim {kernel.group(2)}{kind}: {n} "
+                      f"registers a thread, {spill} bytes of spill stores")
+            wide = re.search(r"\d+((?:flash|paged)_\w+?_wide_kernel)"
+                             r"(?:I(13__nv_bfloat16|6__half|f)E)?", fn)
+            if wide:
+                kind = {"13__nv_bfloat16": ", bf16 pools", "6__half": ", f16 pools",
+                        "f": ", f32 pools"}.get(wide.group(2), "")
+                print(f"    {wide.group(1)} (heads above 256 lanes{kind}): {n} "
                       f"registers a thread, {spill} bytes of spill stores")
 
 
@@ -1086,10 +1117,14 @@ def phase_flash(card: str) -> dict:
         ("D=128", (2, 2, 130, 128), True, 1e-6),
         ("D=256", (2, 2, 130, 256), True, 1e-6),
         ("D=256, not causal", (1, 2, 77, 256), False, 1e-6),
+        ("D=320 ragged, padded to 384", (2, 2, 130, 320), True, 1e-6),
+        ("D=512 ragged", (2, 2, 77, 512), False, 1e-6),
         ("long context", (4, 16, 2048, 64), True, 1e-5),
         ("long context, not causal", (4, 16, 2048, 64), False, 1e-5),
         ("D=128 long", (2, 8, 1024, 128), True, 1e-5),
         ("ragged long", (2, 4, 2000, 64), True, 1e-5),
+        ("D=320 long, padded to 384", (1, 4, 1024, 320), True, 1e-5),
+        ("D=512 long", (1, 4, 1024, 512), True, 1e-5),
     ]
     max_err = 0.0
     out = {}
@@ -1104,15 +1139,20 @@ def phase_flash(card: str) -> dict:
             print(f"flash {label} {list(shape)} causal {int(causal)}: max abs err "
                   f"{err:.3e} (rtol 1e-5, atol {atol:g}) {'ok' if ok else 'FAIL'}")
             check(ok, f"flash {label}")
-            if label == "charlm prefill":
+            if label == "charlm prefill" or shape[-1] > 256:
                 # a row's output depends only on its own fibre: batch entry 0
-                # run alone gives the same bits as in the batch of 32
+                # run alone gives the same bits as in its batch, and a
+                # second launch the same bits as the first
                 alone = kernels.flash_attention(q[:1], k[:1], v[:1], causal)
+                again = kernels.flash_attention(q, k, v, causal)
                 torch.cuda.synchronize()
                 same = torch.equal(alone[0], o[0])
+                twice = torch.equal(again, o)
                 print(f"flash {label}: batch entry 0 alone (B = 1) and in the batch "
-                      f"of {shape[0]}: {'bit for bit equal' if same else 'DIFFER'}")
-                check(same, "flash: batch entry 0 differs alone and in its batch")
+                      f"of {shape[0]}: {'bit for bit equal' if same else 'DIFFER'}; two "
+                      f"launches bit for bit: {twice}")
+                check(same, f"flash {label}: batch entry 0 differs alone and in its batch")
+                check(twice, f"flash {label}: two launches differ")
             if label != "charlm prefill" and shape[2] < 1024:
                 continue
             # the prefill shape is shorter than its launch: device time from
@@ -1134,7 +1174,8 @@ def phase_flash(card: str) -> dict:
             out[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
                               bound_by=by)
             del ref, o
-    return dict(max_abs_err=max_err, **out["charlm prefill"], long=out["long context"])
+    return dict(max_abs_err=max_err, **out["charlm prefill"], long=out["long context"],
+                wide=out["D=512 long"])
 
 
 def paged_case(gen, b, h, d, t, mb, positions, own_only: bool):
@@ -1168,22 +1209,26 @@ def paged_case(gen, b, h, d, t, mb, positions, own_only: bool):
 # The paged kernel's sweep: every head dim it takes at every block size
 # in PAGED_SWEEP_T, each at MB * T = 160 columns, so that the positions
 # cover block edges and both sides of every tile width (32, 64, 128).
-PAGED_SWEEP_D = (8, 16, 32, 64, 128, 256)
+PAGED_SWEEP_D = (8, 16, 32, 64, 128, 256, 512)
 # pools in a 16-bit type, read as stored: (head dim, storage type)
 PAGED_HALF_CASES = ((8, torch.bfloat16), (16, torch.bfloat16), (64, torch.float16),
-                    (256, torch.bfloat16), (256, torch.float16))
+                    (256, torch.bfloat16), (256, torch.float16), (512, torch.bfloat16))
+# heads between the chunked kernel's widths, on pools of kernel_head_dim
+# lanes: (head dim, T, MB), at 160 and at 1024 columns a row
+PAGED_PADDED_CASES = ((320, 8, 20), (320, 16, 64))
 PAGED_SWEEP_T = (1, 4, 8, 16)
 
 
-def paged_gate(kernels, gen, label, case) -> float:
+def paged_gate(kernels, gen, label, case, scale=None) -> float:
     """The paged kernel against paged_attention_torch on one case (rtol
     1e-5, atol 1e-6), and row independence: the even rows' outputs bit for
     bit unchanged when the odd rows' q, tables and positions change.
-    Returns the largest absolute error."""
+    ``scale``: a padded head's (1/sqrt of its true width).  Returns the
+    largest absolute error."""
     q, kp, vp, tables, pos = case
     b, mb, t = q.shape[0], tables.shape[1], kp.shape[1]
-    ref = kernels.paged_attention_torch(q, kp, vp, tables, pos)
-    o = kernels.paged_attention(q, kp, vp, tables, pos)
+    ref = kernels.paged_attention_torch(q, kp, vp, tables, pos, scale)
+    o = kernels.paged_attention(q, kp, vp, tables, pos, scale)
     torch.cuda.synchronize()
     ok, err = attention_within(o, ref, 1e-6)
     odd = torch.arange(b, device="cuda") % 2 == 1
@@ -1192,7 +1237,7 @@ def paged_gate(kernels, gen, label, case) -> float:
     tables2 = torch.where(odd[:, None], tables.flip(0), tables)
     pos2 = torch.where(odd, torch.randint(0, mb * t, (b,), generator=gen,
                                           device="cuda").to(torch.int32), pos)
-    o2 = kernels.paged_attention(q2, kp, vp, tables2, pos2)
+    o2 = kernels.paged_attention(q2, kp, vp, tables2, pos2, scale)
     torch.cuda.synchronize()
     same = torch.equal(o[~odd], o2[~odd])
     print(f"paged {label}: max abs err {err:.3e} (rtol 1e-5, atol 1e-6) "
@@ -1240,6 +1285,16 @@ def phase_paged(card: str) -> dict:
         case = (q, kp.to(dtype), vp.to(dtype), tables, pos)
         max_err = max(max_err, paged_gate(
             kernels, sweep_gen, f"{str(dtype)[6:]} pools D {d} T {t} MB {mb}", case))
+    for d, t, mb in PAGED_PADDED_CASES:
+        positions = [0, t - 1, t, 31, 32, 33, 127, 128, 129, mb * t - 1] + list(
+            sweep_rs.randint(0, mb * t, 6))
+        q, kp, vp, tables, pos = paged_case(sweep_gen, len(positions), 2, d, t, mb,
+                                            positions, own_only=True)
+        w = kernels.kernel_head_dim(d)
+        pad = lambda x: F.pad(x, (0, w - d)).contiguous()  # noqa: E731
+        max_err = max(max_err, paged_gate(
+            kernels, sweep_gen, f"D {d} on pools of {w} lanes, T {t} MB {mb}",
+            (pad(q), pad(kp), pad(vp), tables, pos), scale=1.0 / math.sqrt(d)))
 
     charlm_pos = [0, 1, 7, 8, 15, 16, 63, 64, 127, 126, 120, 5] + list(
         rs.randint(0, 128, 20))
@@ -1247,6 +1302,7 @@ def phase_paged(card: str) -> dict:
         ("charlm decode", 32, 4, 16, 8, 16, charlm_pos, True),
         ("long context", 64, 16, 64, 16, 128, list(rs.randint(0, 2048, 64)), False),
         ("long context, equal positions", 64, 16, 64, 16, 128, [2047] * 64, False),
+        ("D=512, S 1024", 16, 4, 512, 16, 64, list(rs.randint(0, 1024, 16)), False),
     ]
     out = {}
     for label, b, h, d, t, mb, positions, own_only in cases:
@@ -1291,7 +1347,8 @@ def phase_paged(card: str) -> dict:
         del q, kp, vp, tables, pos, case, idx
         gc.collect()
         torch.cuda.empty_cache()
-    return dict(max_abs_err=max_err, **out["charlm decode"], long=out["long context"])
+    return dict(max_abs_err=max_err, **out["charlm decode"], long=out["long context"],
+                wide=out["D=512, S 1024"])
 
 
 def request_mix(n: int, seed: int) -> list:
@@ -1894,8 +1951,6 @@ def parallel_head_dims(card: str) -> dict:
     ``kernel_head_dim`` lanes, each against its plain version at the true
     width; then a PagedDecoder of head dim 12 against the rectangle
     decoder, with exact launch counts."""
-    import math
-
     from sparknet_tpu_torch.common import f32_precision
     from sparknet_tpu_torch.ops import kernels
     from sparknet_tpu_torch.serve.continuous import ContinuousDecoder
@@ -1999,6 +2054,295 @@ def phase_parallel(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# SparkNet's elastic rounds: a pool of three gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+ELASTIC_POOL = 3
+ELASTIC_TAU = 2
+ELASTIC_ROUNDS = 5
+ELASTIC_NO_PLAN_ROUNDS = 2
+# (kind, round, worker, steps): round 1 delays worker 2 by 2 steps (it
+# misses one round and rejoins at round 2 with weight 0.5), round 3 kills
+# worker 0, round 4 joins a fresh worker
+ELASTIC_PLAN = (("delay", 1, 2, 2), ("kill", 3, 0, 0), ("join", 4, -1, 0))
+ELASTIC_DECAY = 0.5
+
+
+def elastic_shard(g: int) -> dict:
+    """Shard ``g``'s seeded AlexNet batch, one worker's: 256 images of
+    227x227 at raw-pixel scale, drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5000 + g)
+    return {
+        "data": torch.randn((256, 3, 227, 227), generator=gen, device="cuda") * 50,
+        "label": torch.randint(0, 1000, (256,), generator=gen, device="cuda",
+                               dtype=torch.int32),
+    }
+
+
+def elastic_plan():
+    from sparknet_tpu_torch.parallel import FaultPlan, delay, join, kill
+
+    make = {"delay": lambda r, w, s: delay(w, at_round=r, steps=s),
+            "kill": lambda r, w, s: kill(w, at_round=r),
+            "join": lambda r, w, s: join(at_round=r)}
+    return FaultPlan([make[kind](r, w, s) for kind, r, w, s in ELASTIC_PLAN])
+
+
+def elastic_worker(rank: int, work: str) -> None:
+    """One rank of the elastic pool: gloo, every rank on cuda:0, joined
+    through a FileStore in ``work``.  With no plan, two width-3 rounds
+    against two ParallelTrainer rounds of the same shards (its own arena
+    and history, bit for bit); then the plan's rounds, each timed with its
+    boundary (the re-formation) apart, with the rank's launch counts, the
+    shards it consumed and its arena's digest; the lowest active rank
+    saves the round's arena.  Writes its results into ``work``.  Spawned
+    by ``phase_elastic`` (start method spawn), so module level."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.parallel import (
+        ElasticTrainer,
+        ParallelTrainer,
+        initialize_distributed,
+        round_shards,
+    )
+    from sparknet_tpu_torch.parallel.trainer import all_reduce_mean_
+
+    class TimedBoundary(ElasticTrainer):
+        """The trainer with its boundary (membership, the joiners'
+        consensus, the round's process group) timed apart."""
+
+        def _apply_boundary(self, rnd):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._apply_boundary(rnd)
+            self._group()
+            torch.cuda.synchronize()
+            self.boundary_ms = 1e3 * (time.perf_counter() - t0)
+
+    torch.cuda.set_device(0)
+    set_config(fused_update=True, storage_dtype="f32")
+    torch.backends.cudnn.deterministic = True
+    initialize_distributed(backend="gloo", store_path=f"{work}/store", rank=rank,
+                           world_size=ELASTIC_POOL)
+    try:
+        net0 = alexnet_net(0.0)
+        el = ElasticTrainer(train_solver(net0, models.alexnet_solver()), tau=ELASTIC_TAU)
+        pt = ParallelTrainer(train_solver(net0, models.alexnet_solver()), tau=ELASTIC_TAU)
+
+        def stacked(it):
+            cols = round_shards(it * ELASTIC_POOL, ELASTIC_TAU, ELASTIC_POOL)[:, rank]
+            fs = [elastic_shard(int(g)) for g in cols]
+            return {k: torch.stack([f[k] for f in fs]) for k in fs[0]}
+
+        plain = [(el.train_round(elastic_shard), pt.train_round(stacked))
+                 for _ in range(ELASTIC_NO_PLAN_ROUNDS)]
+        a, b = el.solver, pt.solver
+        plain_equal = torch.equal(a._param_arena, b._param_arena) and all(
+            torch.equal(x, y) for x, y in zip(a._slot_arenas, b._slot_arenas))
+        del el, pt, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tr = TimedBoundary(train_solver(net0, models.alexnet_solver()), tau=ELASTIC_TAU,
+                           staleness_decay=ELASTIC_DECAY, plan=elastic_plan())
+        used = []
+
+        def data_fn(g):
+            used.append(g)
+            return elastic_shard(g)
+
+        rounds = []
+        for r in range(ELASTIC_ROUNDS):
+            dist.barrier()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = tr.train_round(data_fn)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = [kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES,
+                      kernels.FUSED_UPDATE_LAUNCHES]
+            arena = tr.solver._param_arena
+            digest = (hashlib.sha256(arena.cpu().numpy().tobytes()).hexdigest()
+                      if tr.active else None)
+            if tr.active and rank == min(tr._ranks()):
+                torch.save(arena.cpu(), f"{work}/round{r}.pt")
+            rounds.append(dict(ms=ms, boundary_ms=tr.boundary_ms, width=tr.width,
+                               wids=tr.worker_ids, weights=tr.round_weights,
+                               active=tr.active, loss=loss, counts=counts,
+                               digest=digest))
+        # the weighted all-reduce alone, over the last round's set
+        ar_ms = None
+        if tr.active:
+            buf = tr.solver._param_arena.clone()
+            pos = tr._ranks().index(rank)
+            group, total = tr._group(), sum(tr.round_weights)
+            ar_ms = event_ms(lambda: all_reduce_mean_([buf], group, total,
+                                                      tr.round_weights[pos]), reps=3)
+        with open(f"{work}/rank{rank}.json", "w") as f:
+            json.dump(dict(plain_equal=plain_equal, plain_losses=plain, rounds=rounds,
+                           used=used, cursor=tr.cursor, allreduce_ms=ar_ms,
+                           nbytes=tr.solver.layout.total_bytes), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def elastic_oracle(pool_arena, solvers: dict):
+    """The plan replayed in this process with one Solver a worker, from the
+    pool's weights and shards: tau Solver.steps a worker on its shards,
+    then the weighted mean of the arenas, a joiner adopting the mean of the
+    entry pool's arenas and histories, a straggler rejoining at decay**s.
+    In lockstep with the pool: each round starts from the pool's consensus
+    of the round before (``pool_arena(r)``), so that each round is held to
+    one round's tolerance (over free-running rounds, sums over three
+    workers taken in gloo's order and in this one's drift apart by a few
+    ulps a round).  ``solvers``: a fresh Solver for every worker id the plan
+    makes, from SEED.  Yields each round's consensus arena."""
+    wids, parked, next_wid, it, cursor = list(range(ELASTIC_POOL)), {}, ELASTIC_POOL, 0, 0
+    for r in range(ELASTIC_ROUNDS):
+        if r:
+            with torch.no_grad():
+                prev = pool_arena(r - 1)
+                for w in wids:
+                    solvers[w]._param_arena.copy_(prev)
+                del prev
+        entry = list(wids)
+        weights = {w: 1.0 for w in wids}
+        for kind, at, w, steps in ELASTIC_PLAN:
+            if at != r:
+                continue
+            if kind == "kill":  # its replica still counts in a join's entry mean
+                wids.remove(w)
+            elif kind == "delay":
+                wids.remove(w)
+                parked[w] = (r, r + -(-steps // ELASTIC_TAU))
+            else:
+                s = solvers[next_wid]
+                with torch.no_grad():
+                    s._param_arena.copy_(sum(solvers[e]._param_arena for e in entry)
+                                         / len(entry))
+                    for i, h in enumerate(s._slot_arenas):
+                        h.copy_(sum(solvers[e]._slot_arenas[i] for e in entry) / len(entry))
+                wids.append(next_wid)
+                weights[next_wid] = 1.0
+                next_wid += 1
+        for w, (since, back) in list(parked.items()):
+            if back <= r:
+                del parked[w]
+                wids.append(w)
+                weights[w] = ELASTIC_DECAY ** (r - since)
+        width = len(wids)
+        ids = range(cursor, cursor + ELASTIC_TAU * width)  # position p owns g % width == p
+        for p, w in enumerate(wids):
+            solvers[w].iter = it
+            for g in (g for g in ids if g % width == p):
+                solvers[w].train_iteration(elastic_shard(g))
+        with torch.no_grad():
+            total = sum(weights[w] for w in wids)
+            mean = sum(solvers[w]._param_arena * weights[w] for w in wids) / total
+            for w in wids:
+                solvers[w]._param_arena.copy_(mean)
+        it += ELASTIC_TAU
+        cursor += ELASTIC_TAU * width
+        yield r, wids, mean
+
+
+def phase_elastic(card: str) -> dict:
+    """SparkNet's elastic rounds (``parallel.ElasticTrainer``) with the zoo
+    AlexNet at full width a worker: three spawned gloo ranks on cuda:0 run
+    the plan, then the in-process oracle holds every round."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+
+    t_phase = time.perf_counter()
+    counts = [0, 0, 0]
+    set_config(fused_update=True, storage_dtype="f32")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix="sparknet_elastic_") as work:
+            t0 = time.perf_counter()
+            pool = mp.start_processes(elastic_worker, args=(work,), nprocs=ELASTIC_POOL,
+                                      join=False, start_method="spawn")
+            # the oracle's Solvers, one a worker id of the plan, made while the
+            # pool runs
+            net0 = alexnet_net(0.0)
+            solvers = {w: train_solver(net0, models.alexnet_solver())
+                       for w in range(ELASTIC_POOL + sum(e[0] == "join" for e in ELASTIC_PLAN))}
+            while not pool.join():
+                pass
+            spawn_s = time.perf_counter() - t0
+            ranks = []
+            for r in range(ELASTIC_POOL):
+                with open(f"{work}/rank{r}.json") as f:
+                    ranks.append(json.load(f))
+            same = all(res["plain_equal"] for res in ranks)
+            print(f"elastic: no plan, {ELASTIC_NO_PLAN_ROUNDS} width-{ELASTIC_POOL} rounds "
+                  f"of tau {ELASTIC_TAU} against ParallelTrainer's on the same shards: "
+                  f"every rank's params and history "
+                  f"{'bit for bit equal' if same else 'DIFFER'}; losses (elastic, "
+                  f"ParallelTrainer) {[[round(x, 6) for x in p] for p in ranks[0]['plain_losses']]}")
+            check(same, "elastic: weight-1 rounds differ from ParallelTrainer's")
+            used = sorted(g for res in ranks for g in res["used"])
+            cursor = ranks[0]["cursor"]
+            check(used == list(range(cursor)), f"elastic: the shards consumed are not "
+                                               f"range({cursor}) once each")
+            def pool_arena(r):
+                return torch.load(f"{work}/round{r}.pt").cuda()
+
+            for (r, wids, mean), *rows in zip(elastic_oracle(pool_arena, solvers),
+                                              *(res["rounds"] for res in ranks)):
+                act = [row for row in rows if row["active"]]
+                check(wids == act[0]["wids"], f"elastic round {r}: workers "
+                                              f"{act[0]['wids']}, the oracle's {wids}")
+                check(len({row["digest"] for row in act}) == 1,
+                      f"elastic round {r}: the active ranks' params differ")
+                want = [2 * ELASTIC_TAU, 2 * ELASTIC_TAU, ELASTIC_TAU]
+                for k, row in enumerate(rows):
+                    check(row["counts"] == (want if row["active"] else [0, 0, 0]),
+                          f"elastic round {r}, rank {k}: launches (lrn fwd, lrn bwd, "
+                          f"fused) {row['counts']}")
+                    counts = [c + n for c, n in zip(counts, row["counts"])]
+                ok, bitwise, diff = arena_diff(pool_arena(r), mean)
+                row0 = act[0]
+                print(f"elastic round {r}: width {row0['width']}, workers {row0['wids']}, "
+                      f"weights {row0['weights']}; ms a round (host clock, every rank "
+                      f"sharing the card) {[round(row['ms'], 1) for row in rows]} (idle "
+                      f"ranks wait in the boundary's collectives), of it the boundary "
+                      f"{[round(row['boundary_ms'], 1) for row in rows]}; loss "
+                      f"{row0['loss']:.6f}; active ranks bit for bit equal; against the "
+                      f"in-process oracle from the pool's last consensus (rtol 1e-5, atol "
+                      f"1e-7): "
+                      f"{'bit for bit' if bitwise else f'max abs diff {diff:.3e}'} "
+                      f"{'ok' if ok else 'FAIL'}; launches a rank {[row['counts'] for row in rows]} "
+                      f"[{card}]")
+                check(ok, f"elastic round {r}: the pool differs from the oracle by {diff:.3e}")
+                del mean
+            del solvers
+            ar = [res["allreduce_ms"] for res in ranks if res["allreduce_ms"] is not None]
+            print(f"elastic: the weighted all-reduce of the {ranks[0]['nbytes'] / 1e6:.1f} MB "
+                  f"arena over the last round's {len(ar)} ranks (gloo, CUDA events, median "
+                  f"of 3): {[round(x, 1) for x in ar]} ms; pool spawned, ran and joined in "
+                  f"{spawn_s:.1f} s [{card}]")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        set_config(fused_update=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"elastic: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return dict(lrn=counts[0], lrn_backward=counts[1], fused_update=counts[2])
+
+
+# ---------------------------------------------------------------------------
 # Flash attention's backward and the char LM's training slice
 # ---------------------------------------------------------------------------
 
@@ -2014,12 +2358,19 @@ FLASH_BWD_CASES = [  # (label, shape, causal); the flash phase's shapes and D 12
     ("D=128", (2, 2, 130, 128), True),
     ("D=200, padded to 256", (2, 2, 96, 200), False),
     ("D=256", (2, 2, 130, 256), True),
+    ("D=320 ragged, padded to 384", (2, 2, 100, 320), True),
+    ("D=512", (2, 2, 130, 512), False),
     ("long context", (4, 16, 2048, 64), True),
     ("long context, not causal", (4, 16, 2048, 64), False),
     ("D=128 long", (2, 8, 1024, 128), True),
     ("ragged long", (2, 4, 2000, 64), True),
+    ("D=320 long, padded to 384", (1, 4, 1024, 320), False),
+    ("D=512 long", (1, 4, 1024, 512), True),
 ]
-FLASH_BWD_TIMED = ("charlm", "long context", "long context, not causal", "D=128 long")
+FLASH_BWD_TIMED = ("charlm", "long context", "long context, not causal", "D=128 long",
+                   "D=512 long")
+# batch entry 0 alone and in its batch, bit for bit
+FLASH_BWD_ALONE = ("charlm", "D=320 ragged, padded to 384", "D=512")
 
 
 def flash_backward_bound_ms(shape, causal: bool, card: str) -> tuple[float, str]:
@@ -2083,14 +2434,15 @@ def phase_flash_backward(card: str) -> dict:
             check(lse_ok, f"flash forward lse {label}")
             check(same_o, f"flash forward {label}: o changes when lse is written")
             check(twice, f"flash backward {label}: two launches differ")
-            if label == "charlm":
+            if label in FLASH_BWD_ALONE:
                 alone = kernels._flash_attention_backward_cuda(
                     q[:1], k[:1], v[:1], o[:1], lse[:1], g[:1], causal)
                 torch.cuda.synchronize()
                 same = all(torch.equal(a[0], b[0]) for a, b in zip(alone, got))
                 print(f"flash backward {label}: batch entry 0 alone (B = 1) and in the "
                       f"batch of {shape[0]}: {'bit for bit equal' if same else 'DIFFER'}")
-                check(same, "flash backward: batch entry 0 differs alone and in its batch")
+                check(same, f"flash backward {label}: batch entry 0 differs alone and in "
+                            f"its batch")
             del ref, again
             if label not in FLASH_BWD_TIMED:
                 continue
@@ -2129,7 +2481,7 @@ def phase_flash_backward(card: str) -> dict:
             del leaves, o, lse, got
             gc.collect()
             torch.cuda.empty_cache()
-    return dict(max_abs_err=max_err, **out["charlm"])
+    return dict(max_abs_err=max_err, **out["charlm"], wide=out["D=512 long"])
 
 
 # the char LM trained on the repo's own documentation at the zoo's width
@@ -2345,41 +2697,83 @@ def charlm_sample(card: str, net, vocab) -> dict:
     return dict(flash=counts[0], paged=counts[1])
 
 
-def charlm_wide_heads_and_bf16(card: str) -> None:
-    """A transformer train step over 2 heads of 256 lanes (B3 and B3' at
-    their D = 256 instance), and a bf16 flash_attention call against the
-    float32 kernel on the upcast inputs."""
+# transformer steps over 2 heads: (embed_dim, the kernels' width); 256 is
+# the widest narrow instance, 320 (padded) and 512 the chunked kernels'
+WIDE_HEAD_STEPS = ((512, 256), (640, 384), (1024, 512))
+
+
+def wide_head_step(card: str, embed_dim: int, width: int) -> None:
+    """A transformer train step over 2 heads of embed_dim / 2 lanes (B3 and
+    B3' at ``width``): the gradient of every param and the loss through
+    the kernels against the same with flash_attention_torch under autograd,
+    from the same weights and batch (rtol 1e-4, atol 1e-5 x max|ref|); then
+    one SGD step through the kernels, with exact launch counts."""
     from sparknet_tpu_torch import models
-    from sparknet_tpu_torch.common import set_config
     from sparknet_tpu_torch.net import TPUNet
     from sparknet_tpu_torch.ops import kernels
 
-    set_config(fused_update=False)
-    net = TPUNet(dataclasses.replace(models.transformer_solver(), random_seed=SEED),
-                 models.transformer(batch=4, seq_len=64, vocab=64, embed_dim=512, heads=2,
-                                    ffn_dim=512, blocks=1))
+    def handle():
+        cfg = dataclasses.replace(models.transformer_solver(), random_seed=SEED, display=0)
+        return TPUNet(cfg, models.transformer(batch=4, seq_len=64, vocab=64,
+                                              embed_dim=embed_dim, heads=2,
+                                              ffn_dim=512, blocks=1))
+
     rs = np.random.RandomState(SEED + 14)
     feeds = {"data": rs.randint(0, 64, (4, 64)).astype(np.int32),
              "label": rs.randint(0, 10, (4,)).astype(np.int32)}
+    net, plain = handle(), handle()
     kernels.reset_launch_counts()
-    w_qkv = net.backward(feeds)["attn1"][0]
+    grads = net.backward(feeds)
+    with plain_attention_core():
+        ref = plain.backward(feeds)
+    ok, worst = True, 0.0
+    for ln, gl in ref.items():
+        for got, want in zip(grads[ln], gl):
+            got, want = torch.as_tensor(got), torch.as_tensor(want)
+            atol = 1e-5 * float(want.abs().max())
+            ok = ok and bool(torch.allclose(got, want, rtol=1e-4, atol=atol))
+            worst = max(worst, float((got - want).abs().max()))
     net.set_train_data(lambda it: feeds)
+    plain.set_train_data(lambda it: feeds)
     loss = net.train(1)
     counts = (kernels.FLASH_LAUNCHES, kernels.FLASH_BACKWARD_LAUNCHES)
-    norm = float(w_qkv.norm())
-    check(counts == (2, 2), f"wide heads: launches (flash, backward) {counts}, want (2, 2)")
-    check(np.isfinite(loss) and np.isfinite(norm) and norm > 0,
-          f"wide heads: loss {loss}, w_qkv gradient norm {norm}")
+    with plain_attention_core():
+        loss_ref = plain.train(1)
+    norm = float(torch.as_tensor(grads["attn1"][0]).norm())
+    print(f"charlm wide heads: transformer, embed {embed_dim} over 2 heads (D "
+          f"{embed_dim // 2} on the kernels at {width}), one train step: every "
+          f"gradient against plain attention from the same weights, max abs diff "
+          f"{worst:.3e} (rtol 1e-4, atol 1e-5 x max|ref|) {'ok' if ok else 'FAIL'}; "
+          f"loss {loss:.6f} (plain {loss_ref:.6f}), w_qkv gradient norm {norm:.4e}, "
+          f"launches flash {counts[0]}, backward {counts[1]} [{card}]")
+    check(counts == (2, 2), f"wide heads D {embed_dim // 2}: launches (flash, backward) "
+                            f"{counts}, want (2, 2)")
+    check(ok, f"wide heads D {embed_dim // 2}: gradients differ from plain attention")
+    check(np.isfinite(loss) and abs(loss - loss_ref) <= 1e-4 * abs(loss_ref)
+          and np.isfinite(norm) and norm > 0,
+          f"wide heads D {embed_dim // 2}: loss {loss} (plain {loss_ref}), w_qkv "
+          f"gradient norm {norm}")
+
+
+def charlm_wide_heads_and_bf16(card: str) -> None:
+    """Transformer train steps over 2 heads of 256, 320 and 512 lanes (B3
+    and B3' at their D = 256 instance and the chunked kernels) against
+    plain attention, and a bf16 flash_attention call against the float32
+    kernel on the upcast inputs."""
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.ops import kernels
+
+    set_config(fused_update=False)
+    for embed_dim, width in WIDE_HEAD_STEPS:
+        wide_head_step(card, embed_dim, width)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     q, k, v = (torch.randn((2, 4, 100, 16), generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     o = kernels.flash_attention(q, k, v, causal=True)
     ref = kernels.flash_attention(q.float(), k.float(), v.float(), causal=True)
     same = o.dtype == torch.bfloat16 and torch.equal(o, ref.to(torch.bfloat16))
-    print(f"charlm wide heads: transformer, embed 512 over 2 heads (D 256), one train "
-          f"step: loss {loss:.6f}, w_qkv gradient norm {norm:.4e}, launches flash "
-          f"{counts[0]}, backward {counts[1]}; bf16 flash_attention [2,4,100,16] causal "
-          f"against the float32 kernel on the upcast inputs cast to bf16: "
+    print(f"charlm wide heads: bf16 flash_attention [2,4,100,16] causal against the "
+          f"float32 kernel on the upcast inputs cast to bf16: "
           f"{'bit for bit equal' if same else 'DIFFER'} [{card}]")
     check(same, "bf16 flash_attention differs from the float32 kernel")
 
@@ -2449,7 +2843,7 @@ def phase_charlm_train(card: str) -> dict:
 
 
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
-          "fused_update", "train_profile", "fused_vs_blob", "parallel", "flash",
+          "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "flash",
           "flash_backward", "paged", "token", "token_profile", "charlm_train")
 
 
@@ -2508,6 +2902,11 @@ def main(argv=None) -> int:
         launches["fused_update"] += par["fused_update"]
         launches["flash_attention"] += par["flash"]
         launches["paged_attention"] += par["paged"]
+    if "elastic" in phases:
+        el = phase_elastic(card)
+        launches["lrn_across_channels"] += el["lrn"]
+        launches["lrn_backward"] += el["lrn_backward"]
+        launches["fused_update"] += el["fused_update"]
     if "flash" in phases:
         stats["flash"] = phase_flash(card)
     if "flash_backward" in phases:
