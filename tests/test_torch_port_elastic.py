@@ -15,7 +15,8 @@ the departing worker's slots included), a straggler that rejoins at
 ``decay ** s`` (with ``state_dict`` taken while it is parked, a round
 trip that continues the trajectory bit for bit, and ``sync_to_solver``),
 a straggler past ``staleness_bound`` that is dropped, and the plans the
-reference refuses.
+reference refuses.  A world of one in this process is held bit for bit to
+the Solver's own steps.
 
 Tolerances are ``test_torch_port_parallel``'s: the round losses at rtol
 1e-5; params and slots at rtol 1e-4 with an absolute 1e-5 of each blob's
@@ -420,3 +421,33 @@ def test_refused_plans_match_jax(spawned):
                 jt.train_round(shard_feed)
         for r in range(POOL):
             assert refused[r][label] == str(err.value), (label, r)
+
+
+def test_world_of_one_rounds_are_the_solvers_steps():
+    """With no process group the trainer forms a world of one (gloo on the
+    CPU): a round of tau steps on shards 0.. is tau ``Solver.step``s on
+    the same shards bit for bit, ``get_weights`` is the replica, and
+    ``close`` ends the group."""
+    import torch.distributed as dist
+
+    from sparknet_tpu_torch.solvers.solver import Solver, SolverConfig
+
+    def solver():
+        return Solver(SolverConfig(**SOLVER), narrow_alexnet(layers_dsl, batch=B),
+                      device="cpu")
+
+    tr, ref = elastic.ElasticTrainer(solver(), tau=2), solver()
+    try:
+        assert dist.is_initialized() and (tr.pool, tr.width, tr.active) == (1, 1, True)
+        losses = [tr.train_round(shard_feed) for _ in range(2)]
+        ref.step(4, shard_feed)
+        assert (tr.iter, tr.cursor, ref.iter) == (4, 4, 4)
+        assert all(np.isfinite(losses))
+        wc = tr.get_weights()
+        for ln, pl in ref.variables.params.items():
+            for i, p in enumerate(pl):
+                assert torch.equal(tr.solver.variables.params[ln][i], p), ln
+                np.testing.assert_array_equal(wc[ln][i], p.numpy())
+    finally:
+        tr.close()
+    assert not dist.is_initialized() and tr.solver.worker == 0
