@@ -2129,6 +2129,7 @@ def elastic_worker(rank: int, work: str) -> None:
     torch.backends.cudnn.deterministic = True
     initialize_distributed(backend="gloo", store_path=f"{work}/store", rank=rank,
                            world_size=ELASTIC_POOL)
+    clock = {"joined": time.time()}  # wall clock: the parent spawned us at its own
     try:
         net0 = alexnet_net(0.0)
         el = ElasticTrainer(train_solver(net0, models.alexnet_solver()), tau=ELASTIC_TAU)
@@ -2144,6 +2145,7 @@ def elastic_worker(rank: int, work: str) -> None:
         a, b = el.solver, pt.solver
         plain_equal = torch.equal(a._param_arena, b._param_arena) and all(
             torch.equal(x, y) for x, y in zip(a._slot_arenas, b._slot_arenas))
+        clock["no plan"] = time.time()
         del el, pt, a, b
         gc.collect()
         torch.cuda.empty_cache()
@@ -2176,6 +2178,7 @@ def elastic_worker(rank: int, work: str) -> None:
                                wids=tr.worker_ids, weights=tr.round_weights,
                                active=tr.active, loss=loss, counts=counts,
                                digest=digest))
+        clock["plan"] = time.time()
         # the weighted all-reduce alone, over the last round's set
         ar_ms = None
         if tr.active:
@@ -2187,7 +2190,8 @@ def elastic_worker(rank: int, work: str) -> None:
         with open(f"{work}/rank{rank}.json", "w") as f:
             json.dump(dict(plain_equal=plain_equal, plain_losses=plain, rounds=rounds,
                            used=used, cursor=tr.cursor, allreduce_ms=ar_ms,
-                           nbytes=tr.solver.layout.total_bytes), f)
+                           nbytes=tr.solver.layout.total_bytes,
+                           clock=dict(clock, done=time.time())), f)
     finally:
         dist.destroy_process_group()
 
@@ -2270,7 +2274,7 @@ def phase_elastic(card: str) -> dict:
     torch.backends.cudnn.deterministic = True
     try:
         with tempfile.TemporaryDirectory(prefix="sparknet_elastic_") as work:
-            t0 = time.perf_counter()
+            t0, wall0 = time.perf_counter(), time.time()
             pool = mp.start_processes(elastic_worker, args=(work,), nprocs=ELASTIC_POOL,
                                       join=False, start_method="spawn")
             # the oracle's Solvers, one a worker id of the plan, made while the
@@ -2329,10 +2333,14 @@ def phase_elastic(card: str) -> dict:
                 del mean
             del solvers
             ar = [res["allreduce_ms"] for res in ranks if res["allreduce_ms"] is not None]
+            c = ranks[0]["clock"]
             print(f"elastic: the weighted all-reduce of the {ranks[0]['nbytes'] / 1e6:.1f} MB "
                   f"arena over the last round's {len(ar)} ranks (gloo, CUDA events, median "
                   f"of 3): {[round(x, 1) for x in ar]} ms; pool spawned, ran and joined in "
-                  f"{spawn_s:.1f} s [{card}]")
+                  f"{spawn_s:.1f} s (rank 0: in the process group after "
+                  f"{c['joined'] - wall0:.1f} s, the no-plan check {c['no plan'] - c['joined']:.1f} "
+                  f"s, the plan's rounds {c['plan'] - c['no plan']:.1f} s, the rest "
+                  f"{c['done'] - c['plan']:.1f} s) [{card}]")
     finally:
         torch.backends.cudnn.deterministic = prev
         set_config(fused_update=False)
@@ -2863,23 +2871,35 @@ def main(argv=None) -> int:
     import sparknet_tpu_torch  # noqa: F401  (fails here outside a checkout)
 
     t_start = time.perf_counter()
+    laps = [t_start]  # the clock after each step, for the seconds by phase
+
+    def lap(name: str) -> None:
+        laps.append(time.perf_counter())
+        print(f"chip_smoke: {name} took {laps[-1] - laps[-2]:.1f} s")
+
     card = phase_card()
     phase_build()
+    lap("build")
     stats = {}
     launches = {"lrn_across_channels": 0, "lrn_backward": 0, "fused_update": 0,
                 "flash_attention": 0, "flash_attention_backward": 0,
                 "paged_attention": 0}
     if "kernel" in phases:
         stats["lrn"] = phase_kernel(card)
+        lap("kernel")
     if "path" in phases:
         path_launches, forward, ms_per_forward = phase_path(card)
         launches["lrn_across_channels"] += path_launches
+        lap("path")
     if "serve" in phases:
         launches["lrn_across_channels"] += phase_serve(card)
+        lap("serve")
     if "profile" in phases and "path" in phases:
         phase_profile(card, forward, ms_per_forward)
+        lap("profile")
     if "lrn_backward" in phases:
         stats["lrn_backward"] = phase_lrn_backward(card)
+        lap("lrn_backward")
     if "train" in phases:
         train = phase_train(card)
         for name in ("alexnet", "caffenet"):
@@ -2893,8 +2913,10 @@ def main(argv=None) -> int:
             phase_train_profile(card, train["step"], train["alexnet"]["ms_per_step"])
         del train
         gc.collect()
+        lap("train, fused_update and train_profile")
     if "fused_vs_blob" in phases:
         phase_fused_vs_blob(card)
+        lap("fused_vs_blob")
     if "parallel" in phases:
         par = phase_parallel(card)
         launches["lrn_across_channels"] += par["lrn"]
@@ -2902,17 +2924,22 @@ def main(argv=None) -> int:
         launches["fused_update"] += par["fused_update"]
         launches["flash_attention"] += par["flash"]
         launches["paged_attention"] += par["paged"]
+        lap("parallel")
     if "elastic" in phases:
         el = phase_elastic(card)
         launches["lrn_across_channels"] += el["lrn"]
         launches["lrn_backward"] += el["lrn_backward"]
         launches["fused_update"] += el["fused_update"]
+        lap("elastic")
     if "flash" in phases:
         stats["flash"] = phase_flash(card)
+        lap("flash")
     if "flash_backward" in phases:
         stats["flash_backward"] = phase_flash_backward(card)
+        lap("flash_backward")
     if "paged" in phases:
         stats["paged"] = phase_paged(card)
+        lap("paged")
     if "token" in phases:
         token = phase_token(card)
         launches["flash_attention"] += token["flash"]
@@ -2920,12 +2947,14 @@ def main(argv=None) -> int:
         if "token_profile" in phases:
             phase_token_profile(card, token)
         del token
+        lap("token and token_profile")
     if "charlm_train" in phases:
         charlm = phase_charlm_train(card)
         launches["flash_attention"] += charlm["flash"]
         launches["flash_attention_backward"] += charlm["backward"]
         launches["fused_update"] += charlm["fused_update"]
         launches["paged_attention"] += charlm["paged"]
+        lap("charlm_train")
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0

@@ -54,9 +54,12 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel source of the package, one shared library each
 KERNEL_SOURCES = ("lrn", "fused_update", "flash_attention", "paged_attention")
+# --split-compile=0: nvcc optimizes a source's kernels on every core (the
+# four sources built together took 35 s without it on the H100's host, 22 s
+# with it; the kernels' gates and times did not move, PERF.md)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
