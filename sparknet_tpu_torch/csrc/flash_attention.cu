@@ -1057,7 +1057,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 // rows (Q and dO, or K) come in a second buffer with the tile.  The stage
 // is single-buffered: it takes 101 KB (the walked tile's two chunks and
 // the CTA's own rows' two chunks), and a second one would not fit beside
-// the own-chunk buffer.  Tiles and warps are the D = 128 instance's: 64
+// the dK/dV walk's 34 KB own-chunk buffer (the dQ walk, 17 KB, keeps the
+// same shape: these widths are correctness first).  Tiles and warps are
+// the D = 128 instance's: 64
 // keys a dK/dV CTA against 32-query tiles, 64 queries a dQ CTA against
 // 32-key tiles; each warp owns 16 rows and kDC lanes of its outputs.
 struct WideBwdCfg {
