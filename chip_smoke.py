@@ -163,7 +163,31 @@ Phases, in order (any failure exits non-zero):
     and 512 lanes (every gradient against plain attention from the same
     weights, rtol 1e-4, atol 1e-5 x max|ref|; the loss rtol 1e-4; exactly
     2 flash and 2 backward launches) and a bf16 ``flash_attention`` call
-    bit for bit the float32 kernel on the upcast inputs cast to bf16.
+    bit for bit the float32 kernel on the upcast inputs cast to bf16;
+20. feed (run after 18): SparkNet's ImageNet recipe from records.  An LMDB
+    of 2,048 seeded 256x256x3 uint8 ``Datum``s (1000 classes) and its mean
+    image in a temp dir; ``RecordShardSource`` -> the ``ProcessPipeline``
+    ring (forked workers) -> ``device_feed`` (pinned staging, a copy
+    stream, events) -> ``DeviceAugment`` (mean, random 227 crop, mirror)
+    on the card -> AlexNet b256, 1000 classes, fused update, f32: 36
+    ``Solver`` steps, then 2 ``ParallelTrainer`` rounds at tau 4 (a world
+    of one, NCCL) through ``trainer_device_fn``.  Gates: DeviceAugment TEST
+    at [256,3,256,256] bit for bit the host ``DataTransformer``; TRAIN with
+    injected draws bit for bit the host formula; its own draws in range, a
+    flip share in [0.4, 0.6] over 2,048 samples, the same twice for one
+    (pid, seed, it, t); every batch of the first 16 steps (two passes of
+    the ring) and of the rounds bit for bit ``src.get(epoch, index)``; the
+    first fed step bit for bit (loss and params) a ``Solver`` step on the
+    batch augmented on the host with the same draws (deterministic cuDNN,
+    TF32 off); exactly 2 LRN forward, 2 LRN backward and 1 fused-update
+    launches a step; uint8 until the hook.  Prints the fed step's img/s
+    beside the same solver's fixed-batch step, the ring's stage walls a
+    batch and the device's idle share between fed steps;
+21. cifar_app: ``apps.CifarApp`` (cifar10_full, tau 10, batch 100, a world
+    of one, NCCL) on synthetic CIFAR binaries of 1,000 records a file, 2
+    outer rounds and its test passes (round 0 and the end); its first
+    round's loss bit for bit the mean of 10 ``Solver`` steps on the same
+    host-transformed batches from the same weights (deterministic cuDNN).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -2351,6 +2375,343 @@ def phase_elastic(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The data plane: LMDB records through the process ring, the device feed and
+# on-card augmentation into the τ trainers; CifarApp
+# ---------------------------------------------------------------------------
+
+FEED_RECORDS = 2048  # 256x256x3 uint8 Datums, 1000 classes: 8 batches a pass
+FEED_BATCH = 256
+FEED_CROP = 227
+FEED_CHECKED = 16  # fed steps whose batch is held against the source: 2 passes
+FEED_TIMED = 16  # fed steps timed by the host clock
+FEED_PROFILED = 4  # fed steps under torch.profiler (the device's idle share)
+FEED_TAU = 4  # the trainer's rounds: ParallelTrainer, world of one (NCCL)
+FEED_ROUNDS = 2
+FEED_FIXED = 8  # fixed-batch steps of the same solver, timed beside the fed ones
+
+
+def feed_lmdb(d: str) -> tuple[str, np.ndarray]:
+    """An LMDB of FEED_RECORDS seeded 3x256x256 uint8 ``Datum``s (labels in
+    0..999) under ``d``, and its mean image (float64 sums, as
+    ``compute_mean_from_minibatches``), saved beside it as ``mean.npy``."""
+    import os
+
+    from sparknet_tpu_torch.data import compute_mean_from_minibatches
+    from sparknet_tpu_torch.data.io_utils import array_to_datum
+    from sparknet_tpu_torch.data.lmdb_io import LmdbWriter
+
+    rs = np.random.RandomState(SEED + 11)
+    path = os.path.join(d, "train_lmdb")
+    chunks = []
+    with LmdbWriter(path) as w:
+        for lo in range(0, FEED_RECORDS, FEED_BATCH):
+            imgs = rs.randint(0, 256, (FEED_BATCH, 3, 256, 256), dtype=np.uint8)
+            labels = rs.randint(0, 1000, FEED_BATCH)
+            for i in range(FEED_BATCH):
+                w.put(f"{lo + i:08d}".encode(), array_to_datum(imgs[i], int(labels[i])))
+            chunks.append((imgs, labels))
+    mean = compute_mean_from_minibatches(iter(chunks), (3, 256, 256))
+    np.save(os.path.join(d, "mean.npy"), mean)
+    return path, mean
+
+
+def host_augment(x: np.ndarray, mean: np.ndarray, hos, wos, flips, crop: int) -> np.ndarray:
+    """The host ``DataTransformer``'s TRAIN arithmetic with the given draws:
+    float32 mean subtraction, the windows gathered by index arithmetic, then
+    the mirror (the recipe has no scale)."""
+    x = x.astype(np.float32) - mean[None]
+    n, ch = x.shape[:2]
+    rows = np.asarray(hos)[:, None] + np.arange(crop)[None]
+    cols = np.asarray(wos)[:, None] + np.arange(crop)[None]
+    x = x[np.arange(n)[:, None, None, None], np.arange(ch)[None, :, None, None],
+          rows[:, None, :, None], cols[:, None, None, :]]
+    flips = np.asarray(flips, bool)
+    x[flips] = x[flips, :, :, ::-1]
+    return x
+
+
+def feed_augment_gates(card: str, src, aug, host, mean) -> None:
+    """DeviceAugment on the card against the host: TEST at [256,3,256,256]
+    bit for bit the host DataTransformer; TRAIN with injected draws bit for
+    bit the host formula; its own draws in range, a fair coin over 2,048
+    samples, and the same for the same (pid, seed, it, t)."""
+    raw = src.get(0, 0)["data"]
+    x = torch.from_numpy(raw).cuda()
+    got = aug(x, False)
+    check(torch.equal(got.cpu(), torch.from_numpy(host(raw, False))),
+          "DeviceAugment TEST differs from the host DataTransformer")
+    (hos, wos), flips = aug.draw(FEED_BATCH, 256, 256, aug.generator(0, SEED, 0))
+    got = aug(x, True, offsets=(hos, wos), flips=flips)
+    want = host_augment(raw, mean, hos.cpu().numpy(), wos.cpu().numpy(),
+                        flips.cpu().numpy(), FEED_CROP)
+    check(torch.equal(got.cpu(), torch.from_numpy(want)),
+          "DeviceAugment TRAIN with injected draws differs from the host formula")
+    (h1, w1), f1 = aug.draw(FEED_RECORDS, 256, 256, aug.generator(3, SEED, 7, 1))
+    (h2, w2), f2 = aug.draw(FEED_RECORDS, 256, 256, aug.generator(3, SEED, 7, 1))
+    lim = 256 - FEED_CROP
+    share = float(f1.float().mean())
+    check(0 <= int(h1.min()) and int(h1.max()) <= lim and 0 <= int(w1.min())
+          and int(w1.max()) <= lim, "TRAIN's crop offsets out of range")
+    check(0.4 <= share <= 0.6, f"TRAIN's flip share {share} outside [0.4, 0.6]")
+    check(torch.equal(h1, h2) and torch.equal(w1, w2) and torch.equal(f1, f2),
+          "the same (pid, seed, it, t) drew other windows")
+    print(f"feed: DeviceAugment TEST at [256,3,256,256] bit for bit the host "
+          f"DataTransformer; TRAIN with injected draws bit for bit the host formula; "
+          f"{FEED_RECORDS} own draws: offsets in [0, {lim}], flip share {share:.4f}, "
+          f"the same twice for one (pid, seed, it, t) [{card}]")
+
+
+def phase_feed(card: str) -> dict:
+    """SparkNet's ImageNet recipe at full width from records: an LMDB of
+    256x256 Datums -> RecordShardSource -> the ProcessPipeline ring ->
+    device_feed (pinned staging, a copy stream) -> DeviceAugment (mean,
+    random 227 crop, mirror) on the card -> AlexNet b256 with 1000 classes
+    (fused update, f32): Solver steps, then ParallelTrainer rounds (a world
+    of one, NCCL, tau 4) through trainer_device_fn."""
+    import tempfile
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.data import (
+        DataTransformer,
+        DeviceAugment,
+        ProcessPipeline,
+        RecordShardSource,
+        TransformConfig,
+        device_feed,
+    )
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.parallel import ParallelTrainer
+
+    t_phase = time.perf_counter()
+    set_config(fused_update=True, storage_dtype="f32")
+    prev = torch.backends.cudnn.deterministic
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            path, mean = feed_lmdb(d)
+            write_s = time.perf_counter() - t0
+            src = RecordShardSource(path, FEED_BATCH)
+            bpe = src.batches_per_epoch
+            check(src.backend == "lmdb" and bpe == FEED_RECORDS // FEED_BATCH,
+                  f"record source: {src.backend}, {bpe} batches a pass")
+            cfg = TransformConfig(crop_size=FEED_CROP, mirror=True, mean_image=mean)
+            aug, host = DeviceAugment(cfg), DataTransformer(cfg)
+            feed_augment_gates(card, src, aug, host, mean)
+
+            def expect(g: int) -> dict:
+                return src.get(*divmod(g, bpe))
+
+            # The oracle of the first fed step: a second Solver's step on batch
+            # 0 augmented on the host with the draws the fed step will take.
+            torch.backends.cudnn.deterministic = True
+            ref = train_solver(models.alexnet(FEED_BATCH), models.alexnet_solver())
+            (hos, wos), flips = aug.draw(FEED_BATCH, 256, 256, aug.generator(0, SEED, 0))
+            b0 = expect(0)
+            ref_loss = float(ref.train_iteration({
+                "data": host_augment(b0["data"], mean, hos.cpu().numpy(), wos.cpu().numpy(),
+                                     flips.cpu().numpy(), FEED_CROP),
+                "label": b0["label"]}))
+            ref_arena = ref._param_arena.clone()
+            del ref
+            gc.collect()
+            solver = train_solver(models.alexnet(FEED_BATCH), models.alexnet_solver())
+
+            def keep_raw(feeds, it):
+                return {**aug.device_fn(pid=0, seed=SEED)(feeds, it), "raw": feeds["data"]}
+
+            def step(f):
+                return solver.train_iteration({"data": f["data"], "label": f["label"]})
+
+            n_fed = FEED_CHECKED + FEED_TIMED + FEED_PROFILED
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t_main = time.perf_counter()
+            with ProcessPipeline(src, num_batches=n_fed, name="feed") as pipe, \
+                    device_feed(pipe, device_fn=keep_raw) as feed:
+                it = iter(feed)
+                losses = []
+                for g in range(FEED_CHECKED):
+                    f = next(it)
+                    want = expect(g)
+                    check(f["raw"].dtype == torch.uint8 and torch.equal(
+                        f["raw"].cpu(), torch.from_numpy(want["data"])) and torch.equal(
+                        f["label"].cpu(), torch.from_numpy(want["label"])),
+                        f"fed batch {g} is not the source's batch {divmod(g, bpe)}")
+                    losses.append(step(f))
+                    if g == 0:
+                        check(float(losses[0]) == ref_loss and torch.equal(
+                            solver._param_arena, ref_arena),
+                            f"the fed step differs from the host-augmented step: loss "
+                            f"{float(losses[0])} vs {ref_loss}")
+                        torch.backends.cudnn.deterministic = prev
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(FEED_TIMED):
+                    losses.append(step(next(it)))
+                torch.cuda.synchronize()
+                fed_ms = 1e3 * (time.perf_counter() - t0) / FEED_TIMED
+                busy_ms, _ = device_breakdown(
+                    lambda: [step(next(it)) for _ in range(FEED_PROFILED)], top=1)
+                busy_ms /= FEED_PROFILED
+                stats = dict(pipe.stats)
+                workers = pipe.workers
+            # the rounds: the ring's batches stacked [tau, B, ...] on the host,
+            # augmented slot by slot on the card by the trainer's hook
+            tr = ParallelTrainer(solver, tau=FEED_TAU)
+            check(tr.iter == n_fed, f"the rounds start at iteration {tr.iter}")
+            n_round = FEED_TAU * FEED_ROUNDS
+            with ProcessPipeline(src, num_batches=n_round, start_index=n_fed,
+                                 name="feed.tau") as pipe:
+                pull = pipe.as_data_fn(copy=True)
+                hook = aug.trainer_device_fn(pid=0, seed=SEED)
+                placed = []
+
+                def checked_hook(feeds, it_):
+                    placed.append(feeds["data"].dtype)
+                    for t in range(FEED_TAU):
+                        want = expect(it_ + t)  # the rounds start at iteration n_fed
+                        check(torch.equal(feeds["data"][t].cpu(),
+                                          torch.from_numpy(want["data"])),
+                              f"round batch {it_ + t} is not the source's")
+                    return hook(feeds, it_)
+
+                tr.feed_device_fn = checked_hook
+
+                def data_fn(_it):
+                    bs = [pull(0) for _ in range(FEED_TAU)]
+                    return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
+
+                round_losses = [tr.train_round(data_fn) for _ in range(FEED_ROUNDS)]
+            tr.close()
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t_main
+            counts = (kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES,
+                      kernels.FUSED_UPDATE_LAUNCHES)
+            n_steps = n_fed + n_round
+            check(counts == (2 * n_steps, 2 * n_steps, n_steps),
+                  f"feed launches (lrn fwd, lrn bwd, fused) {counts}, want "
+                  f"{(2 * n_steps, 2 * n_steps, n_steps)}")
+            check(placed == [torch.uint8] * FEED_ROUNDS, f"the hook saw {placed}")
+            values = [float(x) for x in losses] + round_losses
+            check(all(np.isfinite(values)), f"feed losses {values}")
+            # the same solver on one fixed batch already on the card
+            fixed = {"data": aug(torch.from_numpy(expect(0)["data"]).cuda(), True,
+                                 generator=aug.generator(0, SEED, 10 ** 6)),
+                     "label": torch.from_numpy(expect(0)["label"]).cuda()}
+            step(fixed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FEED_FIXED):
+                step(fixed)
+            torch.cuda.synchronize()
+            fixed_ms = 1e3 * (time.perf_counter() - t0) / FEED_FIXED
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        set_config(fused_update=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    nb = stats["batches"]
+    per = {k: 1e3 * stats[k] / nb for k in ("slot_wait", "source", "decode", "transform",
+                                           "write", "put")}
+    idle = max(0.0, 1.0 - busy_ms / fed_ms)
+    print(f"feed: {FEED_RECORDS} Datums (256x256x3 uint8, 1000 classes) written to an "
+          f"LMDB in {write_s:.1f} s; {n_fed} AlexNet b{FEED_BATCH} steps fed through "
+          f"{workers} ring workers and device_feed, the first {FEED_CHECKED} (2 passes) "
+          f"each bit for bit the source's batch, the first bit for bit (loss and params) "
+          f"a Solver step on the host-augmented batch (deterministic cuDNN, TF32 off); "
+          f"{FEED_ROUNDS} ParallelTrainer rounds at tau {FEED_TAU} (NCCL, world of one) "
+          f"through trainer_device_fn, every slot the source's batch, uint8 until the "
+          f"hook; launches a step: LRN forward 2, LRN backward 2, fused update 1 "
+          f"({counts}); round losses {[round(x, 4) for x in round_losses]} [{card}]")
+    print(f"feed: fed step {fed_ms:.2f} ms, {FEED_BATCH * 1e3 / fed_ms:.1f} img/s "
+          f"(mean of {FEED_TIMED}); the fixed-batch step of the same solver {fixed_ms:.2f} "
+          f"ms, {FEED_BATCH * 1e3 / fixed_ms:.1f} img/s (mean of {FEED_FIXED}) [{card}]")
+    print(f"feed: stage walls a batch (ms, over {nb} batches, {workers} workers): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+          + f"; the ring and the device feed, first step to the last round, "
+          f"{main_s:.1f} s [{card}]")
+    print(f"feed: device kernels {busy_ms:.2f} ms a fed step (torch.profiler, "
+          f"{FEED_PROFILED} steps, every stream) against {fed_ms:.2f} ms unprofiled: "
+          f"idle share {100 * idle:.1f} % [{card}]")
+    print(f"feed: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return dict(lrn=counts[0], lrn_backward=counts[1], fused_update=counts[2],
+                fed_ms=fed_ms, fixed_ms=fixed_ms, idle=idle)
+
+
+CIFAR_TAU = 10  # CifarApp's own TAU and BATCH
+CIFAR_BATCH = 100
+CIFAR_ROUNDS = 2
+CIFAR_RECORDS = 1000  # a synthetic file's records: 5,000 to train on
+
+
+def phase_cifar_app(card: str) -> dict:
+    """CifarApp (cifar10_full, tau 10, batch 100) on synthetic CIFAR binaries
+    for 2 outer rounds and its test passes; its first round's loss bit for
+    bit the mean of 10 Solver steps on the same host-transformed batches
+    (deterministic cuDNN, TF32 off)."""
+    import tempfile
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.apps import CifarApp
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.data.cifar import write_synthetic_cifar
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    t_phase = time.perf_counter()
+    set_config(fused_update=False)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            write_synthetic_cifar(d, seed=SEED, records=CIFAR_RECORDS)
+            app = CifarApp(d, tau=CIFAR_TAU, batch=CIFAR_BATCH, log_dir=d, seed=SEED)
+            try:
+                init = app.trainer.solver.variables
+                init = ({ln: [p.clone() for p in pl] for ln, pl in init.params.items()},
+                        {ln: {k: v.clone() for k, v in s.items()} for ln, s in init.state.items()})
+                feeds, losses = [], []
+                make, train_round = app._train_feeds, app.trainer.train_round
+                app._train_feeds = lambda it: feeds.append(make(it)) or feeds[-1]
+                app.trainer.train_round = lambda fn: losses.append(train_round(fn)) or losses[-1]
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scores = app.run(num_outer=CIFAR_ROUNDS, num_test_batches=1)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                counts = (kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES,
+                          kernels.FUSED_UPDATE_LAUNCHES)
+                check(app.trainer.iter == CIFAR_TAU * CIFAR_ROUNDS and
+                      len(losses) == CIFAR_ROUNDS, f"CifarApp ran {app.trainer.iter} steps")
+            finally:
+                app.close()
+            from sparknet_tpu_torch.compiler.graph import NetVars
+
+            ref = Solver(models.cifar10_full_solver(), models.cifar10_full(CIFAR_BATCH))
+            ref.variables = NetVars(params=init[0], state=init[1])
+            ref_losses = [ref.train_iteration({k: v[t] for k, v in feeds[0].items()})
+                          for t in range(CIFAR_TAU)]
+            want = float(torch.stack(ref_losses).mean())
+            check(losses[0] == want, f"CifarApp's first round loss {losses[0]} vs "
+                  f"{want} from {CIFAR_TAU} Solver steps")
+            acc = scores.get("accuracy", float("nan"))
+            check(np.isfinite(acc) and all(np.isfinite(losses)),
+                  f"CifarApp scores {scores}, losses {losses}")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    print(f"cifar_app: CifarApp, cifar10_full, tau {CIFAR_TAU}, batch {CIFAR_BATCH}, "
+          f"{5 * CIFAR_RECORDS} synthetic training records: {CIFAR_ROUNDS} rounds and its "
+          f"test passes in {run_s:.2f} s, round losses {[round(x, 6) for x in losses]}, "
+          f"the first bit for bit {CIFAR_TAU} Solver steps on the same host-transformed "
+          f"batches; final accuracy {acc:.4f}; launches (lrn fwd, lrn bwd, fused) "
+          f"{counts} [{card}]")
+    print(f"cifar_app: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return dict(lrn=counts[0], lrn_backward=counts[1], fused_update=counts[2])
+
+
+# ---------------------------------------------------------------------------
 # Flash attention's backward and the char LM's training slice
 # ---------------------------------------------------------------------------
 
@@ -2851,8 +3212,9 @@ def phase_charlm_train(card: str) -> dict:
 
 
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
-          "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "flash",
-          "flash_backward", "paged", "token", "token_profile", "charlm_train")
+          "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
+          "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
+          "charlm_train")
 
 
 def main(argv=None) -> int:
@@ -2931,6 +3293,13 @@ def main(argv=None) -> int:
         launches["lrn_backward"] += el["lrn_backward"]
         launches["fused_update"] += el["fused_update"]
         lap("elastic")
+    for name, run in (("feed", phase_feed), ("cifar_app", phase_cifar_app)):
+        if name in phases:
+            fed = run(card)
+            launches["lrn_across_channels"] += fed["lrn"]
+            launches["lrn_backward"] += fed["lrn_backward"]
+            launches["fused_update"] += fed["fused_update"]
+            lap(name)
     if "flash" in phases:
         stats["flash"] = phase_flash(card)
         lap("flash")
@@ -2987,8 +3356,9 @@ def main(argv=None) -> int:
         # case for fused_update, flash, its backward and paged); launches:
         # the main paths (the AlexNet TEST forwards, the CaffeNet
         # requests, the AlexNet and CaffeNet train steps, the trainer's
-        # rounds, the paged token run and the rectangle run, the char LM's
-        # timed training steps and its sampling), each counted from 0
+        # rounds, the elastic rounds, the fed AlexNet steps and rounds, the
+        # CifarApp run, the paged token run and the rectangle run, the char
+        # LM's timed training steps and its sampling), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

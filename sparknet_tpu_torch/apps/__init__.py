@@ -1,0 +1,12 @@
+"""Driver apps: the reference's ``apps.*`` entry points on the port.
+
+Counterpart of ``sparknet_tpu/apps/``.  Each reference app is a Spark
+driver ``main()`` wiring loaders → preprocessing → per-worker CaffeNet →
+the broadcast/train(τ)/collect loop (ref: src/main/scala/apps/).  Here each
+app wires loaders → transformer → ``parallel.ParallelTrainer`` over
+``torch.distributed``, one process a worker.  ``featurizer`` and
+``db_apps`` are ROADMAP Queue A9.
+"""
+
+from sparknet_tpu_torch.apps.cifar_app import CifarApp  # noqa: F401
+from sparknet_tpu_torch.apps.imagenet_app import ImageNetApp  # noqa: F401

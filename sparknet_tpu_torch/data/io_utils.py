@@ -4,15 +4,20 @@ Copy of the host-only part of ``sparknet_tpu/data/io_utils.py``, which
 mirrors ``caffe/python/caffe/io.py`` (reference): ``resize_image`` (:305),
 ``oversample`` 10-crop (:340) and the ``Transformer`` preprocessing adapter
 (:100-276).  Image resize uses PIL, as in the JAX package, interpolating
-float images channel by channel.  The binaryproto and datum helpers are
-ROADMAP Queue A9.
+float images channel by channel.  ``array_to_datum``/``datum_to_array``
+(io.py:66-94) speak the serialized Caffe ``Datum`` directly, through a copy
+of the proto2 wire helpers of ``sparknet_tpu/proto/binary.py``.  The
+binaryproto helpers and ``load_image`` are ROADMAP Queue A9.
 """
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 
-__all__ = ["resize_image", "fivecrop_origins", "oversample", "Transformer"]
+__all__ = ["resize_image", "fivecrop_origins", "oversample", "Transformer",
+           "array_to_datum", "datum_to_array"]
 
 
 def resize_image(
@@ -179,3 +184,130 @@ class Transformer:
     def set_input_scale(self, in_: str, scale: float) -> None:
         self._check_input(in_)
         self.input_scale[in_] = float(scale)
+
+
+# ---------------------------------------------------------------------------
+# Datum <-> ndarray (serialized wire bytes; ref io.py:66-94, caffe.proto:30-41)
+# ---------------------------------------------------------------------------
+
+_VARINT, _I64, _LEN, _I32 = 0, 1, 2, 5  # proto2 wire types
+
+# Datum field numbers (ref: caffe/src/caffe/proto/caffe.proto:30-41)
+_DATUM_CHANNELS, _DATUM_HEIGHT, _DATUM_WIDTH = 1, 2, 3
+_DATUM_DATA, _DATUM_LABEL, _DATUM_FLOAT = 4, 5, 6
+
+
+def _read_varint(buf, pos: int) -> tuple[int, int]:
+    result = shift = 0
+    while True:
+        b = buf[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, pos
+        shift += 7
+        if shift > 70:
+            raise ValueError("varint overrun")
+
+
+def _scan(buf):
+    """Yield (field_number, wire_type, payload) over one message's bytes:
+    an int for varint/fixed fields, the bytes for length-delimited ones."""
+    pos, end = 0, len(buf)
+    while pos < end:
+        tag, pos = _read_varint(buf, pos)
+        field, wt = tag >> 3, tag & 7
+        if wt == _VARINT:
+            val, pos = _read_varint(buf, pos)
+        elif wt == _I64:
+            val = struct.unpack_from("<q", buf, pos)[0]
+            pos += 8
+        elif wt == _LEN:
+            n, pos = _read_varint(buf, pos)
+            val = buf[pos:pos + n]
+            pos += n
+        elif wt == _I32:
+            val = struct.unpack_from("<i", buf, pos)[0]
+            pos += 4
+        else:
+            raise ValueError(f"unsupported wire type {wt} (field {field})")
+        yield field, wt, val
+
+
+def _varint(v: int) -> bytes:
+    if v < 0:
+        # proto2 negative int32/int64 varints are the two's-complement
+        # 64-bit value (10 bytes on the wire)
+        v &= 0xFFFFFFFFFFFFFFFF
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _tag(field: int, wt: int) -> bytes:
+    return _varint((field << 3) | wt)
+
+
+def _len_field(field: int, payload: bytes) -> bytes:
+    return _tag(field, _LEN) + _varint(len(payload)) + payload
+
+
+def array_to_datum(arr: np.ndarray, label: int = 0) -> bytes:
+    """Encode a (C, H, W) array as serialized ``Datum`` bytes.
+
+    uint8 arrays go into the byte ``data`` field, everything else into
+    ``float_data``: the reference's dtype split (io.py:66-80).
+    """
+    arr = np.asarray(arr)
+    if arr.ndim != 3:
+        raise ValueError(f"Incorrect array shape {arr.shape}; want (C, H, W)")
+    c, h, w = arr.shape
+    out = _tag(_DATUM_CHANNELS, _VARINT) + _varint(c)
+    out += _tag(_DATUM_HEIGHT, _VARINT) + _varint(h)
+    out += _tag(_DATUM_WIDTH, _VARINT) + _varint(w)
+    if arr.dtype == np.uint8:
+        out += _len_field(_DATUM_DATA, arr.tobytes())
+    else:
+        out += _len_field(_DATUM_FLOAT, np.asarray(arr, "<f4").tobytes())
+    out += _tag(_DATUM_LABEL, _VARINT) + _varint(int(label))
+    return out
+
+
+def datum_to_array(buf) -> tuple[np.ndarray, int]:
+    """Decode serialized ``Datum`` bytes to ``(array(C, H, W), label)``.
+
+    Unlike the reference (io.py:83-94, label read separately), the label is
+    returned alongside since there is no message object to hold it.
+    """
+    c = h = w = label = 0
+    raw = None
+    floats: list[np.ndarray] = []
+    for field, wt, val in _scan(buf):
+        if field == _DATUM_CHANNELS and wt == _VARINT:
+            c = val
+        elif field == _DATUM_HEIGHT and wt == _VARINT:
+            h = val
+        elif field == _DATUM_WIDTH and wt == _VARINT:
+            w = val
+        elif field == _DATUM_DATA and wt == _LEN:
+            raw = val
+        elif field == _DATUM_LABEL and wt == _VARINT:
+            # negative int32 arrives as a 64-bit two's-complement varint
+            label = val - (1 << 64) if val >= (1 << 63) else val
+        elif field == _DATUM_FLOAT:
+            if wt == _LEN:
+                floats.append(np.frombuffer(val, "<f4"))
+            else:
+                floats.append(np.frombuffer(struct.pack("<i", val), "<f4"))
+    if raw is not None:
+        arr = np.frombuffer(raw, np.uint8).reshape(c, h, w)
+    else:
+        arr = (np.concatenate(floats) if floats else np.zeros(0, np.float32)
+               ).astype(np.float32).reshape(c, h, w)
+    return arr, int(label)

@@ -47,9 +47,13 @@ set, cached).
   ``staleness_decay ** s`` (s = rounds parked); one staler than
   ``staleness_bound`` is dropped and never averaged.
 
+* **Feeds**: an active rank places its tau shards on the device (uint8
+  stays uint8); ``feed_device_fn(feeds, it)``, when set, runs on them
+  stacked ``[tau, B, ...]`` before the steps (the uint8-wire augment hook,
+  ``DeviceAugment.trainer_device_fn``: a draw per slot).
+
 Not ported: the obs membership events and round records (``_emit_member``
-is the seam, with the reference's event names; ROADMAP A13) and
-``feed_device_fn`` (the device augment hook, A9).
+is the seam, with the reference's event names; ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -255,6 +259,9 @@ class ElasticTrainer:
         self.iter = 0  # solver iterations (advances by tau a round)
         self.round = 0  # averaging rounds completed
         self.cursor = 0  # global shard ids consumed
+        # fn(feeds, it) -> feeds on the stacked [tau, B, ...] shards of an
+        # active rank, after placement, before the steps
+        self.feed_device_fn = None
 
     # -- membership --------------------------------------------------------
 
@@ -414,8 +421,16 @@ class ElasticTrainer:
             pos = self._ranks().index(self.rank)
             s = self.solver
             s.iter, s.worker = self.iter, pos
-            losses = [s.train_iteration(data_fn(int(grid[t, pos])))
+            shards = [{k: torch.as_tensor(v, device=s.device)
+                       for k, v in data_fn(int(grid[t, pos])).items()}
                       for t in range(self.tau)]
+            if self.feed_device_fn is not None:
+                stacked = self.feed_device_fn(
+                    {k: torch.stack([f[k] for f in shards]) for k in shards[0]},
+                    self.iter)
+                shards = [{k: v[t] for k, v in stacked.items()}
+                          for t in range(self.tau)]
+            losses = [s.train_iteration(f) for f in shards]
             with torch.no_grad():
                 loss = self._weighted_average(group, pos, torch.stack(losses).mean())
         self.iter += self.tau

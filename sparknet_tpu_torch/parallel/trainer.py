@@ -34,7 +34,12 @@ holding the round's loss and the state blobs.
 Feeds: each process feeds its own partition, as each Spark executor reads
 its own.  On rank r ``data_fn(it)`` returns ``[B_local, ...]`` arrays
 (``tau == 1``) or ``[tau, B_local, ...]`` (``tau > 1`` and EASGD);
-``sharding.local_shard`` cuts them from a global batch.
+``sharding.local_shard`` cuts them from a global batch.  The feeds are
+placed on the solver's device as they come (uint8 stays uint8), then
+``feed_device_fn(feeds, it)``, when set, runs on them before the round:
+the uint8-wire augment hook (``DeviceAugment.trainer_device_fn``, which
+gives each slot of a rank-5 feed its own draws).  ``test`` applies no hook,
+as in the JAX package.
 
 Dropout: rank r's Solver has ``worker = r``, so its generator is reseeded
 at every iteration from (seed, r, it) (``solvers.solver.dropout_seed``);
@@ -163,6 +168,8 @@ class ParallelTrainer:
             raise ValueError("this process is not in the trainer's group")
         self.num_workers = dist.get_world_size(self.group)
         solver.worker = self.rank
+        # fn(feeds, it) -> feeds, applied after placement, before the round
+        self.feed_device_fn = None
         if self.tau == 1 and not self._elastic:
             solver.set_reduce_grads(self._mean_grads)
         # EASGD's center: a replicated copy of the params
@@ -241,6 +248,8 @@ class ParallelTrainer:
         averaged).  Every rank must call it."""
         feeds = {k: torch.as_tensor(v, device=self.device)
                  for k, v in data_fn(self.iter).items()}
+        if self.feed_device_fn is not None:
+            feeds = self.feed_device_fn(feeds, self.iter)
         if self.tau == 1 and not self._elastic:
             loss = self.solver.train_iteration(feeds)
             return float(self._mean_loss_and_state(loss))

@@ -1,0 +1,12 @@
+"""Aux subsystems: event logging and signal control.
+
+Counterpart of ``sparknet_tpu/utils/``; ``timing``, ``log_parse``,
+``draw``, ``plotting`` and ``op_profile`` are ROADMAP Queue A9 and A13.
+"""
+
+from sparknet_tpu_torch.utils.event_log import EventLogger  # noqa: F401
+from sparknet_tpu_torch.utils.signals import (  # noqa: F401
+    SignalHandler,
+    SolverAction,
+    agree_action,
+)

@@ -30,9 +30,14 @@ serving = sorted(n for n in names if n.startswith("sparknet_tpu_torch.serve.")
                  or n == "sparknet_tpu_torch.ops.attention")
 charlm = sorted(n for n in names if n in ("sparknet_tpu_torch.data.text",
                                           "sparknet_tpu_torch.models.generate"))
+feed = sorted(n for n in names if n.startswith(("sparknet_tpu_torch.data.",
+                                                "sparknet_tpu_torch.apps.",
+                                                "sparknet_tpu_torch.utils."))
+              and n != "sparknet_tpu_torch.data.text")
 print(training)
 print(serving)
 print(charlm)
+print(feed)
 print(len(names), bad)
 """
 
@@ -42,12 +47,12 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    training, serving, charlm, last = out.stdout.strip().split("\n")[-4:]
+    training, serving, charlm, feed, last = out.stdout.strip().split("\n")[-5:]
     n, bad = last.split(" ", 1)
     assert int(n) >= 30, out.stdout
     assert bad == "[]", out.stdout
-    # the training, distributed-training, token-serving and char-LM
-    # training slices' modules are among those imported
+    # the training, distributed-training, token-serving, char-LM training
+    # and feed slices' modules are among those imported
     assert training == str(["sparknet_tpu_torch.net"] + [
         f"sparknet_tpu_torch.parallel.{m}" for m in ("elastic", "mesh", "sharding", "trainer")] + [
         f"sparknet_tpu_torch.solvers.{m}" for m in
@@ -57,6 +62,13 @@ def test_port_imports_no_jax():
         ("batcher", "continuous", "engine", "paged")]), out.stdout
     assert charlm == str(["sparknet_tpu_torch.data.text",
                           "sparknet_tpu_torch.models.generate"]), out.stdout
+    # the data plane, the apps and their utils (the feed slice)
+    assert feed == str(sorted(
+        [f"sparknet_tpu_torch.apps.{m}" for m in ("cifar_app", "imagenet_app")]
+        + [f"sparknet_tpu_torch.data.{m}" for m in
+           ("archive", "cifar", "device_transform", "io_utils", "lmdb_io", "minibatch",
+            "pipeline", "prefetch", "records", "sampler", "transform")]
+        + [f"sparknet_tpu_torch.utils.{m}" for m in ("event_log", "signals")])), out.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
