@@ -187,7 +187,32 @@ Phases, in order (any failure exits non-zero):
     of one, NCCL) on synthetic CIFAR binaries of 1,000 records a file, 2
     outer rounds and its test passes (round 0 and the end); its first
     round's loss bit for bit the mean of 10 ``Solver`` steps on the same
-    host-transformed batches from the same weights (deterministic cuDNN).
+    host-transformed batches from the same weights (deterministic cuDNN);
+22. engine: the CNN serving engine (``serve.ServeEngine``) loads
+    cifar10_quick, lenet and transformer (seeded weights) at buckets 1, 8,
+    64 and 256, one CUDA graph captured a bucket; resident and reserved
+    bytes and capture seconds a load; every bucket's replay bit for bit
+    its eager forward at the same rows (TF32 off); the transformer's
+    replay within B3's gate (rtol 1e-5, atol 1e-6) of a plain-attention
+    forward, and as many B3 launches a replay (``torch.profiler`` kernel
+    names) as MultiHeadAttention layers; the same requests across the
+    buckets within 1e-5 of max|score| (bits not promised); replay and
+    eager ms (CUDA events) and host ms a batch; through the engine, a
+    padded batch bit for bit the full one in every bucket; two captures
+    (``build_candidate``), two swaps and a rollback while a pump thread
+    (``serve_forever``) and a client thread serve: every ticket resolves,
+    0 captures on the request path, the rollback's scores bit for bit the
+    first generation's; then ``loadgen.load_run``: 504 requests over every
+    bucket on cifar10_quick and a lenet beside it, one load refused
+    through an injected fit table, 0 captures after the warm-up, p50/p99
+    and requests/s;
+23. replica: ``dryrun.replica_run`` with 2 transformer replicas on 3
+    device slots of the one card (buckets 1, 8, 64; 2,000 requests/s
+    offered for 1.5 s a leg): a kill with a known backlog (every rerouted
+    ticket resolves), a steady open-loop leg whose queue p99 stays within
+    max_wait_ms + one pump tick, a live join, kill and rollout with 0
+    dropped and 0 captures on the request path, and the continuous
+    decoder's interleaved-equals-alone gate.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -3211,10 +3236,279 @@ def phase_charlm_train(card: str) -> dict:
                 fused_update=counts[2], paged=sample["paged"], ms_per_step=ms)
 
 
+ENGINE_FAMILIES = ("cifar10_quick", "lenet", "transformer")
+ENGINE_TIMED_INNER = 5  # calls between a timing sample's two events
+
+
+def mha_layers(model) -> int:
+    """MultiHeadAttention layers in a served model's forward."""
+    from sparknet_tpu_torch.common import Phase
+    from sparknet_tpu_torch.compiler.graph import Network
+    from sparknet_tpu_torch.ops.attention import MultiHeadAttentionLayer
+
+    net = Network(model.family.net(2), Phase.TEST, device="cuda")
+    return sum(isinstance(layer, MultiHeadAttentionLayer) for layer in net.layers)
+
+
+def flash_per_replay(program) -> int:
+    """B3 launches in one replay of a bucket's CUDA graph, counted by kernel
+    name under torch.profiler (``kernels.FLASH_LAUNCHES`` counts Python
+    calls, and a replay makes none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        program.graph.replay()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "flash_forward" in e.key)
+
+
+def host_ms(fn, reps: int = REPS) -> float:
+    """Median host-clock ms of ``fn`` (which ends in a synchronisation)."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def run_locked(model, program, rows) -> np.ndarray:
+    """One direct call of a bucket's program on ``rows`` (a comparison,
+    not engine traffic: no ticket, no ledger)."""
+    with model.lock:
+        program.host_input[:] = rows
+        return program.run()
+
+
+def engine_gates(card: str, engine, rs) -> int:
+    """Per family and bucket: replay against eager bit for bit, the timings,
+    the transformer against plain attention; across buckets, the largest
+    difference against the policy's tolerance.  Returns the B3 launches a
+    transformer replay."""
+    from sparknet_tpu_torch.serve import loadgen
+
+    per_replay = None
+    for fam in ENGINE_FAMILIES:
+        m = engine._models[fam]
+        items = np.stack(loadgen.synthetic_items(m, 256, rs))
+        first = {}
+        for b, prog in m.programs.items():
+            rows = items[:prog.batch]
+            out = run_locked(m, prog, rows)
+            data = torch.from_numpy(rows).cuda()
+            eager = prog.eager(data).cpu().numpy()
+            same = np.array_equal(out, eager)
+            print(f"engine {fam} bucket {b} (exec {prog.batch} rows): replay and eager "
+                  f"{'bit for bit equal' if same else 'DIFFER'}")
+            check(same, f"engine {fam} bucket {b}: replay differs from eager")
+            first[b] = out[:2]
+            if fam == "transformer":
+                with plain_attention_core():
+                    plain = prog.eager(data).cpu().numpy()
+                err = float(np.abs(out - plain).max())
+                ok = bool(np.allclose(out, plain, rtol=1e-5, atol=1e-6))
+                print(f"engine transformer bucket {b}: replay against plain attention "
+                      f"max abs err {err:.3e} (rtol 1e-5, atol 1e-6) {'ok' if ok else 'FAIL'}")
+                check(ok, f"engine transformer bucket {b}: off plain attention")
+                n, want = flash_per_replay(prog), mha_layers(m)
+                print(f"engine transformer bucket {b}: {n} B3 launch(es) a replay "
+                      f"(MultiHeadAttention layers: {want})")
+                check(n == want, f"engine transformer bucket {b}: {n} B3 launches a replay")
+                per_replay = n
+            t_replay = time_ms(prog.graph.replay, inner=ENGINE_TIMED_INNER)
+            t_eager = time_ms(lambda: prog.eager(data), inner=ENGINE_TIMED_INNER)
+            t_host = host_ms(lambda: run_locked(m, prog, rows))
+            print(f"time engine {fam} bucket {b}: replay {t_replay:.4f} ms, eager "
+                  f"{t_eager:.4f} ms (CUDA events, median of {REPS}); host {t_host:.4f} ms "
+                  f"a batch (copy in, replay, copy out), {t_host / b:.4f} ms a request "
+                  f"at a full bucket [{card}]")
+        ref = first[min(first)]
+        scale = float(np.abs(ref).max())
+        for b, got in first.items():
+            diff = float(np.abs(got - ref).max())
+            print(f"engine {fam}: the same 2 requests in bucket {b} against bucket "
+                  f"{min(first)}: max abs diff {diff:.3e} ({diff / scale:.2e} of max|score| "
+                  f"{scale:.3e}; {'bit for bit' if diff == 0 else 'not bit for bit'})")
+            check(diff <= 1e-5 * scale, f"engine {fam} bucket {b}: across-bucket "
+                  "difference over 1e-5 of max|score|")
+    return per_replay
+
+
+def phase_engine(card: str) -> dict:
+    """The CNN serving engine on the card: three families at the full
+    bucket ladder, the gates, the load run and a hot swap and rollback
+    under live traffic."""
+    import threading
+
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve import graphs, loadgen
+    from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS, ServeEngine, percentile
+
+    rs = np.random.RandomState(SEED + 12)
+    kernels.reset_launch_counts()
+    engine = ServeEngine(SERVE_BUCKETS, max_wait_ms=5.0, device="cuda")
+    print(f"engine: budget {engine.policy.budget_bytes:,} B (90% of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory:,} B), buckets "
+          f"{SERVE_BUCKETS}")
+    transformers = []
+    for fam in ENGINE_FAMILIES:
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved()
+        m = engine.load_model(fam, family=fam, seed=SEED)
+        torch.cuda.synchronize()
+        caps = ", ".join(f"b{b} {p.capture_s:.3f}" for b, p in m.programs.items())
+        print(f"engine load {fam}: {m.measured_bytes:,} B allocated, "
+              f"{torch.cuda.memory_reserved() - reserved0:,} B more reserved (the graph "
+              f"pool's intermediates), {len(m.programs)} graphs captured in "
+              f"{m.compile_wall_s:.3f} s ({caps} s) [{card}]")
+        if fam == "transformer":
+            transformers.append(m)
+    flash_main = kernels.FLASH_LAUNCHES  # the loads' warm-ups and captured calls
+    kernels.reset_launch_counts()
+    per_replay = engine_gates(card, engine, rs)
+    kernels.reset_launch_counts()  # the gates' eager and plain forwards do not count
+
+    # within a bucket, through the engine: a padded batch equals the full one
+    for fam in ENGINE_FAMILIES:
+        m = engine._models[fam]
+        items = loadgen.synthetic_items(m, 256, rs)
+        for b in SERVE_BUCKETS[1:]:
+            full = [engine.submit(fam, it) for it in items[:b]]
+            engine.pump(force=True)
+            k = b // 2 + 1
+            padded = [engine.submit(fam, it) for it in items[:k]]
+            engine.pump(force=True)
+            check({t.bucket for t in full + padded} == {b}, f"engine {fam}: bucket {b}")
+            same = all(np.array_equal(p.result, f.result) for p, f in zip(padded, full))
+            print(f"engine {fam} bucket {b}: {k} requests padded to {b} and {b} requests, "
+                  f"each real row {'bit for bit equal' if same else 'DIFFERS'}")
+            check(same, f"engine {fam} bucket {b}: padded rows changed a real row")
+
+    # hot swap and rollback under live serve_forever traffic (transformer)
+    m0 = engine._models["transformer"]
+    items = loadgen.synthetic_items(m0, 64, rs)
+    before = [engine.infer("transformer", it) for it in items[:8]]
+    stop = threading.Event()
+    tickets = []
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            tickets.append(engine.submit("transformer", items[i % len(items)]))
+            i += 1
+            time.sleep(2e-4)
+
+    pump = threading.Thread(target=engine.serve_forever,
+                            kwargs={"until": stop.is_set, "poll_s": 0.005})
+    feeder = threading.Thread(target=client)
+    pump.start()
+    feeder.start()
+    t0 = time.perf_counter()
+    try:
+        time.sleep(0.2)
+        cand = engine.build_candidate("transformer", family="transformer", seed=SEED + 1)
+        transformers.append(cand)
+        swap1 = engine.swap_model("transformer", cand)
+        time.sleep(0.2)
+        # through the pump thread: infer's forced pump would chase the
+        # client's arrivals and never finish
+        swapped = [t.wait(timeout=60.0)
+                   for t in [engine.submit("transformer", it) for it in items[:8]]]
+        engine.rollback("transformer")
+        time.sleep(0.2)
+        cand = engine.build_candidate("transformer", family="transformer", seed=SEED + 2)
+        transformers.append(cand)
+        swap2 = engine.swap_model("transformer", cand)
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        feeder.join(timeout=30.0)
+        pump.join(timeout=30.0)
+    engine.pump(force=True)  # what the feeder queued after the pump's last sweep
+    for t in tickets:
+        t.wait(timeout=60.0)
+    live_s = time.perf_counter() - t0
+    check(not pump.is_alive() and not feeder.is_alive(), "engine: a thread did not stop")
+    errors = sum(t.error is not None for t in tickets)
+    engine.rollback("transformer")
+    rolled = [engine.infer("transformer", it) for it in items[:8]]
+    bitwise = all(np.array_equal(a, b) for a, b in zip(rolled, before))
+    moved = not all(np.array_equal(a, b) for a, b in zip(swapped, before))
+    print(f"engine swap under live traffic: {len(tickets)} tickets in {live_s:.2f} s, "
+          f"{sum(t.done() for t in tickets)} resolved, {errors} errors, dropped "
+          f"{sum(not t.done() for t in tickets)}; swaps drained {swap1['drained']} and "
+          f"{swap2['drained']} tickets in {swap1['swap_wall_s'] * 1e3:.2f} / "
+          f"{swap2['swap_wall_s'] * 1e3:.2f} ms; request-path captures "
+          f"{engine.serve_path_compiles}; new weights moved the scores: {moved}; "
+          f"rollback scores bit for bit the first generation's: {bitwise}")
+    check(all(t.done() for t in tickets) and errors == 0, "engine: a ticket dropped")
+    check(engine.serve_path_compiles == 0, "engine: a capture on the request path")
+    check(bitwise and moved, "engine: rollback scores differ")
+    total = [x for m in transformers for x in m.lat_total_ms]
+    queue = [x for m in transformers for x in m.lat_queue_ms]
+    print(f"engine transformer, every generation's requests ({len(total)}): p50 "
+          f"{percentile(total, 50):.3f} ms, p99 {percentile(total, 99):.3f} ms, queue p50 "
+          f"{percentile(queue, 50):.3f} ms, p99 {percentile(queue, 99):.3f} ms; the live "
+          f"leg {len(tickets) / live_s:.1f} requests/s through two captures, two swaps and "
+          f"a rollback [{card}]")
+    replays = sum(m.batches for m in transformers)
+    flash_main += kernels.FLASH_LAUNCHES + replays * per_replay
+    engine.shutdown()
+    del engine, transformers, m0, cand
+    gc.collect()
+
+    # the 504-request load run: every bucket, two resident models, one
+    # refusal through an injected table, no capture after the warm-up
+    captures0 = graphs.capture_count()
+    s = loadgen.load_run(device="cuda", log=lambda msg: print(f"load_run: {msg}"))
+    print(f"load_run: {s['requests']} requests, {s['resolved']} resolved, {s['batches']} "
+          f"batches, buckets {s['buckets_exercised']}, captures after the warm-up "
+          f"{s['compiles_post_warmup']} (request path {s['serve_path_compiles']}), "
+          f"refused {s['refused']}; p50 {s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, "
+          f"{s['rps']:.1f} requests/s over {s['wall_s']:.3f} s [{card}]")
+    for name, ms in s["stats"].items():
+        print(f"load_run {name} ({ms['family']}): {ms['requests']} requests in "
+              f"{ms['batches']} batches, p50 {ms['p50_ms']:.3f} ms, p99 "
+              f"{ms['p99_ms']:.3f} ms, queue p50 {ms['queue_p50_ms']:.3f} ms, p99 "
+              f"{ms['queue_p99_ms']:.3f} ms, device p50 {ms['device_p50_ms']:.3f} ms, "
+              f"{ms['measured_bytes']:,} B resident [{card}]")
+    check(s["requests"] == s["resolved"] == 504, "load_run: a request did not resolve")
+    check(s["compiles_post_warmup"] == s["serve_path_compiles"] == 0,
+          "load_run: a capture after the warm-up")
+    check(s["refused"], "load_run: the over-budget load was admitted")
+    check(s["buckets_exercised"] == list(SERVE_BUCKETS), "load_run: a bucket not used")
+    check(graphs.capture_count() - captures0 == 8, "load_run: not 8 captures at load")
+    return {"flash": flash_main, "per_replay": per_replay}
+
+
+def phase_replica(card: str, per_replay: int) -> dict:
+    """``replica_run`` on three device slots of the one card."""
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve.dryrun import replica_run
+
+    kernels.reset_launch_counts()
+    s = replica_run(replicas=2, family="transformer", buckets=(1, 8, 64),
+                    max_wait_ms=25.0, rate=2000.0, seconds=1.5, backlog=40, seed=SEED,
+                    devices=["cuda:0"] * 3, log=lambda msg: print(f"replica: {msg}"))
+    print(f"replica: faults {s['faults_fired']}, width {s['replicas_start']} -> "
+          f"{s['replicas_end']}; {s['requests']} requests in {s['batches']} batches, "
+          f"{s['shed']} shed; rerouted {s['rerouted']} ({s['rerouted_deterministic']} "
+          f"at the known-backlog kill, all resolved: {s['kill_resolved']}); dropped "
+          f"{s['dropped']} (pod ledger {s['pod_dropped']}); request-path captures "
+          f"{s['serve_path_compiles']}; steady queue p99 {s['queue_p99_ms']:.3f} ms "
+          f"against a bound of {s['queue_bound_ms']:.1f} ms; total p99 "
+          f"{s['p99_ms']:.3f} ms; continuous decoder interleaved == alone: "
+          f"{s['continuous_exact']}, slots reused: {s['slot_churn']}; "
+          f"{s['wall_s']:.2f} s [{card}]")
+    check(s["ok"], "replica_run: a gate failed")
+    return {"flash": kernels.FLASH_LAUNCHES + s["batches"] * per_replay}
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
           "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
-          "charlm_train")
+          "charlm_train", "engine", "replica")
 
 
 def main(argv=None) -> int:
@@ -3324,6 +3618,15 @@ def main(argv=None) -> int:
         launches["fused_update"] += charlm["fused_update"]
         launches["paged_attention"] += charlm["paged"]
         lap("charlm_train")
+    per_replay = 1  # the transformer family's one MultiHeadAttention layer
+    if "engine" in phases:
+        eng = phase_engine(card)
+        launches["flash_attention"] += eng["flash"]
+        per_replay = eng["per_replay"]
+        lap("engine")
+    if "replica" in phases:
+        launches["flash_attention"] += phase_replica(card, per_replay)["flash"]
+        lap("replica")
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0
@@ -3358,7 +3661,9 @@ def main(argv=None) -> int:
         # requests, the AlexNet and CaffeNet train steps, the trainer's
         # rounds, the elastic rounds, the fed AlexNet steps and rounds, the
         # CifarApp run, the paged token run and the rectangle run, the char
-        # LM's timed training steps and its sampling), each counted from 0
+        # LM's timed training steps and its sampling, the serving engine's
+        # loads, traffic and swaps and the replica run: Python calls plus
+        # graph replays x B3 launches a replay), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -11,7 +11,9 @@ from sparknet_tpu_torch.models.classifier import Classifier  # noqa: F401
 from sparknet_tpu_torch.models.deploy import DeployNet  # noqa: F401
 from sparknet_tpu_torch.models.generate import generate_chars  # noqa: F401
 from sparknet_tpu_torch.models.zoo import (  # noqa: F401
+    GRAPH_SWEEP_FAMILIES,
     DecodeSpec,
+    GraphFamily,
     alexnet,
     alexnet_solver,
     build_decode_step,

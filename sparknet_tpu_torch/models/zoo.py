@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -350,6 +351,47 @@ def charlm_solver() -> SolverConfig:
         max_iter=2000, solver_type="Adam", display=100,
     )
 
+
+# ---------------------------------------------------------------------------
+# The families the serving engine serves (the JAX package's graph-sweep set)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class GraphFamily:
+    """One zoo family as the serving engine (and the JAX graph-contract
+    sweep) builds it."""
+
+    solver: Any  # () -> SolverConfig
+    net: Any  # (batch: int) -> Message
+    feed: str  # "image" | "tokens"
+    num_classes: int
+    image_shape: tuple = ()  # (C, H, W) for image feeds
+    seq_len: int = 0  # for token feeds
+    vocab: int = 0
+
+
+def _mobilenet_not_ported(*_args):
+    raise NotImplementedError(
+        "the mobilenet family needs BatchNorm, Scale and depthwise "
+        "convolution, which are not ported yet (ROADMAP Queue A10)")
+
+
+GRAPH_SWEEP_FAMILIES: dict[str, GraphFamily] = {
+    "cifar10_quick": GraphFamily(
+        solver=cifar10_quick_solver, net=lambda b: cifar10_quick(b),
+        feed="image", num_classes=10, image_shape=(3, 32, 32)),
+    "lenet": GraphFamily(
+        solver=lenet_solver, net=lambda b: lenet(b),
+        feed="image", num_classes=10, image_shape=(1, 28, 28)),
+    "transformer": GraphFamily(
+        solver=transformer_solver,
+        net=lambda b: transformer(b, seq_len=32, vocab=32, embed_dim=16,
+                                  heads=4, ffn_dim=32, blocks=1),
+        feed="tokens", num_classes=10, seq_len=32, vocab=32),
+    # listed as in the JAX package; building it raises, naming A10
+    "mobilenet": GraphFamily(
+        solver=_mobilenet_not_ported, net=_mobilenet_not_ported,
+        feed="image", num_classes=5, image_shape=(3, 64, 64)),
+}
 
 # ---------------------------------------------------------------------------
 # Cached per-token decode over a block-paged K/V pool.

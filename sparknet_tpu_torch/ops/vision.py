@@ -10,9 +10,6 @@ STOCHASTIC pooling, Im2col and SPP are ROADMAP Queue A10.
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -67,18 +64,20 @@ class Convolution(Layer):
         return LayerOutput([y])
 
 
-@functools.lru_cache(maxsize=64)
-def _ave_pool_divisor(h: int, w: int, kh: int, kw: int, sh: int, sw: int, ph: int, pw: int):
+def _ave_pool_divisor(h: int, w: int, kh: int, kw: int, sh: int, sw: int, ph: int, pw: int,
+                      device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """Caffe AVE-pool divisor: window size measured in *padded* coordinates,
     clipped at (H+pad, W+pad) — includes padding on the leading edge
-    (ref: pooling_layer.cpp Forward_cpu AVE branch)."""
+    (ref: pooling_layer.cpp Forward_cpu AVE branch).  Computed on
+    ``device`` (small integers, exact in any float type), so a forward
+    copies nothing from the host, which a CUDA graph capture would refuse."""
     oh = pool_out_dim(h, kh, ph, sh)
     ow = pool_out_dim(w, kw, pw, sw)
-    hs = np.arange(oh) * sh - ph
-    ws = np.arange(ow) * sw - pw
-    hlen = np.minimum(hs + kh, h + ph) - hs
-    wlen = np.minimum(ws + kw, w + pw) - ws
-    return np.outer(hlen, wlen).astype(np.float32)
+    hs = torch.arange(oh, device=device) * sh - ph
+    ws = torch.arange(ow, device=device) * sw - pw
+    hlen = torch.clamp(hs + kh, max=h + ph) - hs
+    wlen = torch.clamp(ws + kw, max=w + pw) - ws
+    return torch.outer(hlen, wlen).to(dtype)
 
 
 def _pool_pads(x, kernel, stride, pad):
@@ -100,8 +99,8 @@ def caffe_avg_pool(x, kernel, stride, pad):
     a window sum over the zero-padded map divided by ``_ave_pool_divisor``."""
     summed = F.avg_pool2d(F.pad(x, _pool_pads(x, kernel, stride, pad)),
                           kernel, stride, divisor_override=1)
-    div = _ave_pool_divisor(x.shape[2], x.shape[3], *kernel, *stride, *pad)
-    return summed / torch.from_numpy(div).to(device=x.device, dtype=x.dtype)
+    return summed / _ave_pool_divisor(x.shape[2], x.shape[3], *kernel, *stride, *pad,
+                                      x.device, x.dtype)
 
 
 def caffe_max_pool(x, kernel, stride, pad):

@@ -1,8 +1,55 @@
-"""Token serving of the sequence models on a torch device.
+"""Request serving on a torch device: the CNN engine and the token decoders.
 
-Counterpart of ``sparknet_tpu/serve/``, the token-serving part so far:
-``paged.PagedDecoder`` (greedy generation over a block-paged K/V cache:
-flash-attention prefill, paged-attention decode), its cacheless twin
-``continuous.ContinuousDecoder``, and ``paged.TokenRouter`` over decoder
-replicas.  The CNN ``ServeEngine`` and its batcher are ROADMAP Queue A7.
+Counterpart of ``sparknet_tpu/serve/``:
+
+* ``engine.ServeEngine``: several zoo models resident at once, each load
+  priced against the device's memory (``residency.AdmissionPolicy``) and
+  captured as one forward CUDA graph per batch bucket (``graphs``), single
+  requests coalesced by the ``batcher.DynamicBatcher`` (smallest fitting
+  bucket, deadline and full-bucket flushes, deadline-aware shedding), hot
+  swap and rollback with zero dropped tickets.
+* ``router.ReplicaRouter``: K engine replicas on a pool of device slots,
+  join-shortest-projected-wait routing, kill/join with zero-drop
+  re-routing, sequential rollout; ``loadgen`` (arrival schedules, the
+  load run, the pod run) and ``dryrun.replica_run`` (the fault plan under
+  load) drive them.
+* ``paged.PagedDecoder`` (greedy generation over a block-paged K/V cache:
+  flash-attention prefill, paged-attention decode), its cacheless twin
+  ``continuous.ContinuousDecoder``, and ``paged.TokenRouter``.
+
+Not ported yet: the engine's ``fold_bn`` and ``int8`` deploy arms (ROADMAP
+Queue A4), the ``mobilenet`` family (A10), and the obs journal and the
+SLO controller (A13); each raises or is left out, naming its item.
 """
+
+from sparknet_tpu_torch.serve.batcher import DynamicBatcher, Ticket
+from sparknet_tpu_torch.serve.continuous import ContinuousDecoder
+from sparknet_tpu_torch.serve.engine import (
+    AdmissionRefused,
+    ServeEngine,
+    ServedModel,
+    build_serve_program,
+)
+from sparknet_tpu_torch.serve.graphs import BucketProgram
+from sparknet_tpu_torch.serve.residency import (
+    AdmissionPolicy,
+    load_fit_table,
+    price_residency,
+)
+from sparknet_tpu_torch.serve.router import Replica, ReplicaRouter
+
+__all__ = [
+    "AdmissionPolicy",
+    "AdmissionRefused",
+    "BucketProgram",
+    "ContinuousDecoder",
+    "DynamicBatcher",
+    "Replica",
+    "ReplicaRouter",
+    "ServeEngine",
+    "ServedModel",
+    "Ticket",
+    "build_serve_program",
+    "load_fit_table",
+    "price_residency",
+]

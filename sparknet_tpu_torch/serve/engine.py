@@ -1,15 +1,112 @@
-"""Admission refusal and the latency percentile of the serving plane.
+"""The serving engine: per-bucket CUDA graphs and priced multi-model residency.
 
-Counterpart of ``sparknet_tpu/serve/engine.py``, ``AdmissionRefused`` and
-``percentile`` only.  ``ServeEngine`` (the CNN request engine) is ROADMAP
-Queue A7.
+Counterpart of ``sparknet_tpu/serve/engine.py``.  One ``ServeEngine``
+holds several zoo models resident at once.  Loading a model (a) prices its
+worst-case bucket footprint against a batch-fit table and REFUSES a load
+that would not fit the device's usable memory (``serve/residency.py``),
+then (b) captures one forward CUDA graph per batch bucket
+(``serve/graphs.py``), the counterpart of the JAX engine's AOT
+executables, so steady-state traffic never captures anything.
+
+Request flow: ``submit`` -> per-model ``DynamicBatcher`` -> a flush
+(bucket-full or ``max_wait_ms`` deadline) -> zero-padded assembly into the
+smallest fitting bucket -> one graph replay -> per-row results.  Each
+bucket executes at ``exec_batch(bucket) = max(bucket, EXEC_FLOOR)`` rows.
+
+Exactness policy (ROADMAP Queue C item 3).  The JAX engine promises that
+row i of any bucket is bit-identical to a batch-1 run.  The port promises
+less, and says what it measured:
+
+* **Within a bucket, bit for bit.**  A padded batch and a full batch in
+  the same bucket give each real row the same bits: the eval forwards of
+  the served families have no op across examples, and one bucket always
+  runs at one shape, so cuBLAS and cuDNN pick the same kernels.
+* **Replay against eager, bit for bit**, at the same ``exec_batch``, with
+  TF32 and ``cudnn.benchmark`` off (``serve/graphs.py``).
+* **Across buckets, not promised.**  cuBLAS picks its GEMM by row count
+  and cuDNN may pick a convolution algorithm by batch, so the same request
+  in bucket 1 (2 rows) and bucket 256 may differ in last bits.
+  ``chip_smoke.py`` measures the largest difference across the four
+  buckets on the card and PERF.md states it; on the CPU with one intra-op
+  thread the tests state what holds there.
+
+Hot reload: ``build_candidate`` captures a replacement's whole bucket
+ladder on the CALLER's thread (a rollout builder, never the request path),
+then ``swap_model`` replaces the incumbent atomically under the engine's
+pump lock and drains the incumbent's pending tickets with the incumbent's
+OWN graphs (zero dropped tickets).  The retired model stays resident for
+one generation, graphs and all, so ``rollback`` restores it: same object,
+same graphs, bitwise-identical scores.  ``serve_path_compiles`` counts
+graph captures made on the request path (per thread, so a concurrent
+builder's captures do not count): zero after load, swaps included.
+
+What is not ported here: the ``fold_bn`` and ``int8`` deploy arms raise,
+naming ROADMAP Queue A4 (they need A10's BatchNorm and the int8
+convolution); the ``mobilenet`` family raises, naming A10; the obs journal
+(``rec.emit`` events, fenced spans, lineage, the recompile sentinel) is
+A13 and is left out: the latency ledgers and ``stats()`` carry the
+numbers.  The engine defaults to CUDA (``device=None``) and raises without
+a card; a CPU engine (the tests) must be given ``hbm_bytes``.
+
+ref: apps/FeaturizerApp.scala:1 (the reference's batch-scoring inference
+app).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import threading
+import time
 
-__all__ = ["AdmissionRefused", "percentile"]
+import numpy as np
+import torch
+
+from sparknet_tpu_torch.common import Phase, resolve_device
+from sparknet_tpu_torch.serve.batcher import DynamicBatcher, Ticket
+from sparknet_tpu_torch.serve.graphs import BucketProgram, thread_capture_count
+from sparknet_tpu_torch.serve.residency import AdmissionPolicy
+
+__all__ = [
+    "EXEC_FLOOR",
+    "SERVE_BUCKETS",
+    "SHED_TICK_MS",
+    "AdmissionRefused",
+    "ServeEngine",
+    "ServedModel",
+    "build_serve_program",
+    "exec_batch",
+    "percentile",
+]
+
+# the bucket ladder: 1 (pure-latency floor), 8 (trickle), 64 (steady),
+# 256 (the throughput batch).  Four graphs keep load time and per-model
+# residency small.
+SERVE_BUCKETS = (1, 8, 64, 256)
+
+# the 1-bucket executes at a batch of 2 (one permanently-zero pad row), as
+# in the JAX engine: a one-row product may take a gemv whose order of sums
+# differs from the batched GEMM's
+EXEC_FLOOR = 2
+
+
+def exec_batch(bucket: int) -> int:
+    """The batch a bucket's program actually runs at."""
+    return max(int(bucket), EXEC_FLOOR)
+
+
+# one pump tick (ms): the grace the shed gate adds on top of max_wait_ms
+# (a flush decision is at most one scheduling tick away)
+SHED_TICK_MS = 15.0
+
+_ARMS = ("f32", "fold_bn", "int8")
+
+
+def _check_arm(arm: str) -> None:
+    if arm not in _ARMS:
+        raise ValueError(f"unknown arm {arm!r}; one of {_ARMS}")
+    if arm != "f32":
+        raise NotImplementedError(
+            f"the {arm} deploy arm needs fold_bn/quant and BatchNorm, which are "
+            "not ported yet (ROADMAP Queue A4)")
 
 
 class AdmissionRefused(RuntimeError):
@@ -24,6 +121,486 @@ class AdmissionRefused(RuntimeError):
             f"{verdict['predicted_bytes']:,} B next to "
             f"{verdict['resident_bytes']:,} B resident — over the "
             f"{verdict['budget_bytes']:,} B usable-memory budget")
+
+
+# ---------------------------------------------------------------------------
+# Forward-program construction
+# ---------------------------------------------------------------------------
+
+
+def _score_blob(network) -> str:
+    """The blob the engine returns per request: the first loss/accuracy
+    layer's non-label bottom (every zoo classifier wires ``score, label ->
+    loss``), else the net's last declared output."""
+    for layer in network.layers:
+        if "label" in layer.bottoms:
+            return next(b for b in layer.bottoms if b != "label")
+    return network.output_blobs()[-1]
+
+
+def _end_layer(network, blob: str) -> str:
+    """The last layer producing ``blob``: where the serve forward stops
+    (in-place chains rebind a blob several times)."""
+    name = None
+    for layer in network.layers:
+        if blob in layer.tops:
+            name = layer.name
+    if name is None:
+        raise ValueError(f"no layer produces blob {blob!r}")
+    return name
+
+
+def _forward_fn(network, blob: str, end: str):
+    def forward(variables, feeds):
+        with torch.no_grad():
+            blobs, _, _ = network.apply(variables, feeds, train=False, end=end)
+        return blobs[blob]
+    return forward
+
+
+def _family(family_name: str):
+    from sparknet_tpu_torch.models.zoo import GRAPH_SWEEP_FAMILIES
+
+    if family_name not in GRAPH_SWEEP_FAMILIES:
+        raise KeyError(
+            f"unknown zoo family {family_name!r}; serveable families: "
+            f"{sorted(GRAPH_SWEEP_FAMILIES)}")
+    return GRAPH_SWEEP_FAMILIES[family_name]
+
+
+def _synthetic_feeds(family, batch: int, seed: int = 0) -> dict:
+    """Batcher-shaped synthetic feeds, NCHW: the JAX package's
+    ``parallel/modes._feeds_for`` (same draws from the same seed)."""
+    rs = np.random.RandomState(seed)
+    if family.feed == "tokens":
+        data = rs.randint(0, family.vocab, (batch, family.seq_len)).astype(np.int32)
+    else:
+        data = rs.randn(batch, *family.image_shape).astype(np.float32) * 10
+    label = rs.randint(0, family.num_classes, batch).astype(np.int32)
+    return {"data": data, "label": label}
+
+
+def build_serve_program(family_name: str = "cifar10_quick", bucket: int = 1,
+                        seed: int = 0, device=None):
+    """The f32 forward the engine runs for one bucket: ``(fn, variables,
+    feeds, alt_feeds)``, ``fn(variables, feeds)`` the score blob at
+    ``exec_batch(bucket)`` rows, the seeded weights on ``device``, and two
+    feeds of that shape with different values."""
+    from sparknet_tpu_torch.compiler.graph import Network
+
+    device = resolve_device(device)
+    family = _family(family_name)
+    batch = exec_batch(bucket)
+    network = Network(family.net(batch), Phase.TEST, device=device)
+    variables = network.init(torch.Generator().manual_seed(seed))
+    blob = _score_blob(network)
+    fn = _forward_fn(network, blob, _end_layer(network, blob))
+
+    def feeds(s: int) -> dict:
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in _synthetic_feeds(family, batch, s).items()}
+
+    return fn, variables, feeds(seed), feeds(seed + 1)
+
+
+# ---------------------------------------------------------------------------
+# Served model: weights + one captured program per bucket
+# ---------------------------------------------------------------------------
+
+
+class ServedModel:
+    """One resident model: its weights on the engine's device, one
+    :class:`~sparknet_tpu_torch.serve.graphs.BucketProgram` per bucket, and
+    its own request batcher.
+
+    ``variables`` injects trained weights (a ``NetVars``, e.g. from
+    ``interop.netvars_from_numpy``), copied onto the device; the default is
+    the seeded init.  ``version``/``previous`` are the hot-reload lineage
+    the engine maintains.  ``measured_bytes`` is the device memory the
+    load took (``torch.cuda.memory_allocated`` before and after, weights,
+    static buffers and graph outputs included, and on a device's first
+    load the capture stream's cuBLAS workspace; None on the CPU).
+    """
+
+    def __init__(self, name: str, family_name: str, arm: str, buckets: tuple,
+                 max_wait_ms: float, clock, predicted_bytes: int, seed: int = 0,
+                 variables=None, device=None):
+        from sparknet_tpu_torch.compiler.graph import Network, NetVars
+
+        _check_arm(arm)
+        self.name = name
+        self.family_name = family_name
+        self.arm = arm
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.predicted_bytes = int(predicted_bytes)
+        self.device = resolve_device(device)
+        self.batcher = DynamicBatcher(self.buckets, max_wait_ms, clock)
+        self.version = 0
+        self.previous: ServedModel | None = None
+        # serialises this model's replays: the programs' static buffers (and
+        # the graph pool they share) take one batch at a time
+        self.lock = threading.Lock()
+
+        family = _family(family_name)
+        self.family = family
+        if family.feed == "tokens":
+            self.item_shape: tuple = (family.seq_len,)
+            self.item_dtype = np.int32
+        else:
+            self.item_shape = tuple(family.image_shape)
+            self.item_dtype = np.float32
+
+        cuda = self.device.type == "cuda"
+        mem0 = torch.cuda.memory_allocated(self.device) if cuda else 0
+        base = Network(family.net(self.buckets[0]), Phase.TEST, device=self.device)
+        if variables is None:
+            self.variables = base.init(torch.Generator().manual_seed(seed))
+        else:
+            # a copy the model owns: a joining replica copies the live
+            # weights, it does not share them
+            self.variables = NetVars(
+                params={ln: [torch.as_tensor(p).to(self.device, copy=True) for p in pl]
+                        for ln, pl in variables.params.items()},
+                state={ln: {k: torch.as_tensor(v).to(self.device, copy=True)
+                            for k, v in s.items()}
+                       for ln, s in variables.state.items()})
+        self.score_blob = _score_blob(base)
+
+        pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.programs: dict[int, BucketProgram] = {}
+        t0 = time.perf_counter()
+        for bucket in self.buckets:
+            net_b = Network(family.net(exec_batch(bucket)), Phase.TEST, device=self.device)
+            fn = _forward_fn(net_b, self.score_blob, _end_layer(net_b, self.score_blob))
+            self.programs[bucket] = BucketProgram(
+                lambda data, label, fn=fn: fn(self.variables, {"data": data, "label": label}),
+                self.item_shape, self.item_dtype, exec_batch(bucket), self.device, pool)
+        self.compile_wall_s = time.perf_counter() - t0
+        self.measured_bytes = (torch.cuda.memory_allocated(self.device) - mem0
+                               if cuda else None)
+
+        # per-request latencies (ms, host clock)
+        self.lat_total_ms: list[float] = []
+        self.lat_queue_ms: list[float] = []
+        self.lat_device_ms: list[float] = []
+        self.requests = 0
+        self.batches = 0
+        self.padded_rows = 0
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+
+class ServeEngine:
+    """Multi-model serving front end: priced loads, dynamic batching,
+    per-bucket graph execution, per-request latency ledgers.
+
+    ``clock`` is injectable (batcher deadline tests drive a fake one); the
+    device walls always come from ``time.perf_counter``.  ``fit_table`` is
+    the batch-fit table admission prices against (None: admit
+    everything); ``hbm_bytes`` the device memory it budgets (default: the
+    card's; required on the CPU).
+    """
+
+    def __init__(self, buckets: tuple = SERVE_BUCKETS, max_wait_ms: float = 5.0, *,
+                 fit_table: dict | None = None, hbm_bytes: int | None = None,
+                 clock=time.monotonic, device=None):
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.max_wait_ms = float(max_wait_ms)
+        self.clock = clock
+        self.device = resolve_device(device)
+        if hbm_bytes is None:
+            if self.device.type != "cuda":
+                raise ValueError("hbm_bytes: pass the memory to price admission "
+                                 "against when not on CUDA")
+            hbm_bytes = torch.cuda.get_device_properties(self.device).total_memory
+        self.policy = AdmissionPolicy(fit_table, hbm_bytes=hbm_bytes)
+        self._models: dict[str, ServedModel] = {}
+        self._resident_bytes = 0
+        self._closed = False
+        # the pump lock: makes a hot swap atomic against submits (a ticket
+        # lands either in the retiring model's queue, drained by the swap,
+        # or in the candidate's, never in a drained queue).  Execution runs
+        # outside it, under the model's own lock.
+        self._lock = threading.RLock()
+        # graph captures made on the request path (per thread): zero after
+        # load, rollouts included
+        self.serve_path_compiles = 0
+        self.shed_total = 0
+
+    # -- model lifecycle ---------------------------------------------------
+
+    def resident_bytes(self) -> int:
+        return self._resident_bytes
+
+    def models(self) -> list[str]:
+        return list(self._models)
+
+    def _admit(self, family: str, buckets: tuple) -> dict:
+        verdict = self.policy.admit(family, buckets[-1], self._resident_bytes)
+        if not verdict["fits"]:
+            raise AdmissionRefused(verdict)
+        return verdict
+
+    def load_model(self, name: str, family: str = "cifar10_quick", arm: str = "f32",
+                   buckets: tuple | None = None, seed: int = 0,
+                   variables=None) -> ServedModel:
+        """Price, maybe refuse, else capture every bucket.  The refusal
+        happens before any device work.  ``variables`` seeds the load with
+        existing weights instead of the seed init (a joining replica copies
+        the live weights, ``serve/router.py``)."""
+        _check_arm(arm)
+        if name in self._models:
+            raise ValueError(f"model {name!r} already resident")
+        buckets = tuple(sorted(set(buckets or self.buckets)))
+        verdict = self._admit(family, buckets)
+        model = ServedModel(name, family, arm, buckets, self.max_wait_ms, self.clock,
+                            verdict["predicted_bytes"], seed=seed,
+                            variables=variables, device=self.device)
+        with self._lock:
+            self._models[name] = model
+            self._resident_bytes += model.predicted_bytes
+        return model
+
+    def unload_model(self, name: str) -> None:
+        with self._lock:
+            model = self._models.pop(name)
+            self._resident_bytes -= model.predicted_bytes
+            if model.previous is not None:
+                self._resident_bytes -= model.previous.predicted_bytes
+                model.previous = None
+        model.batcher.close(drain=False)
+
+    # -- hot reload --------------------------------------------------------
+
+    def build_candidate(self, name: str, family: str = "cifar10_quick",
+                        arm: str = "f32", buckets: tuple | None = None,
+                        variables=None, seed: int = 0) -> ServedModel:
+        """Capture a replacement for resident model ``name`` OFF the request
+        path, on the caller's thread, before anything touches the live
+        engine.  Priced first against the CURRENT resident set (the
+        incumbent stays resident through the rollback window, so both
+        generations must fit); an over-budget candidate raises
+        :class:`AdmissionRefused` and the incumbent is untouched."""
+        _check_arm(arm)
+        if name not in self._models:
+            raise ValueError(f"no resident model {name!r} to replace — use "
+                             "load_model for the first generation")
+        buckets = tuple(sorted(set(buckets or self.buckets)))
+        verdict = self._admit(family, buckets)
+        return ServedModel(name, family, arm, buckets, self.max_wait_ms, self.clock,
+                           verdict["predicted_bytes"], seed=seed,
+                           variables=variables, device=self.device)
+
+    def swap_model(self, name: str, candidate: ServedModel) -> dict:
+        """Atomically replace resident model ``name`` with a captured
+        ``candidate`` (from :meth:`build_candidate`).  Under the pump lock
+        the routing flips and the incumbent's pending tickets are taken;
+        then they execute with the incumbent's OWN graphs.  The incumbent
+        is kept as ``candidate.previous`` (one rollback generation; the
+        grandparent retires and its bytes are released).  Returns swap
+        telemetry."""
+        t0 = time.perf_counter()
+        with self._lock:
+            old = self._models[name]
+            grand, old.previous = old.previous, None
+            candidate.version = old.version + 1
+            candidate.previous = old
+            self._models[name] = candidate
+            self._resident_bytes += candidate.predicted_bytes
+            if grand is not None:
+                self._resident_bytes -= grand.predicted_bytes
+            stale = old.batcher.drain()
+        drained = 0
+        for batch in stale:
+            self._execute(old, batch)
+            drained += len(batch)
+        return {"version": candidate.version, "drained": drained,
+                "swap_wall_s": time.perf_counter() - t0}
+
+    def rollback(self, name: str) -> ServedModel:
+        """Restore the previous generation of resident model ``name``: the
+        SAME ``ServedModel`` the last swap retired, graphs and weights
+        untouched, so its scores are bitwise the pre-rollout scores.  The
+        rolled-back candidate's pending tickets drain through its own
+        graphs first."""
+        with self._lock:
+            cur = self._models[name]
+            prev = cur.previous
+            if prev is None:
+                raise RuntimeError(f"model {name!r} has no previous generation to "
+                                   "roll back to")
+            cur.previous = None
+            self._models[name] = prev
+            self._resident_bytes -= cur.predicted_bytes
+            stale = cur.batcher.drain()
+        for batch in stale:
+            self._execute(cur, batch)
+        return prev
+
+    # -- request path ------------------------------------------------------
+
+    def _item(self, model: ServedModel, item) -> np.ndarray:
+        item = np.asarray(item, model.item_dtype)
+        if item.shape != model.item_shape:
+            raise ValueError(f"request shape {item.shape} != model item shape "
+                             f"{model.item_shape}")
+        return item
+
+    def submit(self, model_name: str, item, *, shed: bool = False) -> Ticket | None:
+        """Enqueue one request (one example, item-shaped).  Holds the pump
+        lock across lookup + enqueue so a concurrent hot swap can never
+        strand the ticket in an already-drained queue.  ``shed=True``
+        routes through the batcher's deadline-aware admission: a request
+        whose projected queue wait exceeds ``max_wait_ms`` + one pump tick
+        is rejected (None, counted on ``shed_total``)."""
+        with self._lock:
+            model = self._models[model_name]
+            item = self._item(model, item)
+            if not shed:
+                return model.batcher.submit(item)
+            ticket = model.batcher.shed(item, tick_ms=SHED_TICK_MS)
+            if ticket is None:
+                self.shed_total += 1
+            return ticket
+
+    def submit_many(self, model_name: str, items: list, *,
+                    shed: bool = False) -> tuple[list, int]:
+        """The whole arrival chunk under ONE pump-lock acquisition and one
+        batcher lock (batcher ``submit_many``).  Returns ``(tickets,
+        shed_n)``."""
+        with self._lock:
+            model = self._models[model_name]
+            payloads = [self._item(model, item) for item in items]
+            tickets, n_shed = model.batcher.submit_many(payloads, shed=shed,
+                                                        tick_ms=SHED_TICK_MS)
+            self.shed_total += n_shed
+        return tickets, n_shed
+
+    def infer(self, model_name: str, item, timeout: float | None = 60.0):
+        """Synchronous single request: submit, flush now, return the scores.
+        It pumps one batch a model at a time until its own ticket resolves
+        (the JAX engine drains every queue, which never ends while another
+        thread keeps submitting)."""
+        ticket = self.submit(model_name, item)
+        while not ticket.done() and self.pump(force=True, max_batches=1):
+            pass
+        return ticket.wait(timeout)
+
+    def pump(self, force: bool = False, max_batches: int | None = None) -> int:
+        """Execute every model's due batches on the caller's thread; returns
+        the number of batches executed.  ``max_batches`` caps the batches
+        taken PER MODEL (a pod pump sweeping several replicas passes 1: an
+        uncapped drain of a continuously-fed queue never exits)."""
+        executed = 0
+        for model in list(self._models.values()):
+            taken = 0
+            while max_batches is None or taken < max_batches:
+                # take and run under the model's lock: whoever retires the
+                # model's ledger (a swap, a kill) waits for a taken batch
+                with model.lock:
+                    batch = model.batcher.take(force=force)
+                    if batch is None:
+                        break
+                    self._run(model, batch)
+                taken += 1
+            executed += taken
+        return executed
+
+    def serve_forever(self, until=None, poll_s: float = 0.05) -> int:
+        """Worker loop: block on flush deadlines, execute batches, exit when
+        ``until()`` goes truthy or the engine shuts down.  Returns batches
+        executed."""
+        executed = 0
+        while not self._closed and not (until and until()):
+            models = list(self._models.values())
+            if not models:
+                time.sleep(poll_s)
+            for model in models:
+                if model.batcher.wait_due(timeout=poll_s):
+                    executed += self.pump()
+                    break
+        return executed
+
+    def shutdown(self) -> int:
+        """Drain: every in-flight request is executed before the engine
+        stops accepting work.  Returns requests served during the drain."""
+        self._closed = True
+        drained = 0
+        for model in list(self._models.values()):
+            for batch in model.batcher.close(drain=True):
+                self._execute(model, batch)
+                drained += len(batch)
+        return drained
+
+    # -- execution ---------------------------------------------------------
+
+    def _execute(self, model: ServedModel, tickets: list) -> None:
+        """One padded-bucket replay under the model's lock; resolves every
+        ticket and records its latencies."""
+        with model.lock:
+            self._run(model, tickets)
+
+    def _run(self, model: ServedModel, tickets: list) -> None:
+        """:meth:`_execute`'s body; the caller holds ``model.lock`` (the
+        programs' static buffers take one batch at a time)."""
+        bucket = tickets[0].bucket
+        program = model.programs[bucket]
+        captures0 = thread_capture_count()
+        asm0 = time.perf_counter()
+        data = program.host_input
+        for i, t in enumerate(tickets):
+            data[i] = t.payload
+        data[len(tickets):] = 0
+        asm_ms = (time.perf_counter() - asm0) * 1e3
+        dev0 = time.perf_counter()
+        try:
+            out = program.run()
+        except Exception as e:
+            for t in tickets:
+                t.resolve(error=e)
+            raise
+        device_ms = (time.perf_counter() - dev0) * 1e3
+        now = self.clock()
+        model.batches += 1
+        model.padded_rows += bucket - len(tickets)
+        for i, t in enumerate(tickets):
+            t.t_done = now
+            queue_ms = max(0.0, (t.t_batch - t.t_submit) * 1e3)
+            t.resolve(result=out[i])
+            model.requests += 1
+            model.lat_total_ms.append(queue_ms + asm_ms + device_ms)
+            model.lat_queue_ms.append(queue_ms)
+            model.lat_device_ms.append(device_ms)
+        delta = thread_capture_count() - captures0
+        if delta:
+            with self._lock:
+                self.serve_path_compiles += delta
+
+    # -- telemetry ---------------------------------------------------------
+
+    def stats(self) -> dict:
+        """Per-model latency/throughput roll-up (host-clock walls)."""
+        out: dict = {}
+        for name, model in self._models.items():
+            out[name] = {
+                "family": model.family_name,
+                "arm": model.arm,
+                "buckets": list(model.buckets),
+                "requests": model.requests,
+                "batches": model.batches,
+                "padded_rows": model.padded_rows,
+                "predicted_bytes": model.predicted_bytes,
+                "measured_bytes": model.measured_bytes,
+                "p50_ms": percentile(model.lat_total_ms, 50),
+                "p99_ms": percentile(model.lat_total_ms, 99),
+                "queue_p50_ms": percentile(model.lat_queue_ms, 50),
+                "queue_p99_ms": percentile(model.lat_queue_ms, 99),
+                "device_p50_ms": percentile(model.lat_device_ms, 50),
+            }
+        return out
 
 
 def percentile(values: list, q: float) -> float:

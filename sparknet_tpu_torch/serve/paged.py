@@ -49,20 +49,16 @@ from sparknet_tpu_torch.ops.kernels import kernel_head_dim
 from sparknet_tpu_torch.serve.batcher import Ticket
 from sparknet_tpu_torch.serve.continuous import charlm_network
 from sparknet_tpu_torch.serve.engine import AdmissionRefused, percentile
+from sparknet_tpu_torch.serve.residency import HBM_USABLE_FRAC
 
 __all__ = [
     "BlockPool",
-    "HBM_USABLE_FRAC",
     "PagedDecoder",
     "PoolExhausted",
     "TokenRouter",
     "capacity_ratio",
     "pool_bytes",
 ]
-
-# share of the device's memory a decoder may plan to fill (the JAX
-# package's analysis/mem_model.HBM_USABLE_FRAC)
-HBM_USABLE_FRAC = 0.90
 
 
 class PoolExhausted(RuntimeError):

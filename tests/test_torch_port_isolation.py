@@ -59,7 +59,8 @@ def test_port_imports_no_jax():
         ("arena", "lr_policy", "solver", "updates")]), out.stdout
     assert serving == str(["sparknet_tpu_torch.ops.attention"] + [
         f"sparknet_tpu_torch.serve.{m}" for m in
-        ("batcher", "continuous", "engine", "paged")]), out.stdout
+        ("batcher", "continuous", "dryrun", "engine", "graphs", "loadgen", "paged",
+         "residency", "router")]), out.stdout
     assert charlm == str(["sparknet_tpu_torch.data.text",
                           "sparknet_tpu_torch.models.generate"]), out.stdout
     # the data plane, the apps and their utils (the feed slice)
