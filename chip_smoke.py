@@ -195,7 +195,9 @@ Phases, in order (any failure exits non-zero):
     its eager forward at the same rows (TF32 off); the transformer's
     replay within B3's gate (rtol 1e-5, atol 1e-6) of a plain-attention
     forward, and as many B3 launches a replay (``torch.profiler`` kernel
-    names) as MultiHeadAttention layers; the same requests across the
+    names) as MultiHeadAttention layers; B3's main-path launches (the
+    loads, the traffic and swaps) are the kernels the profiler saw run,
+    held against the wrapper's calls less captured ones plus replays; the same requests across the
     buckets within 1e-5 of max|score| (bits not promised); replay and
     eager ms (CUDA events) and host ms a batch; through the engine, a
     padded batch bit for bit the full one in every bucket; two captures
@@ -212,7 +214,8 @@ Phases, in order (any failure exits non-zero):
     ticket resolves), a steady open-loop leg whose queue p99 stays within
     max_wait_ms + one pump tick, a live join, kill and rollout with 0
     dropped and 0 captures on the request path, and the continuous
-    decoder's interleaved-equals-alone gate.
+    decoder's interleaved-equals-alone gate; B3's launches counted as in
+    22.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -3250,17 +3253,45 @@ def mha_layers(model) -> int:
     return sum(isinstance(layer, MultiHeadAttentionLayer) for layer in net.layers)
 
 
+def device_profile():
+    """A torch.profiler context that records the card's kernels, on every
+    thread, graph replays included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def flash_kernels(prof) -> int:
+    """B3 kernels that ran on the card in a profiled window, by kernel name."""
+    return sum(e.count for e in prof.key_averages() if "flash_forward" in e.key)
+
+
 def flash_per_replay(program) -> int:
     """B3 launches in one replay of a bucket's CUDA graph, counted by kernel
     name under torch.profiler (``kernels.FLASH_LAUNCHES`` counts Python
     calls, and a replay makes none)."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         program.graph.replay()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if "flash_forward" in e.key)
+    return flash_kernels(prof)
+
+
+def flash_window(label: str, prof, captures: int, replays: int, per_replay: int) -> int:
+    """The B3 kernels the profiler saw run in a window of the main path,
+    held against the wrapper's count: its Python calls, less those a
+    capture recorded without running them (``captures`` transformer graphs,
+    ``per_replay`` calls each), plus what ``replays`` graph replays ran."""
+    from sparknet_tpu_torch.ops import kernels
+
+    n = flash_kernels(prof)
+    calls = kernels.FLASH_LAUNCHES
+    want = calls - captures * per_replay + replays * per_replay
+    print(f"{label}: B3 ran {n} times on the card (torch.profiler); the wrapper's "
+          f"{calls} calls less {captures} captures x {per_replay} plus {replays} "
+          f"replays x {per_replay} give {want}")
+    check(n == want, f"{label}: B3 ran {n} times, the accounting gives {want}")
+    return n
 
 
 def host_ms(fn, reps: int = REPS) -> float:
@@ -3346,93 +3377,103 @@ def phase_engine(card: str) -> dict:
     from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS, ServeEngine, percentile
 
     rs = np.random.RandomState(SEED + 12)
-    kernels.reset_launch_counts()
     engine = ServeEngine(SERVE_BUCKETS, max_wait_ms=5.0, device="cuda")
     print(f"engine: budget {engine.policy.budget_bytes:,} B (90% of the card's "
           f"{torch.cuda.get_device_properties(0).total_memory:,} B), buckets "
           f"{SERVE_BUCKETS}")
     transformers = []
-    for fam in ENGINE_FAMILIES:
-        torch.cuda.synchronize()
-        reserved0 = torch.cuda.memory_reserved()
-        m = engine.load_model(fam, family=fam, seed=SEED)
-        torch.cuda.synchronize()
-        caps = ", ".join(f"b{b} {p.capture_s:.3f}" for b, p in m.programs.items())
-        print(f"engine load {fam}: {m.measured_bytes:,} B allocated, "
-              f"{torch.cuda.memory_reserved() - reserved0:,} B more reserved (the graph "
-              f"pool's intermediates), {len(m.programs)} graphs captured in "
-              f"{m.compile_wall_s:.3f} s ({caps} s) [{card}]")
-        if fam == "transformer":
-            transformers.append(m)
-    flash_main = kernels.FLASH_LAUNCHES  # the loads' warm-ups and captured calls
+    # B3 on the main path: the loads, then the traffic and swaps, each a
+    # profiled window counted from 0 (the gates between them do not count)
     kernels.reset_launch_counts()
+    with device_profile() as prof:
+        for fam in ENGINE_FAMILIES:
+            torch.cuda.synchronize()
+            reserved0 = torch.cuda.memory_reserved()
+            m = engine.load_model(fam, family=fam, seed=SEED)
+            torch.cuda.synchronize()
+            caps = ", ".join(f"b{b} {p.capture_s:.3f}" for b, p in m.programs.items())
+            print(f"engine load {fam}: {m.measured_bytes:,} B allocated, "
+                  f"{torch.cuda.memory_reserved() - reserved0:,} B more reserved (the "
+                  f"graph pool's intermediates), {len(m.programs)} graphs captured in "
+                  f"{m.compile_wall_s:.3f} s ({caps} s) [{card}]")
+            if fam == "transformer":
+                transformers.append(m)
+    per_layer = mha_layers(transformers[0])
+    flash_main = flash_window("engine loads", prof, len(transformers[0].programs), 0,
+                              per_layer)
     per_replay = engine_gates(card, engine, rs)
-    kernels.reset_launch_counts()  # the gates' eager and plain forwards do not count
+    kernels.reset_launch_counts()
+    with device_profile() as prof:
+        # within a bucket, through the engine: a padded batch equals the full one
+        for fam in ENGINE_FAMILIES:
+            m = engine._models[fam]
+            items = loadgen.synthetic_items(m, 256, rs)
+            for b in SERVE_BUCKETS[1:]:
+                full = [engine.submit(fam, it) for it in items[:b]]
+                engine.pump(force=True)
+                k = b // 2 + 1
+                padded = [engine.submit(fam, it) for it in items[:k]]
+                engine.pump(force=True)
+                check({t.bucket for t in full + padded} == {b}, f"engine {fam}: bucket {b}")
+                same = all(np.array_equal(p.result, f.result) for p, f in zip(padded, full))
+                print(f"engine {fam} bucket {b}: {k} requests padded to {b} and {b} requests, "
+                      f"each real row {'bit for bit equal' if same else 'DIFFERS'}")
+                check(same, f"engine {fam} bucket {b}: padded rows changed a real row")
 
-    # within a bucket, through the engine: a padded batch equals the full one
-    for fam in ENGINE_FAMILIES:
-        m = engine._models[fam]
-        items = loadgen.synthetic_items(m, 256, rs)
-        for b in SERVE_BUCKETS[1:]:
-            full = [engine.submit(fam, it) for it in items[:b]]
-            engine.pump(force=True)
-            k = b // 2 + 1
-            padded = [engine.submit(fam, it) for it in items[:k]]
-            engine.pump(force=True)
-            check({t.bucket for t in full + padded} == {b}, f"engine {fam}: bucket {b}")
-            same = all(np.array_equal(p.result, f.result) for p, f in zip(padded, full))
-            print(f"engine {fam} bucket {b}: {k} requests padded to {b} and {b} requests, "
-                  f"each real row {'bit for bit equal' if same else 'DIFFERS'}")
-            check(same, f"engine {fam} bucket {b}: padded rows changed a real row")
+        # hot swap and rollback under live serve_forever traffic (transformer)
+        m0 = engine._models["transformer"]
+        items = loadgen.synthetic_items(m0, 64, rs)
+        before = [engine.infer("transformer", it) for it in items[:8]]
+        stop = threading.Event()
+        tickets = []
 
-    # hot swap and rollback under live serve_forever traffic (transformer)
-    m0 = engine._models["transformer"]
-    items = loadgen.synthetic_items(m0, 64, rs)
-    before = [engine.infer("transformer", it) for it in items[:8]]
-    stop = threading.Event()
-    tickets = []
+        def client():
+            i = 0
+            while not stop.is_set():
+                tickets.append(engine.submit("transformer", items[i % len(items)]))
+                i += 1
+                time.sleep(2e-4)
 
-    def client():
-        i = 0
-        while not stop.is_set():
-            tickets.append(engine.submit("transformer", items[i % len(items)]))
-            i += 1
-            time.sleep(2e-4)
-
-    pump = threading.Thread(target=engine.serve_forever,
-                            kwargs={"until": stop.is_set, "poll_s": 0.005})
-    feeder = threading.Thread(target=client)
-    pump.start()
-    feeder.start()
-    t0 = time.perf_counter()
-    try:
-        time.sleep(0.2)
-        cand = engine.build_candidate("transformer", family="transformer", seed=SEED + 1)
-        transformers.append(cand)
-        swap1 = engine.swap_model("transformer", cand)
-        time.sleep(0.2)
-        # through the pump thread: infer's forced pump would chase the
-        # client's arrivals and never finish
-        swapped = [t.wait(timeout=60.0)
-                   for t in [engine.submit("transformer", it) for it in items[:8]]]
+        pump = threading.Thread(target=engine.serve_forever,
+                                kwargs={"until": stop.is_set, "poll_s": 0.005})
+        feeder = threading.Thread(target=client)
+        pump.start()
+        feeder.start()
+        t0 = time.perf_counter()
+        try:
+            time.sleep(0.2)
+            cand = engine.build_candidate("transformer", family="transformer",
+                                          seed=SEED + 1)
+            transformers.append(cand)
+            swap1 = engine.swap_model("transformer", cand)
+            time.sleep(0.2)
+            # through the pump thread: infer's forced pump would chase the
+            # client's arrivals and never finish
+            swapped = [t.wait(timeout=60.0)
+                       for t in [engine.submit("transformer", it) for it in items[:8]]]
+            engine.rollback("transformer")
+            time.sleep(0.2)
+            cand = engine.build_candidate("transformer", family="transformer", seed=SEED + 2)
+            transformers.append(cand)
+            swap2 = engine.swap_model("transformer", cand)
+            time.sleep(0.2)
+        finally:
+            stop.set()
+            feeder.join(timeout=30.0)
+            pump.join(timeout=30.0)
+        engine.pump(force=True)  # what the feeder queued after the pump's last sweep
+        for t in tickets:
+            t.wait(timeout=60.0)
+        live_s = time.perf_counter() - t0
+        check(not pump.is_alive() and not feeder.is_alive(), "engine: a thread did not stop")
+        errors = sum(t.error is not None for t in tickets)
         engine.rollback("transformer")
-        time.sleep(0.2)
-        cand = engine.build_candidate("transformer", family="transformer", seed=SEED + 2)
-        transformers.append(cand)
-        swap2 = engine.swap_model("transformer", cand)
-        time.sleep(0.2)
-    finally:
-        stop.set()
-        feeder.join(timeout=30.0)
-        pump.join(timeout=30.0)
-    engine.pump(force=True)  # what the feeder queued after the pump's last sweep
-    for t in tickets:
-        t.wait(timeout=60.0)
-    live_s = time.perf_counter() - t0
-    check(not pump.is_alive() and not feeder.is_alive(), "engine: a thread did not stop")
-    errors = sum(t.error is not None for t in tickets)
-    engine.rollback("transformer")
-    rolled = [engine.infer("transformer", it) for it in items[:8]]
+        rolled = [engine.infer("transformer", it) for it in items[:8]]
+        torch.cuda.synchronize()
+    replays = sum(m.batches for m in transformers)
+    flash_main += flash_window("engine traffic and swaps", prof,
+                               sum(len(m.programs) for m in transformers[1:]), replays,
+                               per_replay)
     bitwise = all(np.array_equal(a, b) for a, b in zip(rolled, before))
     moved = not all(np.array_equal(a, b) for a, b in zip(swapped, before))
     print(f"engine swap under live traffic: {len(tickets)} tickets in {live_s:.2f} s, "
@@ -3451,9 +3492,7 @@ def phase_engine(card: str) -> dict:
           f"{percentile(total, 50):.3f} ms, p99 {percentile(total, 99):.3f} ms, queue p50 "
           f"{percentile(queue, 50):.3f} ms, p99 {percentile(queue, 99):.3f} ms; the live "
           f"leg {len(tickets) / live_s:.1f} requests/s through two captures, two swaps and "
-          f"a rollback [{card}]")
-    replays = sum(m.batches for m in transformers)
-    flash_main += kernels.FLASH_LAUNCHES + replays * per_replay
+          f"a rollback, under torch.profiler [{card}]")
     engine.shutdown()
     del engine, transformers, m0, cand
     gc.collect()
@@ -3485,12 +3524,17 @@ def phase_engine(card: str) -> dict:
 def phase_replica(card: str, per_replay: int) -> dict:
     """``replica_run`` on three device slots of the one card."""
     from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve import graphs
     from sparknet_tpu_torch.serve.dryrun import replica_run
 
     kernels.reset_launch_counts()
-    s = replica_run(replicas=2, family="transformer", buckets=(1, 8, 64),
-                    max_wait_ms=25.0, rate=2000.0, seconds=1.5, backlog=40, seed=SEED,
-                    devices=["cuda:0"] * 3, log=lambda msg: print(f"replica: {msg}"))
+    captures0 = graphs.capture_count()
+    with device_profile() as prof:
+        s = replica_run(replicas=2, family="transformer", buckets=(1, 8, 64),
+                        max_wait_ms=25.0, rate=2000.0, seconds=1.5, backlog=40,
+                        seed=SEED, devices=["cuda:0"] * 3,
+                        log=lambda msg: print(f"replica: {msg}"))
+        torch.cuda.synchronize()
     print(f"replica: faults {s['faults_fired']}, width {s['replicas_start']} -> "
           f"{s['replicas_end']}; {s['requests']} requests in {s['batches']} batches, "
           f"{s['shed']} shed; rerouted {s['rerouted']} ({s['rerouted_deterministic']} "
@@ -3500,9 +3544,10 @@ def phase_replica(card: str, per_replay: int) -> dict:
           f"against a bound of {s['queue_bound_ms']:.1f} ms; total p99 "
           f"{s['p99_ms']:.3f} ms; continuous decoder interleaved == alone: "
           f"{s['continuous_exact']}, slots reused: {s['slot_churn']}; "
-          f"{s['wall_s']:.2f} s [{card}]")
-    check(s["ok"], "replica_run: a gate failed")
-    return {"flash": kernels.FLASH_LAUNCHES + s["batches"] * per_replay}
+          f"{s['wall_s']:.2f} s, under torch.profiler [{card}]")
+    check(s["ok"], f"replica_run: a gate failed ({s['gates']})")
+    return {"flash": flash_window("replica", prof, graphs.capture_count() - captures0,
+                                  s["batches"], per_replay)}
 
 
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
@@ -3662,8 +3707,9 @@ def main(argv=None) -> int:
         # rounds, the elastic rounds, the fed AlexNet steps and rounds, the
         # CifarApp run, the paged token run and the rectangle run, the char
         # LM's timed training steps and its sampling, the serving engine's
-        # loads, traffic and swaps and the replica run: Python calls plus
-        # graph replays x B3 launches a replay), each counted from 0
+        # loads, traffic and swaps and the replica run: there, the B3
+        # kernels torch.profiler saw run, graph replays included and
+        # captures excluded), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -64,20 +64,42 @@ class Convolution(Layer):
         return LayerOutput([y])
 
 
+_AVE_DIVISORS: dict = {}
+
+
 def _ave_pool_divisor(h: int, w: int, kh: int, kw: int, sh: int, sw: int, ph: int, pw: int,
                       device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """Caffe AVE-pool divisor: window size measured in *padded* coordinates,
     clipped at (H+pad, W+pad) — includes padding on the leading edge
-    (ref: pooling_layer.cpp Forward_cpu AVE branch).  Computed on
-    ``device`` (small integers, exact in any float type), so a forward
-    copies nothing from the host, which a CUDA graph capture would refuse."""
+    (ref: pooling_layer.cpp Forward_cpu AVE branch).
+
+    Built on ``device`` (small integers, exact in any float type), so a
+    forward copies nothing from the host, which a CUDA graph capture would
+    refuse; and cached per geometry, device and type, so a forward after
+    the first launches nothing for it.  The cached tensor is made outside
+    inference mode (autograd saves it for the backward, and an inference
+    tensor cannot be saved) and, on the card, only outside a capture (a
+    tensor made in a capture is written only when the graph replays) and
+    after its stream has finished writing it (another stream may read it
+    next)."""
+    key = (h, w, kh, kw, sh, sw, ph, pw, device, dtype)
+    div = _AVE_DIVISORS.get(key)
+    if div is not None:
+        return div
     oh = pool_out_dim(h, kh, ph, sh)
     ow = pool_out_dim(w, kw, pw, sw)
-    hs = torch.arange(oh, device=device) * sh - ph
-    ws = torch.arange(ow, device=device) * sw - pw
-    hlen = torch.clamp(hs + kh, max=h + ph) - hs
-    wlen = torch.clamp(ws + kw, max=w + pw) - ws
-    return torch.outer(hlen, wlen).to(dtype)
+    with torch.inference_mode(False):
+        hs = torch.arange(oh, device=device) * sh - ph
+        ws = torch.arange(ow, device=device) * sw - pw
+        hlen = torch.clamp(hs + kh, max=h + ph) - hs
+        wlen = torch.clamp(ws + kw, max=w + pw) - ws
+        div = torch.outer(hlen, wlen).to(dtype)
+    if div.is_cuda:
+        if torch.cuda.is_current_stream_capturing():
+            return div
+        torch.cuda.current_stream(device).synchronize()
+    _AVE_DIVISORS[key] = div
+    return div
 
 
 def _pool_pads(x, kernel, stride, pad):

@@ -20,7 +20,10 @@ journal.  One deterministic run against a live K-replica pool:
    churning neighbours gives the SAME greedy continuation as decoded
    alone (``ContinuousDecoder``, which runs eagerly and captures nothing).
 
-Returns the gate summary; ``ok`` is the conjunction of every gate.
+Returns the summary; ``gates`` holds each gate's verdict and ``ok`` their
+conjunction.  Every gate but ``queue_p99`` is deterministic; that one is
+read on the host clock, so it holds only where the pump thread is not
+starved of a core.
 """
 
 from __future__ import annotations
@@ -173,8 +176,13 @@ def replica_run(replicas: int = 4, family: str = "transformer", arm: str = "f32"
         "slot_churn": churn.stats()["admitted"] > churn.slots,
         "wall_s": time.perf_counter() - t_start,
     }
-    summary["ok"] = bool(
-        dropped == 0 and rerouted > 0 and kill_resolved
-        and len(fired) == 3 and summary["serve_path_compiles"] == 0
-        and queue_p99 <= bound_ms and continuous_exact and summary["slot_churn"])
+    summary["gates"] = {
+        "kill_reroute": rerouted > 0 and kill_resolved,
+        "no_drop": dropped == 0,
+        "faults_fired": len(fired) == 3,
+        "no_request_path_capture": summary["serve_path_compiles"] == 0,
+        "queue_p99": queue_p99 <= bound_ms,  # a host-clock bound
+        "continuous_exact": continuous_exact and summary["slot_churn"],
+    }
+    summary["ok"] = all(summary["gates"].values())
     return summary

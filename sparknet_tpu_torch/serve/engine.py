@@ -36,9 +36,12 @@ then ``swap_model`` replaces the incumbent atomically under the engine's
 pump lock and drains the incumbent's pending tickets with the incumbent's
 OWN graphs (zero dropped tickets).  The retired model stays resident for
 one generation, graphs and all, so ``rollback`` restores it: same object,
-same graphs, bitwise-identical scores.  ``serve_path_compiles`` counts
-graph captures made on the request path (per thread, so a concurrent
-builder's captures do not count): zero after load, swaps included.
+same graphs, bitwise-identical scores.  ``serve_path_compiles`` is the
+graph captures made on the request path, and it is zero by construction:
+only ``BucketProgram``'s constructor captures (a load, a candidate build,
+a replica join), and the request path (``submit``, ``pump``,
+``_execute``) constructs none.  It stays as the JAX engine's gate, which
+there counts lazy recompiles that a CUDA graph cannot have.
 
 What is not ported here: the ``fold_bn`` and ``int8`` deploy arms raise,
 naming ROADMAP Queue A4 (they need A10's BatchNorm and the int8
@@ -62,7 +65,7 @@ import torch
 
 from sparknet_tpu_torch.common import Phase, resolve_device
 from sparknet_tpu_torch.serve.batcher import DynamicBatcher, Ticket
-from sparknet_tpu_torch.serve.graphs import BucketProgram, thread_capture_count
+from sparknet_tpu_torch.serve.graphs import BucketProgram
 from sparknet_tpu_torch.serve.residency import AdmissionPolicy
 
 __all__ = [
@@ -325,8 +328,8 @@ class ServeEngine:
         # or in the candidate's, never in a drained queue).  Execution runs
         # outside it, under the model's own lock.
         self._lock = threading.RLock()
-        # graph captures made on the request path (per thread): zero after
-        # load, rollouts included
+        # graph captures made on the request path: 0 by construction (the
+        # module docstring), kept as the JAX engine's gate
         self.serve_path_compiles = 0
         self.shed_total = 0
 
@@ -548,7 +551,6 @@ class ServeEngine:
         programs' static buffers take one batch at a time)."""
         bucket = tickets[0].bucket
         program = model.programs[bucket]
-        captures0 = thread_capture_count()
         asm0 = time.perf_counter()
         data = program.host_input
         for i, t in enumerate(tickets):
@@ -574,10 +576,6 @@ class ServeEngine:
             model.lat_total_ms.append(queue_ms + asm_ms + device_ms)
             model.lat_queue_ms.append(queue_ms)
             model.lat_device_ms.append(device_ms)
-        delta = thread_capture_count() - captures0
-        if delta:
-            with self._lock:
-                self.serve_path_compiles += delta
 
     # -- telemetry ---------------------------------------------------------
 

@@ -46,9 +46,10 @@ Capture rules this module keeps:
 * **No host synchronisation inside the forward** of the served families
   (no ``.item()``/``.cpu()`` in ``ops/`` or ``compiler/graph.py``).
 
-Captures are counted, in total and per thread (:func:`capture_count`,
-:func:`thread_capture_count`): the engine's ``serve_path_compiles`` is the
-captures its request path made, zero by construction after load.
+Captures are counted process-wide (:func:`capture_count`).  Only the
+:class:`BucketProgram` constructor captures, and the engine's request path
+constructs none, so a replay can never trigger a capture: unlike a lazily
+recompiling ``jax.jit``, a CUDA graph is recorded once or not at all.
 """
 
 from __future__ import annotations
@@ -60,47 +61,19 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["BucketProgram", "capture_count", "thread_capture_count"]
+__all__ = ["BucketProgram", "capture_count"]
 
 # eager forwards on the capture stream before a capture
 WARMUP_FORWARDS = 2
 
 _CAPTURE_LOCK = threading.Lock()
 _CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}  # under the lock
-
-
-class _CaptureLedger:
-    """Graph captures made in this process, in total and per thread."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._total = 0
-        self._local = threading.local()
-
-    def note(self) -> None:
-        with self._lock:
-            self._total += 1
-        self._local.n = getattr(self._local, "n", 0) + 1
-
-    def total(self) -> int:
-        with self._lock:
-            return self._total
-
-    def thread(self) -> int:
-        return getattr(self._local, "n", 0)
-
-
-_LEDGER = _CaptureLedger()
+_CAPTURES = 0  # under the lock
 
 
 def capture_count() -> int:
     """CUDA graph captures made in this process, on every thread."""
-    return _LEDGER.total()
-
-
-def thread_capture_count() -> int:
-    """CUDA graph captures made on the calling thread."""
-    return _LEDGER.thread()
+    return _CAPTURES
 
 
 @contextlib.contextmanager
@@ -151,6 +124,7 @@ class BucketProgram:
             self._capture(pool)
 
     def _capture(self, pool) -> None:
+        global _CAPTURES
         t0 = time.perf_counter()
         with _CAPTURE_LOCK, _capture_settings():
             stream = _CAPTURE_STREAMS.get(self.device)
@@ -166,10 +140,10 @@ class BucketProgram:
                                   capture_error_mode="thread_local"):
                 out = self._forward(self.data, self.label)
             stream.synchronize()
+            _CAPTURES += 1
         self.graph, self.out = graph, out
         self._host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         self.capture_s = time.perf_counter() - t0
-        _LEDGER.note()
 
     def run(self) -> np.ndarray:
         """The forward of ``host_input``: copied to the device, the graph

@@ -8,10 +8,10 @@ the model loads and a one-batch-per-bucket warm-up (every load captures
 its buckets by design; what must be zero is captures caused by traffic).
 
 The refusal is priced through an injected fit table: no table is banked
-for the card (``serve/residency.py``), so unless the caller passes one,
-``load_run`` injects :func:`over_budget_table`, one row that prices the
-refusal family at twice the engine's budget, and leaves the served
-families unpriced (admitted).  ``pod_run``'s SLO controller
+for the card (``serve/residency.py``), so ``load_run`` builds its engine
+with :func:`over_budget_table`, one row that prices the refusal family
+above any device's memory, and leaves the served families unpriced
+(admitted).  ``pod_run``'s SLO controller
 (``controller=True``) is ROADMAP Queue A13 and raises.
 
 ref: apps/ImageNetRunDBApp.scala:1 (the reference's synthetic-drive
@@ -77,11 +77,11 @@ def burst_plan(requests: int = 504, buckets: tuple = SERVE_BUCKETS) -> list[int]
     return plan
 
 
-def over_budget_table(family: str, budget_bytes: int) -> dict:
-    """A one-row fit table pricing ``family`` at twice ``budget_bytes`` at
-    any batch: an injected refusal, not a measurement."""
+def over_budget_table(family: str) -> dict:
+    """A one-row fit table pricing ``family`` at 1 EiB at any batch, more
+    than any device holds: an injected refusal, not a measurement."""
     return {"families": {family: {"f32": {
-        "c0": 2 * int(budget_bytes), "c1": 0, "params_bytes": 0, "slots_bytes": 0}}}}
+        "c0": 1 << 60, "c1": 0, "params_bytes": 0, "slots_bytes": 0}}}}
 
 
 def pod_run(replicas: int = 2, family: str = "transformer", arm: str = "f32",
@@ -157,8 +157,7 @@ def load_run(requests: int = 504, family: str = "cifar10_quick", arm: str = "f32
              extra_models: tuple = (("aux", "lenet", "f32"),),
              buckets: tuple = SERVE_BUCKETS, max_wait_ms: float = 5.0,
              refusal_family: str | None = "resnet50", seed: int = 0, log=None,
-             device=None, hbm_bytes: int | None = None,
-             fit_table: dict | None = None) -> dict:
+             device=None, hbm_bytes: int | None = None) -> dict:
     """The closed-loop load run.  Returns a summary dict;
     ``compiles_post_warmup`` (the capture ledger's delta over the traffic
     phase) must be 0."""
@@ -167,11 +166,9 @@ def load_run(requests: int = 504, family: str = "cifar10_quick", arm: str = "f32
         if log:
             log(msg)
 
-    engine = ServeEngine(buckets=buckets, max_wait_ms=max_wait_ms,
+    fit_table = over_budget_table(refusal_family) if refusal_family else None
+    engine = ServeEngine(buckets=buckets, max_wait_ms=max_wait_ms, fit_table=fit_table,
                          hbm_bytes=hbm_bytes, device=device)
-    if fit_table is None and refusal_family:
-        fit_table = over_budget_table(refusal_family, engine.policy.budget_bytes)
-    engine.policy.fit_table = fit_table
     say(f"loading primary ({family}/{arm}), capturing {len(engine.buckets)} "
         "bucket(s) ...")
     primary = engine.load_model("primary", family=family, arm=arm, seed=seed)

@@ -103,6 +103,29 @@ def test_global_pooling(rng, pool):
         [], [x])
 
 
+def test_ave_pool_divisor_cached_across_inference_and_autograd(rng):
+    """The AVE divisor is cached per geometry; a first forward under
+    inference mode (serving) must leave a divisor that a later autograd
+    forward (training) can save for its backward, with the same bits."""
+    from sparknet_tpu_torch.ops import vision
+
+    x = torch.from_numpy(rng.randn(2, 3, 13, 10).astype(np.float32))
+    args = ((3, 2), (2, 2), (1, 1))
+    key = (13, 10, 3, 2, 2, 2, 1, 1, x.device, x.dtype)
+    vision._AVE_DIVISORS.pop(key, None)
+    fresh = x.clone().requires_grad_()
+    vision.caffe_avg_pool(fresh, *args).sum().backward()
+    vision._AVE_DIVISORS.pop(key, None)
+    with torch.inference_mode():
+        served = vision.caffe_avg_pool(x, *args)
+    assert key in vision._AVE_DIVISORS
+    xg = x.clone().requires_grad_()
+    trained = vision.caffe_avg_pool(xg, *args)
+    trained.sum().backward()
+    assert torch.equal(trained.detach(), served)
+    assert torch.equal(xg.grad, fresh.grad)
+
+
 @pytest.mark.parametrize("slope", [0.0, 0.1])
 def test_relu(rng, slope):
     x = rng.randn(3, 4, 5, 5).astype(np.float32)

@@ -294,7 +294,7 @@ def test_priced_loads_refused_admitted_and_released():
 
 
 def test_over_budget_refusal_through_an_injected_table():
-    table = loadgen.over_budget_table("resnet50", 16 << 30)
+    table = loadgen.over_budget_table("resnet50")
     engine = ServeEngine(fit_table=table, **CPU)
     with pytest.raises(AdmissionRefused, match="over the") as ei:
         engine.load_model("big", family="resnet50", buckets=(1, 8, 64, 256))
