@@ -17,7 +17,11 @@ Beside each kernel:
   ``FUSED_UPDATE_LAUNCHES``, ``FLASH_LAUNCHES``,
   ``FLASH_BACKWARD_LAUNCHES``, ``PAGED_LAUNCHES``),
   raised by one at each launch and nowhere else, so a run can show that
-  its path went through the kernel.
+  its path went through the kernel.  A call inside a CUDA graph capture
+  launches nothing: it records a node of the graph, which each replay
+  launches.  The capturer opens :func:`recording_launches` around the
+  capture, which takes those calls off the counts, and adds what it
+  recorded at each replay (:func:`add_launches`).
 
 Kernels ported so far, all from ``sparknet_tpu/ops/pallas_kernels.py``:
 
@@ -37,6 +41,7 @@ Kernels ported so far, all from ``sparknet_tpu/ops/pallas_kernels.py``:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -44,6 +49,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -78,6 +84,42 @@ def reset_launch_counts() -> None:
     global FLASH_LAUNCHES, FLASH_BACKWARD_LAUNCHES, PAGED_LAUNCHES
     LRN_LAUNCHES = LRN_BACKWARD_LAUNCHES = FUSED_UPDATE_LAUNCHES = 0
     FLASH_LAUNCHES = FLASH_BACKWARD_LAUNCHES = PAGED_LAUNCHES = 0
+
+
+# the launches a CUDA graph capture open on this thread has recorded
+_RECORDING = threading.local()
+
+
+def _count(name: str) -> None:
+    """One launch of the kernel whose count is ``name``, or, while
+    :func:`recording_launches` is open on this thread, one node of the
+    graph being captured."""
+    recorded = getattr(_RECORDING, "counts", None)
+    if recorded is None:
+        globals()[name] += 1
+    else:
+        recorded[name] = recorded.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Open around a CUDA graph capture on this thread: the wrappers' calls
+    on this thread record into the yielded dict (count name -> calls), the
+    launches each replay of the graph makes, and not into the counts.
+    Other threads count as before."""
+    recorded: dict[str, int] = {}
+    _RECORDING.counts = recorded
+    try:
+        yield recorded
+    finally:
+        _RECORDING.counts = None
+
+
+def add_launches(recorded: dict[str, int]) -> None:
+    """Count the launches one replay of a graph makes (what
+    :func:`recording_launches` gave for its capture)."""
+    for name, n in recorded.items():
+        globals()[name] += n
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +316,6 @@ def _lrn_cuda_checks(x: torch.Tensor, size: int, what: str) -> ctypes.CDLL:
 
 def _lrn_forward_cuda(x: torch.Tensor, size: int, alpha: float, beta: float,
                       k: float) -> torch.Tensor:
-    global LRN_LAUNCHES
     lib = _lrn_cuda_checks(x, size, "lrn_across_channels")
     y = torch.empty_like(x)
     b, c, h, w = x.shape
@@ -284,13 +325,12 @@ def _lrn_forward_cuda(x: torch.Tensor, size: int, alpha: float, beta: float,
             x.data_ptr(), y.data_ptr(), b, c, h * w, size, alpha / size, beta,
             k, int(x.dtype == torch.bfloat16), stream)
     _check_launch(lib, err, "lrn_across_channels")
-    LRN_LAUNCHES += 1
+    _count("LRN_LAUNCHES")
     return y
 
 
 def _lrn_backward_cuda(x: torch.Tensor, g: torch.Tensor, size: int,
                        alpha: float, beta: float, k: float) -> torch.Tensor:
-    global LRN_BACKWARD_LAUNCHES
     lib = _lrn_cuda_checks(x, size, "lrn_backward")
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"lrn_backward: gradient {tuple(g.shape)} {g.dtype} "
@@ -306,7 +346,7 @@ def _lrn_backward_cuda(x: torch.Tensor, g: torch.Tensor, size: int,
             alpha / size, beta, k, 2.0 * alpha * beta / size,
             int(x.dtype == torch.bfloat16), stream)
     _check_launch(lib, err, "lrn_backward")
-    LRN_BACKWARD_LAUNCHES += 1
+    _count("LRN_BACKWARD_LAUNCHES")
     return dx
 
 
@@ -478,7 +518,6 @@ def fused_update_torch(rule: str, st: UpdateStatics, w, g, slots, tile_lr,
 
 
 def _fused_update_cuda(rule, st, w, g, slots, tile_lr, tile_decay, scalars):
-    global FUSED_UPDATE_LAUNCHES
     lib = _load("fused_update")
     if lib.sparknet_fused_update_tile() != ARENA_TILE:
         raise RuntimeError("csrc/fused_update.cu was built for another tile")
@@ -510,7 +549,7 @@ def _fused_update_cuda(rule, st, w, g, slots, tile_lr, tile_decay, scalars):
             int(st.iter_size), m, 1.0 + m, 1.0 - m, m2, 1.0 - m2, rms,
             1.0 - rms, float(st.delta), int(w.dtype == torch.bfloat16), stream)
     _check_launch(lib, err, "fused_update")
-    FUSED_UPDATE_LAUNCHES += 1
+    _count("FUSED_UPDATE_LAUNCHES")
 
 
 def fused_update(rule: str, st: UpdateStatics, w: torch.Tensor,
@@ -685,7 +724,6 @@ def _flash_forward_launch(q, k, v, causal: bool, scale: float, with_lse: bool):
     """One launch of the forward kernel on operands ``_flash_operand``
     made: (o, lse) float32 at their width, lse [B, H, S] only when
     ``with_lse`` (else None, and the kernel writes none)."""
-    global FLASH_LAUNCHES
     lib = _load("flash_attention")
     b, h, n, w = q.shape
     o = torch.empty_like(q)
@@ -697,7 +735,7 @@ def _flash_forward_launch(q, k, v, causal: bool, scale: float, with_lse: bool):
             None if lse is None else lse.data_ptr(), b * h, n, w,
             int(bool(causal)), scale, stream)
     _check_launch(lib, err, "flash_attention")
-    FLASH_LAUNCHES += 1
+    _count("FLASH_LAUNCHES")
     return o, lse
 
 
@@ -705,7 +743,6 @@ def _flash_backward_launch(q, k, v, o, lse, g, causal: bool, scale: float):
     """One launch of the backward (its delta pre-pass, dK/dV and dQ
     kernels) on operands ``_flash_operand`` made, ``o`` and ``lse`` as the
     forward launch gave them: (dq, dk, dv) float32 at their width."""
-    global FLASH_BACKWARD_LAUNCHES
     if any(t.data_ptr() % 16 for t in (q, k, v, g)):
         raise ValueError("flash_attention_backward: the kernel loads 16-byte "
                          "vectors of q, k, v and g, which must be 16-byte aligned")
@@ -721,7 +758,7 @@ def _flash_backward_launch(q, k, v, o, lse, g, causal: bool, scale: float):
             dv.data_ptr(), delta.data_ptr(), b * h, n, w, int(bool(causal)),
             scale, stream)
     _check_launch(lib, err, "flash_attention_backward")
-    FLASH_BACKWARD_LAUNCHES += 1
+    _count("FLASH_BACKWARD_LAUNCHES")
     return dq, dk, dv
 
 
@@ -852,7 +889,6 @@ def paged_attention_torch(q: torch.Tensor, k_pool: torch.Tensor,
 
 def _paged_attention_cuda(q, k_pool, v_pool, tables, positions,
                           scale: float | None = None) -> torch.Tensor:
-    global PAGED_LAUNCHES
     if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape \
             or k_pool.shape[2:] != q.shape[1:]:
         raise ValueError(f"paged_attention: want q [B, H, D] and pools "
@@ -900,7 +936,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, positions,
             k_pool.shape[1], tables.shape[1], _KV_DTYPE_IDS[k_pool.dtype],
             _scale(scale, d), stream)
     _check_launch(lib, err, "paged_attention")
-    PAGED_LAUNCHES += 1
+    _count("PAGED_LAUNCHES")
     return o.to(q.dtype)
 
 

@@ -173,6 +173,7 @@ def replica_run(replicas: int = 4, family: str = "transformer", arm: str = "f32"
         "p99_ms": stats["p99_ms"],
         "serve_path_compiles": stats["serve_path_compiles"],
         "continuous_exact": continuous_exact,
+        "continuous_steps": alone.steps + churn.steps,
         "slot_churn": churn.stats()["admitted"] > churn.slots,
         "wall_s": time.perf_counter() - t_start,
     }

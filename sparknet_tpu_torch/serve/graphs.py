@@ -45,6 +45,10 @@ Capture rules this module keeps:
   replays under its own lock).
 * **No host synchronisation inside the forward** of the served families
   (no ``.item()``/``.cpu()`` in ``ops/`` or ``compiler/graph.py``).
+* **Kernel launch counts follow the replays.**  The port's kernel wrappers
+  called inside the capture launch nothing; ``kernels.recording_launches``
+  takes them off the launch counts and keeps them as the program's
+  ``launches``, which :meth:`BucketProgram.run` adds at each replay.
 
 Captures are counted process-wide (:func:`capture_count`).  Only the
 :class:`BucketProgram` constructor captures, and the engine's request path
@@ -60,6 +64,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..ops import kernels
 
 __all__ = ["BucketProgram", "capture_count"]
 
@@ -120,6 +126,8 @@ class BucketProgram:
         self.out: torch.Tensor | None = None
         self._host_out: torch.Tensor | None = None
         self.capture_s = 0.0
+        # the port's kernel launches one replay makes, by count name
+        self.launches: dict[str, int] = {}
         if cuda:
             self._capture(pool)
 
@@ -136,12 +144,12 @@ class BucketProgram:
                     self._forward(self.data, self.label)
             stream.synchronize()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
+            with kernels.recording_launches() as launches, torch.cuda.graph(
+                    graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
                 out = self._forward(self.data, self.label)
             stream.synchronize()
             _CAPTURES += 1
-        self.graph, self.out = graph, out
+        self.graph, self.out, self.launches = graph, out, launches
         self._host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         self.capture_s = time.perf_counter() - t0
 
@@ -155,6 +163,7 @@ class BucketProgram:
         with torch.cuda.device(self.device):
             self.data.copy_(self._host, non_blocking=True)
             self.graph.replay()
+            kernels.add_launches(self.launches)
             self._host_out.copy_(self.out, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
         return self._host_out.numpy().copy()

@@ -443,6 +443,30 @@ def test_build_serve_program_is_the_bucket_forward():
     engine.shutdown()
 
 
+def test_launches_recorded_by_a_capture_count_at_each_replay():
+    """A kernel call inside a capture records a graph node: it is kept for
+    the capture, not counted as a launch, and each replay adds it; another
+    thread's launches meanwhile count as launches."""
+    from sparknet_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    try:
+        with kernels.recording_launches() as recorded:
+            kernels._count("FLASH_LAUNCHES")
+            other = threading.Thread(target=kernels._count, args=("FLASH_LAUNCHES",))
+            other.start()
+            other.join()
+            kernels._count("FLASH_LAUNCHES")
+        assert recorded == {"FLASH_LAUNCHES": 2} and kernels.FLASH_LAUNCHES == 1
+        for _ in range(3):
+            kernels.add_launches(recorded)
+        kernels._count("FLASH_LAUNCHES")
+        assert kernels.FLASH_LAUNCHES == 1 + 3 * 2 + 1
+        assert kernels.PAGED_LAUNCHES == 0
+    finally:
+        kernels.reset_launch_counts()
+
+
 def test_serving_entry_points_default_to_cuda(monkeypatch):
     from sparknet_tpu_torch.serve.router import ReplicaRouter
 
