@@ -216,7 +216,41 @@ Phases, in order (any failure exits non-zero):
     max_wait_ms + one pump tick, a live join, kill and rollout with 0
     dropped and 0 captures on the request path, and the continuous
     decoder's interleaved-equals-alone gate; B3's launches counted as in
-    22, the continuous decoder's eager forwards added.
+    22, the continuous decoder's eager forwards added;
+24. zoo: the ImageNet families at published width and default batch,
+    f32, TF32 off, weights from seed 0, the published recipes, fused
+    update: GoogLeNet b32 224, ResNet-50 b32 224, VGG-16 b64 224,
+    SqueezeNet b32 227 and MobileNet b32 224 on one fixed batch (noise x40
+    plus a +-80 pattern a class, 10 classes): ms/step and img/s over timed
+    steps after a warm-up, the device's busy share over 2 profiled steps,
+    finite losses, the mean of the last 5 of 20 steps below the first 5's
+    and each of the last 5 below the first (SqueezeNet's on the batch at
+    unit scale, ``ZOO_UNIT_SCALE``; ResNet-50's in 20 more steps at
+    ``ZOO_FALL_LR``, the published base_lr's losses printed),
+    BatchNorm scale_factor moved, exact launches (2 LRN forward, 2 LRN
+    backward and 1 fused update a GoogLeNet step, 1 fused update a step of
+    the others, 2 LRN forward a GoogLeNet TEST forward), the TEST forward
+    with global statistics finite and timed; a ResNet-50 and
+    a MobileNet step by kind of kernel, and their BatchNorm+Scale pairs
+    timed alone; B1 and B1' against their plain versions at GoogLeNet's
+    LRN shapes [32,64,56,56] and [32,192,56,56] (rtol 1e-5, atol 1e-6),
+    timed beside the bound and ``F.local_response_norm``; GoogLeNet's
+    logits against the plain-LRN forward (1e-4); the ResNet-50 trained at
+    ``ZOO_FALL_LR`` folded through ``DeployNet.fold_batchnorm`` (53 chains,
+    fc1000 within rtol/atol 2e-4 of the unfolded forward, both timed); one
+    ResNet-50 and one VGG-16 step fused against per-blob (rtol 1e-5, atol
+    1e-7), B2 bitwise its plain version on their arenas and timed beside
+    its bound; ResNet-50 and GoogLeNet at crop 64, batch 4, the card
+    against the CPU: every layer alone on the CPU forward's inputs
+    (outputs, state, VJP; rtol 1e-4 + 1e-5 x max), the ReLU signs and
+    MAX-pool argmaxes that the two whole forwards decide otherwise, and
+    one whole step (loss rtol 1e-4, history ``ZOO_CPU_HISTORY``, state
+    ``ZOO_CPU_STATE``); the engine serving ``mobilenet`` (trained 5 steps)
+    at buckets 1/8/64/256 in the ``f32`` and ``fold_bn`` arms (replay bit
+    for bit eager, padded bit for bit full, across buckets within
+    ``ZOO_ACROSS_BUCKETS`` of max|score|, fold_bn within 2e-4 of f32, 0
+    request-path captures, 0 dropped) and ``cifar10_quick``'s fold_bn arm
+    bit for bit its f32 arm.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -3566,10 +3600,710 @@ def phase_replica(card: str, per_replay: int) -> dict:
         eager=s["continuous_steps"] * continuous_mha_layers())}
 
 
+# ---------------------------------------------------------------------------
+# The ImageNet zoo families: BatchNorm, Scale and Bias; GoogLeNet, ResNet-50,
+# VGG-16, SqueezeNet and MobileNet training at published width; BN folding;
+# the engine's mobilenet family and fold_bn arm
+# ---------------------------------------------------------------------------
+
+ZOO = (  # (family, default batch, published crop, timed steps)
+    ("googlenet", 32, 224, 3),
+    ("resnet50", 32, 224, 3),
+    ("vgg16", 64, 224, 2),
+    ("squeezenet", 32, 227, 3),
+    ("mobilenet", 32, 224, 3),
+)
+ZOO_SIZES = {name: (batch, crop) for name, batch, crop, _ in ZOO}
+ZOO_STEPS = 20  # steps on the fixed batch for the falling-loss check
+ZOO_PROFILED = 2  # steps under torch.profiler (the busy share)
+ZOO_CLASSES = 10  # the fixed batch's labels: 10 of the 1000 classes
+# SqueezeNet's published recipe (xavier fillers, base_lr 0.04) diverges on the
+# pixel-scale batch within a few steps (the phase prints those steps); its
+# steps take the same batch divided by its standard deviation
+ZOO_UNIT_SCALE = ("squeezenet",)
+ZOO_TEST_FORWARDS = 5  # timed TEST forwards a family, after a check and a warm-up
+GOOGLENET_LRN = ((32, 64, 56, 56), (32, 192, 56, 56))  # pool1/norm1, conv2/norm2 at b32
+# the card against the CPU at crop 64, batch 4 (``zoo_card_vs_cpu``): each
+# layer alone on the CPU forward's own inputs, its outputs, state and VJP
+# at rtol 1e-4 + 1e-5 x max|ref|; the whole step's loss at rtol 1e-4
+ZOO_CPU_GATE = (1e-4, 1e-5)
+ZOO_CPU_FAMILIES = ("googlenet", "resnet50")
+# the whole step: each blob's history (the step's update) as a relative L2
+# error, and the BatchNorm state as a share of max|ref|.  A rounding that
+# decides a ReLU or a max otherwise moves every gradient below it (the
+# phase lists those decisions); tests/test_torch_port_zoo_bn.py measures
+# 0.077 and 3.3e-4 for ResNet-50 between the port and JAX on the CPU, and
+# tests/test_torch_port_zoo_conditioning.py 3.1e-2 (ResNet-50) and 7.3e-3
+# (GoogLeNet, this check's batch) between the port's float32 and float64
+ZOO_CPU_HISTORY = {"googlenet": 0.05, "resnet50": 0.15}
+ZOO_CPU_STATE = 1e-3
+# ResNet-50's published base_lr (0.1) spikes on the fixed batch: its losses
+# are printed, and the falling-loss check and the fold take the JAX fold
+# test's base_lr (tests/test_fold_bn.py)
+ZOO_FALL_LR = {"resnet50": 1e-3}
+ZOO_ACROSS_BUCKETS = 1e-4  # of max|score|: the engine's mobilenet across buckets
+
+
+def zoo_batch(batch: int, crop: int, classes: int = ZOO_CLASSES, seed: int = SEED + 13) -> dict:
+    """One fixed pixel-scale batch on the card: noise x40 plus a +-80
+    pattern a class, labels cycling over ``classes``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    label = torch.arange(batch, device="cuda") % classes
+    pattern = torch.randn((classes, 3, crop, crop), generator=gen, device="cuda").sign()
+    data = torch.randn((batch, 3, crop, crop), generator=gen, device="cuda") * 40
+    return {"data": data + 80 * pattern[label], "label": label.to(torch.int32)}
+
+
+def zoo_solver(net_param, name: str, fused: bool = True, device=None, cfg=None):
+    """A Solver of ``name``'s published recipe (or ``cfg``), weights from
+    ``SEED``."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    set_config(fused_update=fused, storage_dtype="f32")
+    try:
+        cfg = dataclasses.replace(cfg or getattr(models, f"{name}_solver")(),
+                                  random_seed=SEED)
+        solver = Solver(cfg, net_param, device=device)
+    finally:
+        set_config(fused_update=False)
+    check((solver.layout is not None) == fused, f"{name}: fused_update did not take")
+    return solver
+
+
+def zoo_net(name: str, batch: int, crop: int, dropout=None):
+    from sparknet_tpu_torch import models
+
+    net = getattr(models, name)(batch=batch, crop=crop)
+    if dropout is not None:
+        for lp in net.get_all("layer"):
+            if lp.get_str("type") == "Dropout":
+                lp.get_msg("dropout_param").set("dropout_ratio", dropout)
+    return net
+
+
+def zoo_steps(solver, feeds, n: int) -> list:
+    """``n`` train iterations; the losses stay on the card."""
+    return [solver.train_iteration(feeds) for _ in range(n)]
+
+
+def zoo_kinds(rows) -> dict:
+    """Device ms of a profile's kernels by kind: the convolutions and GEMMs
+    (cuDNN, cuBLAS, ATen's depthwise convolution), ATen's elementwise and
+    reduction kernels (BatchNorm, Scale, ReLU, Eltwise, pooling's glue),
+    the port's kernels and the rest."""
+    kinds = {"conv/gemm": 0.0, "aten elementwise/reduce": 0.0, "port": 0.0, "other": 0.0}
+    for ms, name, _ in rows:
+        n = name.lower()
+        if any(k in n for k in ("lrn_", "fused_update")):
+            kinds["port"] += ms
+        elif any(k in n for k in ("cudnn", "xmma", "gemm", "conv", "cutlass", "dgrad",
+                                  "wgrad", "implicit", "winograd", "fft")):
+            kinds["conv/gemm"] += ms
+        elif any(k in n for k in ("elementwise", "reduce", "unrolled", "vectorized")):
+            kinds["aten elementwise/reduce"] += ms
+        else:
+            kinds["other"] += ms
+    return kinds
+
+
+def zoo_bn_scale_ms(solver) -> tuple[float, int]:
+    """Device ms of the train step's BatchNorm and Scale work alone: each
+    BatchNorm -> Scale pair's forward (batch statistics, the state update)
+    and backward at its shape in the step, on random activations, the
+    kernels' time under torch.profiler."""
+    from sparknet_tpu_torch.common import f32_precision
+
+    net = solver.train_net
+    info = net.blob_info()
+    v = solver.variables
+    pairs = [(l, net.layers[i + 1]) for i, l in enumerate(net.layers)
+             if l.type == "BatchNorm" and net.layers[i + 1].type == "Scale"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xs = [torch.randn(info[bn.bottoms[0]].shape, generator=gen, device="cuda")
+          .requires_grad_(True) for bn, _ in pairs]
+    gs = [torch.randn_like(x) for x in xs]
+    params = [[p.detach().requires_grad_(True) for p in v.params[sc.name]] for _, sc in pairs]
+
+    def run():
+        with f32_precision():
+            for (bn, sc), x, g, p in zip(pairs, xs, gs, params):
+                y = bn.apply([], v.state[bn.name], [x], train=True).outputs[0]
+                y = sc.apply(p, {}, [y], train=True).outputs[0]
+                torch.autograd.grad(y, [x, *p], g)
+
+    run()  # warm-up
+    return device_breakdown(run, top=1)[0], len(pairs)
+
+
+def zoo_train(card: str) -> dict:
+    """Each family at its published width and default batch, fused update,
+    f32: warm-up, timed steps, the busy share, the falling loss over
+    ``ZOO_STEPS`` steps on the fixed batch (ResNet-50's at
+    ``ZOO_FALL_LR``), the TEST forward with global statistics.  Returns the
+    launches of these steps (the main path) and the GoogLeNet and ResNet-50
+    solvers."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import Phase
+    from sparknet_tpu_torch.compiler.graph import Network
+    from sparknet_tpu_torch.ops import kernels
+
+    out = {"steps": 0, "googlenet_steps": 0, "test_forwards": 0}
+    kernels.reset_launch_counts()
+    for name, batch, crop, timed in ZOO:
+        feeds = zoo_batch(batch, crop)
+        if name in ZOO_UNIT_SCALE:
+            solver = zoo_solver(zoo_net(name, batch, crop), name)
+            pixel = [round(float(l), 4) for l in zoo_steps(solver, feeds, 5)]
+            print(f"zoo {name} on the pixel-scale batch (std "
+                  f"{float(feeds['data'].std()):.1f}), not gated: losses {pixel}")
+            out["steps"] += 5
+            feeds = {"data": feeds["data"] / feeds["data"].std(), "label": feeds["label"]}
+        solver = zoo_solver(zoo_net(name, batch, crop), name)
+        params = solver.layout.param_count()
+        losses = zoo_steps(solver, feeds, 1)  # warm-up: cuDNN/cuBLAS set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += zoo_steps(solver, feeds, timed)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / timed
+        busy_ms, rows = device_breakdown(lambda: losses.extend(
+            zoo_steps(solver, feeds, ZOO_PROFILED)), top=1000)
+        busy_ms /= ZOO_PROFILED
+        losses += zoo_steps(solver, feeds, ZOO_STEPS - len(losses))
+        tl = [float(l) for l in losses]
+        check(all(np.isfinite(tl)), f"{name}: losses {tl}")
+        out["steps"] += ZOO_STEPS
+        fall = ""
+        if name in ZOO_FALL_LR:
+            published = [round(x, 4) for x in tl]
+            del solver
+            gc.collect()
+            cfg = dataclasses.replace(getattr(models, f"{name}_solver")(),
+                                      base_lr=ZOO_FALL_LR[name])
+            solver = zoo_solver(zoo_net(name, batch, crop), name, cfg=cfg)
+            tl = [float(l) for l in zoo_steps(solver, feeds, ZOO_STEPS)]
+            check(all(np.isfinite(tl)), f"{name} at base_lr {cfg.base_lr:g}: losses {tl}")
+            out["steps"] += ZOO_STEPS
+            fall = (f"; the published base_lr's losses (not gated to fall) {published}; "
+                    f"{ZOO_STEPS} more steps from seed 0 at base_lr {cfg.base_lr:g}")
+        first, last = float(np.mean(tl[:5])), float(np.mean(tl[-5:]))
+        check(last < first and max(tl[-5:]) < tl[0],
+              f"{name}: the loss did not fall over {ZOO_STEPS} steps: {tl}")
+        if name == "googlenet":
+            out["googlenet_steps"] += ZOO_STEPS
+        bn = ""
+        state = solver.variables.state
+        if state:
+            sf = [float(s["scale_factor"][0]) for s in state.values()]
+            check(min(sf) > 0, f"{name}: a BatchNorm scale_factor did not move")
+            bn = (f"; {len(sf)} BatchNorm layers, scale_factor {min(sf):.4f}-"
+                  f"{max(sf):.4f} after {ZOO_STEPS} steps")
+        print(f"zoo {name} b{batch} {crop}x{crop} ({params:,} params, fused update, f32, "
+              f"TF32 off{', unit-scale batch' if name in ZOO_UNIT_SCALE else ''}): "
+              f"{timed} timed steps {ms:.2f} ms/step, {batch * 1e3 / ms:.1f} img/s; busy "
+              f"{busy_ms:.2f} ms a step ({ZOO_PROFILED} profiled steps, every stream), "
+              f"{100 * busy_ms / ms:.1f}% of the unprofiled step{fall}; losses over "
+              f"{ZOO_STEPS} steps {[round(x, 4) for x in tl]}: first 5 mean {first:.4f}, "
+              f"last 5 mean {last:.4f}, each of the last 5 below the first{bn} [{card}]")
+        if name in ("resnet50", "mobilenet"):
+            device_ms = sum(r[0] for r in rows) / ZOO_PROFILED
+            kinds = zoo_kinds(rows)
+            bn_ms, pairs = zoo_bn_scale_ms(solver)
+            print(f"zoo {name} step by kind of kernel (torch.profiler, {device_ms:.2f} ms "
+                  f"of kernels a step): " + ", ".join(
+                      f"{k} {v / ZOO_PROFILED:.2f} ms ({100 * v / ZOO_PROFILED / device_ms:.1f}%)"
+                      for k, v in kinds.items())
+                  + f"; the {pairs} BatchNorm+Scale pairs alone (forward and backward at "
+                  f"the step's shapes, their kernels under torch.profiler) {bn_ms:.2f} ms, "
+                  f"{100 * bn_ms / device_ms:.1f}% of the step's kernel time [{card}]")
+            for dms, kname, calls in rows[:8]:
+                print(f"  {dms / ZOO_PROFILED:8.3f} ms  {100 * dms / ZOO_PROFILED / device_ms:5.1f}%"
+                      f"  x{calls // ZOO_PROFILED}  {kname[:90]}")
+        test_net = Network(solver.net_param, Phase.TEST)
+        v = solver.variables
+        # the main head's scores: the last label reader's other bottom
+        head = [layer for layer in test_net.layers if "label" in layer.bottoms][-1]
+        score = next(b for b in head.bottoms if b != "label")
+        with torch.inference_mode():
+            scores = test_net.apply(v, feeds, train=False)[0][score]
+            check(tuple(scores.shape) == (batch, 1000) and bool(torch.isfinite(scores).all()),
+                  f"{name}: TEST scores {tuple(scores.shape)}")
+            test_net.apply(v, feeds, train=False)  # warm-up
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(ZOO_TEST_FORWARDS):
+                test_net.apply(v, feeds, train=False)
+            stop.record()
+            stop.synchronize()
+            t_test = start.elapsed_time(stop) / ZOO_TEST_FORWARDS
+        out["test_forwards"] += 2 + ZOO_TEST_FORWARDS if name == "googlenet" else 0
+        print(f"zoo {name} TEST forward (global statistics) b{batch}: {t_test:.2f} "
+              f"ms/forward, {batch * 1e3 / t_test:.1f} img/s (CUDA events over "
+              f"{ZOO_TEST_FORWARDS} forwards), scores finite [{card}]")
+        if name in ("googlenet", "resnet50"):
+            out[name] = solver
+        del solver, feeds, v, test_net, scores
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = (kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES,
+              kernels.FUSED_UPDATE_LAUNCHES)
+    g, f = out["googlenet_steps"], out["test_forwards"]
+    want = (2 * (g + f), 2 * g, out["steps"])
+    print(f"zoo: {out['steps']} train steps, {g} of them GoogLeNet's, and {f} GoogLeNet "
+          f"TEST forwards; launches (LRN forward, LRN backward, fused update) {counts}, "
+          f"want {want}")
+    check(counts == want, f"zoo launches {counts}, want {want}")
+    out["counts"] = counts
+    return out
+
+
+def zoo_lrn(card: str) -> None:
+    """B1 and B1' against their plain versions at GoogLeNet's two LRN
+    shapes, and their times beside the bound and the library call."""
+    from sparknet_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    bw, _, _ = card_peaks(card)
+    for shape in GOOGLENET_LRN:
+        x = torch.relu(torch.randn(shape, generator=gen, device="cuda") * 50)
+        g = torch.randn(shape, generator=gen, device="cuda")
+        for what, got, ref in (
+                ("forward", kernels.lrn_across_channels(x, 5, ALPHA, 0.75, 1.0),
+                 kernels.lrn_across_channels_torch(x, 5, ALPHA, 0.75, 1.0)),
+                ("backward", kernels.lrn_backward(x, g, 5, ALPHA, 0.75, 1.0),
+                 kernels.lrn_backward_torch(x, g, 5, ALPHA, 0.75, 1.0))):
+            err = (got - ref).abs()
+            ok = bool((err <= F32_TOL["atol"] + F32_TOL["rtol"] * ref.abs()).all())
+            print(f"zoo googlenet LRN {what} {list(shape)}: max abs err "
+                  f"{float(err.max()):.3e} (rtol 1e-5, atol 1e-6) {'ok' if ok else 'FAIL'}, "
+                  f"{int((got != ref).sum())} elements not bitwise equal")
+            check(ok, f"googlenet LRN {what} {shape}")
+        t_k = time_ms(lambda: kernels.lrn_across_channels(x, 5, ALPHA, 0.75, 1.0))
+        t_p = time_ms(lambda: kernels.lrn_across_channels_torch(x, 5, ALPHA, 0.75, 1.0))
+        t_l = time_ms(lambda: F.local_response_norm(x, 5, ALPHA, 0.75, 1.0))
+        bound, by = lrn_bound_ms(shape, 5, 4, card)
+        print(f"time zoo googlenet LRN forward {list(shape)} f32: kernel {t_k:.4f} ms "
+              f"({100 * bound / t_k:.1f}% of bound), plain {t_p:.4f} ms, "
+              f"F.local_response_norm {t_l:.4f} ms, bound {bound:.4f} ms ({by}) [{card}]")
+        t_k = time_ms(lambda: kernels.lrn_backward(x, g, 5, ALPHA, 0.75, 1.0))
+        t_p = time_ms(lambda: kernels.lrn_backward_torch(x, g, 5, ALPHA, 0.75, 1.0))
+        xr = x.clone().requires_grad_(True)
+        yr = F.local_response_norm(xr, 5, ALPHA, 0.75, 1.0)
+        t_l = time_ms(lambda: torch.autograd.grad(yr, xr, g, retain_graph=True))
+        del yr, xr
+        bound = 3 * x.numel() * 4 / bw * 1e3
+        print(f"time zoo googlenet LRN backward {list(shape)} f32: kernel {t_k:.4f} ms "
+              f"({100 * bound / t_k:.1f}% of bound), plain {t_p:.4f} ms, "
+              f"F.local_response_norm backward {t_l:.4f} ms, bound {bound:.4f} ms "
+              f"(bytes) [{card}]")
+
+
+def zoo_googlenet_plain_lrn(card: str, solver) -> None:
+    """GoogLeNet's logits through B1 against the same forward with the
+    plain LRN, at the AlexNet path phase's gate (rtol/atol 1e-4)."""
+    from sparknet_tpu_torch.common import Phase
+    from sparknet_tpu_torch.compiler.graph import Network
+
+    net = Network(solver.net_param, Phase.TEST)
+    feeds = zoo_batch(*ZOO_SIZES["googlenet"], seed=SEED + 15)
+    with torch.inference_mode():
+        blobs = net.apply(solver.variables, feeds, train=False)[0]
+        ref, _ = forward_with_plain_lrn(net, solver.variables, feeds)
+    got, want = blobs["loss3/classifier"], ref["loss3/classifier"]
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=1e-4, atol=1e-4))
+    print(f"zoo googlenet b{feeds['label'].numel()} loss3/classifier through B1 against the plain-LRN forward: "
+          f"max abs err {err:.3e} (rtol/atol 1e-4) {'ok' if ok else 'FAIL'} [{card}]")
+    check(ok, "googlenet logits vs the plain-LRN forward")
+
+
+def zoo_fused_vs_blob(card: str) -> None:
+    """One step, fused against per-blob, from the same weights and batch
+    (dropout 0, deterministic cuDNN), for ResNet-50 and VGG-16; then B2
+    against its plain version on their arenas, timed beside its bound."""
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.solvers.arena import ArenaTables
+
+    bw, _, _ = card_peaks(card)
+    for name in ("resnet50", "vgg16"):
+        batch, crop = ZOO_SIZES[name]
+        net = zoo_net(name, batch, crop, dropout=0.0)
+        feeds = zoo_batch(batch, crop)
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            res = []
+            for fused in (True, False):
+                s = zoo_solver(net, name, fused=fused)
+                loss = float(s.train_iteration(feeds))
+                v = s.variables
+                res.append((loss, {ln: [p.detach().clone() for p in pl]
+                                   for ln, pl in v.params.items()},
+                            {ln: [h[0].detach().clone() for h in hl]
+                             for ln, hl in s.slots.items()},
+                            {ln: {k: t.clone() for k, t in st.items()}
+                             for ln, st in v.state.items()}))
+                if fused:
+                    layout = s.layout
+                del s, v
+                gc.collect()
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        (lf, pf, hf, sf), (lb, pb, hb, sb) = res
+        worst, bitwise = 0.0, True
+        pairs = [(a, b) for ln in pf for a, b in zip(pf[ln] + hf[ln], pb[ln] + hb[ln])]
+        pairs += [(sf[ln][k], sb[ln][k]) for ln in sf for k in sf[ln]]
+        for a, b in pairs:
+            bitwise = bitwise and torch.equal(a, b)
+            worst = max(worst, float((a - b).abs().max()))
+            check(torch.allclose(a, b, rtol=1e-5, atol=1e-7),
+                  f"{name} fused vs per-blob: max abs diff {float((a - b).abs().max()):.3e}")
+        print(f"zoo {name} fused vs per-blob, 1 step b{batch}, dropout 0, deterministic "
+              f"cuDNN: loss {lf:.6f} vs {lb:.6f}, params, history and state max abs diff "
+              f"{worst:.3e} (rtol 1e-5, atol 1e-7), "
+              f"{'bitwise equal' if bitwise else 'not bitwise equal'} [{card}]")
+        del res, pairs, pf, pb, hf, hb, sf, sb
+        gc.collect()
+        torch.cuda.empty_cache()
+        # B2 on this arena: against its plain version, then timed
+        tables = ArenaTables(layout, torch.device("cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+        real = torch.zeros(layout.total, dtype=torch.bool, device="cuda")
+        for e in layout.entries:
+            real[e.offset:e.offset + e.size] = True
+        w = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 0.01, 0.0)
+        g = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 1e-3, 0.0)
+        h = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 1e-3, 0.0)
+        st = kernels.UpdateStatics(momentum=0.9, reg="l2")
+        sc = torch.tensor([0.01, 1.0, 1.0], device="cuda")
+        ref_w, ref_s = kernels.fused_update_torch("SGD", st, w, g, [h], tables.tile_lr,
+                                                  tables.tile_decay, sc)
+        kernels.fused_update("SGD", st, w, g, [h], tables.tile_lr, tables.tile_decay, sc)
+        same = torch.equal(w, ref_w) and torch.equal(h, ref_s[0])
+        del ref_w, ref_s
+        t_k = time_ms(lambda: kernels.fused_update("SGD", st, w, g, [h], tables.tile_lr,
+                                                   tables.tile_decay, sc), reps=10)
+        t_p = time_ms(lambda: kernels.fused_update_torch("SGD", st, w, g, [h], tables.tile_lr,
+                                                         tables.tile_decay, sc), reps=10)
+        nbytes = 5 * layout.total * 4
+        bound = nbytes / bw * 1e3
+        print(f"time zoo fused_update SGD f32 L2 on the {name} arena ({layout.param_count():,} "
+              f"params, {layout.total:,} after padding): kernel {t_k:.4f} ms "
+              f"({nbytes / 1e9:.3f} GB, {100 * bound / t_k:.1f}% of bound), plain "
+              f"{t_p:.4f} ms, bound {bound:.4f} ms (bytes); kernel against plain "
+              f"{'bitwise equal' if same else 'NOT bitwise equal'} [{card}]")
+        check(same, f"fused_update on the {name} arena differs from its plain version")
+        del w, g, h, tables, real
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def zoo_walk(net, variables, feeds, device) -> dict:
+    """The TRAIN forward of ``net`` layer by layer on ``device``, without
+    grad: each layer's inputs by layer name."""
+    from sparknet_tpu_torch.common import f32_precision
+    from sparknet_tpu_torch.ops.data_layers import InputLayer
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    blob = {k: torch.as_tensor(v).to(device) for k, v in feeds.items()}
+    ins = {}
+    with torch.no_grad(), f32_precision():
+        for layer in net.layers:
+            if isinstance(layer, InputLayer):
+                continue
+            ins[layer.name] = [blob[b] for b in layer.bottoms]
+            out = layer.apply([p.to(device) for p in variables.params.get(layer.name, [])],
+                              {k: t.to(device) for k, t in
+                               variables.state.get(layer.name, {}).items()},
+                              ins[layer.name], train=True,
+                              **({"gen": gen} if layer.NEEDS_GEN else {}))
+            blob.update(zip(layer.tops, out.outputs))
+    return ins
+
+
+def zoo_in_context(net, variables, ins) -> tuple[int, float, str]:
+    """Each layer of ``net`` alone, on the CPU forward's own inputs ``ins``:
+    the card's outputs, state, and VJP (seeded cotangents) against the
+    CPU's.  Returns the layers held, the worst excess over rtol 1e-4 as a
+    share of max|ref|, and where."""
+    from sparknet_tpu_torch.common import f32_precision
+
+    rtol = ZOO_CPU_GATE[0]
+    rs = np.random.RandomState(SEED + 20)
+    worst, where = 0.0, "-"
+    for layer in net.layers:
+        if layer.name not in ins:
+            continue
+        res, cots = [], None
+        for dev in ("cpu", "cuda"):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            p = [t.detach().to(dev).requires_grad_(True)
+                 for t in variables.params.get(layer.name, [])]
+            st = {k: t.to(dev) for k, t in variables.state.get(layer.name, {}).items()}
+            xs = [x.detach().to(dev).requires_grad_(x.is_floating_point())
+                  for x in ins[layer.name]]
+            with f32_precision():
+                out = layer.apply(p, st, xs, train=True,
+                                  **({"gen": gen} if layer.NEEDS_GEN else {}))
+                if cots is None:
+                    cots = [torch.from_numpy(np.asarray(rs.randn(*o.shape), np.float32))
+                            for o in out.outputs]
+                live = [(o, c.to(dev)) for o, c in zip(out.outputs, cots) if o.requires_grad]
+                wrt = p + [x for x in xs if x.requires_grad]
+                grads = torch.autograd.grad([o for o, _ in live], wrt, [c for _, c in live],
+                                            allow_unused=True) if live and wrt else []
+            res.append([o.detach() for o in out.outputs] + list(out.state.values())
+                       + [torch.zeros_like(w) if g is None else g for g, w in zip(grads, wrt)])
+        for i, (got, ref) in enumerate(zip(res[1], res[0], strict=True)):
+            got, ref = got.detach().double().cpu(), ref.detach().double()
+            scale = float(ref.abs().max()) or 1.0
+            excess = float(((got - ref).abs() - rtol * ref.abs()).clamp(min=0).max()) / scale
+            if excess > worst:
+                worst, where = excess, f"{layer.name} #{i}"
+    return len(ins), worst, where
+
+
+def zoo_card_vs_cpu(card: str) -> None:
+    """ResNet-50 and GoogLeNet at crop 64, batch 4, dropout 0, from the same
+    weights and batch on the card and on this machine's CPU: each layer
+    alone on the CPU forward's inputs (``zoo_in_context``, at
+    ``ZOO_CPU_GATE``); the ReLU signs and MAX-pool argmaxes that differ
+    between the two devices' whole forwards; one whole step (loss, each
+    blob's history, BatchNorm state)."""
+    from sparknet_tpu_torch.common import Phase
+    from sparknet_tpu_torch.compiler.graph import Network
+    from sparknet_tpu_torch.ops.vision import _pool_pads
+
+    rtol, arel = ZOO_CPU_GATE
+    rs = np.random.RandomState(SEED + 17)
+    for name in ZOO_CPU_FAMILIES:
+        feeds = {"data": (rs.randn(4, 3, 64, 64) * 40).astype(np.float32),
+                 "label": rs.randint(0, ZOO_CLASSES, 4).astype(np.int32)}
+        net_param = zoo_net(name, 4, 64, dropout=0.0)
+        solvers = [zoo_solver(net_param, name, device=d) for d in ("cuda", "cpu")]
+        v0 = solvers[1].variables
+        v0 = type(v0)({ln: [p.detach().clone() for p in pl] for ln, pl in v0.params.items()},
+                      {ln: {k: t.clone() for k, t in st.items()} for ln, st in v0.state.items()})
+        # each layer alone, and the ReLU decisions of the two whole forwards
+        net = Network(net_param, Phase.TRAIN, device="cpu")
+        cpu_ins = zoo_walk(net, v0, feeds, "cpu")
+        card_ins = zoo_walk(net, v0, feeds, "cuda")
+        layers, worst_layer, where_layer = zoo_in_context(net, v0, cpu_ins)
+        flips = []
+        for layer in net.layers:
+            if layer.type not in ("ReLU", "Pooling"):
+                continue
+            a, c = card_ins[layer.name][0].cpu(), cpu_ins[layer.name][0]
+            if layer.type == "ReLU":
+                diff = (a > 0) != (c > 0)
+            elif layer.type == "Pooling" and layer._conf(c.shape)[0] == "MAX":
+                # the window's argmax, each device's input through the same
+                # CPU pooling
+                _, kernel, stride, pad = layer._conf(c.shape)
+                pads = _pool_pads(c, kernel, stride, pad)
+                diff = torch.ne(*[F.max_pool2d(F.pad(x, pads, value=float("-inf")), kernel,
+                                               stride, return_indices=True)[1] for x in (a, c)])
+            else:
+                continue
+            if bool(diff.any()):
+                flips.append(f"{layer.name} x{int(diff.sum())}")
+        del cpu_ins, card_ins
+        # the whole step
+        losses = [float(s.train_iteration(feeds)) for s in solvers]
+        (gv, cv), (gs, cs) = [s.variables for s in solvers], [s.slots for s in solvers]
+        upd, state = (0.0, "-"), (0.0, "-")
+        for ln, pl in cv.params.items():
+            for i, p in enumerate(pl):
+                # SGD's first step: the history is the update, w <- w - history
+                check(torch.equal(p.detach(), v0.params[ln][i] - cs[ln][i][0])
+                      and torch.equal(gv.params[ln][i].detach(),
+                                      v0.params[ln][i].cuda() - gs[ln][i][0]),
+                      f"{name} {ln}[{i}]: the params did not move by the history")
+                ref, got = cs[ln][i][0].double(), gs[ln][i][0].cpu().double()
+                err = float((got - ref).norm()) / max(float(ref.norm()), 1e-30)
+                upd = max(upd, (err, f"{ln}[{i}]"))
+        for ln, st in cv.state.items():
+            for k, t in st.items():
+                got, ref = gv.state[ln][k].cpu().double(), t.double()
+                excess = float(((got - ref).abs() - rtol * ref.abs()).clamp(min=0).max())
+                state = max(state, (excess / (float(ref.abs().max()) or 1.0), f"{ln}/{k}"))
+        loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        ok = (worst_layer <= arel and loss_rel <= rtol and upd[0] <= ZOO_CPU_HISTORY[name]
+              and state[0] <= ZOO_CPU_STATE)
+        print(f"zoo {name} crop 64 b4 dropout 0, the card against the CPU: {layers} layers "
+              f"alone on the CPU's inputs (outputs, state, VJP), worst {worst_layer:.2e} of "
+              f"max|ref| beyond rtol {rtol:g} ({where_layer}; gate {arel:g}); ReLU signs and "
+              f"MAX-pool argmaxes deciding otherwise in the two whole forwards: {flips}; "
+              f"one whole step: "
+              f"loss {losses[0]:.6f} vs {losses[1]:.6f} (rel {loss_rel:.2e}, gate {rtol:g}), "
+              f"worst history (the update) relative L2 error {upd[0]:.2e} ({upd[1]}; gate "
+              f"{ZOO_CPU_HISTORY[name]:g}), state {state[0]:.2e} of max|ref| beyond rtol "
+              f"({state[1]}; gate {ZOO_CPU_STATE:g}) {'ok' if ok else 'FAIL'} [{card}]")
+        check(ok, f"{name}: the card's step is off the CPU's")
+        del solvers, gv, cv, v0, net
+        gc.collect()
+
+
+def deploy_of(net_param):
+    """``net_param`` without its label input and the layers that read it."""
+    from sparknet_tpu_torch.proto.text_format import Message
+
+    out = Message()
+    for lp in net_param.get_all("layer"):
+        if "label" not in [str(b) for b in lp.get_all("bottom")] + [lp.get_str("name")]:
+            out.add("layer", lp)
+    return out
+
+
+def zoo_fold(card: str, solver) -> None:
+    """The ResNet-50 b32 trained at ``ZOO_FALL_LR`` folded through
+    DeployNet.fold_batchnorm: 53 chains, no BatchNorm or Scale left, fc1000
+    within the JAX test's gate (rtol/atol 2e-4) of the unfolded TEST
+    forward."""
+    from sparknet_tpu_torch.compiler.graph import NetVars
+    from sparknet_tpu_torch.models import DeployNet
+
+    d = DeployNet(deploy_of(solver.net_param))
+    v = solver.variables
+    d.variables = NetVars({ln: [p.detach().clone() for p in pl] for ln, pl in v.params.items()},
+                          {ln: {k: t.clone() for k, t in s.items()} for ln, s in v.state.items()})
+    batch, crop = ZOO_SIZES["resnet50"]
+    x = {"data": zoo_batch(batch, crop, seed=SEED + 18)["data"]}
+
+    def forward():
+        return d.network.apply(d.variables, x, train=False)[0]["fc1000"]
+
+    with torch.inference_mode():
+        ref = forward().clone()
+        t_ref = time_ms(forward, reps=5, inner=2)
+        folded = d.fold_batchnorm()
+        got = forward()
+        t_fold = time_ms(forward, reps=5, inner=2)
+    types = {layer.type for layer in d.network.layers}
+    err = float((got - ref).abs().max())
+    ok = (len(folded) == 53 and not types & {"BatchNorm", "Scale"}
+          and bool(torch.isfinite(ref).all())
+          and bool(torch.allclose(got, ref, rtol=2e-4, atol=2e-4)))
+    print(f"zoo resnet50 fold (the weights of the base_lr {solver.config.base_lr:g} run): "
+          f"{len(folded)} chains folded, BatchNorm/Scale left: "
+          f"{sorted(types & {'BatchNorm', 'Scale'})}; fc1000 max abs err {err:.3e} "
+          f"(max|fc1000| {float(ref.abs().max()):.3e}; rtol 2e-4, atol 2e-4) "
+          f"{'ok' if ok else 'FAIL'}; TEST forward b{batch} {t_ref:.2f} ms unfolded, "
+          f"{t_fold:.2f} ms folded [{card}]")
+    check(ok, "resnet50 fold")
+
+
+def zoo_serve(card: str) -> None:
+    """The engine serves the mobilenet family (trained a few steps) at the
+    full bucket ladder in the f32 and fold_bn arms; cifar10_quick's fold_bn
+    arm gives its f32 arm's bits."""
+    from sparknet_tpu_torch.models.zoo import GRAPH_SWEEP_FAMILIES
+    from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS, ServeEngine
+
+    fam = GRAPH_SWEEP_FAMILIES["mobilenet"]
+    solver = zoo_solver(fam.net(32), "mobilenet", cfg=fam.solver())
+    feeds = zoo_batch(32, 64, classes=fam.num_classes)
+    losses = [float(l) for l in zoo_steps(solver, feeds, 5)]
+    check(all(np.isfinite(losses)), f"engine mobilenet training losses {losses}")
+    engine = ServeEngine(SERVE_BUCKETS, max_wait_ms=5.0, device="cuda")
+    rs = np.random.RandomState(SEED + 19)
+    items = (rs.randn(256, *fam.image_shape) * 40).astype(np.float32)
+    firsts, tickets = {}, []
+    try:
+        for arm in ("f32", "fold_bn"):
+            m = engine.load_model(f"mobilenet_{arm}", family="mobilenet", arm=arm,
+                                  variables=solver.variables)
+            first = {}
+            for b, prog in m.programs.items():
+                rows = items[:prog.batch]
+                out = run_locked(m, prog, rows)
+                eager = prog.eager(torch.from_numpy(rows).cuda()).cpu().numpy()
+                same = np.array_equal(out, eager)
+                t_replay = time_ms(prog.graph.replay, inner=ENGINE_TIMED_INNER)
+                t_eager = time_ms(lambda: prog.eager(torch.from_numpy(rows).cuda()),
+                                  inner=ENGINE_TIMED_INNER)
+                print(f"zoo engine mobilenet {arm} bucket {b} (exec {prog.batch} rows): "
+                      f"replay and eager {'bit for bit equal' if same else 'DIFFER'}; "
+                      f"replay {t_replay:.4f} ms, eager {t_eager:.4f} ms [{card}]")
+                check(same and np.isfinite(out).all(), f"mobilenet {arm} bucket {b}: replay")
+                first[b] = out[:2]
+            ref = first[min(first)]
+            scale = float(np.abs(ref).max())
+            worst = max(float(np.abs(got - ref).max()) for got in first.values())
+            print(f"zoo engine mobilenet {arm}: {len(m.folded)} chains folded; the same 2 "
+                  f"requests across buckets {sorted(first)}: worst max abs diff {worst:.3e}, "
+                  f"{worst / scale:.2e} of max|score| {scale:.3e} (adopted tolerance "
+                  f"{ZOO_ACROSS_BUCKETS:g})")
+            check(worst <= ZOO_ACROSS_BUCKETS * scale, f"mobilenet {arm}: across buckets")
+            for b in SERVE_BUCKETS[1:]:
+                full = [engine.submit(m.name, it) for it in items[:b]]
+                engine.pump(force=True)
+                padded = [engine.submit(m.name, it) for it in items[:b // 2 + 1]]
+                engine.pump(force=True)
+                tickets += full + padded
+                same = all(np.array_equal(p.result, f.result) for p, f in zip(padded, full))
+                check(same and {t.bucket for t in full + padded} == {b},
+                      f"mobilenet {arm} bucket {b}: padded rows changed a real row")
+            print(f"zoo engine mobilenet {arm}: padded batches bit for bit the full ones "
+                  f"in buckets {list(SERVE_BUCKETS[1:])}")
+            firsts[arm] = first
+        for b in firsts["f32"]:
+            err = float(np.abs(firsts["fold_bn"][b] - firsts["f32"][b]).max())
+            check(np.allclose(firsts["fold_bn"][b], firsts["f32"][b], rtol=2e-4, atol=2e-4),
+                  f"mobilenet fold_bn bucket {b} off the f32 arm by {err:.3e}")
+        # a BN-free family: the fold_bn arm is the f32 arm, bit for bit
+        ms = [engine.load_model(f"cifar_{arm}", family="cifar10_quick", arm=arm)
+              for arm in ("f32", "fold_bn")]
+        citems = (rs.randn(256, 3, 32, 32) * 10).astype(np.float32)
+        for b in SERVE_BUCKETS:
+            outs = [run_locked(m, m.programs[b], citems[:m.programs[b].batch]) for m in ms]
+            check(np.array_equal(*outs), f"cifar10_quick fold_bn bucket {b} is not f32's")
+        dropped = sum(not t.done() or t.error is not None for t in tickets)
+        print(f"zoo engine: fold_bn within rtol/atol 2e-4 of f32 for mobilenet in every "
+              f"bucket; cifar10_quick fold_bn bit for bit its f32 arm in every bucket; "
+              f"request-path captures {engine.serve_path_compiles}, dropped {dropped} [{card}]")
+        check(engine.serve_path_compiles == 0, "zoo engine: a capture on the request path")
+        check(dropped == 0, f"zoo engine: {dropped} tickets dropped")
+    finally:
+        engine.shutdown()
+    del solver
+    gc.collect()
+
+
+def phase_zoo(card: str) -> dict:
+    """The ImageNet families on the card: training, the kernels at
+    GoogLeNet's shapes, fused against per-blob, card against CPU, the
+    fold and the engine.  Returns the main path's launches."""
+    walls = [time.perf_counter()]
+    train = zoo_train(card)
+    walls.append(time.perf_counter())
+    zoo_lrn(card)
+    zoo_googlenet_plain_lrn(card, train.pop("googlenet"))
+    zoo_fold(card, train.pop("resnet50"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls.append(time.perf_counter())
+    zoo_fused_vs_blob(card)
+    walls.append(time.perf_counter())
+    zoo_card_vs_cpu(card)
+    walls.append(time.perf_counter())
+    zoo_serve(card)
+    walls.append(time.perf_counter())
+    print("zoo: seconds by part: " + ", ".join(
+        f"{part} {b - a:.1f}" for part, a, b in zip(
+            ("training", "LRN and fold", "fused against per-blob", "card against CPU",
+             "engine"), walls, walls[1:])))
+    lrn, bwd, upd = train["counts"]
+    return dict(lrn=lrn, lrn_backward=bwd, fused_update=upd)
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
           "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
-          "charlm_train", "engine", "replica")
+          "charlm_train", "engine", "replica", "zoo")
 
 
 def main(argv=None) -> int:
@@ -3688,6 +4422,12 @@ def main(argv=None) -> int:
     if "replica" in phases:
         launches["flash_attention"] += phase_replica(card, per_replay)["flash"]
         lap("replica")
+    if "zoo" in phases:
+        zoo = phase_zoo(card)
+        launches["lrn_across_channels"] += zoo["lrn"]
+        launches["lrn_backward"] += zoo["lrn_backward"]
+        launches["fused_update"] += zoo["fused_update"]
+        lap("zoo")
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0
@@ -3725,7 +4465,8 @@ def main(argv=None) -> int:
         # LM's timed training steps and its sampling, the serving engine's
         # loads, traffic and swaps and the replica run: there, each graph
         # replay adds the launches its capture recorded, and a capture
-        # adds none), each counted from 0
+        # adds none; the ImageNet families' training steps), each counted
+        # from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

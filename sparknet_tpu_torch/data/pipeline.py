@@ -19,8 +19,11 @@ per 256-image batch, ref: src/test/scala/apps/CallbackBenchmarkSpec.scala:
   batches_per_epoch)``; batches are DELIVERED in global order, so a run's
   data order is a pure function of (source, start_index, workers).
 * **Worker-death detection**: a worker that raises ships its traceback; one
-  that dies silently is caught by exitcode polling.  ``max_respawns``
-  replaces a dead worker, which resumes its shard bit-identically.
+  that dies silently is caught by the end of its result pipe and by
+  exitcode polling.  ``max_respawns`` replaces a dead worker, which
+  resumes its shard bit-identically.  Each worker reports on a pipe of its
+  own: on one shared queue, a worker that died while its feeder thread
+  held the queue's write lock left every other worker blocked for good.
 * **Per-stage walls** (``FEED_STAGES``) accumulate in ``pipeline.stats``
   as plain numbers (the JAX package also journals them as obs ``feed``
   events; the port has no recorder yet, ROADMAP Queue A13).
@@ -338,11 +341,12 @@ def _unregister_shm(shm, start_method: str) -> None:
 
 def _worker_loop(wid: int, nworkers: int, source: BatchSource,
                  transform, ring_name: str, spec: FeedSpec, slots: int,
-                 free_q, full_q, stop, start_index: int, num_batches: int,
+                 free_q, results, stop, start_index: int, num_batches: int,
                  poll_s: float, start_method: str = "fork",
                  first_g: int | None = None) -> None:
     """One producer: source -> transform -> slot memcpy, for every global
-    batch id ``g`` with ``g % nworkers == wid``.  ``first_g`` overrides the
+    batch id ``g`` with ``g % nworkers == wid``, each reported on
+    ``results`` (this worker's own pipe end).  ``first_g`` overrides the
     iteration start (a RESPAWNED replacement resumes the dead worker's
     shard at its first undelivered id)."""
     from multiprocessing import shared_memory
@@ -377,12 +381,12 @@ def _worker_loop(wid: int, nworkers: int, source: BatchSource,
             for name in view:
                 np.copyto(view[name], batch[name], casting="no")
             t3 = time.perf_counter()
-            full_q.put(("batch", wid, g, slot,
-                        (max(t1 - t0 - dec_s, 0.0), dec_s, t2 - t1, t3 - t_slot)))
-        full_q.put(("done", wid, 0, 0, ()))
+            results.send(("batch", wid, g, slot,
+                          (max(t1 - t0 - dec_s, 0.0), dec_s, t2 - t1, t3 - t_slot)))
+        results.send(("done", wid, 0, 0, ()))
     except BaseException:
         try:
-            full_q.put(("error", wid, 0, 0, traceback.format_exc()))
+            results.send(("error", wid, 0, 0, traceback.format_exc()))
         except Exception:
             pass  # consumer falls back to exitcode polling
     finally:
@@ -492,24 +496,38 @@ class ProcessPipeline:
             # static slot ownership: slot s belongs to worker s % workers
             self._owner = [s % self.workers for s in range(self.slots)]
             self._free_qs = [ctx.Queue() for _ in range(self.workers)]
-            self._full_q = ctx.Queue()
+            # each worker's result pipe (reader ends; None once it ended)
+            self._results: list = [None] * self.workers
             self._stop = ctx.Event()
             for s in range(self.slots):
                 self._free_qs[self._owner[s]].put(s)
             for w in range(self.workers):
-                p = ctx.Process(
-                    target=_worker_loop,
-                    args=(w, self.workers, source, transform,
-                          self._shm.name, self.spec, self.slots,
-                          self._free_qs[w], self._full_q, self._stop,
-                          self.start_index, self.num_batches,
-                          self._poll_s, method),
-                    daemon=True, name=f"{name}-worker-{w}")
-                _start(p)
-                self._procs.append(p)
+                self._procs.append(self._start_worker(ctx, w, self._free_qs[w]))
         except BaseException:
             self.close()
             raise
+
+    def _start_worker(self, ctx, wid: int, free_q, first_g: int | None = None,
+                      suffix: str = ""):
+        """Start producer ``wid`` with a fresh result pipe; returns the
+        process."""
+        reader, writer = ctx.Pipe(duplex=False)
+        p = ctx.Process(
+            target=_worker_loop,
+            args=(wid, self.workers, self.source, self.transform,
+                  self._shm.name, self.spec, self.slots,
+                  free_q, writer, self._stop,
+                  self.start_index, self.num_batches,
+                  self._poll_s, self._start_method, first_g),
+            daemon=True, name=f"{self.name}-worker-{wid}{suffix}")
+        try:
+            _start(p)
+        finally:
+            writer.close()  # the worker holds the only writer: its exit ends the pipe
+        if self._results[wid] is not None:
+            self._results[wid].close()
+        self._results[wid] = reader
+        return p
 
     # -- consumption -------------------------------------------------------
 
@@ -580,30 +598,45 @@ class ProcessPipeline:
         return fn
 
     def _next_msg(self, timeout_s: float = 60.0):
-        """One result-queue message, polling worker liveness: a producer that
-        died silently must surface as an error (or a respawn), not a
-        hang."""
+        """One message from any worker's result pipe, polling worker
+        liveness: a producer that died silently must surface as an error
+        (or a respawn), not a hang."""
+        from multiprocessing.connection import wait
+
         deadline = time.monotonic() + timeout_s
         while True:
-            try:
-                return self._full_q.get(timeout=self._poll_s)
-            except _queue.Empty:
-                for wid, p in enumerate(self._procs):
+            live = [r for r in self._results if r is not None]
+            for reader in wait(live, timeout=self._poll_s):
+                wid = self._results.index(reader)
+                try:
+                    return reader.recv()
+                except EOFError:  # the worker exited: its pipe is drained
+                    reader.close()
+                    self._results[wid] = None
+                    p = self._procs[wid]
+                    p.join(timeout=5.0)
                     if p.exitcode not in (None, 0):
                         raise _WorkerDeath(
                             wid,
                             f"feed worker {p.name} died with exitcode "
                             f"{p.exitcode} (killed? OOM?) before delivering "
                             "its batches")
-                if all(p.exitcode is not None for p in self._procs):
-                    raise RuntimeError(
-                        "all feed workers exited but batches are still owed "
-                        "— worker/consumer accounting bug")
-                if time.monotonic() > deadline:
-                    raise TimeoutError(
-                        f"no feed batch arrived in {timeout_s:.0f}s "
-                        f"({self.name}: {self.workers} workers alive but "
-                        "silent)")
+            for wid, p in enumerate(self._procs):
+                if p.exitcode not in (None, 0):
+                    raise _WorkerDeath(
+                        wid,
+                        f"feed worker {p.name} died with exitcode "
+                        f"{p.exitcode} (killed? OOM?) before delivering "
+                        "its batches")
+            if all(r is None for r in self._results):
+                raise RuntimeError(
+                    "all feed workers exited but batches are still owed "
+                    "— worker/consumer accounting bug")
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"no feed batch arrived in {timeout_s:.0f}s "
+                    f"({self.name}: {self.workers} workers alive but "
+                    "silent)")
 
     def _respawn_or_raise(self, wid: int, message: str) -> None:
         """The bounded respawn policy: with budget left, replace dead worker
@@ -637,16 +670,8 @@ class ProcessPipeline:
         last = self._delivered_max.get(wid)
         first_g = (last + self.workers) if last is not None \
             else self.start_index + wid
-        p = ctx.Process(
-            target=_worker_loop,
-            args=(wid, self.workers, self.source, self.transform,
-                  self._shm.name, self.spec, self.slots,
-                  q, self._full_q, self._stop,
-                  self.start_index, self.num_batches,
-                  self._poll_s, method, first_g),
-            daemon=True, name=f"{self.name}-worker-{wid}r{self._respawns_used}")
-        _start(p)
-        self._procs[wid] = p
+        self._procs[wid] = self._start_worker(ctx, wid, q, first_g,
+                                              f"r{self._respawns_used}")
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -664,9 +689,7 @@ class ProcessPipeline:
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=2.0)
-        for q in (*getattr(self, "_free_qs", ()), getattr(self, "_full_q", None)):
-            if q is None:
-                continue
+        for q in getattr(self, "_free_qs", ()):
             try:
                 while True:
                     q.get_nowait()
@@ -674,6 +697,10 @@ class ProcessPipeline:
                 pass
             q.close()
             q.join_thread()
+        for reader in getattr(self, "_results", ()):
+            if reader is not None:
+                reader.close()
+        self._results = []
         self._views = []
         if self._shm is not None:
             try:

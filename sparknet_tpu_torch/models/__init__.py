@@ -27,8 +27,26 @@ from sparknet_tpu_torch.models.zoo import (  # noqa: F401
     cifar10_quick,
     cifar10_quick_solver,
     decode_spec,
+    googlenet,
+    googlenet_solver,
     lenet,
     lenet_solver,
+    mobilenet,
+    mobilenet_solver,
+    resnet50,
+    resnet50_solver,
+    squeezenet,
+    squeezenet_solver,
     transformer,
     transformer_solver,
+    vgg16,
+    vgg16_solver,
 )
+
+# Per-family input crop for the ImageNet benchmark families: the train_val
+# crops (AlexNet/CaffeNet 227; GoogLeNet/MobileNet/ResNet/VGG 224;
+# SqueezeNet v1.1's published crop is 227).
+BENCH_CROPS = {
+    "alexnet": 227, "caffenet": 227, "googlenet": 224, "mobilenet": 224,
+    "resnet50": 224, "vgg16": 224, "squeezenet": 227,
+}

@@ -4,9 +4,10 @@ Counterpart of ``sparknet_tpu/models/deploy.py`` (ref:
 caffe/python/caffe/classifier.py:11-99, pycaffe.py:155-197
 ``_Net_forward_all``).  The handle owns a TEST-phase ``Network`` on one
 device and runs any number of inputs in net-batch-size chunks, padding the
-ragged tail and trimming it from the outputs.  ``.caffemodel``/HDF5 weight
-loading, BatchNorm folding and the int8 path are ROADMAP Queue A4; weights
-come from ``Network.init`` or from the JAX package through ``interop.py``.
+ragged tail and trimming it from the outputs.  ``fold_batchnorm`` is the
+``merge_bn`` deploy flow (``models/fold_bn.py``).  ``.caffemodel``/HDF5
+weight loading and the int8 path are ROADMAP Queue A4; weights come from
+``Network.init`` or from the JAX package through ``interop.py``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from sparknet_tpu_torch.common import Phase
-from sparknet_tpu_torch.compiler.graph import Network
+from sparknet_tpu_torch.compiler.graph import Network, NetVars
 from sparknet_tpu_torch.data import io_utils as cio
 from sparknet_tpu_torch.proto.text_format import Message
 
@@ -70,6 +71,21 @@ class DeployNet:
             self.transformer.set_raw_scale(in_, raw_scale)
         if channel_swap is not None:
             self.transformer.set_channel_swap(in_, channel_swap)
+
+    def fold_batchnorm(self) -> list[str]:
+        """Fold in-place BatchNorm(+Scale) chains into their producing
+        Conv/InnerProduct weights (the Caffe-ecosystem ``merge_bn`` deploy
+        flow, ``models/fold_bn.py``): the forward loses two elementwise
+        passes a chain.  Returns the folded-chain labels; inference-only,
+        since the statistics are baked in."""
+        from sparknet_tpu_torch.models.fold_bn import fold_batchnorm
+
+        net2, params2, state2, folded = fold_batchnorm(
+            self.network.net_param, self.variables.params, self.variables.state)
+        if folded:
+            self.network = Network(net2, Phase.TEST, device=self.device)
+            self.variables = NetVars(params=params2, state=state2)
+        return folded
 
     def forward_all(self, in_: str, data: np.ndarray) -> dict[str, np.ndarray]:
         """Forward N preprocessed samples in net-batch chunks; concat outputs.

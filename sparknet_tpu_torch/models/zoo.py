@@ -5,12 +5,14 @@ Copy of the net builders of ``sparknet_tpu/models/zoo.py`` the serving
 and training paths need (ref: caffe/examples/mnist/lenet_train_test.prototxt,
 caffe/examples/cifar10/cifar10_{quick,full}_train_test.prototxt,
 caffe/models/bvlc_alexnet/train_val.prototxt,
-caffe/models/bvlc_reference_caffenet/train_val.prototxt), plus the
+caffe/models/bvlc_reference_caffenet/train_val.prototxt,
+caffe/models/bvlc_googlenet/train_val.prototxt), the later ImageNet
+families (ResNet-50, VGG-16, SqueezeNet v1.1, MobileNet v1), plus the
 sequence models ``transformer`` and ``charlm`` (no reference analog).
 Architectures are the published ones; data enters through RDD layers and
 batch is a builder argument.  The ``*_solver()`` recipes are the
-published solver.prototxt settings of each; the other families are
-ROADMAP Queue A10.
+published solver.prototxt settings of each; ``mnist_siamese`` and
+``mnist_autoencoder`` are ROADMAP Queue A10.
 """
 
 from __future__ import annotations
@@ -25,10 +27,13 @@ import torch.nn.functional as F
 from sparknet_tpu_torch.common import f32_precision
 from sparknet_tpu_torch.layers_dsl import (
     AccuracyLayer,
+    BatchNormLayer,
+    ConcatLayer,
     ConvolutionLayer,
     DropoutLayer,
     EltwiseLayer,
     EmbedLayer,
+    FlattenLayer,
     InnerProductLayer,
     LRNLayer,
     MultiHeadAttentionLayer,
@@ -37,6 +42,7 @@ from sparknet_tpu_torch.layers_dsl import (
     PoolingLayer,
     RDDLayer,
     ReLULayer,
+    ScaleLayer,
     SoftmaxWithLoss,
     _filler,
 )
@@ -50,6 +56,10 @@ def _gauss(std: float) -> Message:
 
 def _const(v: float) -> Message:
     return _filler("constant", value=v)
+
+
+def _msra() -> Message:
+    return _filler("msra")
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +274,482 @@ def caffenet_solver() -> SolverConfig:
 
 
 # ---------------------------------------------------------------------------
+# GoogLeNet — 9 inception modules, a multi-tower concat DAG (ref:
+# caffe/models/bvlc_googlenet/train_val.prototxt), with its two auxiliary
+# loss heads
+# ---------------------------------------------------------------------------
+def _inception(name: str, bottom: str, c1: int, c3r: int, c3: int,
+               c5r: int, c5: int, cp: int) -> list[Message]:
+    """One inception module: 1x1 / 3x3(reduced) / 5x5(reduced) / pool-proj
+    towers concatenated on channels."""
+    w = lambda: _filler("xavier")
+    b = lambda: _const(0.2)
+    n = f"inception_{name}"
+    layers = [
+        ConvolutionLayer(f"{n}/1x1", [bottom], kernel=(1, 1), num_output=c1,
+                         weight_filler=w(), bias_filler=b()),
+        ReLULayer(f"{n}/relu_1x1", [f"{n}/1x1"], in_place=True),
+        ConvolutionLayer(f"{n}/3x3_reduce", [bottom], kernel=(1, 1),
+                         num_output=c3r, weight_filler=w(), bias_filler=b()),
+        ReLULayer(f"{n}/relu_3x3_reduce", [f"{n}/3x3_reduce"], in_place=True),
+        ConvolutionLayer(f"{n}/3x3", [f"{n}/3x3_reduce"], kernel=(3, 3),
+                         num_output=c3, pad=(1, 1), weight_filler=w(),
+                         bias_filler=b()),
+        ReLULayer(f"{n}/relu_3x3", [f"{n}/3x3"], in_place=True),
+        ConvolutionLayer(f"{n}/5x5_reduce", [bottom], kernel=(1, 1),
+                         num_output=c5r, weight_filler=w(), bias_filler=b()),
+        ReLULayer(f"{n}/relu_5x5_reduce", [f"{n}/5x5_reduce"], in_place=True),
+        ConvolutionLayer(f"{n}/5x5", [f"{n}/5x5_reduce"], kernel=(5, 5),
+                         num_output=c5, pad=(2, 2), weight_filler=w(),
+                         bias_filler=b()),
+        ReLULayer(f"{n}/relu_5x5", [f"{n}/5x5"], in_place=True),
+        PoolingLayer(f"{n}/pool", [bottom], Pooling.Max, kernel=(3, 3),
+                     stride=(1, 1), pad=(1, 1)),
+        ConvolutionLayer(f"{n}/pool_proj", [f"{n}/pool"], kernel=(1, 1),
+                         num_output=cp, weight_filler=w(), bias_filler=b()),
+        ReLULayer(f"{n}/relu_pool_proj", [f"{n}/pool_proj"], in_place=True),
+        ConcatLayer(f"{n}/output",
+                    [f"{n}/1x1", f"{n}/3x3", f"{n}/5x5", f"{n}/pool_proj"]),
+    ]
+    return layers
+
+
+def _googlenet_aux_head(i: int, bottom: str, num_classes: int) -> list[Message]:
+    """Auxiliary classifier tower ``loss{i}`` — ave_pool 5x5/3 → 1x1 conv 128
+    → fc 1024 → drop 0.7 → fc num_classes → SoftmaxWithLoss at weight 0.3.
+    The published recipe trains with BOTH aux heads in every phase (ref:
+    caffe/models/bvlc_googlenet/train_val.prototxt:823-953 loss1,
+    :1586-1716 loss2; loss_weight 0.3 at :933 and :1696)."""
+    w = lambda: _filler("xavier")
+    b = lambda: _const(0.2)
+    p = f"loss{i}"
+    return [
+        PoolingLayer(f"{p}/ave_pool", [bottom], Pooling.Ave,
+                     kernel=(5, 5), stride=(3, 3)),
+        ConvolutionLayer(f"{p}/conv", [f"{p}/ave_pool"], kernel=(1, 1),
+                         num_output=128, weight_filler=w(), bias_filler=b()),
+        ReLULayer(f"{p}/relu_conv", [f"{p}/conv"], in_place=True),
+        InnerProductLayer(f"{p}/fc", [f"{p}/conv"], num_output=1024,
+                          weight_filler=w(), bias_filler=b()),
+        ReLULayer(f"{p}/relu_fc", [f"{p}/fc"], in_place=True),
+        DropoutLayer(f"{p}/drop_fc", [f"{p}/fc"], ratio=0.7, in_place=True),
+        InnerProductLayer(f"{p}/classifier", [f"{p}/fc"],
+                          num_output=num_classes, weight_filler=w(),
+                          bias_filler=_const(0.0)),
+        SoftmaxWithLoss(f"{p}/loss", [f"{p}/classifier", "label"],
+                        loss_weight=0.3, top=f"{p}/loss{i}"),
+        AccuracyLayer(f"{p}/top-1", [f"{p}/classifier", "label"], phase="TEST"),
+        AccuracyLayer(f"{p}/top-5", [f"{p}/classifier", "label"], top_k=5,
+                      phase="TEST"),
+    ]
+
+
+def googlenet(batch: int = 32, num_classes: int = 1000, crop: int = 224) -> Message:
+    w = lambda: _filler("xavier")
+    b = lambda: _const(0.2)
+    layers: list[Message] = [
+        RDDLayer("data", shape=[batch, 3, crop, crop]),
+        RDDLayer("label", shape=[batch]),
+        ConvolutionLayer("conv1/7x7_s2", ["data"], kernel=(7, 7), num_output=64,
+                         stride=(2, 2), pad=(3, 3), weight_filler=w(),
+                         bias_filler=b()),
+        ReLULayer("conv1/relu_7x7", ["conv1/7x7_s2"], in_place=True),
+        PoolingLayer("pool1/3x3_s2", ["conv1/7x7_s2"], Pooling.Max,
+                     kernel=(3, 3), stride=(2, 2)),
+        LRNLayer("pool1/norm1", ["pool1/3x3_s2"], local_size=5, alpha=1e-4,
+                 beta=0.75),
+        ConvolutionLayer("conv2/3x3_reduce", ["pool1/norm1"], kernel=(1, 1),
+                         num_output=64, weight_filler=w(), bias_filler=b()),
+        ReLULayer("conv2/relu_3x3_reduce", ["conv2/3x3_reduce"], in_place=True),
+        ConvolutionLayer("conv2/3x3", ["conv2/3x3_reduce"], kernel=(3, 3),
+                         num_output=192, pad=(1, 1), weight_filler=w(),
+                         bias_filler=b()),
+        ReLULayer("conv2/relu_3x3", ["conv2/3x3"], in_place=True),
+        LRNLayer("conv2/norm2", ["conv2/3x3"], local_size=5, alpha=1e-4,
+                 beta=0.75),
+        PoolingLayer("pool2/3x3_s2", ["conv2/norm2"], Pooling.Max,
+                     kernel=(3, 3), stride=(2, 2)),
+    ]
+    layers += _inception("3a", "pool2/3x3_s2", 64, 96, 128, 16, 32, 32)
+    layers += _inception("3b", "inception_3a/output", 128, 128, 192, 32, 96, 64)
+    layers += [PoolingLayer("pool3/3x3_s2", ["inception_3b/output"],
+                            Pooling.Max, kernel=(3, 3), stride=(2, 2))]
+    layers += _inception("4a", "pool3/3x3_s2", 192, 96, 208, 16, 48, 64)
+    layers += _googlenet_aux_head(1, "inception_4a/output", num_classes)
+    layers += _inception("4b", "inception_4a/output", 160, 112, 224, 24, 64, 64)
+    layers += _inception("4c", "inception_4b/output", 128, 128, 256, 24, 64, 64)
+    layers += _inception("4d", "inception_4c/output", 112, 144, 288, 32, 64, 64)
+    layers += _googlenet_aux_head(2, "inception_4d/output", num_classes)
+    layers += _inception("4e", "inception_4d/output", 256, 160, 320, 32, 128, 128)
+    layers += [PoolingLayer("pool4/3x3_s2", ["inception_4e/output"],
+                            Pooling.Max, kernel=(3, 3), stride=(2, 2))]
+    layers += _inception("5a", "pool4/3x3_s2", 256, 160, 320, 32, 128, 128)
+    layers += _inception("5b", "inception_5a/output", 384, 192, 384, 48, 128, 128)
+    # pool5 is a GLOBAL average in intent (7x7 == 224/32, the whole 5b
+    # map — ref: bvlc_googlenet/train_val.prototxt pool5/7x7_s1); keep
+    # that intent at reduced crops by sizing the kernel to the actual map.
+    # Non-multiples of 32 would leave a ceil-mode map LARGER than
+    # crop//32 and silently break the global intent — reject them.
+    if crop % 32:
+        raise ValueError(f"googlenet: crop must be a multiple of 32 "
+                         f"(got {crop})")
+    p5 = max(1, crop // 32)
+    layers += [
+        PoolingLayer("pool5/7x7_s1", ["inception_5b/output"], Pooling.Ave,
+                     kernel=(p5, p5), stride=(1, 1)),
+        DropoutLayer("pool5/drop_7x7_s1", ["pool5/7x7_s1"], ratio=0.4, in_place=True),
+        InnerProductLayer("loss3/classifier", ["pool5/7x7_s1"],
+                          num_output=num_classes, weight_filler=w(),
+                          bias_filler=_const(0.0)),
+        SoftmaxWithLoss("loss3/loss3", ["loss3/classifier", "label"]),
+        AccuracyLayer("loss3/top-1", ["loss3/classifier", "label"], phase="TEST"),
+        AccuracyLayer("loss3/top-5", ["loss3/classifier", "label"], top_k=5, phase="TEST"),
+    ]
+    return NetParam("GoogleNet", *layers)
+
+
+def googlenet_solver() -> SolverConfig:
+    """ref: caffe/models/bvlc_googlenet/solver.prototxt."""
+    return SolverConfig(
+        base_lr=0.01, lr_policy="step", gamma=0.96, stepsize=320000,
+        momentum=0.9, weight_decay=2e-4, max_iter=2400000,
+        solver_type="SGD", display=40,
+    )
+
+
+# ---------------------------------------------------------------------------
+# ResNet-50 — the first post-reference zoo family.  The reference predates
+# residual nets; this follows the published Caffe ResNet-50 deploy wiring
+# (He et al. 2016: conv bias_term false + BatchNorm/Scale pairs, bottleneck
+# branches named res{stage}{blk}_branch{1,2a,2b,2c}, v1 downsampling via
+# stride-2 on branch1 and branch2a).
+# ---------------------------------------------------------------------------
+def _bn_scale(prefix: str, bottom: str,
+              frac: float = 0.999) -> list[Message]:
+    """BatchNorm (stats only) + Scale (gamma/beta), Caffe-ResNet naming."""
+    return [
+        BatchNormLayer(f"bn{prefix}", [bottom],
+                       moving_average_fraction=frac),
+        ScaleLayer(f"scale{prefix}", [bottom]),
+    ]
+
+
+def _bottleneck(stage: int, blk: str, bottom: str, width: int,
+                stride: int, project: bool,
+                bn_fraction: float = 0.999) -> tuple[list[Message], str]:
+    """res{stage}{blk}: 1x1(width,s) -> 3x3(width) -> 1x1(4*width) with
+    identity or stride-s projection shortcut; sum then ReLU."""
+    w = _msra
+    n = f"{stage}{blk}"
+    layers: list[Message] = []
+    shortcut = bottom
+    if project:
+        layers += [
+            ConvolutionLayer(f"res{n}_branch1", [bottom], kernel=(1, 1),
+                             num_output=4 * width, stride=(stride, stride),
+                             weight_filler=w(), bias_term=False),
+            *_bn_scale(f"{n}_branch1", f"res{n}_branch1", bn_fraction),
+        ]
+        shortcut = f"res{n}_branch1"
+    layers += [
+        ConvolutionLayer(f"res{n}_branch2a", [bottom], kernel=(1, 1),
+                         num_output=width, stride=(stride, stride),
+                         weight_filler=w(), bias_term=False),
+        *_bn_scale(f"{n}_branch2a", f"res{n}_branch2a", bn_fraction),
+        ReLULayer(f"res{n}_branch2a_relu", [f"res{n}_branch2a"],
+                  in_place=True),
+        ConvolutionLayer(f"res{n}_branch2b", [f"res{n}_branch2a"],
+                         kernel=(3, 3), num_output=width, pad=(1, 1),
+                         weight_filler=w(), bias_term=False),
+        *_bn_scale(f"{n}_branch2b", f"res{n}_branch2b", bn_fraction),
+        ReLULayer(f"res{n}_branch2b_relu", [f"res{n}_branch2b"],
+                  in_place=True),
+        ConvolutionLayer(f"res{n}_branch2c", [f"res{n}_branch2b"],
+                         kernel=(1, 1), num_output=4 * width,
+                         weight_filler=w(), bias_term=False),
+        *_bn_scale(f"{n}_branch2c", f"res{n}_branch2c", bn_fraction),
+        EltwiseLayer(f"res{n}", [shortcut, f"res{n}_branch2c"]),
+        ReLULayer(f"res{n}_relu", [f"res{n}"], in_place=True),
+    ]
+    return layers, f"res{n}"
+
+
+def resnet50(batch: int = 32, num_classes: int = 1000,
+             crop: int = 224, bn_fraction: float = 0.999) -> Message:
+    """``bn_fraction``: BatchNorm moving-average fraction — the recipe
+    0.999 assumes thousands of iterations; short schedules (fine-tunes,
+    convergence demos) want 0.9-0.95 so eval stats track training."""
+    w = _msra
+    layers: list[Message] = [
+        RDDLayer("data", shape=[batch, 3, crop, crop]),
+        RDDLayer("label", shape=[batch]),
+        ConvolutionLayer("conv1", ["data"], kernel=(7, 7), num_output=64,
+                         stride=(2, 2), pad=(3, 3), weight_filler=w(),
+                         bias_term=False),
+        *_bn_scale("_conv1", "conv1", bn_fraction),
+        ReLULayer("conv1_relu", ["conv1"], in_place=True),
+        PoolingLayer("pool1", ["conv1"], Pooling.Max, kernel=(3, 3),
+                     stride=(2, 2)),
+    ]
+    bottom = "pool1"
+    stages = [(2, 64, 3), (3, 128, 4), (4, 256, 6), (5, 512, 3)]
+    for stage, width, blocks in stages:
+        for i in range(blocks):
+            blk = "abcdef"[i]
+            stride = 2 if (i == 0 and stage > 2) else 1
+            ls, bottom = _bottleneck(stage, blk, bottom, width,
+                                     stride, project=(i == 0),
+                                     bn_fraction=bn_fraction)
+            layers += ls
+    layers += [
+        PoolingLayer("pool5", [bottom], Pooling.Ave, global_pooling=True),
+        InnerProductLayer("fc1000", ["pool5"], num_output=num_classes,
+                          weight_filler=w(), bias_filler=_const(0.0)),
+        SoftmaxWithLoss("loss", ["fc1000", "label"]),
+        AccuracyLayer("accuracy", ["fc1000", "label"], phase="TEST"),
+        AccuracyLayer("accuracy_top5", ["fc1000", "label"], top_k=5,
+                      phase="TEST"),
+    ]
+    return NetParam("ResNet-50", *layers)
+
+
+def resnet50_solver() -> SolverConfig:
+    """The published recipe: SGD 0.9, base_lr 0.1, weight decay 1e-4,
+    /10 steps (He et al.; epoch boundaries depend on dataset scale)."""
+    return SolverConfig(
+        base_lr=0.1, lr_policy="multistep", momentum=0.9,
+        weight_decay=1e-4, gamma=0.1, stepvalue=(150000, 300000),
+        max_iter=450000, solver_type="SGD", display=20,
+        snapshot_prefix="resnet50",
+    )
+
+
+# ---------------------------------------------------------------------------
+# VGG-16 — the second post-reference zoo family (Simonyan & Zisserman
+# 2015, configuration D), wired as the published Caffe model-zoo
+# VGG_ILSVRC_16_layers train_val: 13 conv3x3/pad1 layers in five
+# max-pooled blocks, then the AlexNet-style 4096/4096/1000 FC tail with
+# dropout (~15.5 GFLOP an image forward).
+# ---------------------------------------------------------------------------
+def _vgg_block(idx: int, bottom: str, convs: int, width: int,
+               filler) -> list[Message]:
+    """conv{idx}_1..convs (3x3 pad 1, ReLU) then 2x2/2 max pool."""
+    layers: list[Message] = []
+    for j in range(1, convs + 1):
+        name = f"conv{idx}_{j}"
+        layers += [
+            ConvolutionLayer(name, [bottom], kernel=(3, 3), num_output=width,
+                             pad=(1, 1), weight_filler=filler(),
+                             bias_filler=_const(0.0)),
+            ReLULayer(f"relu{idx}_{j}", [name], in_place=True),
+        ]
+        bottom = name
+    layers.append(PoolingLayer(f"pool{idx}", [bottom], Pooling.Max,
+                               kernel=(2, 2), stride=(2, 2)))
+    return layers
+
+
+def vgg16(batch: int = 64, num_classes: int = 1000, crop: int = 224,
+          msra_init: bool = False) -> Message:
+    """``msra_init``: the published zoo file keeps gaussian std 0.01 —
+    faithful, but activations vanish ~1e-5 by conv5_3 so config D does
+    not train from scratch (the paper bootstrapped it from config A;
+    He et al. 2015 §2.2 derives msra filling from exactly this failure).
+    Flip on for from-scratch training without a warm start."""
+    filler = _msra if msra_init else lambda: _gauss(0.01)
+    blocks = [(1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512), (5, 3, 512)]
+    layers: list[Message] = [
+        RDDLayer("data", shape=[batch, 3, crop, crop]),
+        RDDLayer("label", shape=[batch]),
+    ]
+    bottom = "data"
+    for idx, convs, width in blocks:
+        layers += _vgg_block(idx, bottom, convs, width, filler)
+        bottom = f"pool{idx}"
+    layers += _alex_tail(bottom, num_classes)
+    return NetParam("VGG-16", *layers)
+
+
+def vgg16_solver() -> SolverConfig:
+    """The published recipe (Simonyan & Zisserman §3.1): SGD momentum
+    0.9, base_lr 0.01 decreased 10x on plateau (step schedule here),
+    weight decay 5e-4, batch 256 aggregated (the Caffe zoo train_val
+    runs batch 64 with iter_size)."""
+    return SolverConfig(
+        base_lr=0.01, lr_policy="step", gamma=0.1, stepsize=100000,
+        momentum=0.9, weight_decay=5e-4, max_iter=370000,
+        solver_type="SGD", display=20, snapshot_prefix="vgg16",
+    )
+
+
+def _fire(i: int, bottom: str, squeeze: int, expand: int,
+          msra: bool = False) -> list[Message]:
+    """fire{i}: 1x1 squeeze -> parallel 1x1 + 3x3(pad 1) expands ->
+    channel concat (SqueezeNet §3.1 Fire module)."""
+    w = _msra if msra else (lambda: _filler("xavier"))
+    p = f"fire{i}"
+    return [
+        ConvolutionLayer(f"{p}/squeeze1x1", [bottom], kernel=(1, 1),
+                         num_output=squeeze, weight_filler=w()),
+        ReLULayer(f"{p}/relu_squeeze1x1", [f"{p}/squeeze1x1"],
+                  in_place=True),
+        ConvolutionLayer(f"{p}/expand1x1", [f"{p}/squeeze1x1"],
+                         kernel=(1, 1), num_output=expand,
+                         weight_filler=w()),
+        ReLULayer(f"{p}/relu_expand1x1", [f"{p}/expand1x1"], in_place=True),
+        ConvolutionLayer(f"{p}/expand3x3", [f"{p}/squeeze1x1"],
+                         kernel=(3, 3), num_output=expand, pad=(1, 1),
+                         weight_filler=w()),
+        ReLULayer(f"{p}/relu_expand3x3", [f"{p}/expand3x3"], in_place=True),
+        ConcatLayer(f"{p}/concat", [f"{p}/expand1x1", f"{p}/expand3x3"]),
+    ]
+
+
+def squeezenet(batch: int = 32, num_classes: int = 1000,
+               crop: int = 227, msra_init: bool = False) -> Message:
+    """SqueezeNet v1.1 — post-reference family #3, the deploy-efficiency
+    member (Iandola et al. 2016; the official release was a Caffe
+    prototxt, forresti/SqueezeNet, which this follows: conv1 64x3x3/2,
+    eight Fire modules, all-conv 1x1 classifier over a global average
+    pool — no fc layers at all).  1,235,496 params at 1000 classes
+    (~50x smaller than AlexNet at comparable published accuracy).  The
+    Fire concat of 1x1+3x3 expands is a 2-way DAG per module.
+
+    ``msra_init=True``: swap every conv's xavier filler for msra — the
+    published xavier wiring loses ~2.5x activation variance per Fire
+    module through the ReLU stack (std 0.39 at conv1 -> 1.7e-3 by fire9
+    at unit-scale inputs, gradients ~1e-4, as the JAX package measured),
+    the same from-scratch trainability gap ``vgg16`` documents; the
+    default stays faithful to the published prototxt for finetune
+    parity.  msra fillers expect unit-scale inputs."""
+    w = _msra if msra_init else (lambda: _filler("xavier"))
+    layers: list[Message] = [
+        RDDLayer("data", shape=[batch, 3, crop, crop]),
+        RDDLayer("label", shape=[batch]),
+        ConvolutionLayer("conv1", ["data"], kernel=(3, 3), num_output=64,
+                         stride=(2, 2), weight_filler=w()),
+        ReLULayer("relu_conv1", ["conv1"], in_place=True),
+        PoolingLayer("pool1", ["conv1"], Pooling.Max, kernel=(3, 3),
+                     stride=(2, 2)),
+    ]
+    layers += _fire(2, "pool1", 16, 64, msra_init)
+    layers += _fire(3, "fire2/concat", 16, 64, msra_init)
+    layers += [PoolingLayer("pool3", ["fire3/concat"], Pooling.Max,
+                            kernel=(3, 3), stride=(2, 2))]
+    layers += _fire(4, "pool3", 32, 128, msra_init)
+    layers += _fire(5, "fire4/concat", 32, 128, msra_init)
+    layers += [PoolingLayer("pool5", ["fire5/concat"], Pooling.Max,
+                            kernel=(3, 3), stride=(2, 2))]
+    layers += _fire(6, "pool5", 48, 192, msra_init)
+    layers += _fire(7, "fire6/concat", 48, 192, msra_init)
+    layers += _fire(8, "fire7/concat", 64, 256, msra_init)
+    layers += _fire(9, "fire8/concat", 64, 256, msra_init)
+    layers += [
+        DropoutLayer("drop9", ["fire9/concat"], ratio=0.5, in_place=True),
+        ConvolutionLayer("conv10", ["fire9/concat"], kernel=(1, 1),
+                         num_output=num_classes, weight_filler=_gauss(0.01),
+                         bias_filler=_const(0.0)),
+        ReLULayer("relu_conv10", ["conv10"], in_place=True),
+        PoolingLayer("pool10", ["conv10"], Pooling.Ave,
+                     global_pooling=True),
+        FlattenLayer("flat10", ["pool10"]),
+        SoftmaxWithLoss("loss", ["flat10", "label"]),
+        AccuracyLayer("accuracy", ["flat10", "label"], phase="TEST"),
+        AccuracyLayer("accuracy_top5", ["flat10", "label"], top_k=5,
+                      phase="TEST"),
+    ]
+    return NetParam("SqueezeNet_v1.1", *layers)
+
+
+def _dw_sep(name: str, bottom: str, cin: int, cout: int, stride: int,
+            bn_fraction: float) -> tuple[list[Message], str]:
+    """conv{name}/dw (3x3 depthwise, group=cin) + BN/Scale/ReLU, then
+    conv{name}/sep (1x1 pointwise) + BN/Scale/ReLU — the depthwise-
+    separable block (Howard et al. 2017 §3.1, the MobileNet-Caffe
+    community wiring's layer naming)."""
+    dw, sep = f"conv{name}/dw", f"conv{name}/sep"
+    layers = [
+        ConvolutionLayer(dw, [bottom], kernel=(3, 3), num_output=cin,
+                         stride=(stride, stride), pad=(1, 1), group=cin,
+                         weight_filler=_msra(), bias_term=False),
+        *_bn_scale(f"{name}/dw", dw, bn_fraction),
+        ReLULayer(f"relu{name}/dw", [dw], in_place=True),
+        ConvolutionLayer(sep, [dw], kernel=(1, 1), num_output=cout,
+                         weight_filler=_msra(), bias_term=False),
+        *_bn_scale(f"{name}/sep", sep, bn_fraction),
+        ReLULayer(f"relu{name}/sep", [sep], in_place=True),
+    ]
+    return layers, sep
+
+
+def mobilenet(batch: int = 32, num_classes: int = 1000, crop: int = 224,
+              bn_fraction: float = 0.999) -> Message:
+    """MobileNet v1 (1.0x, Howard et al. 2017) — post-reference family
+    #4, the depthwise-separable member: 13 dw-separable blocks between
+    a 3x3/2 stem and a global-average 1x1-conv classifier.  4,231,976
+    params at 1000 classes (the standard v1 count; derived conv1 864 +
+    dw 44,640 + pointwise 3,139,584 + Scale gamma/beta 21,888 +
+    fc 1,025,000).  The only family whose hot op is GROUPED convolution
+    at group == channels (a depthwise 3x3 does 9 MACs an output against
+    a dense conv's thousands, so the op is bound by memory).
+    ``bn_fraction`` as in ``resnet50``."""
+    layers: list[Message] = [
+        RDDLayer("data", shape=[batch, 3, crop, crop]),
+        RDDLayer("label", shape=[batch]),
+        ConvolutionLayer("conv1", ["data"], kernel=(3, 3), num_output=32,
+                         stride=(2, 2), pad=(1, 1), weight_filler=_msra(),
+                         bias_term=False),
+        *_bn_scale("1", "conv1", bn_fraction),
+        ReLULayer("relu1", ["conv1"], in_place=True),
+    ]
+    bottom = "conv1"
+    plan = [("2_1", 32, 64, 1), ("2_2", 64, 128, 2),
+            ("3_1", 128, 128, 1), ("3_2", 128, 256, 2),
+            ("4_1", 256, 256, 1), ("4_2", 256, 512, 2),
+            ("5_1", 512, 512, 1), ("5_2", 512, 512, 1),
+            ("5_3", 512, 512, 1), ("5_4", 512, 512, 1),
+            ("5_5", 512, 512, 1), ("5_6", 512, 1024, 2),
+            ("6", 1024, 1024, 1)]
+    for name, cin, cout, stride in plan:
+        ls, bottom = _dw_sep(name, bottom, cin, cout, stride, bn_fraction)
+        layers += ls
+    layers += [
+        PoolingLayer("pool6", [bottom], Pooling.Ave, global_pooling=True),
+        ConvolutionLayer("fc7", ["pool6"], kernel=(1, 1),
+                         num_output=num_classes, weight_filler=_gauss(0.01),
+                         bias_filler=_const(0.0)),
+        FlattenLayer("flat7", ["fc7"]),
+        SoftmaxWithLoss("loss", ["flat7", "label"]),
+        AccuracyLayer("accuracy", ["flat7", "label"], phase="TEST"),
+        AccuracyLayer("accuracy_top5", ["flat7", "label"], top_k=5,
+                      phase="TEST"),
+    ]
+    return NetParam("MobileNet_v1", *layers)
+
+
+def mobilenet_solver() -> SolverConfig:
+    """Adapted recipe (the v1 paper trained with RMSProp on an internal
+    system and shipped no Caffe solver): SGD momentum 0.9, base_lr 0.01
+    stepped /10 — the BN-ful net is schedule-tolerant."""
+    return SolverConfig(
+        base_lr=0.01, lr_policy="step", gamma=0.1, stepsize=100000,
+        momentum=0.9, weight_decay=4e-5, max_iter=300000,
+        solver_type="SGD", display=40, snapshot_prefix="mobilenet",
+    )
+
+
+def squeezenet_solver() -> SolverConfig:
+    """The official v1.1 recipe: SGD momentum 0.9, base_lr 0.04 with
+    linear (poly power 1) decay, weight decay 2e-4 (forresti/SqueezeNet
+    solver.prototxt)."""
+    return SolverConfig(
+        base_lr=0.04, lr_policy="poly", power=1.0, momentum=0.9,
+        weight_decay=2e-4, max_iter=170000, solver_type="SGD",
+        display=40, snapshot_prefix="squeezenet",
+    )
+
+
+# ---------------------------------------------------------------------------
 # Transformer sequence classifier and char-level causal LM (no reference
 # analog).  A causal decoder stack built from prototxt-compatible layers.
 # ---------------------------------------------------------------------------
@@ -369,12 +855,6 @@ class GraphFamily:
     vocab: int = 0
 
 
-def _mobilenet_not_ported(*_args):
-    raise NotImplementedError(
-        "the mobilenet family needs BatchNorm, Scale and depthwise "
-        "convolution, which are not ported yet (ROADMAP Queue A10)")
-
-
 GRAPH_SWEEP_FAMILIES: dict[str, GraphFamily] = {
     "cifar10_quick": GraphFamily(
         solver=cifar10_quick_solver, net=lambda b: cifar10_quick(b),
@@ -387,9 +867,10 @@ GRAPH_SWEEP_FAMILIES: dict[str, GraphFamily] = {
         net=lambda b: transformer(b, seq_len=32, vocab=32, embed_dim=16,
                                   heads=4, ffn_dim=32, blocks=1),
         feed="tokens", num_classes=10, seq_len=32, vocab=32),
-    # listed as in the JAX package; building it raises, naming A10
+    # depthwise group conv + BatchNorm state
     "mobilenet": GraphFamily(
-        solver=_mobilenet_not_ported, net=_mobilenet_not_ported,
+        solver=lambda: dataclasses.replace(mobilenet_solver(), base_lr=1e-3),
+        net=lambda b: mobilenet(batch=b, num_classes=5, crop=64),
         feed="image", num_classes=5, image_shape=(3, 64, 64)),
 }
 

@@ -15,6 +15,11 @@ def channel_axis(ndim: int = 4) -> int:
     return 1
 
 
+def channel_bshape(ndim: int) -> tuple:
+    """Broadcast shape for a per-channel vector (bias, BN stats, scale)."""
+    return (1, -1) + (1,) * (ndim - 2)
+
+
 def spatial_axes() -> tuple[int, int]:
     """(H, W) axes of an internal rank-4 activation."""
     return (2, 3)

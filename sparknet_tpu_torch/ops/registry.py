@@ -63,12 +63,12 @@ _V1_ALIASES = {
 # the ROADMAP queue item that ports them.
 _NOT_YET_PORTED = {
     **{t: "Queue A10" for t in (
-        "AbsVal", "ArgMax", "BNLL", "BatchNorm", "BatchReindex", "Bias",
+        "AbsVal", "ArgMax", "BNLL", "BatchReindex",
         "ContrastiveLoss", "Data", "Deconvolution", "DummyData", "ELU",
         "EuclideanLoss", "Exp", "Filter", "HDF5Data",
         "HDF5Output", "HingeLoss", "Im2col", "ImageData", "InfogainLoss",
         "Log", "MVN", "MultinomialLogisticLoss", "PReLU", "Power", "Python",
-        "Reduction", "Reshape", "SPP", "Scale", "Sigmoid",
+        "Reduction", "Reshape", "SPP", "Sigmoid",
         "SigmoidCrossEntropyLoss", "Silence", "Slice", "TanH", "Threshold",
         "Tile", "WindowData")},
     "MoE": "Queue A12",

@@ -17,9 +17,9 @@ Counterpart of ``sparknet_tpu/serve/``:
   flash-attention prefill, paged-attention decode), its cacheless twin
   ``continuous.ContinuousDecoder``, and ``paged.TokenRouter``.
 
-Not ported yet: the engine's ``fold_bn`` and ``int8`` deploy arms (ROADMAP
-Queue A4), the ``mobilenet`` family (A10), and the obs journal and the
-SLO controller (A13); each raises or is left out, naming its item.
+Not ported yet: the engine's ``int8`` deploy arm (ROADMAP Queue A4), and
+the obs journal and the SLO controller (A13); each raises or is left out,
+naming its item.
 """
 
 from sparknet_tpu_torch.serve.batcher import DynamicBatcher, Ticket

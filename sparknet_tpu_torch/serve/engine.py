@@ -43,9 +43,17 @@ a replica join), and the request path (``submit``, ``pump``,
 ``_execute``) constructs none.  It stays as the JAX engine's gate, which
 there counts lazy recompiles that a CUDA graph cannot have.
 
-What is not ported here: the ``fold_bn`` and ``int8`` deploy arms raise,
-naming ROADMAP Queue A4 (they need A10's BatchNorm and the int8
-convolution); the ``mobilenet`` family raises, naming A10; the obs journal
+Deploy arms: ``f32`` serves the weights as they are; ``fold_bn`` folds the
+BatchNorm(+Scale) chains into their producers ONCE, at load, from the
+given variables (``models/fold_bn.py``), and builds every bucket's net
+from that folded layer list at the bucket's rows (a no-op for the
+BN-free families, whose ``fold_bn`` programs are the ``f32`` ones).  The
+JAX engine folds again for each bucket from the already-folded
+variables, which leaves a later bucket's BatchNorm layers without their
+state; the port does not repeat that.
+
+What is not ported here: the ``int8`` deploy arm raises, naming ROADMAP
+Queue A4 (it needs the int8 convolution); the obs journal
 (``rec.emit`` events, fenced spans, lineage, the recompile sentinel) is
 A13 and is left out: the latency ledgers and ``stats()`` carry the
 numbers.  The engine defaults to CUDA (``device=None``) and raises without
@@ -106,10 +114,10 @@ _ARMS = ("f32", "fold_bn", "int8")
 def _check_arm(arm: str) -> None:
     if arm not in _ARMS:
         raise ValueError(f"unknown arm {arm!r}; one of {_ARMS}")
-    if arm != "f32":
+    if arm == "int8":
         raise NotImplementedError(
-            f"the {arm} deploy arm needs fold_bn/quant and BatchNorm, which are "
-            "not ported yet (ROADMAP Queue A4)")
+            "the int8 deploy arm needs quant and the int8 convolution, which "
+            "are not ported yet (ROADMAP Queue A4)")
 
 
 class AdmissionRefused(RuntimeError):
@@ -159,6 +167,25 @@ def _forward_fn(network, blob: str, end: str):
             blobs, _, _ = network.apply(variables, feeds, train=False, end=end)
         return blobs[blob]
     return forward
+
+
+def _with_inputs_of(folded, net_param):
+    """``folded``'s layer list with its input layers (the ones that carry
+    the batch) taken from ``net_param``, a build of the same family at
+    another batch."""
+    from sparknet_tpu_torch.ops.data_layers import InputLayer
+    from sparknet_tpu_torch.ops.registry import get_layer_class
+    from sparknet_tpu_torch.proto.text_format import Message
+
+    inputs = {lp.get_str("name"): lp for lp in net_param.get_all("layer")
+              if issubclass(get_layer_class(lp.get_str("type")), InputLayer)}
+    out = Message()
+    for field, values in folded.fields.items():
+        for v in values:
+            if field == "layer" and v.get_str("name") in inputs:
+                v = inputs[v.get_str("name")]
+            out.add(field, v)
+    return out
 
 
 def _family(family_name: str):
@@ -211,6 +238,17 @@ def build_serve_program(family_name: str = "cifar10_quick", bucket: int = 1,
 # ---------------------------------------------------------------------------
 
 
+def _on(variables, device):
+    """A copy of ``variables`` (a ``NetVars``) on ``device``."""
+    from sparknet_tpu_torch.compiler.graph import NetVars
+
+    return NetVars(
+        params={ln: [torch.as_tensor(p).to(device, copy=True) for p in pl]
+                for ln, pl in variables.params.items()},
+        state={ln: {k: torch.as_tensor(v).to(device, copy=True) for k, v in s.items()}
+               for ln, s in variables.state.items()})
+
+
 class ServedModel:
     """One resident model: its weights on the engine's device, one
     :class:`~sparknet_tpu_torch.serve.graphs.BucketProgram` per bucket, and
@@ -218,7 +256,10 @@ class ServedModel:
 
     ``variables`` injects trained weights (a ``NetVars``, e.g. from
     ``interop.netvars_from_numpy``), copied onto the device; the default is
-    the seeded init.  ``version``/``previous`` are the hot-reload lineage
+    the seeded init.  ``source_variables`` keeps them as loaded (on the
+    host under the ``fold_bn`` arm, which folds them there); ``variables``
+    are the ones served (folded under ``fold_bn``, whose chain labels
+    ``folded`` lists).  ``version``/``previous`` are the hot-reload lineage
     the engine maintains.  ``measured_bytes`` is the device memory the
     load took (``torch.cuda.memory_allocated`` before and after, weights,
     static buffers and graph outputs included, and on a device's first
@@ -261,19 +302,32 @@ class ServedModel:
         else:
             # a copy the model owns: a joining replica copies the live
             # weights, it does not share them
-            self.variables = NetVars(
-                params={ln: [torch.as_tensor(p).to(self.device, copy=True) for p in pl]
-                        for ln, pl in variables.params.items()},
-                state={ln: {k: torch.as_tensor(v).to(self.device, copy=True)
-                            for k, v in s.items()}
-                       for ln, s in variables.state.items()})
+            self.variables = _on(variables, self.device)
         self.score_blob = _score_blob(base)
+        # the weights as loaded: a joining replica copies these (folding
+        # folded weights again would find no BatchNorm state)
+        self.source_variables = self.variables
+        self.folded: list[str] = []
+        folded_net = None
+        if arm == "fold_bn":
+            from sparknet_tpu_torch.models.fold_bn import fold_batchnorm
+
+            # the unfolded weights stay on the host, where the fold runs:
+            # the device holds the folded ones alone
+            self.source_variables = _on(self.variables, torch.device("cpu"))
+            self.variables = None
+            folded_net, params, state, self.folded = fold_batchnorm(
+                base.net_param, self.source_variables.params, self.source_variables.state)
+            self.variables = _on(NetVars(params=params, state=state), self.device)
 
         pool = torch.cuda.graph_pool_handle() if cuda else None
         self.programs: dict[int, BucketProgram] = {}
         t0 = time.perf_counter()
         for bucket in self.buckets:
-            net_b = Network(family.net(exec_batch(bucket)), Phase.TEST, device=self.device)
+            net_param = family.net(exec_batch(bucket))
+            if folded_net is not None:
+                net_param = _with_inputs_of(folded_net, net_param)
+            net_b = Network(net_param, Phase.TEST, device=self.device)
             fn = _forward_fn(net_b, self.score_blob, _end_layer(net_b, self.score_blob))
             self.programs[bucket] = BucketProgram(
                 lambda data, label, fn=fn: fn(self.variables, {"data": data, "label": label}),

@@ -198,7 +198,7 @@ class ReplicaRouter:
         from a serving replica.  Returns the new replica id."""
         with self._lock:
             donor = next(iter(self._replicas.values()))
-            variables = donor.model.variables
+            variables = donor.model.source_variables
         return self._boot_replica(variables=variables).rid
 
     def rollout(self, variables=None, seed: int | None = None) -> int:

@@ -34,10 +34,15 @@ feed = sorted(n for n in names if n.startswith(("sparknet_tpu_torch.data.",
                                                 "sparknet_tpu_torch.apps.",
                                                 "sparknet_tpu_torch.utils."))
               and n != "sparknet_tpu_torch.data.text")
+zoo = sorted(n for n in names if n in ("sparknet_tpu_torch.models.deploy",
+                                        "sparknet_tpu_torch.models.fold_bn",
+                                        "sparknet_tpu_torch.models.zoo",
+                                        "sparknet_tpu_torch.ops.blocks"))
 print(training)
 print(serving)
 print(charlm)
 print(feed)
+print(zoo)
 print(len(names), bad)
 """
 
@@ -47,7 +52,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    training, serving, charlm, feed, last = out.stdout.strip().split("\n")[-5:]
+    training, serving, charlm, feed, zoo, last = out.stdout.strip().split("\n")[-6:]
     n, bad = last.split(" ", 1)
     assert int(n) >= 30, out.stdout
     assert bad == "[]", out.stdout
@@ -70,6 +75,9 @@ def test_port_imports_no_jax():
            ("archive", "cifar", "device_transform", "io_utils", "lmdb_io", "minibatch",
             "pipeline", "prefetch", "records", "sampler", "transform")]
         + [f"sparknet_tpu_torch.utils.{m}" for m in ("event_log", "signals")])), out.stdout
+    # the ImageNet families: BatchNorm, Scale and Bias, the zoo, the fold
+    assert zoo == str([f"sparknet_tpu_torch.models.{m}" for m in ("deploy", "fold_bn", "zoo")]
+                      + ["sparknet_tpu_torch.ops.blocks"]), out.stdout
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

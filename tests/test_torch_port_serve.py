@@ -304,13 +304,15 @@ def test_over_budget_refusal_through_an_injected_table():
 
 def test_arms_families_and_shapes_refused():
     engine = ServeEngine(buckets=(1,), **CPU)
-    for arm in ("fold_bn", "int8"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            engine.load_model("m", family="lenet", arm=arm)
+    with pytest.raises(NotImplementedError, match="A4"):
+        engine.load_model("m", family="lenet", arm="int8")
     with pytest.raises(ValueError, match="unknown arm"):
         engine.load_model("m", family="lenet", arm="fp8")
-    with pytest.raises(NotImplementedError, match="A10"):
-        engine.load_model("m", family="mobilenet")
+    # the fold_bn arm and the mobilenet family load since BatchNorm landed
+    engine.load_model("folded", family="lenet", arm="fold_bn")
+    engine.load_model("mobile", family="mobilenet")
+    engine.unload_model("folded")
+    engine.unload_model("mobile")
     with pytest.raises(KeyError, match="serveable families"):
         engine.load_model("m", family="resnet50")
     engine.load_model("m", family="lenet")
