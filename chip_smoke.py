@@ -9,12 +9,16 @@ Phases, in order (any failure exits non-zero):
 
 1. card: ``nvidia-smi``'s name and power limit, torch and CUDA versions;
 2. build: every kernel of ``sparknet_tpu_torch/csrc`` with ``nvcc``;
-3. kernel: the LRN kernel against its plain PyTorch version at the serving
-   path's shapes (AlexNet and CaffeNet norm1/norm2 at batch 256) and at
-   ragged ones, in float32 (rtol 1e-5, atol 1e-6) and bfloat16 (one bf16
-   ulp of the float32 result cast to bfloat16); CUDA-event times of the
-   kernel, the plain version and ``F.local_response_norm`` (a yardstick the
-   port never calls) beside the least time the card could take;
+3. kernel: the LRN kernel against its plain PyTorch version at every
+   main-path shape (AlexNet and CaffeNet norm1/norm2 at batch 256,
+   GoogLeNet's two at batch 32) and at ragged ones (16-byte loads meeting
+   the channel clamp among them), in float32 (rtol 1e-5, atol 1e-6) and
+   bfloat16 (one bf16 ulp of the float32 result cast to bfloat16), with
+   the count of elements not bitwise equal; at the main-path shapes the
+   times of the kernel (CUDA events over back-to-back calls, and by
+   CUDA-graph replay, which leaves out the host's launch), the plain
+   version and ``F.local_response_norm`` (a yardstick the port never
+   calls) beside the least time the card could take;
 4. path: the zoo AlexNet at batch 256, 227x227, TEST phase, with data and
    label feeds: 2 kernel launches per forward, a finite loss, ``fc8``
    equal to the same forward with the plain LRN, and img/s;
@@ -68,7 +72,10 @@ Phases, in order (any failure exits non-zero):
     0 of the char LM's shape and of the wide heads alone and in its batch;
     times of the kernel, the plain version and the autograd
     backward of ``F.scaled_dot_product_attention`` (a yardstick) beside
-    the bound, and of the forward with and without lse;
+    the bound, and of the forward with and without lse beside the forward's
+    plain version with lse and
+    ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp`` (a yardstick);
 14. paged: the paged-attention kernel against ``paged_attention_torch``
     (rtol 1e-5, atol 1e-6) over a sweep of every head dim (8, 16, 32, 64,
     128, 256 and 512, the chunked kernel) x block size T (1, 4, 8, 16) at
@@ -288,12 +295,22 @@ MAIN_CASES = [
     ("caffenet.norm1", (256, 96, 27, 27)),
     ("caffenet.norm2", (256, 256, 13, 13)),
 ]
+GOOGLENET_LRN = ((32, 64, 56, 56), (32, 192, 56, 56))  # pool1/norm1, conv2/norm2 at b32
+# every shape a main path gives the LRN forward: the serving path's, then
+# GoogLeNet's
+LRN_PATH_CASES = MAIN_CASES + [
+    (f"googlenet.{name}", shape) for name, shape in zip(("norm1", "norm2"), GOOGLENET_LRN)]
 RAGGED_CASES = [  # (label, shape, size, beta, k)
     ("c_lt_size", (4, 2, 17, 19), 5, 0.75, 1.0),
     ("c3_odd_hw", (4, 3, 31, 29), 5, 0.75, 1.0),
     ("hw1", (8, 64, 1, 1), 5, 0.75, 1.0),
     ("size3", (2, 32, 13, 13), 3, 0.75, 1.0),
     ("beta0.6_k2", (2, 32, 13, 13), 5, 0.6, 2.0),
+    # 16-byte loads (H*W a multiple of 8) meeting the channel clamp: C odd
+    # and below the window, C below the window, a last segment cut short
+    ("vec_c3", (4, 3, 8, 8), 5, 0.75, 1.0),
+    ("vec_c_lt_size", (2, 2, 16, 16), 5, 0.75, 1.0),
+    ("vec_c40_size7", (2, 40, 12, 12), 7, 0.75, 1.0),
 ]
 ALPHA = 1e-4
 
@@ -510,9 +527,11 @@ def phase_build() -> None:
         for fn, n in re.findall(r"Compiling entry function '([^']+)'.*?Used (\d+) "
                                 r"registers", log, flags=re.S):
             kernel = re.search(r"\d+((?:lrn|fused)_\w+?_kernel)I", fn)
-            if kernel and ("IfLi5ELb1E" in fn or "IfLi0ELi2E" in fn):
+            if (kernel and "lrn_forward" not in fn
+                    and ("IfLi5ELb1E" in fn or "IfLi0ELi2E" in fn)):
                 print(f"    {kernel.group(1)} (float32, main-path instance): "
                       f"{n} registers a thread")
+        print_lrn_forward_registers(log)
         # every instance that spills or keeps a stack frame, by name
         for fn, frame, spill in re.findall(
                 r"Compiling entry function '([^']+)'.*?(\d+) bytes stack frame, "
@@ -540,14 +559,34 @@ def phase_build() -> None:
                       f"registers a thread, {spill} bytes of spill stores")
 
 
+def print_lrn_forward_registers(log: str) -> None:
+    """ptxas's registers for the LRN forward's walks in a build log of
+    ``csrc/lrn.cu``: each (storage type, load width) over its sizes and
+    beta forms."""
+    fwd = {}
+    for fn, n in re.findall(r"Compiling entry function '([^']+)'.*?Used (\d+) "
+                            r"registers", log, flags=re.S):
+        walk = re.search(r"lrn_forward_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E"
+                         r"Li(\d+)E", fn)
+        if walk:
+            kind, size, b34, vec = walk.groups()
+            key = ("f32" if kind == "f" else "bf16", int(vec))
+            fwd.setdefault(key, {})[(int(size), b34 == "1")] = int(n)
+    for (kind, vec), regs in sorted(fwd.items()):
+        print(f"    lrn_forward_kernel {kind}, {vec} a load: "
+              f"{min(regs.values())}-{max(regs.values())} registers a thread over "
+              f"sizes 1-11 and both beta forms (size 5, beta 0.75: "
+              f"{regs.get((5, True))})")
+
+
 def phase_kernel(card: str) -> dict:
-    """Kernel vs plain at every case; times at the main shapes."""
+    """Kernel vs plain at every case; times at the main-path shapes."""
     from sparknet_tpu_torch.ops import kernels
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = torch.device("cuda")
     max_err_f32 = 0.0
-    cases = [(lab, shp, 5, 0.75, 1.0) for lab, shp in MAIN_CASES] + RAGGED_CASES
+    cases = [(lab, shp, 5, 0.75, 1.0) for lab, shp in LRN_PATH_CASES] + RAGGED_CASES
     for label, shape, size, beta, k in cases:
         # raw-pixel-scale activations, as after a ReLU in the zoo nets
         x = torch.relu(torch.randn(shape, generator=gen, device=dev) * 50)
@@ -558,7 +597,8 @@ def phase_kernel(card: str) -> dict:
         ok = bool((err <= F32_TOL["atol"] + F32_TOL["rtol"] * ref.abs()).all())
         max_err_f32 = max(max_err_f32, float(err.max()))
         print(f"kernel {label} {list(shape)} size {size} beta {beta} f32: "
-              f"max abs err {float(err.max()):.3e} (rtol 1e-5, atol 1e-6) "
+              f"max abs err {float(err.max()):.3e} (rtol 1e-5, atol 1e-6), "
+              f"{int((y != ref).sum())} elements not bitwise equal "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"lrn f32 {label}")
         xb = x.to(torch.bfloat16)
@@ -570,27 +610,37 @@ def phase_kernel(card: str) -> dict:
         okb = bool((errb <= bf16_ulp(refb)).all())
         print(f"kernel {label} {list(shape)} bf16: max abs err "
               f"{float(errb.max()):.3e}, max err in ulps "
-              f"{float((errb / bf16_ulp(refb)).max()):.2f} (tolerance 1 bf16 ulp) "
+              f"{float((errb / bf16_ulp(refb)).max()):.2f} (tolerance 1 bf16 ulp), "
+              f"{int((yb != refb).sum())} elements not bitwise equal "
               f"{'ok' if okb else 'FAIL'}")
         check(okb, f"lrn bf16 {label}")
 
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     bound_by = set()
-    for label, shape in MAIN_CASES:
+    for label, shape in LRN_PATH_CASES:
         x = torch.relu(torch.randn(shape, generator=gen, device=dev) * 50)
+        xb = x.to(torch.bfloat16)
+        # events over back-to-back calls, then the same calls replayed from a
+        # CUDA graph: at GoogLeNet's shapes the host's launch takes about as
+        # long as the kernel, and the events measure the host's issue rate
         t_k = time_ms(lambda: kernels.lrn_across_channels(x, 5, ALPHA, 0.75, 1.0))
+        t_kg = graph_ms(lambda: kernels.lrn_across_channels(x, 5, ALPHA, 0.75, 1.0))
         t_p = time_ms(lambda: kernels.lrn_across_channels_torch(x, 5, ALPHA, 0.75, 1.0))
         t_l = time_ms(lambda: F.local_response_norm(x, 5, ALPHA, 0.75, 1.0))
-        xb = x.to(torch.bfloat16)
         t_kb = time_ms(lambda: kernels.lrn_across_channels(xb, 5, ALPHA, 0.75, 1.0))
+        t_kbg = graph_ms(lambda: kernels.lrn_across_channels(xb, 5, ALPHA, 0.75, 1.0))
         bound, by = lrn_bound_ms(shape, 5, 4, card)
         bound_b, _ = lrn_bound_ms(shape, 5, 2, card)
         gbs = 2 * x.numel() * 4 / (t_k * 1e-3) / 1e9
+        geo = kernels.lrn_forward_geometry(shape, 4, True)
+        geo_b = kernels.lrn_forward_geometry(shape, 2, True)
         print(f"time {label} {list(shape)} f32: kernel {t_k:.4f} ms "
-              f"({gbs:.0f} GB/s, {100 * bound / t_k:.1f}% of bound), plain "
+              f"({gbs:.0f} GB/s, {100 * bound / t_k:.1f}% of bound), by graph replay "
+              f"{t_kg:.4f} ms ({100 * bound / t_kg:.1f}%), plain "
               f"{t_p:.4f} ms, F.local_response_norm {t_l:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}); bf16 kernel {t_kb:.4f} ms (bound "
-              f"{bound_b:.4f} ms) [{card}]")
+              f"{bound:.4f} ms ({by}); bf16 kernel {t_kb:.4f} ms ({100 * bound_b / t_kb:.1f}%), "
+              f"by graph replay {t_kbg:.4f} ms ({100 * bound_b / t_kbg:.1f}%), bound "
+              f"{bound_b:.4f} ms; f32 {geo}, bf16 {geo_b} [{card}]")
         if label.startswith("alexnet"):
             totals["ms"] += t_k
             totals["plain_ms"] += t_p
@@ -2902,12 +2952,31 @@ def phase_flash_backward(card: str) -> dict:
                 t_l = time_ms(sdpa_both) - time_ms(sdpa_forward)
             t_lse = timer(lambda: kernels._flash_attention_cuda(q, k, v, causal, True))
             t_fwd = timer(lambda: kernels._flash_attention_cuda(q, k, v, causal))
+            # B3 with its lse output beside its plain version and the one
+            # PyTorch call that returns o and a float32 log-sum-exp too
+            t_lse_p = timer(lambda: kernels.flash_attention_forward_lse_torch(
+                q, k, v, causal))
+
+            def efficient_lse():
+                return torch.ops.aten._scaled_dot_product_efficient_attention(
+                    q, k, v, None, compute_log_sumexp=True, is_causal=causal)
+
+            try:
+                t_lse_l = timer(efficient_lse)
+            except RuntimeError as err:  # a call that will not capture
+                print(f"flash forward {label}: the efficient attention call not timed by "
+                      f"{how} ({str(err)[:120]}); events over back-to-back calls instead")
+                torch.cuda.synchronize()
+                t_lse_l = time_ms(efficient_lse)
             bound, by = flash_backward_bound_ms(shape, causal, card)
             print(f"time flash backward {label} {list(shape)} causal {int(causal)} ({how}): "
                   f"kernel {t_k:.4f} ms ({100 * bound / t_k:.1f}% of bound), plain "
                   f"{t_p:.4f} ms, autograd backward of F.scaled_dot_product_attention "
                   f"{t_l:.4f} ms (forward + backward less forward), bound {bound:.4f} ms "
-                  f"({by}); forward with lse {t_lse:.4f} ms, without {t_fwd:.4f} ms [{card}]")
+                  f"({by}); forward with lse {t_lse:.4f} ms, without {t_fwd:.4f} ms; "
+                  f"with lse: plain flash_attention_forward_lse_torch {t_lse_p:.4f} ms, "
+                  f"aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True) "
+                  f"{t_lse_l:.4f} ms [{card}]")
             out[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
                               bound_by=by)
             del leaves, o, lse, got
@@ -3622,7 +3691,6 @@ ZOO_CLASSES = 10  # the fixed batch's labels: 10 of the 1000 classes
 # steps take the same batch divided by its standard deviation
 ZOO_UNIT_SCALE = ("squeezenet",)
 ZOO_TEST_FORWARDS = 5  # timed TEST forwards a family, after a check and a warm-up
-GOOGLENET_LRN = ((32, 64, 56, 56), (32, 192, 56, 56))  # pool1/norm1, conv2/norm2 at b32
 # the card against the CPU at crop 64, batch 4 (``zoo_card_vs_cpu``): each
 # layer alone on the CPU forward's own inputs, its outputs, state and VJP
 # at rtol 1e-4 + 1e-5 x max|ref|; the whole step's loss at rtol 1e-4
