@@ -14,7 +14,8 @@ Phases, in order (any failure exits non-zero):
    GoogLeNet's two at batch 32) and at ragged ones (16-byte loads meeting
    the channel clamp among them), in float32 (rtol 1e-5, atol 1e-6) and
    bfloat16 (one bf16 ulp of the float32 result cast to bfloat16), with
-   the count of elements not bitwise equal; at the main-path shapes the
+   the count of elements not bitwise equal, and bit for bit where k puts
+   the window's scale out of the beta = 0.75 walk's fast range; at the main-path shapes the
    times of the kernel (CUDA events over back-to-back calls, and by
    CUDA-graph replay, which leaves out the host's launch), the plain
    version and ``F.local_response_norm`` (a yardstick the port never
@@ -311,7 +312,15 @@ RAGGED_CASES = [  # (label, shape, size, beta, k)
     ("vec_c3", (4, 3, 8, 8), 5, 0.75, 1.0),
     ("vec_c_lt_size", (2, 2, 16, 16), 5, 0.75, 1.0),
     ("vec_c40_size7", (2, 40, 12, 12), 7, 0.75, 1.0),
+    # beta = 0.75 operands out of the forward walk's fast range [2^-20, 2^20]:
+    # k = 1e-7 gives u = k at every window of zeros, so walks fall back part
+    # way down (16-byte bf16 rows, then scalar rows); k = 2e6 sends every
+    # walk back at its first channel.  Held bit for bit (LRN_EXACT_CASES)
+    ("range_k1e-7_vec", (4, 32, 16, 16), 5, 0.75, 1e-7),
+    ("range_k1e-7", (4, 32, 13, 13), 5, 0.75, 1e-7),
+    ("range_k2e6", (2, 32, 16, 16), 5, 0.75, 2e6),
 ]
+LRN_EXACT_CASES = ("range_k1e-7_vec", "range_k1e-7", "range_k2e6")
 ALPHA = 1e-4
 
 # (memory bytes/s, float32 FLOP/s outside the tensor cores, dense TF32
@@ -601,6 +610,8 @@ def phase_kernel(card: str) -> dict:
               f"{int((y != ref).sum())} elements not bitwise equal "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"lrn f32 {label}")
+        if label in LRN_EXACT_CASES:
+            check(torch.equal(y, ref), f"lrn f32 {label}: not bit for bit the plain version")
         xb = x.to(torch.bfloat16)
         refb = kernels.lrn_across_channels_torch(xb.float(), size, ALPHA, beta, k)
         refb = refb.to(torch.bfloat16).float()
@@ -614,6 +625,8 @@ def phase_kernel(card: str) -> dict:
               f"{int((yb != refb).sum())} elements not bitwise equal "
               f"{'ok' if okb else 'FAIL'}")
         check(okb, f"lrn bf16 {label}")
+        if label in LRN_EXACT_CASES:
+            check(torch.equal(yb, refb), f"lrn bf16 {label}: not bit for bit the plain version")
 
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     bound_by = set()
@@ -632,15 +645,13 @@ def phase_kernel(card: str) -> dict:
         bound, by = lrn_bound_ms(shape, 5, 4, card)
         bound_b, _ = lrn_bound_ms(shape, 5, 2, card)
         gbs = 2 * x.numel() * 4 / (t_k * 1e-3) / 1e9
-        geo = kernels.lrn_forward_geometry(shape, 4, True)
-        geo_b = kernels.lrn_forward_geometry(shape, 2, True)
         print(f"time {label} {list(shape)} f32: kernel {t_k:.4f} ms "
               f"({gbs:.0f} GB/s, {100 * bound / t_k:.1f}% of bound), by graph replay "
               f"{t_kg:.4f} ms ({100 * bound / t_kg:.1f}%), plain "
               f"{t_p:.4f} ms, F.local_response_norm {t_l:.4f} ms, bound "
               f"{bound:.4f} ms ({by}); bf16 kernel {t_kb:.4f} ms ({100 * bound_b / t_kb:.1f}%), "
               f"by graph replay {t_kbg:.4f} ms ({100 * bound_b / t_kbg:.1f}%), bound "
-              f"{bound_b:.4f} ms; f32 {geo}, bf16 {geo_b} [{card}]")
+              f"{bound_b:.4f} ms [{card}]")
         if label.startswith("alexnet"):
             totals["ms"] += t_k
             totals["plain_ms"] += t_p

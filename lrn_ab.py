@@ -6,7 +6,7 @@ Run from the root of a checkout, with a second checkout to compare with
 (for example ``git archive <commit>`` unpacked under
 ``sparknet_tpu_torch/_build/``, which git ignores):
 
-    python3 lrn_ab.py --parent sparknet_tpu_torch/_build/parent [--sweep]
+    python3 lrn_ab.py --parent sparknet_tpu_torch/_build/parent
 
 It builds the other checkout's ``csrc/lrn.cu`` with this checkout's nvcc
 flags and loads it beside this one's, then:
@@ -22,16 +22,13 @@ flags and loads it beside this one's, then:
    ``chip_smoke.time_ms`` (CUDA events over 10 back-to-back calls, median
    of 25) and by ``chip_smoke.graph_ms`` (the same 10 calls replayed from
    a CUDA graph: device time without the host's launch), beside the bytes
-   bound; and the host's wall time a call;
-3. ``--sweep``: this kernel at each load width, with columns packed across
-   images or blocks kept within one, and blocks of 256, 128 or 64 threads,
-   at each main-path shape in float32 and bfloat16, by graph replay.
+   bound; and the host's wall time a call.
 
-The other checkout's entry point is taken as the one before the geometry
-arguments: ``sparknet_lrn_forward(x, y, batch, channels, spatial, size,
-alpha/size, beta, k, is_bf16, stream)``.  Prints a JSON summary as its last
-line, writes every figure as JSON to ``--json`` if given, and exits
-non-zero if a bit differs.
+Both checkouts' entry point is ``sparknet_lrn_forward(x, y, batch,
+channels, spatial, size, alpha/size, beta, k, is_bf16, stream)``; the other
+checkout's source is read first, and one whose entry takes other arguments
+is refused.  Prints a JSON summary as its last line, writes every figure
+as JSON to ``--json`` if given, and exits non-zero if a bit differs.
 """
 
 from __future__ import annotations
@@ -40,6 +37,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -51,12 +49,27 @@ import chip_smoke as cs
 from sparknet_tpu_torch.ops import kernels
 
 SHAPES = cs.LRN_PATH_CASES
+# the forward entry's parameters, as this checkout's ops/kernels.py binds them
+ENTRY_PARAMS = ("x", "y", "batch", "channels", "spatial", "size",
+                "alpha_over_size", "beta", "k", "is_bf16", "stream")
+
+
+def entry_params(src: str) -> tuple[str, ...]:
+    """The parameter names of ``sparknet_lrn_forward`` in a ``lrn.cu``."""
+    m = re.search(r"int sparknet_lrn_forward\(([^)]*)\)", src)
+    if m is None:
+        raise RuntimeError("no sparknet_lrn_forward in the other checkout's lrn.cu")
+    return tuple(re.findall(r"(\w+)\s*(?:,|$)", m.group(1).strip()))
 
 
 def build_other(root: Path) -> ctypes.CDLL:
     """The other checkout's LRN library, built beside this checkout's (the
     two nvcc runs in parallel)."""
     src = root / "sparknet_tpu_torch" / "csrc" / "lrn.cu"
+    params = entry_params(src.read_text())
+    if params != ENTRY_PARAMS:
+        raise RuntimeError(f"{src}: sparknet_lrn_forward{params} is not the entry this "
+                           f"script calls, sparknet_lrn_forward{ENTRY_PARAMS}")
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     out = kernels.BUILD_DIR / f"liblrn-other-{digest}.so"
     proc = None
@@ -100,8 +113,6 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", required=True, type=Path,
                         help="root of the checkout to compare with")
-    parser.add_argument("--sweep", action="store_true",
-                        help="time every load width, layout and block size too")
     parser.add_argument("--json", type=Path, help="write every figure here")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -112,7 +123,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     dev = torch.device("cuda")
     alpha = cs.ALPHA
-    result = {"card": card, "bits": [], "times": [], "host": [], "sweep": []}
+    result = {"card": card, "bits": [], "times": [], "host": []}
     differ = 0
     cases = [(lab, shp, 5, 0.75, 1.0) for lab, shp in SHAPES] + cs.RAGGED_CASES
     for label, shape, size, beta, k in cases:
@@ -127,11 +138,9 @@ def main(argv=None) -> int:
             n_other = int((words(got) != words(ref)).sum())
             n_plain = int((words(got) != words(plain)).sum())
             differ += n_other
-            geo = kernels.lrn_forward_geometry(shape, xd.element_size(), True)
-            print(f"bits {label} {list(shape)} size {size} beta {beta} "
+            print(f"bits {label} {list(shape)} size {size} beta {beta} k {k:g} "
                   f"{str(dtype)[6:]}: {n_other} elements differ from the other "
-                  f"checkout's kernel, {n_plain} from the plain version "
-                  f"({geo})")
+                  f"checkout's kernel, {n_plain} from the plain version")
             result["bits"].append(dict(case=label, shape=list(shape), dtype=str(dtype)[6:],
                                        differ_other=n_other, differ_plain=n_plain))
     # CUDA events over 10 back-to-back calls measure the host's issue rate
@@ -143,7 +152,6 @@ def main(argv=None) -> int:
         for dtype, itemsize in ((torch.float32, 4), (torch.bfloat16, 2)):
             xd = x.to(dtype)
             bound, _ = cs.lrn_bound_ms(shape, 5, itemsize, card)
-            geo = kernels.lrn_forward_geometry(shape, itemsize, True)
             for how, timer in timers:
                 t = {"other": [], "this": []}
                 for who in ("other", "this", "this", "other"):
@@ -155,12 +163,12 @@ def main(argv=None) -> int:
                       + " / ".join(f"{v:.4f}" for v in t["this"])
                       + f" ms ({100 * bound / min(t['this']):.1f} % of bound), other "
                       + " / ".join(f"{v:.4f}" for v in t["other"])
-                      + f" ms ({100 * bound / min(t['other']):.1f} %), bound {bound:.4f} ms, "
-                      f"{geo} [{card}]")
+                      + f" ms ({100 * bound / min(t['other']):.1f} %), bound {bound:.4f} ms "
+                      f"[{card}]")
                 result["times"].append(dict(case=label, shape=list(shape),
                                             dtype=str(dtype)[6:], timer=how,
                                             this_ms=t["this"], other_ms=t["other"],
-                                            bound_ms=bound, geometry=geo.__dict__))
+                                            bound_ms=bound))
         # the host's side of one call: wall time a call over 200 calls
         # issued without waiting on the card
         for who, fn in (("this", lambda: kernels.lrn_across_channels(x, 5, alpha, 0.75, 1.0)),
@@ -175,25 +183,6 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             print(f"host {label} f32 {who}: {host_us:.1f} us a call issued")
             result["host"].append(dict(case=label, who=who, us=host_us))
-        if not args.sweep:
-            continue
-        for dtype, itemsize in ((torch.float32, 4), (torch.bfloat16, 2)):
-            xd = x.to(dtype)
-            bound, _ = cs.lrn_bound_ms(shape, 5, itemsize, card)
-            wide = 16 // itemsize
-            for vec in ((wide, 1) if shape[2] * shape[3] % wide == 0 else (1,)):
-                for packed in (True, False):
-                    for threads in kernels.LRN_FORWARD_THREADS:
-                        geo = kernels.LRNGeometry(vec=vec, threads=threads, packed=packed)
-                        ms = cs.graph_ms(lambda: kernels._lrn_forward_cuda(
-                            xd, 5, alpha, 0.75, 1.0, geometry=geo))
-                        print(f"sweep (graph) {label} {str(dtype)[6:]} vec {vec} packed "
-                              f"{int(packed)} threads {threads}: {ms:.4f} ms "
-                              f"({100 * bound / ms:.1f} % of bound)")
-                        result["sweep"].append(dict(case=label, dtype=str(dtype)[6:],
-                                                    vec=vec, packed=packed,
-                                                    threads=threads, ms=ms,
-                                                    bound_ms=bound))
     result["differ_other"] = differ
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)

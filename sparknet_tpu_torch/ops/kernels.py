@@ -191,7 +191,7 @@ def _load(name: str) -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p,
             ]
             lib.sparknet_lrn_forward.restype = ctypes.c_int
             lib.sparknet_lrn_backward.argtypes = [
@@ -315,52 +315,13 @@ def _lrn_cuda_checks(x: torch.Tensor, size: int, what: str) -> ctypes.CDLL:
     return lib
 
 
-# The forward kernel's geometry (csrc/lrn.cu): a thread walks 16 channels
-# of one column, in blocks of one of these sizes.
-LRN_FORWARD_SEG = 16
-LRN_FORWARD_THREADS = (256, 128, 64)
-
-
-@dataclasses.dataclass(frozen=True)
-class LRNGeometry:
-    """How ``csrc/lrn.cu``'s forward covers a tensor: each thread walks
-    ``LRN_FORWARD_SEG`` channels of one column of ``vec`` consecutive
-    spatial positions of one image (``vec`` > 1: one 16-byte load a
-    channel), in blocks of ``threads`` that run on across images
-    (``packed``) or each lie in one image."""
-
-    vec: int
-    threads: int
-    packed: bool
-
-
-def lrn_forward_geometry(shape, itemsize: int, aligned: bool) -> LRNGeometry:
-    """The forward kernel's geometry for an NCHW ``shape`` of ``itemsize``
-    bytes an element; ``aligned``: both data pointers are 16-byte aligned.
-
-    float32: one element a thread, blocks of 256 within one image.
-    bfloat16: 16-byte loads wherever every channel row starts on 16 bytes
-    (H*W a multiple of 8, aligned pointers), blocks of 128 that run on
-    across images.  Each was the fastest of the geometries timed on the
-    H100 at the main paths' shapes (PERF.md); 16-byte loads in
-    float32 and packed blocks in float32 ran slower there."""
-    if itemsize == 4:
-        return LRNGeometry(vec=1, threads=256, packed=False)
-    h, w = shape[2], shape[3]
-    wide = 16 // itemsize
-    return LRNGeometry(vec=wide if aligned and (h * w) % wide == 0 else 1,
-                       threads=128, packed=True)
-
-
 def _lrn_forward_cuda(x: torch.Tensor, size: int, alpha: float, beta: float,
-                      k: float, geometry: LRNGeometry | None = None) -> torch.Tensor:
+                      k: float) -> torch.Tensor:
     lib = _lrn_cuda_checks(x, size, "lrn_across_channels")
     y = torch.empty_like(x)
     b, c, h, w = x.shape
-    geo = geometry or lrn_forward_geometry(
-        x.shape, x.element_size(), x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     args = (x.data_ptr(), y.data_ptr(), b, c, h * w, size, alpha / size, beta, k,
-            int(x.dtype == torch.bfloat16), geo.vec, geo.threads, int(geo.packed))
+            int(x.dtype == torch.bfloat16))
     index = x.device.index
     if index == torch.cuda.current_device():  # the common case, without a switch
         err = lib.sparknet_lrn_forward(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -51,6 +51,10 @@ CASES = [
     ("spatial_not_512_multiple", (1, 8, 23, 29), 5, 1e-4, 0.75, 1.0, 1.0),
     ("raw_pixel_x50", (2, 24, 9, 9), 5, 1e-4, 0.75, 1.0, 50.0),
     ("raw_pixel_x50_beta06", (2, 24, 9, 9), 3, 1e-3, 0.6, 1.0, 50.0),
+    # the scale out of [2^-20, 2^20], where the card's forward walk leaves
+    # its fast beta = 0.75 path: tiny k on tiny x, and x near 3e5
+    ("scale_below_2^-20", (2, 16, 5, 7), 5, 1e-4, 0.75, 1e-7, 1e-3),
+    ("scale_above_2^20", (2, 16, 5, 7), 5, 1e-4, 0.75, 1.0, 3e5),
 ]
 
 
@@ -130,56 +134,6 @@ def test_library_path_names_source_hash():
                                       "paged_attention")
     for name in kernels.KERNEL_SOURCES:
         assert (kernels.CSRC_DIR / f"{name}.cu").exists()
-
-
-# The forward kernel's geometry, chosen on the host: the main paths' shapes
-# (AlexNet and CaffeNet norm1/norm2 at b256, GoogLeNet's two at b32) and
-# the ragged shapes chip_smoke.py holds the kernel to.
-MAIN_PATH_SHAPES = {
-    "alexnet.norm1": (256, 96, 55, 55),
-    "alexnet.norm2": (256, 256, 27, 27),
-    "caffenet.norm1": (256, 96, 27, 27),
-    "caffenet.norm2": (256, 256, 13, 13),
-    "googlenet.norm1": (32, 64, 56, 56),
-    "googlenet.norm2": (32, 192, 56, 56),
-}
-RAGGED_SHAPES = [(4, 2, 17, 19), (4, 3, 31, 29), (8, 64, 1, 1), (2, 32, 13, 13),
-                 (4, 3, 8, 8), (2, 2, 16, 16), (2, 40, 12, 12)]
-# (vec, threads, packed) in float32 and bfloat16, 16-byte aligned
-GEOMETRY_PINNED = {
-    "alexnet.norm1": ((1, 256, False), (1, 128, True)),
-    "alexnet.norm2": ((1, 256, False), (1, 128, True)),
-    "caffenet.norm1": ((1, 256, False), (1, 128, True)),
-    "caffenet.norm2": ((1, 256, False), (1, 128, True)),
-    "googlenet.norm1": ((1, 256, False), (8, 128, True)),
-    "googlenet.norm2": ((1, 256, False), (8, 128, True)),
-}
-
-
-@pytest.mark.parametrize("name", sorted(MAIN_PATH_SHAPES))
-def test_lrn_forward_geometry_pinned_at_main_paths(name):
-    shape = MAIN_PATH_SHAPES[name]
-    f32, bf16 = GEOMETRY_PINNED[name]
-    assert kernels.lrn_forward_geometry(shape, 4, True) == kernels.LRNGeometry(*f32)
-    assert kernels.lrn_forward_geometry(shape, 2, True) == kernels.LRNGeometry(*bf16)
-
-
-@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
-@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", list(MAIN_PATH_SHAPES.values()) + RAGGED_SHAPES,
-                         ids=list(MAIN_PATH_SHAPES) + [
-                             "x".join(map(str, s)) for s in RAGGED_SHAPES])
-def test_lrn_forward_geometry_rules(shape, itemsize, aligned):
-    """16-byte loads only where every channel row starts on 16 bytes (H*W a
-    multiple of 16 / itemsize, both pointers aligned), and only in
-    bfloat16; a block the kernel takes (a multiple of 32, at most 256)."""
-    geo = kernels.lrn_forward_geometry(shape, itemsize, aligned)
-    h, w = shape[2], shape[3]
-    rows_allow = aligned and (h * w) % (16 // itemsize) == 0
-    assert geo.vec == (16 // itemsize if rows_allow and itemsize == 2 else 1)
-    assert geo.threads in kernels.LRN_FORWARD_THREADS
-    assert geo.threads % 32 == 0 and geo.threads <= 256
-    assert geo.packed == (itemsize == 2)
 
 
 # ---------------------------------------------------------------------------
