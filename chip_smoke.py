@@ -258,7 +258,33 @@ Phases, in order (any failure exits non-zero):
     for bit eager, padded bit for bit full, across buckets within
     ``ZOO_ACROSS_BUCKETS`` of max|score|, fold_bn within 2e-4 of f32, 0
     request-path captures, 0 dropped) and ``cifar10_quick``'s fold_bn arm
-    bit for bit its f32 arm.
+    bit for bit its f32 arm;
+25. db_apps: Caffe's weight and record files, the DB apps and the CLI
+    (fused update, f32, TF32 off, deterministic cuDNN): ``.caffemodel``
+    round trips through ``TPUNet.save_caffemodel``/``load_caffemodel``
+    bit for bit (CaffeNet at full width, GoogLeNet at published width with
+    ``/`` in its layer names, ResNet-50 with BatchNorm state moved by two
+    steps), sizes and seconds printed; ``ImageNetCreateDBApp`` over two tar
+    shards of 600 seeded 320x320 JPEGs: two record DBs of 512 records, bit
+    for bit the PIL-decoded, resized images, the mean the float64
+    accumulation of them, ``info.json`` as the JAX app writes it;
+    ``ImageNetRunDBApp`` (CaffeNet b256, crop 227) resumed from the
+    CaffeNet file: its weights bit for bit, its first step bit for bit a
+    ``Solver`` step on the captured batch, 12 steps with 24/24/12
+    launches, ms/step, img/s and the host's share (``db_minibatches`` and
+    ``DataTransformer`` timed apart) beside the same solver's fixed-batch
+    step; ``FeaturizerApp`` ``fc7`` of 2 TEST batches of worker 1's DB with
+    the trained weights through ``save_weights_to_file``, within 1e-4 of
+    the plain-LRN forward, 4 launches; ``CifarDBApp`` on LevelDB
+    (cifar10_full b100, 2,500 + 500 synthetic records, 20 iterations, 5
+    test batches): every record bit for bit the loader's, the accuracy
+    before and after; the CLI in
+    process: ``convert_db`` LevelDB -> record -> lmdb bit for bit,
+    ``compute_image_mean`` to ``.binaryproto`` read back equal and within
+    rtol 1e-6 of the app's mean, ``test --weights`` on a ``Data``-layer
+    CaffeNet equal to ``Solver.test``, ``extract_features`` bit for bit
+    the featurizer's, ``time`` per layer and ``--fused``, ``train`` from
+    worker 0's DB with launches, ``device_query`` naming the card.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -4379,10 +4405,611 @@ def phase_zoo(card: str) -> dict:
     return dict(lrn=lrn, lrn_backward=bwd, fused_update=upd)
 
 
+# ---------------------------------------------------------------------------
+# Caffe's weight and record files, the DB apps and the CLI
+# ---------------------------------------------------------------------------
+
+DB_WORKERS = 2  # tar shards, one a worker, and worker DBs
+DB_SHARD_JPEGS = 600  # seeded 320x320 JPEGs a shard: 2 batches of 256 a worker
+DB_CLASSES = 10
+DB_BATCH = 256
+DB_RESIZE = 256
+DB_CROP = 227
+DB_STEPS = 12  # ImageNetRunDBApp steps from worker 0's DB, the first held alone
+DB_FIXED = 4  # fixed-batch steps of the same solver, timed beside them
+DB_FEATURIZE = 2  # TEST batches of worker 1's DB through FeaturizerApp
+# a synthetic CIFAR file's records: cifar_app's 1,000 halved, since LevelDB's
+# pure-Python CRC32C reads about 6 MB/s on the card's host
+DB_CIFAR_RECORDS = 500
+DB_CIFAR_ITERS = 20
+DB_CIFAR_TEST = 5
+DB_CLI_BATCHES = 2  # batches the CLI's test and extract_features read
+DB_CLI_TRAIN = 4
+DB_FEATURE_TOL = 1e-4  # fc7 against the plain-LRN forward (the path phase's gate)
+
+
+def take_counts() -> tuple[int, int, int]:
+    """(LRN forward, LRN backward, fused update) launches since the last
+    call; sets the counts to 0."""
+    from sparknet_tpu_torch.ops import kernels
+
+    c = (kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES, kernels.FUSED_UPDATE_LAUNCHES)
+    kernels.reset_launch_counts()
+    return c
+
+
+def db_jpeg_shards(d: str):
+    """DB_WORKERS plain tar shards of DB_SHARD_JPEGS seeded 320x320 JPEGs
+    (128 + noise x40 + a +-80 pattern a class, clipped: the zoo phase's
+    batch in pixels) and their label file; returns (label file, each
+    shard's [(jpeg bytes, label)] in tar order)."""
+    import io
+    import os
+    import tarfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    pattern = 80 * np.sign(np.random.default_rng(SEED + 17).standard_normal(
+        (DB_CLASSES, 320, 320, 3), dtype=np.float32))
+
+    def jpeg(s: int, i: int, label: int) -> bytes:
+        """Image i of shard s, drawn from its own seed, as a JPEG."""
+        noise = np.random.default_rng([SEED + 17, s, i]).standard_normal(
+            (320, 320, 3), dtype=np.float32)
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(128 + 40 * noise + pattern[label], 0, 255).astype(np.uint8)
+                        ).save(buf, format="JPEG")
+        return buf.getvalue()
+
+    shards, lines = [], []
+    for s in range(DB_WORKERS):
+        samples = []
+        labels = [(s * DB_SHARD_JPEGS + i) % DB_CLASSES for i in range(DB_SHARD_JPEGS)]
+        with ThreadPoolExecutor(8) as pool:  # numpy's and PIL's loops leave the GIL
+            jpegs = list(pool.map(jpeg, [s] * len(labels), range(len(labels)), labels))
+        with tarfile.open(os.path.join(d, f"shard{s}.tar"), "w") as tf:
+            for i, (data, label) in enumerate(zip(jpegs, labels)):
+                info = tarfile.TarInfo(f"s{s}_{i:04d}.JPEG")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+                samples.append((data, label))
+                lines.append(f"{info.name} {label}\n")
+        shards.append(samples)
+    label_file = os.path.join(d, "train.txt")
+    with open(label_file, "w") as f:
+        f.writelines(lines)
+    return label_file, shards
+
+
+def db_decoded(data: bytes) -> np.ndarray:
+    """A JPEG decoded to RGB and resized to DB_RESIZE square with PIL, as
+    uint8 CHW: what a worker DB must hold."""
+    import io
+
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(data)).convert("RGB").resize((DB_RESIZE, DB_RESIZE))
+    return np.asarray(img, np.uint8).transpose(2, 0, 1)
+
+
+def same_vars(a, b) -> bool:
+    """Every param and state tensor of two NetVars bit for bit equal."""
+    return (a.params.keys() == b.params.keys() and a.state.keys() == b.state.keys()
+            and all(torch.equal(x, y) for ln in a.params
+                    for x, y in zip(a.params[ln], b.params[ln]))
+            and all(torch.equal(a.state[ln][k], b.state[ln][k])
+                    for ln in a.state for k in a.state[ln]))
+
+
+def db_caffemodel_round_trips(card: str, d: str):
+    """``TPUNet.save_caffemodel`` then ``load_caffemodel`` into a fresh
+    TPUNet of another seed, bit for bit: CaffeNet at full width (seed 0),
+    GoogLeNet at published width (layer names with ``/``), ResNet-50 with
+    BatchNorm state moved by two steps at crop 64, batch 4.  Returns the
+    CaffeNet file and its weights."""
+    import os
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.net import TPUNet
+
+    def handle(name, net_param, seed):
+        cfg = getattr(models, f"{name}_solver")()
+        if name == "resnet50":
+            cfg = dataclasses.replace(cfg, base_lr=ZOO_FALL_LR[name])
+        return TPUNet(dataclasses.replace(cfg, random_seed=seed), net_param)
+
+    kept = None
+    for name, net_param, steps in (
+            ("caffenet", models.caffenet(DB_BATCH), 0),
+            ("googlenet", models.googlenet(batch=1), 0),
+            ("resnet50", models.resnet50(batch=4, crop=64), 2)):
+        net = handle(name, net_param, SEED)
+        if steps:
+            feeds = zoo_batch(4, 64)
+            net.solver.step(steps, lambda it: feeds)
+            state = net.solver.variables.state
+            check(state and all(bool(torch.isfinite(v).all()) and bool(v.abs().sum() > 0)
+                                for s in state.values() for v in s.values()),
+                  f"{name}: BatchNorm state after {steps} steps is zero or not finite")
+        path = os.path.join(d, f"{name}.caffemodel")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.save_caffemodel(path)
+        save_s = time.perf_counter() - t0
+        fresh = handle(name, net_param, SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = fresh.load_caffemodel(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want, got = net.solver.variables, fresh.solver.variables
+        check(set(loaded) == set(want.params) | set(want.state),
+              f"{name}: loaded {len(loaded)} layers")
+        check(same_vars(want, got), f"{name}: the .caffemodel round trip is not bit for bit")
+        if name == "googlenet":
+            check(any("/" in ln for ln in loaded), "googlenet: no layer name with '/'")
+        n_blobs = sum(len(p) for p in want.params.values()) + sum(
+            len(s) for s in want.state.values())
+        print(f"db_apps: .caffemodel round trip {name}: {len(loaded)} layers, {n_blobs} blobs, "
+              f"{os.path.getsize(path)} bytes; save {save_s:.3f} s, load {load_s:.3f} s; "
+              f"bit for bit [{card}]")
+        if name == "caffenet":
+            kept = (path, clone_vars(want))
+        del net, fresh
+        gc.collect()
+    torch.cuda.empty_cache()
+    return kept
+
+
+def clone_vars(v):
+    from sparknet_tpu_torch.compiler.graph import NetVars
+
+    return NetVars(params={ln: [p.clone() for p in pl] for ln, pl in v.params.items()},
+                   state={ln: {k: t.clone() for k, t in s.items()} for ln, s in v.state.items()})
+
+
+def db_create(card: str, d: str):
+    """ImageNetCreateDBApp over the tar shards: DB_WORKERS record DBs of
+    decoded, resized images; their records, mean and info.json gated."""
+    import json
+    import os
+
+    from sparknet_tpu_torch.apps import ImageNetCreateDBApp
+    from sparknet_tpu_torch.data.createdb import db_minibatches
+
+    shard_dir = os.path.join(d, "shards")
+    os.makedirs(shard_dir)
+    t0 = time.perf_counter()
+    label_file, shards = db_jpeg_shards(shard_dir)
+    jpeg_s = time.perf_counter() - t0
+    out = os.path.join(d, "imagenet_db")
+    t0 = time.perf_counter()
+    info = ImageNetCreateDBApp(shard_dir, label_file, out, num_workers=DB_WORKERS,
+                               resize=DB_RESIZE, batch=DB_BATCH, backend="record").run()
+    create_s = time.perf_counter() - t0
+    per_worker = (DB_SHARD_JPEGS // DB_BATCH) * DB_BATCH
+    acc = np.zeros((3, DB_RESIZE, DB_RESIZE), np.float64)
+    from concurrent.futures import ThreadPoolExecutor
+
+    for w, samples in enumerate(shards):
+        with ThreadPoolExecutor(8) as pool:  # PIL decodes without the GIL
+            want = np.stack(list(pool.map(db_decoded, [x for x, _ in samples[:per_worker]])))
+        acc += want.astype(np.float64).sum(axis=0)
+        rec = info["workers"][w]
+        check(rec["records"] == per_worker and rec["batches"] == per_worker // DB_BATCH,
+              f"worker {w} DB: {rec}")
+        got = next(db_minibatches(rec["db"], per_worker, dtype=np.uint8))
+        check(np.array_equal(got["data"], want), f"worker {w} DB: records are not the "
+              "decoded, resized images bit for bit")
+        check(np.array_equal(got["label"], [lab for _, lab in samples[:per_worker]]),
+              f"worker {w} DB: labels")
+    mean = np.load(info["mean"])
+    check(np.array_equal(mean, (acc / (DB_WORKERS * per_worker)).astype(np.float32)),
+          "the DB mean is not the float64 accumulation of the records")
+    with open(os.path.join(out, "info.json")) as f:
+        written = json.load(f)
+    check(written == {"workers": [
+        {"db": os.path.join(out, f"imagenet_w{w}.sndb"), "records": per_worker,
+         "batches": per_worker // DB_BATCH} for w in range(DB_WORKERS)],
+        "mean": os.path.join(out, "mean.npy")}, f"info.json {written}")
+    print(f"db_apps: ImageNetCreateDBApp: {DB_WORKERS} tar shards of {DB_SHARD_JPEGS} "
+          f"320x320 JPEGs ({jpeg_s:.1f} s to write) -> {DB_WORKERS} record DBs of "
+          f"{per_worker} 3x{DB_RESIZE}x{DB_RESIZE} records in {create_s:.1f} s; records, "
+          "mean and info.json exact")
+    return out, info
+
+
+def db_run(card: str, d: str, db_dir: str, weights: str, saved) -> dict:
+    """ImageNetRunDBApp (CaffeNet b256, crop 227, fused update) resumed
+    from ``weights`` trains DB_STEPS steps from worker 0's DB; the first
+    held bit for bit against a Solver step on the captured batch."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.apps import ImageNetRunDBApp
+    from sparknet_tpu_torch.apps import db_apps as db_mod
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    walls = {"db": 0.0, "transform": 0.0}
+    reader = db_mod.db_minibatches
+
+    def timed_reader(*args, **kwargs):  # the cursor's wall, batch by batch
+        it = reader(*args, **kwargs)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            walls["db"] += time.perf_counter() - t0
+            if b is None:
+                return
+            yield b
+
+    db_mod.db_minibatches = timed_reader
+    try:
+        app = ImageNetRunDBApp(db_dir, worker=0, batch=DB_BATCH, crop=DB_CROP,
+                               model="caffenet", weights=weights, log_dir=d)
+        solver = app.net.solver
+        check(solver.layout is not None, "ImageNetRunDBApp: fused_update did not take")
+        check(same_vars(solver.variables, saved),
+              "ImageNetRunDBApp: the loaded weights are not the saved ones bit for bit")
+        transform, step = app.transform, solver.train_iteration
+        first = {}
+
+        def timed_transform(x, train):
+            t0 = time.perf_counter()
+            y = transform(x, train)
+            walls["transform"] += time.perf_counter() - t0
+            return y
+
+        def capture(feeds):  # the first step's host-transformed batch
+            first["feeds"] = {k: np.array(v) for k, v in feeds.items()}
+            solver.train_iteration = step
+            return step(feeds)
+
+        app.transform = timed_transform
+        solver.train_iteration = capture
+        ref = Solver(models.caffenet_solver(), models.caffenet(DB_BATCH, crop=DB_CROP))
+        ref.variables = saved
+        take_counts()
+        first_loss = app.run(1)
+        first_counts = take_counts()
+        ref_loss = float(ref.train_iteration(first["feeds"]))
+        take_counts()  # the oracle's launches are not the path's
+        check(first_loss == ref_loss and torch.equal(solver._param_arena, ref._param_arena)
+              and all(torch.equal(a, b) for a, b in zip(solver._slot_arenas, ref._slot_arenas)),
+              f"ImageNetRunDBApp's first step (loss {first_loss}) is not a Solver step's "
+              f"(loss {ref_loss}) bit for bit")
+        del ref
+        gc.collect()
+        walls.update(db=0.0, transform=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = app.run(DB_STEPS - 1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = tuple(a + b for a, b in zip(first_counts, take_counts()))
+        n = DB_STEPS - 1
+        check(np.isfinite(loss), f"ImageNetRunDBApp loss {loss}")
+        check(counts == (2 * DB_STEPS, 2 * DB_STEPS, DB_STEPS),
+              f"ImageNetRunDBApp launches (lrn fwd, lrn bwd, fused) {counts}, want "
+              f"{(2 * DB_STEPS, 2 * DB_STEPS, DB_STEPS)}")
+        feeds = solver._feeds_on_device(first["feeds"])
+        solver.step(1, lambda it: feeds)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        solver.step(DB_FIXED, lambda it: feeds)
+        torch.cuda.synchronize()
+        fixed_ms = 1e3 * (time.perf_counter() - t1) / DB_FIXED
+        extra = take_counts()
+        ms = 1e3 * dt / n
+        host = walls["db"] + walls["transform"]
+        print(f"db_apps: ImageNetRunDBApp, CaffeNet b{DB_BATCH} {DB_CROP}x{DB_CROP}, fused "
+              f"update, f32, TF32 off, resumed from {weights.rsplit('/', 1)[-1]}: first step "
+              f"bit for bit a Solver step (loss {first_loss:.6f}); {n} DB-fed steps "
+              f"{ms:.2f} ms/step, {DB_BATCH / ms * 1e3:.1f} img/s, loss {loss:.6f}; host "
+              f"share {host / dt:.3f} (db_minibatches {1e3 * walls['db'] / n:.2f} ms/step, "
+              f"DataTransformer {1e3 * walls['transform'] / n:.2f} ms/step); the same "
+              f"solver on a fixed batch {fixed_ms:.2f} ms/step, "
+              f"{DB_BATCH / fixed_ms * 1e3:.1f} img/s; launches (lrn fwd, lrn bwd, fused) "
+              f"{counts} [{card}]")
+        return dict(app=app, counts=tuple(a + b for a, b in zip(counts, extra)),
+                    ms=ms, fixed_ms=fixed_ms)
+    finally:
+        db_mod.db_minibatches = reader
+
+
+def db_worker_batches(db: str, mean: np.ndarray, n: int) -> list:
+    """The first ``n`` TEST-transformed batches of a worker DB (center
+    crop, mean subtracted)."""
+    from sparknet_tpu_torch.data import DataTransformer, TransformConfig
+    from sparknet_tpu_torch.data.createdb import db_minibatches
+
+    xf = DataTransformer(TransformConfig(crop_size=DB_CROP, mean_image=mean))
+    stream = db_minibatches(db, DB_BATCH, dtype=np.uint8)
+    return [{"data": xf(b["data"], False), "label": b["label"]}
+            for b, _ in zip(stream, range(n))]
+
+
+def db_featurize(card: str, d: str, app, info) -> tuple:
+    """The trained weights through ``save_weights_to_file`` into a
+    TEST-phase CaffeNet b256 TPUNet; ``fc7`` of worker 1's batches by
+    FeaturizerApp against the plain-LRN forward."""
+    import os
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.apps import FeaturizerApp
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.data.transform import load_mean_file
+    from sparknet_tpu_torch.net import TPUNet
+
+    trained = os.path.join(d, "trained.caffemodel")
+    app.net.save_weights_to_file(trained)
+    set_config(fused_update=False)
+    net = TPUNet(models.caffenet_solver(), models.caffenet(DB_BATCH))
+    set_config(fused_update=True, storage_dtype="f32")
+    net.load_weights_from_file(trained)
+    check(same_vars(net.solver.variables, app.net.solver.variables),
+          "the trained .caffemodel did not load bit for bit")
+    batches = db_worker_batches(info["workers"][1]["db"], load_mean_file(info["mean"]),
+                                DB_FEATURIZE)
+    take_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = list(FeaturizerApp(net, "fc7").featurize(batches))
+    dt = time.perf_counter() - t0
+    counts = take_counts()
+    check(counts[0] == 2 * DB_FEATURIZE, f"FeaturizerApp: {counts[0]} LRN launches, want "
+          f"{2 * DB_FEATURIZE}")
+    worst = 0.0
+    with torch.no_grad():
+        for f, feeds in zip(feats, batches):
+            check(f.shape == (DB_BATCH, 4096) and np.isfinite(f).all(), f"fc7 {f.shape}")
+            ref = forward_with_plain_lrn(net.test_net, net.solver.variables, feeds)[0]["fc7"]
+            worst = max(worst, float(np.abs(f - ref.cpu().numpy()).max()))
+    check(worst <= DB_FEATURE_TOL, f"FeaturizerApp fc7 off the plain-LRN forward by {worst}")
+    print(f"db_apps: FeaturizerApp fc7, CaffeNet b{DB_BATCH} TEST, trained weights through "
+          f"{os.path.basename(trained)}: {DB_FEATURIZE} batches of worker 1's DB, "
+          f"{1e3 * dt / DB_FEATURIZE:.2f} ms a batch (forward + copy to the host), max |fc7 "
+          f"- plain-LRN fc7| {worst:.3e} (gate {DB_FEATURE_TOL}); {counts[0]} LRN launches "
+          f"[{card}]")
+    del net
+    gc.collect()
+    return trained, np.concatenate(feats), counts
+
+
+def db_cifar(card: str, d: str):
+    """CifarDBApp on LevelDB over synthetic CIFAR binaries: cifar10_full
+    b100, DB_CIFAR_ITERS iterations, DB_CIFAR_TEST test batches."""
+    import os
+
+    from sparknet_tpu_torch.apps import CifarDBApp
+    from sparknet_tpu_torch.data import CifarLoader
+    from sparknet_tpu_torch.data.cifar import write_synthetic_cifar
+    from sparknet_tpu_torch.data.createdb import db_minibatches
+
+    cifar_dir = os.path.join(d, "cifar")
+    write_synthetic_cifar(cifar_dir, seed=SEED, records=DB_CIFAR_RECORDS)
+    t0 = time.perf_counter()
+    app = CifarDBApp(cifar_dir, os.path.join(d, "cifar_db"), batch=CIFAR_BATCH, log_dir=d,
+                     backend="leveldb")
+    write_s = time.perf_counter() - t0
+    loader = CifarLoader(cifar_dir)
+    t0 = time.perf_counter()
+    for db, imgs, labels in ((app.train_db, loader.train_images, loader.train_labels),
+                             (app.test_db, loader.test_images, loader.test_labels)):
+        got = next(db_minibatches(db, len(labels), dtype=np.uint8))
+        check(np.array_equal(got["data"], imgs) and np.array_equal(got["label"], labels),
+              f"{db}: LevelDB records are not the loader's images bit for bit")
+    read_s = time.perf_counter() - t0
+    scores, test = [], app.net.test
+    app.net.test = lambda: scores.append(test()) or scores[-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    app.run(num_iters=DB_CIFAR_ITERS, test_batches=DB_CIFAR_TEST)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check(len(scores) == 2 and all(np.isfinite(s["loss"]) for s in scores),
+          f"CifarDBApp scores {scores}")
+    print(f"db_apps: CifarDBApp, cifar10_full b{CIFAR_BATCH}, LevelDB ({len(loader.train_labels)}"
+          f" + {len(loader.test_labels)} records, written in {write_s:.1f} s, read back bit for "
+          f"bit in {read_s:.1f} s): {DB_CIFAR_ITERS} iterations and {DB_CIFAR_TEST} test "
+          f"batches before and after in {run_s:.1f} s; accuracy {scores[0]['accuracy']:.4f} "
+          f"-> {scores[1]['accuracy']:.4f}, loss {scores[0]['loss']:.4f} -> "
+          f"{scores[1]['loss']:.4f} [{card}]")
+    return app, loader
+
+
+def db_solver_file(d: str, source: str, mean_file: str) -> str:
+    """A solver prototxt of the CaffeNet recipe whose net reads a ``Data``
+    layer (crop 227, mirror, the mean file) instead of the RDD inputs."""
+    import os
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.proto import serialize
+
+    layers = [lp for lp in models.caffenet(DB_BATCH).get_all("layer")
+              if lp.get_str("type") != "JavaData"]
+    net = (f'name: "CaffeNetDB"\nlayer {{ name: "data" type: "Data" top: "data" top: "label"\n'
+           f'  data_param {{ source: "{source}" batch_size: {DB_BATCH} }}\n'
+           f'  transform_param {{ crop_size: {DB_CROP} mirror: true mean_file: "{mean_file}" }} }}\n'
+           + "\n".join("layer {\n" + serialize(lp, 1) + "\n}" for lp in layers) + "\n")
+    net_path, solver_path = os.path.join(d, "caffenet_db.prototxt"), os.path.join(d, "solver.prototxt")
+    with open(net_path, "w") as f:
+        f.write(net)
+    with open(solver_path, "w") as f:
+        f.write(f'net: "{net_path}"\nbase_lr: 0.01\nlr_policy: "step"\ngamma: 0.1\n'
+                'stepsize: 100000\nmomentum: 0.9\nweight_decay: 0.0005\nmax_iter: 450000\n')
+    return solver_path
+
+
+def db_cli(card: str, d: str, cifar_app, loader, info, weights: str, trained: str,
+           feats: np.ndarray) -> tuple:
+    """The CLI in process: convert_db, compute_image_mean, test, extract_features,
+    time (per layer and --fused), train and device_query."""
+    import io
+    import os
+
+    from sparknet_tpu_torch import cli, models
+    from sparknet_tpu_torch.data.createdb import db_mean, db_minibatches
+    from sparknet_tpu_torch.data.io_utils import load_mean_binaryproto
+    from sparknet_tpu_torch.net import copy_caffemodel_params
+    from sparknet_tpu_torch.compiler.graph import NetVars
+    from sparknet_tpu_torch.data.transform import load_mean_file
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    def run(*argv) -> str:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+        check(rc == 0, f"cli {argv[0]} exited {rc}")
+        walls.append((argv[0] + (" --fused" if "--fused" in argv else ""),
+                      time.perf_counter() - t0))
+        return buf.getvalue()
+
+    walls = []
+    os.environ["SPARKNET_TRAIN_LOG_DIR"] = d  # the train command's event log
+    rec, lmdb = os.path.join(d, "cifar_train.sndb"), os.path.join(d, "cifar_train_lmdb")
+    n = len(loader.train_labels)
+    run("convert_db", "--src", cifar_app.train_db, "--dst", rec)
+    run("convert_db", "--src", rec, "--dst", lmdb, "--backend", "lmdb")
+    for p in (rec, lmdb):
+        got = next(db_minibatches(p, n, dtype=np.uint8))
+        check(np.array_equal(got["data"], loader.train_images)
+              and np.array_equal(got["label"], loader.train_labels),
+              f"convert_db {p}: records are not the LevelDB's bit for bit")
+    mean_path = os.path.join(d, "cifar_mean.binaryproto")
+    run("compute_image_mean", "--db", cifar_app.train_db, "--out", mean_path)
+    mean = load_mean_binaryproto(mean_path)
+    check(np.array_equal(mean, db_mean(rec)), "compute_image_mean: .binaryproto read back")
+    check(np.allclose(mean, cifar_app.mean_image, rtol=1e-6, atol=0),
+          "compute_image_mean against CifarDBApp's mean (rtol 1e-6): "
+          f"{np.abs(mean - cifar_app.mean_image).max()}")
+
+    w0, w1 = (info["workers"][w]["db"] for w in (0, 1))
+    solver_file = db_solver_file(d, w1, info["mean"])
+    scores = json.loads(run("test", "--solver", solver_file, "--data", f"db:{w1}",
+                            "--weights", weights, "--iterations", str(DB_CLI_BATCHES)))
+    tested = take_counts()  # the CLI's test alone
+    check(tested == (2 * DB_CLI_BATCHES, 0, 0),
+          f"cli test launches (lrn fwd, lrn bwd, fused) {tested}")
+    ref = Solver(models.caffenet_solver(), models.caffenet(DB_BATCH))
+    v = ref.variables
+    params, state, _ = copy_caffemodel_params(v.params, weights, state=v.state)
+    ref.variables = NetVars(params=params, state=state)
+    batches = db_worker_batches(w1, load_mean_file(info["mean"]), DB_CLI_BATCHES)
+    want = ref.test(DB_CLI_BATCHES, lambda b: batches[b])
+    check(scores == want, f"cli test scores {scores} against Solver.test's {want}")
+    del ref, params, state, v
+    gc.collect()
+    take_counts()  # the reference's launches are not the CLI's path
+    out = os.path.join(d, "fc7.npy")
+    run("extract_features", "--solver", solver_file, "--data", f"db:{w1}", "--weights",
+        trained, "--blob", "fc7", "--out", out, "--iterations", str(DB_CLI_BATCHES))
+    check(np.array_equal(np.load(out), feats), "cli extract_features fc7 is not "
+          "FeaturizerApp's bit for bit")
+    table = run("time", "--solver", "zoo:caffenet", "--batch", str(DB_BATCH),
+                "--iterations", "1")
+    rows = [line.split() for line in table.splitlines()[1:-2]]
+    check(len(rows) > 20 and all(r[3] != "-ms" for r in rows),
+          f"cli time: a CaffeNet layer without a backward:\n{table}")
+    fused = json.loads(run("time", "--solver", "zoo:caffenet", "--batch", str(DB_BATCH),
+                           "--iterations", "3", "--fused"))
+    from sparknet_tpu_torch.solvers import solver as solver_mod
+
+    losses, step = [], solver_mod.Solver.step
+
+    def spy(self, *args, **kwargs):
+        losses.append(step(self, *args, **kwargs))
+        return losses[-1]
+
+    timed = take_counts()  # extract_features and time
+    solver_mod.Solver.step = spy
+    try:
+        run("train", "--solver", solver_file, "--data", f"db:{w0}", "--weights", weights,
+            "--iterations", str(DB_CLI_TRAIN), "--output", os.path.join(d, "cli_final"))
+    finally:
+        solver_mod.Solver.step = step
+    counts = take_counts()
+    check(len(losses) == 1 and np.isfinite(losses[0]), f"cli train losses {losses}")
+    check(counts == (2 * DB_CLI_TRAIN, 2 * DB_CLI_TRAIN, DB_CLI_TRAIN),
+          f"cli train launches (lrn fwd, lrn bwd, fused) {counts}")
+    query = json.loads(run("device_query", "--timeout", "0").splitlines()[0])
+    check(query["device_kind"] == torch.cuda.get_device_name(0), f"device_query {query}")
+    del os.environ["SPARKNET_TRAIN_LOG_DIR"]
+    print("db_apps: cli time, CaffeNet b256 (synthetic feeds), each layer alone:")
+    print(table.rstrip())
+    print(f"db_apps: cli: convert_db LevelDB -> record -> lmdb ({n} records bit for bit), "
+          f"compute_image_mean .binaryproto (read back equal, within rtol 1e-6 of the app's), "
+          f"test scores {scores} equal Solver.test's, extract_features fc7 bit for bit "
+          f"FeaturizerApp's, time --fused {fused}, train {DB_CLI_TRAIN} iterations from "
+          f"worker 0's DB (smoothed loss {losses[0]:.6f}, launches {counts}), device_query "
+          f"{query['device_kind']}; seconds: "
+          + ", ".join(f"{k} {s:.1f}" for k, s in walls) + f" [{card}]")
+    return fused, tuple(a + b + c for a, b, c in zip(tested, timed, counts))
+
+
+def phase_db_apps(card: str) -> dict:
+    """Caffe's weight and record files, the DB apps and the CLI on the card
+    (fused update, f32, TF32 off, deterministic cuDNN).  Returns the
+    launches of the paths it drives."""
+    import tempfile
+
+    from sparknet_tpu_torch.common import set_config
+
+    t_phase = time.perf_counter()
+    set_config(fused_update=True, storage_dtype="f32")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    walls = [time.perf_counter()]
+    total = [0, 0, 0]
+
+    def add(c):
+        for i, x in enumerate(c):
+            total[i] += x
+
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            take_counts()
+            weights, saved = db_caffemodel_round_trips(card, d)
+            add(take_counts())
+            walls.append(time.perf_counter())
+            db_dir, info = db_create(card, d)
+            walls.append(time.perf_counter())
+            run = db_run(card, d, db_dir, weights, saved)
+            add(run["counts"])
+            del saved
+            walls.append(time.perf_counter())
+            trained, feats, counts = db_featurize(card, d, run.pop("app"), info)
+            add(counts)
+            gc.collect()
+            torch.cuda.empty_cache()
+            walls.append(time.perf_counter())
+            take_counts()
+            cifar_app, loader = db_cifar(card, d)
+            add(take_counts())
+            walls.append(time.perf_counter())
+            fused, counts = db_cli(card, d, cifar_app, loader, info, weights, trained, feats)
+            add(counts)
+            add(take_counts())
+            walls.append(time.perf_counter())
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        set_config(fused_update=False)
+    print(f"db_apps: DB-fed CaffeNet b{DB_BATCH} step {run['ms']:.2f} ms "
+          f"({DB_BATCH / run['ms'] * 1e3:.1f} img/s) beside the fixed-batch step "
+          f"{run['fixed_ms']:.2f} ms and cli time --fused {fused['fused_step_ms']} ms [{card}]")
+    print("db_apps: seconds by part: " + ", ".join(
+        f"{part} {b - a:.1f}" for part, a, b in zip(
+            (".caffemodel round trips", "ImageNetCreateDBApp", "ImageNetRunDBApp",
+             "FeaturizerApp", "CifarDBApp", "cli"), walls, walls[1:])))
+    print(f"db_apps: launches (lrn fwd, lrn bwd, fused) {tuple(total)}; phase done in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(lrn=total[0], lrn_backward=total[1], fused_update=total[2])
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
           "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
-          "charlm_train", "engine", "replica", "zoo")
+          "charlm_train", "engine", "replica", "zoo", "db_apps")
 
 
 def main(argv=None) -> int:
@@ -4501,12 +5128,13 @@ def main(argv=None) -> int:
     if "replica" in phases:
         launches["flash_attention"] += phase_replica(card, per_replay)["flash"]
         lap("replica")
-    if "zoo" in phases:
-        zoo = phase_zoo(card)
-        launches["lrn_across_channels"] += zoo["lrn"]
-        launches["lrn_backward"] += zoo["lrn_backward"]
-        launches["fused_update"] += zoo["fused_update"]
-        lap("zoo")
+    for name, run in (("zoo", phase_zoo), ("db_apps", phase_db_apps)):
+        if name in phases:
+            got = run(card)
+            launches["lrn_across_channels"] += got["lrn"]
+            launches["lrn_backward"] += got["lrn_backward"]
+            launches["fused_update"] += got["fused_update"]
+            lap(name)
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0

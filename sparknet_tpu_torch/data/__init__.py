@@ -4,7 +4,9 @@ process ring, the device prefetcher and on-card augmentation.
 Counterpart of ``sparknet_tpu/data/``.  The host-only modules (the LMDB
 codec, the Datum and image helpers, the CIFAR and tar loaders, the
 transformer, the samplers, the ring and its record sources) are copies
-that import no torch, so the ring's worker processes make no CUDA call.
+that import no torch, so the ring's worker processes make no CUDA call;
+so are ``createdb`` (the record/LMDB/LevelDB writers and readers) and
+``leveldb_io``.
 The card side: ``prefetch.DevicePrefetcher`` (pinned staging, a copy
 stream and events), ``pipeline.device_feed`` and
 ``device_transform.DeviceAugment``.  The char-text feed of the char LM is

@@ -1,13 +1,14 @@
-"""Image helpers — the pycaffe ``caffe.io`` surface the Classifier needs.
+"""Image and proto helpers — the pycaffe ``caffe.io`` surface.
 
-Copy of the host-only part of ``sparknet_tpu/data/io_utils.py``, which
-mirrors ``caffe/python/caffe/io.py`` (reference): ``resize_image`` (:305),
-``oversample`` 10-crop (:340) and the ``Transformer`` preprocessing adapter
-(:100-276).  Image resize uses PIL, as in the JAX package, interpolating
-float images channel by channel.  ``array_to_datum``/``datum_to_array``
-(io.py:66-94) speak the serialized Caffe ``Datum`` directly, through a copy
-of the proto2 wire helpers of ``sparknet_tpu/proto/binary.py``.  The
-binaryproto helpers and ``load_image`` are ROADMAP Queue A9.
+Copy of ``sparknet_tpu/data/io_utils.py``, which mirrors
+``caffe/python/caffe/io.py`` (reference): ``load_image`` (:278),
+``resize_image`` (:305), ``oversample`` 10-crop (:340), the ``Transformer``
+preprocessing adapter (:100-276), and the proto/ndarray converters
+``blobproto_to_array``/``array_to_blobproto`` (:18-46) and
+``array_to_datum``/``datum_to_array`` (:66-94).  The converters speak the
+serialized wire format (``bytes`` in, ``bytes`` out) through the proto2
+codec of ``sparknet_tpu_torch/proto/binary.py``; images decode and resize
+with PIL, float images channel by channel.
 """
 
 from __future__ import annotations
@@ -16,8 +17,77 @@ import struct
 
 import numpy as np
 
-__all__ = ["resize_image", "fivecrop_origins", "oversample", "Transformer",
-           "array_to_datum", "datum_to_array"]
+from sparknet_tpu_torch.proto.binary import (
+    _LEN,
+    _VARINT,
+    _decode_blob,
+    _encode_blob,
+    _len_field,
+    _scan,
+    _tag,
+    _varint,
+)
+
+__all__ = ["load_image", "resize_image", "fivecrop_origins", "oversample",
+           "Transformer", "blobproto_to_array", "array_to_blobproto",
+           "array_to_datum", "datum_to_array", "save_mean_binaryproto",
+           "load_mean_binaryproto"]
+
+
+# ---------------------------------------------------------------------------
+# BlobProto <-> ndarray (serialized wire bytes; ref io.py:18-46)
+# ---------------------------------------------------------------------------
+
+
+def blobproto_to_array(buf: bytes) -> np.ndarray:
+    """Decode a serialized ``BlobProto`` into a float32 ndarray, from the
+    ``shape`` message or the legacy num/channels/height/width fields (ref
+    io.py:30-35)."""
+    return _decode_blob(buf)
+
+
+def array_to_blobproto(arr: np.ndarray) -> bytes:
+    """Encode an ndarray as serialized ``BlobProto`` bytes (shape + float
+    data)."""
+    return _encode_blob(np.asarray(arr, np.float32))
+
+
+def save_mean_binaryproto(path: str, mean: np.ndarray) -> None:
+    """Write a mean image as a ``.binaryproto`` BlobProto file of shape
+    (1, C, H, W), as ``save_mean_image`` of the C shim does (ref:
+    libccaffe/ccaffe.cpp:83-97)."""
+    mean = np.asarray(mean, np.float32)
+    if mean.ndim == 3:
+        mean = mean[None]
+    with open(path, "wb") as f:
+        f.write(_encode_blob(mean))
+
+
+def load_mean_binaryproto(path: str) -> np.ndarray:
+    """Read a ``.binaryproto`` mean file to a (C, H, W) float32 array."""
+    with open(path, "rb") as f:
+        arr = _decode_blob(f.read())
+    if arr.ndim == 4 and arr.shape[0] == 1:
+        arr = arr[0]
+    return arr
+
+
+# ---------------------------------------------------------------------------
+# Image IO (ref io.py:278-338)
+# ---------------------------------------------------------------------------
+
+
+def load_image(filename: str, color: bool = True) -> np.ndarray:
+    """Load an image to float32 in [0, 1], (H, W, 3) RGB or (H, W, 1) gray;
+    alpha is dropped (ref io.py:278-303)."""
+    from PIL import Image
+
+    with Image.open(filename) as im:
+        if color:
+            arr = np.asarray(im.convert("RGB"), np.float32) / 255.0
+        else:
+            arr = (np.asarray(im.convert("L"), np.float32) / 255.0)[:, :, None]
+    return arr
 
 
 def resize_image(
@@ -190,72 +260,9 @@ class Transformer:
 # Datum <-> ndarray (serialized wire bytes; ref io.py:66-94, caffe.proto:30-41)
 # ---------------------------------------------------------------------------
 
-_VARINT, _I64, _LEN, _I32 = 0, 1, 2, 5  # proto2 wire types
-
 # Datum field numbers (ref: caffe/src/caffe/proto/caffe.proto:30-41)
 _DATUM_CHANNELS, _DATUM_HEIGHT, _DATUM_WIDTH = 1, 2, 3
 _DATUM_DATA, _DATUM_LABEL, _DATUM_FLOAT = 4, 5, 6
-
-
-def _read_varint(buf, pos: int) -> tuple[int, int]:
-    result = shift = 0
-    while True:
-        b = buf[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return result, pos
-        shift += 7
-        if shift > 70:
-            raise ValueError("varint overrun")
-
-
-def _scan(buf):
-    """Yield (field_number, wire_type, payload) over one message's bytes:
-    an int for varint/fixed fields, the bytes for length-delimited ones."""
-    pos, end = 0, len(buf)
-    while pos < end:
-        tag, pos = _read_varint(buf, pos)
-        field, wt = tag >> 3, tag & 7
-        if wt == _VARINT:
-            val, pos = _read_varint(buf, pos)
-        elif wt == _I64:
-            val = struct.unpack_from("<q", buf, pos)[0]
-            pos += 8
-        elif wt == _LEN:
-            n, pos = _read_varint(buf, pos)
-            val = buf[pos:pos + n]
-            pos += n
-        elif wt == _I32:
-            val = struct.unpack_from("<i", buf, pos)[0]
-            pos += 4
-        else:
-            raise ValueError(f"unsupported wire type {wt} (field {field})")
-        yield field, wt, val
-
-
-def _varint(v: int) -> bytes:
-    if v < 0:
-        # proto2 negative int32/int64 varints are the two's-complement
-        # 64-bit value (10 bytes on the wire)
-        v &= 0xFFFFFFFFFFFFFFFF
-    out = bytearray()
-    while True:
-        b = v & 0x7F
-        v >>= 7
-        if v:
-            out.append(b | 0x80)
-        else:
-            out.append(b)
-            return bytes(out)
-
-
-def _tag(field: int, wt: int) -> bytes:
-    return _varint((field << 3) | wt)
-
-
-def _len_field(field: int, payload: bytes) -> bytes:
-    return _tag(field, _LEN) + _varint(len(payload)) + payload
 
 
 def array_to_datum(arr: np.ndarray, label: int = 0) -> bytes:

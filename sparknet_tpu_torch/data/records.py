@@ -28,9 +28,9 @@ Backends (auto-detected from the file):
   ``minibatch.decode_jpeg``.  ``.tar.gz``/``.tgz`` are refused: a gzip
   stream has no random-access byte offsets.
 - ``record`` — the native append-only RecordDB of
-  ``native/sparknet_native.cpp``: detected, and refused, since its writer
-  and value codec live in the native library the port does not load yet
-  (ROADMAP Queue A9).
+  ``native/sparknet_native.cpp``: one sequential header scan in Python
+  (no ``ctypes`` call, no value bytes touched) locates every committed
+  record; values decode with ``createdb.decode_datum``.
 - ``leveldb`` — refused as in the JAX package: LevelDB blocks are
   snappy-compressed, so per-record byte offsets do not exist.
 
@@ -56,16 +56,18 @@ __all__ = ["RecordShardSource", "probe_record_backend"]
 
 _SNDB_HDR = struct.Struct("<IIQ")  # magic, version, committed
 _SNDB_MAGIC = 0x534E4442  # "SNDB"
+_SNDB_REC = struct.Struct("<II")  # klen, vlen
 
 
 def probe_record_backend(path: str) -> str:
     """``record`` | ``lmdb`` | ``leveldb`` | ``tar`` | ``unknown`` —
     which indexing strategy (if any) fits the file at ``path``."""
+    from sparknet_tpu_torch.data.leveldb_io import is_leveldb
     from sparknet_tpu_torch.data.lmdb_io import is_lmdb
 
     if is_lmdb(path):
         return "lmdb"
-    if _is_leveldb(path):
+    if is_leveldb(path):
         return "leveldb"
     low = path.lower()
     if low.endswith((".tar", ".tar.gz", ".tgz")):
@@ -79,14 +81,35 @@ def probe_record_backend(path: str) -> str:
     return "unknown"
 
 
-def _is_leveldb(path: str) -> bool:
-    """A LevelDB env is a directory holding a CURRENT file that names a
-    MANIFEST (copy of ``sparknet_tpu/data/leveldb_io.py`` ``is_leveldb``)."""
-    try:
-        with open(os.path.join(path, "CURRENT"), "rb") as f:
-            return f.read(64).strip().startswith(b"MANIFEST-")
-    except OSError:
-        return False
+def _index_record(path: str):
+    """Locator walk of the native RecordDB: one sequential header scan
+    (no value bytes touched) -> (value_offsets, value_sizes)."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        head = f.read(_SNDB_HDR.size)
+        magic, version, committed = _SNDB_HDR.unpack(head)
+        if magic != _SNDB_MAGIC:
+            raise ValueError(f"{path}: not a RecordDB (bad magic)")
+        if version != 1:
+            raise ValueError(f"{path}: RecordDB version {version} "
+                             "(supported: 1)")
+        offs = np.empty(committed, np.int64)
+        lens = np.empty(committed, np.int64)
+        pos = _SNDB_HDR.size
+        for i in range(committed):
+            if pos + _SNDB_REC.size > size:
+                raise ValueError(
+                    f"{path}: truncated at record {i}/{committed}")
+            f.seek(pos)
+            klen, vlen = _SNDB_REC.unpack(f.read(_SNDB_REC.size))
+            voff = pos + _SNDB_REC.size + klen
+            if voff + vlen > size:
+                raise ValueError(
+                    f"{path}: record {i} value runs past EOF")
+            offs[i] = voff
+            lens[i] = vlen
+            pos = voff + vlen
+    return offs, lens
 
 
 def _index_lmdb(path: str):
@@ -181,12 +204,8 @@ class RecordShardSource(BatchSource):
         self._labels = None
         self._data_path = path
         if self.backend == "record":
-            raise NotImplementedError(
-                f"{path}: the native RecordDB backend needs "
-                "native/libsparknet_native.so (its writer and value codec), "
-                "which the port does not load yet (ROADMAP Queue A9); "
-                "write the dataset as an LMDB (data.lmdb_io.LmdbWriter)")
-        if self.backend == "lmdb":
+            self._offs, self._lens = _index_record(path)
+        elif self.backend == "lmdb":
             self._data_path, self._offs, self._lens = _index_lmdb(path)
         elif self.backend == "tar":
             self._offs, self._lens, self._labels = _index_tar(
@@ -201,12 +220,12 @@ class RecordShardSource(BatchSource):
                 f"{path}: LevelDB blocks are snappy-compressed — no "
                 "per-record byte offsets exist to index, so this "
                 "backend cannot join the process ring.  Re-materialize "
-                "it as an LMDB (the JAX package's createdb.convert_db "
-                "writes one).")
+                "with sparknet_tpu_torch.data.createdb.convert_db to the "
+                "'record' or 'lmdb' backend (both index natively).")
         else:
             raise ValueError(
                 f"{path}: not a RecordDB / LMDB / plain tar shard "
-                "(RecordShardSource indexes LMDB and plain tar shards)")
+                "(RecordShardSource indexes those three)")
         n = len(self._offs)
         total = n // self.batch
         if total < 1:
@@ -268,6 +287,10 @@ class RecordShardSource(BatchSource):
     def _decode_value(self, rid: int):
         mm = self._map()
         off, size = int(self._offs[rid]), int(self._lens[rid])
+        if self.backend == "record":
+            from sparknet_tpu_torch.data.createdb import decode_datum
+
+            return decode_datum(mm[off:off + size])
         if self.backend == "lmdb":
             from sparknet_tpu_torch.data.io_utils import datum_to_array
 

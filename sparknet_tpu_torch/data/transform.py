@@ -6,10 +6,11 @@ mean_file/mean_value subtract, random crop + mirror in TRAIN, center crop in
 TEST, scale).  Whole-batch vectorized numpy with a seeded RandomState, so
 the same seed draws the same windows as the JAX package's transformer.
 
-The ``native`` backend (the multithreaded C++ transform of
-``native/libsparknet_native.so``) is not loaded by the port: ROADMAP Queue
-A9 ("Load native/libsparknet_native.so with ctypes").  The ``.binaryproto``
-mean files need the io_utils binaryproto helpers, also A9.
+``backend="native"`` runs uint8 NCHW batches through the multithreaded C++
+transform (``sparknet_tpu_torch.native.transform_batch``, built from
+``native/sparknet_native.cpp``), seeded per call as the JAX package does;
+it raises if that library cannot be built or loaded.  Mean files load from
+``.npy`` or Caffe ``.binaryproto``.
 """
 
 from __future__ import annotations
@@ -21,14 +22,13 @@ import numpy as np
 
 
 def load_mean_file(path: str) -> np.ndarray:
-    """Load a mean image from ``.npy`` (ref: data_transformer.cpp:19-29
-    reads mean_file as a BlobProto; that reader is ROADMAP Queue A9)."""
+    """Load a mean image from ``.npy`` or Caffe ``.binaryproto`` (ref:
+    data_transformer.cpp:19-29 reads mean_file as a BlobProto)."""
     if path.endswith(".npy"):
         return np.load(path).astype(np.float32)
-    raise NotImplementedError(
-        f"{path}: .binaryproto mean files need load_mean_binaryproto, not "
-        "ported yet (ROADMAP Queue A9, the io_utils binaryproto helpers); "
-        "save the mean as .npy")
+    from sparknet_tpu_torch.data.io_utils import load_mean_binaryproto
+
+    return load_mean_binaryproto(path)
 
 
 def resolve_mean_file(path: str, anchor: str = "") -> str:
@@ -66,7 +66,7 @@ class TransformConfig:
     mean_value: tuple[float, ...] = ()  # per-channel
     mean_image: np.ndarray | None = None  # full mean image (C,H,W)
     seed: int | None = None
-    backend: str = "numpy"  # "numpy"; "native" is ROADMAP Queue A9
+    backend: str = "numpy"  # "numpy" | "native" (multithreaded C++)
 
 
 class DataTransformer:
@@ -79,11 +79,10 @@ class DataTransformer:
     def __init__(self, config: TransformConfig, layout: str = "nchw"):
         if layout not in ("nchw", "nhwc"):
             raise ValueError(f"unknown layout {layout!r} (nchw|nhwc)")
-        if config.backend == "native":
-            raise NotImplementedError(
-                "the native transform backend needs native/libsparknet_native.so, "
-                "which the port does not load yet (ROADMAP Queue A9: load it "
-                "with ctypes); use backend='numpy'")
+        if layout == "nhwc" and config.backend == "native":
+            raise ValueError(
+                "the native transform backend is NCHW-only; use the "
+                "numpy backend for channels-last wire batches")
         self.config = config
         self.layout = layout
         self._mean = config.mean_image
@@ -93,12 +92,34 @@ class DataTransformer:
         self._rs = np.random.RandomState(config.seed)
         if config.mean_image is not None and config.mean_value:
             raise ValueError("specify mean_image or mean_value, not both")
+        self._native_calls = 0
+        # 32-bit base; per-call seeds are spaced 2^32 apart so the C side's
+        # splitmix64(seed + sample) streams never overlap across batches;
+        # seed=None draws a random base, as numpy's RandomState does
+        self._native_base = (
+            config.seed if config.seed is not None
+            else int(np.random.SeedSequence().generate_state(1)[0])
+        ) & 0xFFFFFFFF
+        if config.backend == "native":
+            from sparknet_tpu_torch.native import available
+
+            reason = available()
+            if reason is not True:
+                raise RuntimeError(f"native transform backend: {reason}")
 
     # ------------------------------------------------------------------
     def __call__(self, images: np.ndarray, train: bool) -> np.ndarray:
         """images: wire-layout uint8/float -> float32 transformed batch
         ((N, C, H, W) under nchw, (N, H, W, C) under nhwc)."""
         cfg = self.config
+        if cfg.backend == "native" and np.asarray(images).dtype == np.uint8:
+            from sparknet_tpu_torch.native import transform_batch
+
+            self._native_calls += 1
+            return transform_batch(
+                images, mean=cfg.mean_image, mean_values=cfg.mean_value or None,
+                scale=cfg.scale, crop=cfg.crop_size, mirror=cfg.mirror, train=train,
+                seed=(self._native_calls << 32) | self._native_base)
         nhwc = self.layout == "nhwc"
         x = images.astype(np.float32, copy=True)
         if self._mean is not None:

@@ -5,9 +5,10 @@ caffe/python/caffe/classifier.py:11-99, pycaffe.py:155-197
 ``_Net_forward_all``).  The handle owns a TEST-phase ``Network`` on one
 device and runs any number of inputs in net-batch-size chunks, padding the
 ragged tail and trimming it from the outputs.  ``fold_batchnorm`` is the
-``merge_bn`` deploy flow (``models/fold_bn.py``).  ``.caffemodel``/HDF5
-weight loading and the int8 path are ROADMAP Queue A4; weights come from
-``Network.init`` or from the JAX package through ``interop.py``.
+``merge_bn`` deploy flow (``models/fold_bn.py``).  ``pretrained_file`` is a
+``.caffemodel`` (params and BatchNorm state, by layer name); HDF5 weights
+and the int8 path are ROADMAP Queue A4.  Without a file the weights come
+from ``Network.init``, or from the JAX package through ``interop.py``.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ class DeployNet:
     """TEST-phase net + Transformer, loaded from a prototxt.
 
     ``model_file`` is a deploy prototxt path or an already-parsed
-    ``NetParameter`` Message.  ``device=None`` means CUDA and raises without
-    a CUDA device; pass ``device="cpu"`` to run on the CPU.
+    ``NetParameter`` Message; ``pretrained_file`` a ``.caffemodel``.
+    ``device=None`` means CUDA and raises without a CUDA device; pass
+    ``device="cpu"`` to run on the CPU.
     """
 
     def __init__(
@@ -39,10 +41,11 @@ class DeployNet:
         channel_swap: tuple[int, ...] | None = None,
         device: str | torch.device | None = None,
     ):
-        if pretrained_file is not None:
+        if pretrained_file is not None and pretrained_file.endswith(
+                (".h5", ".hdf5", ".caffemodel.h5")):
             raise NotImplementedError(
-                "loading .caffemodel/HDF5 weights is not ported yet (ROADMAP "
-                "Queue A4); bring weights in through sparknet_tpu_torch.interop")
+                f"{pretrained_file}: HDF5 weights need h5py, which the card's "
+                "machine lacks (ROADMAP Queue A4); use a .caffemodel")
         if isinstance(model_file, Message):
             net_param = model_file
         else:
@@ -52,6 +55,12 @@ class DeployNet:
         self.network = Network(net_param, Phase.TEST, device=device)
         self.device = self.network.device
         self.variables = self.network.init()
+        if pretrained_file is not None:
+            from sparknet_tpu_torch.net import copy_caffemodel_params
+
+            params, state, _ = copy_caffemodel_params(
+                self.variables.params, pretrained_file, state=self.variables.state)
+            self.variables = NetVars(params=params, state=state)
 
         shapes = self.network.feed_shapes()
         # data inputs only — a deploy net has no label feed, but a net built

@@ -10,9 +10,14 @@ host; ``collection_to_variables`` puts them on the template's device.
 
 ``forward`` and ``backward`` run eagerly on the handle's device;
 ``backward`` differentiates with ``torch.autograd`` (through the kernels'
-backwards on the card: the LRN's and flash attention's).  Not ported yet
-(ROADMAP Queue A4): ``.caffemodel`` and HDF5 weights, whose methods raise,
-and the weights-file persistence of Net.scala:234-240.
+backwards on the card: the LRN's and flash attention's).
+
+Weights files: ``.caffemodel`` (``export_caffemodel`` and
+``copy_caffemodel_params``, through the proto2 codec of
+``proto/binary.py``; files byte-equal to the JAX package's) and the npz
+collection of Net.scala:234-240 (``save_weights_to_file``/
+``load_weights_from_file``).  HDF5 weights wait for ``h5py`` on the card's
+machine (ROADMAP Queue A4): ``save_hdf5``/``load_hdf5`` raise.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from sparknet_tpu_torch.compiler.graph import NetVars
+from sparknet_tpu_torch.compiler.graph import Network, NetVars
 from sparknet_tpu_torch.proto.text_format import Message
 from sparknet_tpu_torch.solvers.solver import Solver, SolverConfig
 
@@ -101,9 +106,107 @@ def collection_to_variables(wc: WeightCollection, template: NetVars) -> NetVars:
     return NetVars(params=params, state=state)
 
 
-_NOT_PORTED = ("{}: .caffemodel and HDF5 weights are not ported yet (ROADMAP "
-               "Queue A4); move weights with get_weights/set_weights or "
-               "sparknet_tpu_torch.interop")
+def copy_caffemodel_params(
+    params: dict[str, list], path: str, strict_shapes: bool = True,
+    state: dict[str, dict] | None = None,
+):
+    """Copy a ``.caffemodel``'s blobs into a params dict by layer name
+    (CopyTrainedLayersFrom semantics, ref: net.cpp:737-805).  Returns
+    (new params, loaded layer names), or (new params, new state, loaded)
+    when ``state`` is given.  Source layers absent from the net are
+    ignored; a blob count or shape mismatch raises under
+    ``strict_shapes`` and skips the layer otherwise; a blob of another
+    shape but the same size (Caffe's legacy 4-D fc blobs, (1, 1, N, K))
+    is reshaped.
+
+    ``state``: the non-learnable blobs (BatchNorm's mean/variance/
+    scale_factor), which Caffe keeps in the same ``blobs_`` vector after
+    the learnable ones, in :func:`state_items` order.  Each loaded blob
+    lands on its target's device in its target's dtype, one blob at a
+    time; the decoded file is the only host copy.  The port has no shared
+    params (ROADMAP Queue A3: ``compiler/graph.py`` raises on them), so no
+    layer holds an alias to skip."""
+    from sparknet_tpu_torch.proto.binary import load_caffemodel
+
+    model = load_caffemodel(path)
+    params = {k: list(v) for k, v in params.items()}
+    new_state = {k: dict(v) for k, v in (state or {}).items()}
+    loaded = []
+    for layer in model.layers:
+        t_params = params.get(layer.name)
+        t_state = new_state.get(layer.name) if state is not None else None
+        if (t_params is None and not t_state) or not layer.blobs:
+            continue
+        s_items = state_items(t_state) if t_state else []
+        target = list(t_params or []) + [v for _, v in s_items]
+        if len(layer.blobs) != len(target):
+            if strict_shapes:
+                raise ValueError(
+                    f"layer {layer.name!r}: snapshot has {len(layer.blobs)} "
+                    f"blobs, net expects {len(target)}")
+            continue  # permissive: e.g. the donor changed bias_term
+        shapes = []
+        for src, dst in zip(layer.blobs, target):
+            if tuple(src.shape) != tuple(dst.shape) and src.size != dst.numel():
+                if strict_shapes:
+                    raise ValueError(
+                        f"layer {layer.name!r}: blob shape {src.shape} "
+                        f"!= net {tuple(dst.shape)}")
+                break  # permissive: skip the incompatible layer
+            shapes.append(tuple(dst.shape))
+        else:
+            new = [_on_device(src.reshape(shape), dst)
+                   for src, dst, shape in zip(layer.blobs, target, shapes)]
+            n_p = len(t_params or [])
+            if t_params is not None:
+                params[layer.name] = new[:n_p]
+            if t_state:
+                new_state[layer.name] = dict(zip((k for k, _ in s_items), new[n_p:]))
+            loaded.append(layer.name)
+    if state is not None:
+        return params, new_state, loaded
+    return params, loaded
+
+
+def _on_device(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A decoded blob (a view of the file's buffer) on ``like``'s device in
+    ``like``'s dtype."""
+    return torch.from_numpy(a).to(like.device, like.dtype)
+
+
+def export_caffemodel(network: Network, params: dict[str, list], path: str,
+                      state: dict[str, dict] | None = None) -> str:
+    """Write params (and ``state``, BatchNorm's statistics, after each
+    layer's params in :func:`state_items` order, as Caffe's ``blobs_``
+    holds them) as a wire-compatible binary NetParameter (ref:
+    Net::ToProto net.cpp:911 + Solver::SnapshotToBinaryProto): one layer
+    record a param-owning or stateful layer, in ``params`` order and then
+    the state-only layers, the bytes the JAX package's
+    ``export_caffemodel`` writes for the same arrays.  Returns ``path``."""
+    from sparknet_tpu_torch.proto.binary import (
+        CaffeModel,
+        CaffeModelLayer,
+        save_caffemodel,
+    )
+
+    type_by_name = {l.name: l.TYPE for l in network.layers}
+    names = list(params)
+    names += [n for n in (state or {}) if n not in params]
+
+    def layers():
+        # one layer's blobs on the host at a time
+        for lname in names:
+            blobs = [_host(p) for p in params.get(lname, [])]
+            blobs += [_host(v) for _, v in state_items((state or {}).get(lname, {}))]
+            yield CaffeModelLayer(lname, type_by_name.get(lname, ""), blobs)
+
+    save_caffemodel(path, CaffeModel(network.net_param.get_str("name", ""), layers()))
+    return path
+
+
+_NO_HDF5 = ("{}: HDF5 weights need h5py, which the card's machine lacks "
+            "(ROADMAP Queue A4); use .caffemodel (save_caffemodel/"
+            "load_caffemodel) or the npz collection")
 
 
 class TPUNet:
@@ -220,15 +323,59 @@ class TPUNet:
     def set_weights(self, wc: WeightCollection) -> None:
         self.solver.variables = collection_to_variables(wc, self.solver.variables)
 
-    # -- zoo interchange: not ported yet (ROADMAP Queue A4) ----------------
+    # -- zoo interchange (ref: Net::ToProto net.cpp:911 + Snapshot; shim
+    # save/load_weights_to/from_file ccaffe.cpp:261-269) -------------------
     def save_caffemodel(self, path: str) -> str:
-        raise NotImplementedError(_NOT_PORTED.format("save_caffemodel"))
+        """Write params and state blobs (BatchNorm's statistics) as a
+        binary NetParameter; returns ``path``."""
+        variables = self.solver.variables
+        return export_caffemodel(self.train_net, variables.params, path,
+                                 state=variables.state)
 
     def load_caffemodel(self, path: str, strict_shapes: bool = True) -> list[str]:
-        raise NotImplementedError(_NOT_PORTED.format("load_caffemodel"))
+        """Copy params and state by layer name (:func:`copy_caffemodel_params`);
+        returns the loaded layer names."""
+        variables = self.solver.variables
+        params, state, loaded = copy_caffemodel_params(
+            variables.params, path, strict_shapes, state=variables.state)
+        self.solver.variables = NetVars(params=params, state=state)
+        return loaded
 
     def save_hdf5(self, path: str) -> None:
-        raise NotImplementedError(_NOT_PORTED.format("save_hdf5"))
+        raise NotImplementedError(_NO_HDF5.format("save_hdf5"))
 
     def load_hdf5(self, path: str) -> list[str]:
-        raise NotImplementedError(_NOT_PORTED.format("load_hdf5"))
+        raise NotImplementedError(_NO_HDF5.format("load_hdf5"))
+
+    # -- persistence (ref: Net.scala:234-240) ------------------------------
+    def save_weights_to_file(self, path: str) -> None:
+        """``.caffemodel``: a binary NetParameter; HDF5 names raise (no
+        ``h5py``); anything else: the collection as ``<layer>/<i>`` arrays
+        of an ``.npz``."""
+        if path.endswith(".caffemodel"):
+            self.save_caffemodel(path)
+            return
+        if path.endswith((".h5", ".hdf5", ".caffemodel.h5")):
+            self.save_hdf5(path)
+        flat = {f"{lname}/{i}": a
+                for lname, arrs in self.get_weights().weights.items()
+                for i, a in enumerate(arrs)}
+        np.savez(path if path.endswith(".npz") else path + ".npz", **flat)
+
+    def load_weights_from_file(self, path: str) -> None:
+        """The counterpart of :meth:`save_weights_to_file` (a ``.caffemodel``
+        loads by layer name, strict shapes)."""
+        if path.endswith(".caffemodel"):
+            self.load_caffemodel(path)
+            return
+        if path.endswith((".h5", ".hdf5", ".caffemodel.h5")):
+            self.load_hdf5(path)
+        if not path.endswith(".npz"):
+            path = path + ".npz"
+        weights: dict[str, dict[int, np.ndarray]] = {}
+        with np.load(path) as data:
+            for key in data.files:
+                lname, i = key.rsplit("/", 1)
+                weights.setdefault(lname, {})[int(i)] = data[key]
+        self.set_weights(WeightCollection(
+            {lname: [blobs[i] for i in sorted(blobs)] for lname, blobs in weights.items()}))

@@ -64,7 +64,7 @@ _V1_ALIASES = {
 _NOT_YET_PORTED = {
     **{t: "Queue A10" for t in (
         "AbsVal", "ArgMax", "BNLL", "BatchReindex",
-        "ContrastiveLoss", "Data", "Deconvolution", "DummyData", "ELU",
+        "ContrastiveLoss", "Deconvolution", "DummyData", "ELU",
         "EuclideanLoss", "Exp", "Filter", "HDF5Data",
         "HDF5Output", "HingeLoss", "Im2col", "ImageData", "InfogainLoss",
         "Log", "MVN", "MultinomialLogisticLoss", "PReLU", "Power", "Python",

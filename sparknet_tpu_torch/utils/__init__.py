@@ -1,7 +1,8 @@
 """Aux subsystems: event logging and signal control.
 
-Counterpart of ``sparknet_tpu/utils/``; ``timing``, ``log_parse``,
-``draw``, ``plotting`` and ``op_profile`` are ROADMAP Queue A9 and A13.
+Counterpart of ``sparknet_tpu/utils/``, with ``timing`` (``Timer`` on CUDA
+events, ``time_layers``); ``log_parse``, ``draw``, ``plotting`` and
+``op_profile`` are ROADMAP Queue A9 and A13.
 """
 
 from sparknet_tpu_torch.utils.event_log import EventLogger  # noqa: F401
@@ -10,3 +11,4 @@ from sparknet_tpu_torch.utils.signals import (  # noqa: F401
     SolverAction,
     agree_action,
 )
+from sparknet_tpu_torch.utils.timing import Timer, time_layers  # noqa: F401

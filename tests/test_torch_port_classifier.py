@@ -105,8 +105,10 @@ def test_classifier_surface(pair):
 
 
 def test_pretrained_file_is_not_ported():
+    """HDF5 weights are not ported (Queue A4); ``.caffemodel`` files load
+    (``tests/test_torch_port_caffemodel.py``)."""
     with pytest.raises(NotImplementedError, match="Queue A4"):
-        Classifier(parse(DEPLOY), "weights.caffemodel", device="cpu")
+        Classifier(parse(DEPLOY), "weights.caffemodel.h5", device="cpu")
 
 
 def test_prototxt_path(tmp_path):

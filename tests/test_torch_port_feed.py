@@ -157,10 +157,13 @@ def test_data_transformer_matches_jax(case, train, layout):
 
 
 def test_transform_refusals_and_mean_files(tmp_path):
-    """The native backend and .binaryproto means name their ROADMAP item;
+    """The native backend refuses nhwc as the JAX one does; ``.npy`` and
+    ``.binaryproto`` means load as the JAX package loads them;
     ``resolve_mean_file`` walks up from its anchor like the JAX one."""
-    with pytest.raises(NotImplementedError, match="A9"):
-        transform.DataTransformer(transform.TransformConfig(backend="native"))
+    with pytest.raises(ValueError, match="NCHW-only"):
+        transform.DataTransformer(transform.TransformConfig(backend="native"), layout="nhwc")
+    with pytest.raises(ValueError, match="NCHW-only"):
+        jtr.DataTransformer(jtr.TransformConfig(backend="native"), layout="nhwc")
     with pytest.raises(ValueError, match="not both"):
         transform.DataTransformer(transform.TransformConfig(
             mean_image=np.zeros((3, 2, 2), np.float32), mean_value=(1.0,)))
@@ -169,8 +172,12 @@ def test_transform_refusals_and_mean_files(tmp_path):
     got = transform.load_mean_file(str(tmp_path / "mean.npy"))
     np.testing.assert_array_equal(got, jtr.load_mean_file(str(tmp_path / "mean.npy")))
     assert got.dtype == np.float32
-    with pytest.raises(NotImplementedError, match="A9"):
-        transform.load_mean_file(str(tmp_path / "mean.binaryproto"))
+    from sparknet_tpu_torch.data.io_utils import save_mean_binaryproto
+
+    save_mean_binaryproto(str(tmp_path / "mean.binaryproto"), mean)
+    got = transform.load_mean_file(str(tmp_path / "mean.binaryproto"))
+    np.testing.assert_array_equal(got, jtr.load_mean_file(str(tmp_path / "mean.binaryproto")))
+    assert got.shape == (3, 2, 2) and got.dtype == np.float32
     (tmp_path / "a" / "b").mkdir(parents=True)
     anchor = str(tmp_path / "a" / "b" / "solver.prototxt")
     assert transform.resolve_mean_file("mean.npy", anchor) == \
@@ -348,9 +355,10 @@ def test_record_source_tar_matches_jax(jpeg_tar, kw):
 
 
 def test_record_source_refusals(tmp_path, jpeg_tar):
-    """The native ``record`` backend is detected and refused naming its
-    ROADMAP item; LevelDB, compressed tars, a tar without its label map or
-    decode size, and unknown files are refused as in the JAX package."""
+    """The native ``record`` backend is detected and indexed (its batches
+    the JAX source's); LevelDB, compressed tars, a tar without its label
+    map or decode size, and unknown files are refused as in the JAX
+    package."""
     from sparknet_tpu.data.createdb import create_db
 
     samples = [(im, i) for i, im in enumerate(_images(4))]
@@ -359,8 +367,8 @@ def test_record_source_refusals(tmp_path, jpeg_tar):
     for name, backend in (("r.rdb", "record"), ("lv", "leveldb")):
         p = str(tmp_path / name)
         assert records.probe_record_backend(p) == jrec.probe_record_backend(p) == backend
-    with pytest.raises(NotImplementedError, match="A9"):
-        records.RecordShardSource(str(tmp_path / "r.rdb"), 2)
+    _assert_feeds_equal(records.RecordShardSource(str(tmp_path / "r.rdb"), 2).get(0, 1),
+                        jrec.RecordShardSource(str(tmp_path / "r.rdb"), 2).get(0, 1))
     with pytest.raises(ValueError, match="snappy"):
         records.RecordShardSource(str(tmp_path / "lv"), 2)
     other = tmp_path / "noise.bin"
@@ -480,11 +488,17 @@ def test_ring_worker_modules_make_no_torch_call():
     """The ring's workers run only the host modules, which import nothing
     of torch, so a fork after CUDA is initialized leaves no CUDA call in a
     child (``data/pipeline.py``'s start-method note); ``device_feed`` takes
-    torch only inside the function, through the prefetcher."""
-    worker_side = ("pipeline", "records", "lmdb_io", "io_utils", "minibatch",
-                   "archive", "transform", "cifar", "sampler")
-    for name in worker_side:
-        path = os.path.join(REPO, "sparknet_tpu_torch", "data", f"{name}.py")
+    torch only inside the function, through the prefetcher.  The record
+    backend's decode (``createdb``), the LevelDB probe, the proto2 codec
+    under ``io_utils`` and the native transform's bindings are host
+    modules too."""
+    worker_side = {name: os.path.join("data", f"{name}.py") for name in (
+        "pipeline", "records", "lmdb_io", "io_utils", "minibatch", "archive", "transform",
+        "cifar", "sampler", "createdb", "leveldb_io")}
+    worker_side.update(binary=os.path.join("proto", "binary.py"),
+                       native=os.path.join("native", "__init__.py"))
+    for name, rel in worker_side.items():
+        path = os.path.join(REPO, "sparknet_tpu_torch", rel)
         tree = ast.parse(open(path).read())
         for node in ast.walk(tree):
             mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -492,7 +506,7 @@ def test_ring_worker_modules_make_no_torch_call():
             for mod in mods:
                 assert not mod.startswith("torch"), (name, mod)
                 assert mod in ("", "__future__") or not mod.startswith("sparknet_tpu_torch") \
-                    or mod.split(".")[-1] in worker_side + ("prefetch",), (name, mod)
+                    or mod.split(".")[-1] in tuple(worker_side) + ("prefetch",), (name, mod)
 
 
 def test_ring_runs_with_cuda_calls_refused(monkeypatch, lmdb_path):

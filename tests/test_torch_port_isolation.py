@@ -38,6 +38,10 @@ zoo = sorted(n for n in names if n in ("sparknet_tpu_torch.models.deploy",
                                         "sparknet_tpu_torch.models.fold_bn",
                                         "sparknet_tpu_torch.models.zoo",
                                         "sparknet_tpu_torch.ops.blocks"))
+files = sorted(n for n in names if n in ("sparknet_tpu_torch.cli",
+                                          "sparknet_tpu_torch.native",
+                                          "sparknet_tpu_torch.proto.binary"))
+print(files)
 print(training)
 print(serving)
 print(charlm)
@@ -52,7 +56,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    training, serving, charlm, feed, zoo, last = out.stdout.strip().split("\n")[-6:]
+    files, training, serving, charlm, feed, zoo, last = out.stdout.strip().split("\n")[-7:]
     n, bad = last.split(" ", 1)
     assert int(n) >= 30, out.stdout
     assert bad == "[]", out.stdout
@@ -68,13 +72,20 @@ def test_port_imports_no_jax():
          "residency", "router")]), out.stdout
     assert charlm == str(["sparknet_tpu_torch.data.text",
                           "sparknet_tpu_torch.models.generate"]), out.stdout
-    # the data plane, the apps and their utils (the feed slice)
+    # the data plane, the apps and their utils (the feed slice, then the
+    # DB formats, the featurizer, the DB apps and the timing utilities)
     assert feed == str(sorted(
-        [f"sparknet_tpu_torch.apps.{m}" for m in ("cifar_app", "imagenet_app")]
+        [f"sparknet_tpu_torch.apps.{m}" for m in
+         ("cifar_app", "db_apps", "featurizer", "imagenet_app")]
         + [f"sparknet_tpu_torch.data.{m}" for m in
-           ("archive", "cifar", "device_transform", "io_utils", "lmdb_io", "minibatch",
-            "pipeline", "prefetch", "records", "sampler", "transform")]
-        + [f"sparknet_tpu_torch.utils.{m}" for m in ("event_log", "signals")])), out.stdout
+           ("archive", "cifar", "createdb", "device_transform", "io_utils", "leveldb_io",
+            "lmdb_io", "minibatch", "pipeline", "prefetch", "records", "sampler",
+            "transform")]
+        + [f"sparknet_tpu_torch.utils.{m}" for m in ("event_log", "signals", "timing")])), \
+        out.stdout
+    # the weights and record files' codec, the native data plane, the CLI
+    assert files == str([f"sparknet_tpu_torch.{m}" for m in ("cli", "native", "proto.binary")]), \
+        out.stdout
     # the ImageNet families: BatchNorm, Scale and Bias, the zoo, the fold
     assert zoo == str([f"sparknet_tpu_torch.models.{m}" for m in ("deploy", "fold_bn", "zoo")]
                       + ["sparknet_tpu_torch.ops.blocks"]), out.stdout
@@ -150,3 +161,19 @@ def test_chip_smoke_refuses_to_run_without_cuda():
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert "no CUDA device" in out.stderr
+
+
+def test_db_apps_and_cli_default_to_cuda(monkeypatch, tmp_path):
+    """The DB apps, the featurizer's net and the CLI take no device as
+    CUDA and raise (or exit) without a card, before any file is written."""
+    from sparknet_tpu_torch import cli
+    from sparknet_tpu_torch.apps import CifarDBApp, ImageNetRunDBApp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CifarDBApp(str(tmp_path / "cifar"), str(tmp_path / "db"), log_dir=str(tmp_path / "log"))
+    assert not (tmp_path / "db").exists() and not (tmp_path / "log").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ImageNetRunDBApp(str(tmp_path / "db"), log_dir=str(tmp_path / "log"))
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.main(["time", "--solver", "zoo:lenet", "--batch", "2"])
