@@ -285,6 +285,28 @@ Phases, in order (any failure exits non-zero):
     CaffeNet equal to ``Solver.test``, ``extract_features`` bit for bit
     the featurizer's, ``time`` per layer and ``--fused``, ``train`` from
     worker 0's DB with launches, ``device_query`` naming the card.
+26. layers: Caffe's remaining layer library and weight sharing by name
+    (f32, TF32 off).  Every newly ported layer type (the neuron layers,
+    the losses, Slice, Reshape, Tile, ArgMax, BatchReindex, Reduction,
+    MVN, Silence, Filter, Deconvolution, Im2col, SPP, STOCHASTIC pooling)
+    forward and backward on the card against the same layer on the CPU
+    (``LAYERS_GATE`` of each array's largest |value|), beside the CPU's
+    own float32 against float64 error; BatchReindex's backward twice on the
+    card and replayed from a CUDA graph, bit for bit; STOCHASTIC pooling in TRAIN on injected
+    uniforms; DummyData's values; the Python layer in its Caffe-compat and
+    torch-native styles, and the Caffe-compat style refusing a CUDA graph
+    capture; FCN-32s's upsampling Deconvolution ([1,21,16,16] to 544x544,
+    kernel 64, stride 32) against the CPU and timed by CUDA events beside
+    its bound; ``mnist_siamese`` at batch 64 and ``mnist_autoencoder`` at
+    batch 100 each train 20 steps through ``Solver`` with the fused update
+    on seeded synthetic batches: each step's loss within
+    ``LAYERS_LOSS_RTOL`` of the CPU port's run of the same steps from the
+    same init, one B2 launch a step, the siamese net's 10 shared blobs
+    held once (0-size placeholders of 0 arena tiles), ms a step by CUDA
+    events; then one more step of each under ``torch.profiler`` (the
+    device's busy share), and B2 against ``fused_update_torch`` bit for bit
+    on each family's arena with its recipe's constants and multipliers,
+    timed beside its bound.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -4025,14 +4047,56 @@ def zoo_googlenet_plain_lrn(card: str, solver) -> None:
     check(ok, "googlenet logits vs the plain-LRN forward")
 
 
+def b2_against_plain(card: str, what: str, layout, cfg, it: int) -> None:
+    """B2 on ``layout``'s arena against ``fused_update_torch``, bit for
+    bit: seeded weights, grads and history on the blobs' spans (0 in the
+    pad zones; a shared blob's placeholder has no span), ``cfg``'s SGD
+    constants, each blob's lr and decay multipliers (``ArenaTables``) and
+    the rate of iteration ``it``; then both timed beside the bound."""
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.solvers.arena import ArenaTables, update_statics
+    from sparknet_tpu_torch.solvers.lr_policy import learning_rate
+
+    check(cfg.solver_type == "SGD", f"{what}: B2 check takes SGD, not {cfg.solver_type}")
+    bw, _, _ = card_peaks(card)
+    tables = ArenaTables(layout, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    real = torch.zeros(layout.total, dtype=torch.bool, device="cuda")
+    for e in layout.entries:
+        real[e.offset:e.offset + e.size] = True
+    w = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 0.01, 0.0)
+    g = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 1e-3, 0.0)
+    h = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 1e-3, 0.0)
+    st = update_statics(cfg)
+    one = torch.ones((), device="cuda")
+    sc = torch.stack([learning_rate(cfg, it).to("cuda", torch.float32), one, one])
+    ref_w, ref_s = kernels.fused_update_torch("SGD", st, w, g, [h], tables.tile_lr,
+                                              tables.tile_decay, sc)
+    kernels.fused_update("SGD", st, w, g, [h], tables.tile_lr, tables.tile_decay, sc)
+    same = torch.equal(w, ref_w) and torch.equal(h, ref_s[0])
+    del ref_w, ref_s
+    t_k = time_ms(lambda: kernels.fused_update("SGD", st, w, g, [h], tables.tile_lr,
+                                               tables.tile_decay, sc), reps=10)
+    t_p = time_ms(lambda: kernels.fused_update_torch("SGD", st, w, g, [h], tables.tile_lr,
+                                                     tables.tile_decay, sc), reps=10)
+    nbytes = 5 * layout.total * 4
+    bound = nbytes / bw * 1e3
+    print(f"time fused_update SGD f32 reg {st.reg} momentum {st.momentum:g} on the {what} "
+          f"arena ({layout.param_count():,} params, {layout.total:,} after padding, "
+          f"{sum(e.span == 0 for e in layout.entries)} blobs of 0 tiles): kernel {t_k:.4f} ms "
+          f"({nbytes / 1e9:.3f} GB, {100 * bound / t_k:.1f}% of bound), plain "
+          f"{t_p:.4f} ms, bound {bound:.4f} ms (bytes); kernel against plain "
+          f"{'bitwise equal' if same else 'NOT bitwise equal'} [{card}]")
+    check(same, f"fused_update on the {what} arena differs from its plain version")
+    del w, g, h, tables, real
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def zoo_fused_vs_blob(card: str) -> None:
     """One step, fused against per-blob, from the same weights and batch
     (dropout 0, deterministic cuDNN), for ResNet-50 and VGG-16; then B2
     against its plain version on their arenas, timed beside its bound."""
-    from sparknet_tpu_torch.ops import kernels
-    from sparknet_tpu_torch.solvers.arena import ArenaTables
-
-    bw, _, _ = card_peaks(card)
     for name in ("resnet50", "vgg16"):
         batch, crop = ZOO_SIZES[name]
         net = zoo_net(name, batch, crop, dropout=0.0)
@@ -4052,7 +4116,7 @@ def zoo_fused_vs_blob(card: str) -> None:
                             {ln: {k: t.clone() for k, t in st.items()}
                              for ln, st in v.state.items()}))
                 if fused:
-                    layout = s.layout
+                    layout, cfg = s.layout, s.config
                 del s, v
                 gc.collect()
         finally:
@@ -4073,37 +4137,7 @@ def zoo_fused_vs_blob(card: str) -> None:
         del res, pairs, pf, pb, hf, hb, sf, sb
         gc.collect()
         torch.cuda.empty_cache()
-        # B2 on this arena: against its plain version, then timed
-        tables = ArenaTables(layout, torch.device("cuda"))
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
-        real = torch.zeros(layout.total, dtype=torch.bool, device="cuda")
-        for e in layout.entries:
-            real[e.offset:e.offset + e.size] = True
-        w = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 0.01, 0.0)
-        g = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 1e-3, 0.0)
-        h = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 1e-3, 0.0)
-        st = kernels.UpdateStatics(momentum=0.9, reg="l2")
-        sc = torch.tensor([0.01, 1.0, 1.0], device="cuda")
-        ref_w, ref_s = kernels.fused_update_torch("SGD", st, w, g, [h], tables.tile_lr,
-                                                  tables.tile_decay, sc)
-        kernels.fused_update("SGD", st, w, g, [h], tables.tile_lr, tables.tile_decay, sc)
-        same = torch.equal(w, ref_w) and torch.equal(h, ref_s[0])
-        del ref_w, ref_s
-        t_k = time_ms(lambda: kernels.fused_update("SGD", st, w, g, [h], tables.tile_lr,
-                                                   tables.tile_decay, sc), reps=10)
-        t_p = time_ms(lambda: kernels.fused_update_torch("SGD", st, w, g, [h], tables.tile_lr,
-                                                         tables.tile_decay, sc), reps=10)
-        nbytes = 5 * layout.total * 4
-        bound = nbytes / bw * 1e3
-        print(f"time zoo fused_update SGD f32 L2 on the {name} arena ({layout.param_count():,} "
-              f"params, {layout.total:,} after padding): kernel {t_k:.4f} ms "
-              f"({nbytes / 1e9:.3f} GB, {100 * bound / t_k:.1f}% of bound), plain "
-              f"{t_p:.4f} ms, bound {bound:.4f} ms (bytes); kernel against plain "
-              f"{'bitwise equal' if same else 'NOT bitwise equal'} [{card}]")
-        check(same, f"fused_update on the {name} arena differs from its plain version")
-        del w, g, h, tables, real
-        gc.collect()
-        torch.cuda.empty_cache()
+        b2_against_plain(card, f"zoo {name}", layout, cfg, 0)
 
 
 def zoo_walk(net, variables, feeds, device) -> dict:
@@ -5006,10 +5040,416 @@ def phase_db_apps(card: str) -> dict:
     return dict(lrn=total[0], lrn_backward=total[1], fused_update=total[2])
 
 
+# The layer library's sweep: (label, layer text, input shapes and kinds,
+# grads taken through) for each layer type ported with the MNIST families.
+# Kinds: "x" randn, "pos" |randn| + 0.1, "relu" max(randn, 0), "prob" a
+# softmax over dim 1, "lab5"/"lab2" integer labels < 5 / < 2 as floats,
+# "unit" uniform [0, 1), "idx" batch indices with repeats, "sel" a 0/1/2
+# selector.
+LAYERS_SWEEP = [
+    ("PReLU", 'type: "PReLU" prelu_param { filler { type: "uniform" min: -0.5 max: 0.5 } }',
+     [((8, 16, 12, 12), "x")]),
+    ("Sigmoid", 'type: "Sigmoid"', [((8, 16, 12, 12), "x")]),
+    ("TanH", 'type: "TanH"', [((8, 16, 12, 12), "x")]),
+    ("AbsVal", 'type: "AbsVal"', [((8, 16, 12, 12), "x")]),
+    ("BNLL", 'type: "BNLL"', [((8, 16, 12, 12), "x")]),
+    ("Exp", 'type: "Exp" exp_param { base: 2.0 scale: 0.5 shift: 0.1 }',
+     [((8, 16, 12, 12), "x")]),
+    ("Log", 'type: "Log" log_param { base: 10.0 scale: 2.0 shift: 1.0 }',
+     [((8, 16, 12, 12), "pos")]),
+    ("Power", 'type: "Power" power_param { power: 2.0 scale: 0.5 shift: 1.0 }',
+     [((8, 16, 12, 12), "x")]),
+    ("Threshold", 'type: "Threshold" threshold_param { threshold: 0.2 }',
+     [((8, 16, 12, 12), "x")]),
+    ("ELU", 'type: "ELU" elu_param { alpha: 0.7 }', [((8, 16, 12, 12), "x")]),
+    ("EuclideanLoss", 'type: "EuclideanLoss"', [((64, 784), "x"), ((64, 784), "x")]),
+    ("HingeLoss", 'type: "HingeLoss" hinge_loss_param { norm: L2 }',
+     [((64, 5), "x"), ((64,), "lab5")]),
+    ("MultinomialLogisticLoss", 'type: "MultinomialLogisticLoss"',
+     [((64, 5), "prob"), ((64,), "lab5")]),
+    ("InfogainLoss", 'type: "InfogainLoss"',
+     [((64, 5), "prob"), ((64,), "lab5"), ((5, 5), "pos")]),
+    ("SigmoidCrossEntropyLoss", 'type: "SigmoidCrossEntropyLoss"',
+     [((100, 784), "x"), ((100, 784), "unit")]),
+    ("ContrastiveLoss", 'type: "ContrastiveLoss"',
+     [((64, 2), "x"), ((64, 2), "x"), ((64,), "lab2")]),
+    ("Slice", 'type: "Slice" slice_param { slice_point: 1 }', [((64, 2, 28, 28), "x")], 2),
+    ("Reshape", 'type: "Reshape" reshape_param { shape { dim: 0 dim: -1 dim: 4 } }',
+     [((8, 16, 12, 12), "x")]),
+    ("Tile", 'type: "Tile" tile_param { tiles: 3 }', [((8, 16, 12, 12), "x")]),
+    ("ArgMax", 'type: "ArgMax" argmax_param { top_k: 3 out_max_val: true }',
+     [((64, 10, 4, 4), "x")]),
+    ("BatchReindex", 'type: "BatchReindex"', [((16, 16, 12, 12), "x"), ((64,), "idx")]),
+    ("Reduction", 'type: "Reduction" reduction_param { operation: SUMSQ axis: 1 coeff: 0.5 }',
+     [((8, 16, 12, 12), "x")]),
+    ("MVN", 'type: "MVN" mvn_param { across_channels: true }', [((8, 16, 12, 12), "x")]),
+    ("Silence", 'type: "Silence"', [((8, 16), "x")], 0),
+    ("Filter", 'type: "Filter"', [((64, 16, 4, 4), "x"), ((64,), "sel")]),
+    ("Deconvolution", 'type: "Deconvolution" convolution_param { num_output: 12 kernel_size: 4 '
+     'stride: 2 pad: 1 group: 2 weight_filler { type: "gaussian" std: 0.1 } '
+     'bias_filler { type: "uniform" min: -1 max: 1 } }', [((8, 16, 12, 12), "x")]),
+    ("Im2col", 'type: "Im2col" convolution_param { kernel_size: 3 stride: 2 pad: 1 }',
+     [((8, 16, 12, 12), "x")]),
+    ("SPP", 'type: "SPP" spp_param { pyramid_height: 3 }', [((8, 16, 12, 12), "x")]),
+    ("Pooling STOCHASTIC (TEST)", 'type: "Pooling" pooling_param { pool: STOCHASTIC '
+     'kernel_size: 3 stride: 2 }', [((8, 16, 12, 12), "relu")]),
+]
+LAYERS_GATE = 1e-5  # the card against the CPU, of each array's largest |value|
+LAYERS_TRAIN = (("mnist_siamese", 64), ("mnist_autoencoder", 100))
+LAYERS_STEPS = 20  # steps a family, the first LAYERS_WARM untimed
+LAYERS_WARM = 5
+LAYERS_LOSS_RTOL = 1e-4  # each step's loss, the card against the CPU port
+FCN_UPSCORE = ((1, 21, 16, 16), 64, 32)  # FCN-32s upscore: input, kernel, stride
+
+PY_LAYERS_SRC = """
+import numpy as np
+
+
+class EuclideanLossLayer:
+    def setup(self, bottom, top):
+        pass
+
+    def reshape(self, bottom, top):
+        self.diff = np.zeros_like(bottom[0].data, dtype=np.float32)
+        top[0].reshape(1)
+
+    def forward(self, bottom, top):
+        self.diff[...] = bottom[0].data - bottom[1].data
+        top[0].data[...] = np.sum(self.diff ** 2) / bottom[0].num / 2.0
+
+    def backward(self, top, propagate_down, bottom):
+        for i in range(2):
+            bottom[i].diff[...] = (1 if i == 0 else -1) * self.diff / bottom[i].num
+
+
+class ScaledTanh:
+    def apply(self, x):
+        import torch
+
+        return torch.tanh(x) * 2.5
+"""
+
+
+def layer_inputs(specs, gen) -> list:
+    """The sweep's inputs on the CPU, float32."""
+    out = []
+    for shape, kind in specs:
+        x = torch.randn(shape, generator=gen)
+        if kind == "pos":
+            x = x.abs() + 0.1
+        elif kind == "relu":
+            x = x.clamp(min=0)
+        elif kind == "prob":
+            x = torch.softmax(x, dim=1)
+        elif kind in ("lab5", "lab2", "sel"):
+            x = torch.randint(0, {"lab5": 5, "lab2": 2, "sel": 3}[kind], shape,
+                              generator=gen).float()
+        elif kind == "unit":
+            x = torch.rand(shape, generator=gen)
+        elif kind == "idx":
+            x = torch.randint(0, 16, shape, generator=gen).float()
+        out.append(x)
+    return out
+
+
+def layer_run(layer, params, xs, specs, device, dtype, cots=None, train=True,
+              seed=SEED + 41):
+    """A layer's outputs and its VJP (params and float inputs) on
+    ``device`` in ``dtype``, as float64 host copies, and the cotangents:
+    seeded (float32, on the CPU) unless given."""
+    tp = [p.to(device, dtype).requires_grad_(True) for p in params]
+    tx = [x.to(device, dtype) for x in xs]
+    diff = [i for i, (_, kind) in enumerate(specs) if kind in ("x", "pos", "relu", "prob")]
+    for i in diff:
+        tx[i].requires_grad_(True)
+    outs = layer.apply(tp, {}, tx, train=train).outputs
+    if cots is None:
+        gen = torch.Generator().manual_seed(seed)
+        cots = [torch.randn(tuple(o.shape), generator=gen) for o in outs]
+    live = [(o, c.to(device, dtype)) for o, c in zip(outs, cots) if o.requires_grad]
+    wrt = tp + [tx[i] for i in diff]
+    grads = (torch.autograd.grad([o for o, _ in live], wrt, [c for _, c in live],
+                                 allow_unused=True) if live else [None] * len(wrt))
+    grads = [torch.zeros_like(w) if g is None else g for w, g in zip(wrt, grads)]
+    return [t.detach().cpu().double() for t in list(outs) + grads], cots
+
+
+def rel_err(got: list, ref: list) -> float:
+    """The largest |got - ref| of each array over its largest |ref|."""
+    err = 0.0
+    for a, b in zip(got, ref, strict=True):
+        if b.numel():
+            err = max(err, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    return err
+
+
+def reindex_captured(xs, cot) -> bool:
+    """BatchReindex's backward (``blocks.reindex_backward``) captured into
+    a CUDA graph, which fails on a host read: whether a replay gives the
+    eager gradient bit for bit."""
+    from sparknet_tpu_torch.ops.blocks import reindex_backward
+
+    index, g, rows = xs[1].cuda().reshape(-1).long(), cot.cuda(), xs[0].shape[0]
+    eager = reindex_backward(g, index, rows)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        reindex_backward(g, index, rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = reindex_backward(g, index, rows)
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(out, eager)
+    del graph
+    return same
+
+
+def layers_sweep(card: str) -> None:
+    """Every newly ported layer type, forward and backward, on the card
+    against the same layer on the CPU (float32), beside the CPU's own
+    float32 against float64 error; BatchReindex's backward twice on the
+    card and from a CUDA graph, bit for bit; STOCHASTIC pooling in TRAIN
+    with the same injected uniforms; DummyData's values; the Python layer
+    in both styles, and its Caffe-compat style refusing a CUDA graph
+    capture."""
+    import os
+    import tempfile
+
+    from sparknet_tpu_torch.common import Phase, f32_precision
+    from sparknet_tpu_torch.ops import create_layer, vision
+    from sparknet_tpu_torch.proto import parse
+
+    def make(text, phase=Phase.TRAIN):
+        body = f'layer {{ name: "l" {text} }}'
+        return create_layer(parse(body).get_all("layer")[0], phase)
+
+    gen = torch.Generator().manual_seed(SEED + 40)
+    worst = 0.0
+    with f32_precision():
+        for label, text, specs, *n_tops in LAYERS_SWEEP:
+            tops = " ".join(f'top: "t{i}"' for i in range(n_tops[0] if n_tops else 1))
+            bottoms = " ".join(f'bottom: "b{i}"' for i in range(len(specs)))
+            layer = make(f"{text} {bottoms} {tops}")
+            xs = layer_inputs(specs, gen)
+            params, _ = layer.init(gen, [tuple(x.shape) for x in xs])
+
+            def run(dev, dt, cots=None):
+                return layer_run(layer, params, xs, specs, dev, dt, cots,
+                                 train="(TEST)" not in label)
+
+            cpu, cots = run("cpu", torch.float32)
+            card_out, _ = run("cuda", torch.float32, cots)
+            f64, _ = run("cpu", torch.float64, cots)
+            err, ref_err = rel_err(card_out, cpu), rel_err(cpu, f64)
+            worst = max(worst, err)
+            extra = ""
+            if label == "BatchReindex":
+                again, _ = run("cuda", torch.float32, cots)
+                same = all(torch.equal(a, b) for a, b in zip(card_out, again))
+                captured = reindex_captured(xs, cots[0])
+                extra = (f"; backward twice on the card bit for bit: {same}; replayed from "
+                         f"a CUDA graph bit for bit the eager one: {captured}")
+                check(same and captured, "layers: BatchReindex's backward is not repeatable")
+            print(f"layers: {label}: card against CPU {err:.3g}, CPU f32 against f64 "
+                  f"{ref_err:.3g} (of max|.|){extra}")
+            check(err <= LAYERS_GATE, f"layers: {label} card against CPU {err:.3g}")
+        # STOCHASTIC in TRAIN: the same uniforms on both sides
+        x = layer_inputs([((8, 16, 12, 12), "relu")], gen)[0]
+        u = torch.rand((8, 16, 6, 6), generator=gen)  # a uniform a window
+        g = torch.randn((8, 16, 6, 6), generator=gen)
+        res = []
+        for dev in ("cpu", "cuda"):
+            tx = x.to(dev).requires_grad_(True)
+            y = vision.caffe_stochastic_pool(tx, (3, 3), (2, 2), train=True, uniforms=u.to(dev))
+            (gx,) = torch.autograd.grad(y, tx, g.to(dev))
+            res.append([y.detach().cpu().double(), gx.cpu().double()])
+        err = rel_err(res[1], res[0])
+        print(f"layers: Pooling STOCHASTIC (TRAIN, injected uniforms): card against CPU "
+              f"{err:.3g}")
+        check(err <= LAYERS_GATE, f"layers: STOCHASTIC TRAIN card against CPU {err:.3g}")
+        dummy = make('type: "DummyData" top: "a" top: "b" dummy_data_param { shape { dim: 64 '
+                     'dim: 10 } data_filler { type: "gaussian" std: 2 } data_filler { '
+                     'type: "constant" value: 0.5 } }')
+        same = all(torch.equal(a.cpu(), b) for a, b in
+                   zip(dummy.constant_values("cuda"), dummy.constant_values("cpu")))
+        print(f"layers: DummyData values on the card bit for bit the CPU's: {same}")
+        check(same, "layers: DummyData values")
+        with tempfile.TemporaryDirectory() as d:
+            with open(os.path.join(d, "chip_py_layers.py"), "w") as f:
+                f.write(PY_LAYERS_SRC)
+            sys.path.insert(0, d)
+            try:
+                for cls, specs in (("EuclideanLossLayer", [((64, 10), "x"), ((64, 10), "x")]),
+                                   ("ScaledTanh", [((64, 10), "x")])):
+                    bottoms = " ".join(f'bottom: "b{i}"' for i in range(len(specs)))
+                    layer = make(f'type: "Python" {bottoms} top: "y" python_param {{ '
+                                 f'module: "chip_py_layers" layer: "{cls}" }}')
+                    xs = layer_inputs(specs, gen)
+                    cpu, cots = layer_run(layer, [], xs, specs, "cpu", torch.float32)
+                    card_out, _ = layer_run(layer, [], xs, specs, "cuda", torch.float32, cots)
+                    err = rel_err(card_out, cpu)
+                    print(f"layers: Python ({cls}): card against CPU {err:.3g}")
+                    check(err <= LAYERS_GATE, f"layers: Python {cls} {err:.3g}")
+                xs = [x.cuda() for x in layer_inputs([((64, 10), "x")] * 2, gen)]
+                compat = make('type: "Python" bottom: "a" bottom: "b" top: "y" python_param '
+                              '{ module: "chip_py_layers" layer: "EuclideanLossLayer" }')
+                torch.cuda.synchronize()
+                refused = False
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph):
+                        compat.apply([], {}, xs, train=True)
+                except RuntimeError as e:
+                    refused = "cannot be captured" in str(e)
+                del graph
+                print(f"layers: the Caffe-compat Python layer refuses a CUDA graph capture: "
+                      f"{refused}")
+                check(refused, "layers: a Python layer was captured")
+            finally:
+                sys.path.remove(d)
+                sys.modules.pop("chip_py_layers", None)
+    print(f"layers: {len(LAYERS_SWEEP) + 3} checks, the worst card against CPU {worst:.3g} "
+          f"(gate {LAYERS_GATE:g}) [{card}]")
+
+
+def layers_fcn_upscore(card: str) -> None:
+    """FCN-32s's upsampling Deconvolution (21 -> 21 channels, kernel 64,
+    stride 32, no bias) from a [1,21,16,16] score map to 544x544: the card
+    against the CPU, and its time by CUDA events beside the bound."""
+    from sparknet_tpu_torch.common import Phase, f32_precision
+    from sparknet_tpu_torch.ops import create_layer
+    from sparknet_tpu_torch.proto import parse
+
+    shape, k, stride = FCN_UPSCORE
+    c = shape[1]
+    layer = create_layer(parse(
+        f'layer {{ name: "upscore" type: "Deconvolution" bottom: "score" top: "up" '
+        f'convolution_param {{ num_output: {c} kernel_size: {k} stride: {stride} '
+        f'bias_term: false weight_filler {{ type: "gaussian" std: 0.01 }} }} }}'
+    ).get_all("layer")[0], Phase.TEST)
+    gen = torch.Generator().manual_seed(SEED + 42)
+    x = torch.randn(shape, generator=gen)
+    (w,), _ = layer.init(gen, [shape])
+    with f32_precision():
+        ref = layer.apply([w], {}, [x], train=False).outputs[0]
+        ref64 = layer.apply([w.double()], {}, [x.double()], train=False).outputs[0]
+        xd, wd = x.cuda(), w.cuda()
+        y = layer.apply([wd], {}, [xd], train=False).outputs[0]
+        ms = time_ms(lambda: layer.apply([wd], {}, [xd], train=False))
+    out = (shape[2] - 1) * stride + k
+    check(tuple(y.shape) == (1, c, out, out), f"upscore shape {tuple(y.shape)}")
+    err = rel_err([y.cpu().double()], [ref.double()])
+    ref_err = rel_err([ref.double()], [ref64])
+    bw, flops, _ = card_peaks(torch.cuda.get_device_name(0))
+    byts = 4 * (x.numel() + w.numel() + y.numel())
+    ops = 2 * c * c * k * k * shape[2] * shape[3]
+    bound = max(byts / bw, ops / flops) * 1e3
+    by = "bytes" if byts / bw >= ops / flops else "operations"
+    print(f"layers: FCN-32s upscore [1,{c},{shape[2]},{shape[3]}] -> [1,{c},{out},{out}]: "
+          f"card against CPU {err:.3g} (CPU f32 against f64 {ref_err:.3g}); {ms:.4f} ms by "
+          f"events, bound {bound:.4f} ms ({by}, {100 * bound / ms:.1f} %) [{card}]")
+    check(err <= LAYERS_GATE, f"layers: upscore card against CPU {err:.3g}")
+
+
+def layers_batches(name: str, batch: int, n: int) -> list:
+    """``n`` seeded batches on the CPU: siamese pairs of 10 class patterns
+    with noise and a ``sim`` label (half the pairs one class); autoencoder
+    pixels in [0, 1]."""
+    gen = torch.Generator().manual_seed(SEED + 43)
+    out = []
+    if name == "mnist_siamese":
+        patterns = (torch.rand((10, 28, 28), generator=gen) > 0.7).float()
+        for _ in range(n):
+            a = torch.randint(0, 10, (batch,), generator=gen)
+            same = torch.rand((batch,), generator=gen) < 0.5
+            b = torch.where(same, a, torch.randint(0, 10, (batch,), generator=gen))
+            noise = torch.rand((batch, 2, 28, 28), generator=gen) * 0.3
+            out.append({"pair_data": torch.stack([patterns[a], patterns[b]], 1) * 0.7 + noise,
+                        "sim": (a == b).float()})
+    else:
+        for _ in range(n):
+            out.append({"data": torch.rand((batch, 1, 28, 28), generator=gen)})
+    return out
+
+
+def layers_train(card: str) -> int:
+    """Both MNIST families train ``LAYERS_STEPS`` steps through ``Solver``
+    with the fused update on the card, against the CPU port's run of the
+    same steps from the same init; then one step under torch.profiler, and
+    B2 against its plain version on the family's arena.  Returns B2's
+    launches in the ``LAYERS_STEPS`` steps."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.compiler.graph import is_placeholder
+
+    fused_total = 0
+    for name, batch in LAYERS_TRAIN:
+        batches = layers_batches(name, batch, LAYERS_STEPS)
+        net = getattr(models, name)(batch=batch)
+        card_solver = zoo_solver(net, name)
+        cpu_solver = zoo_solver(net, name, device="cpu")
+        take_counts()
+        losses, start = [], None
+        for it, feeds in enumerate(batches):
+            if it == LAYERS_WARM:
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            losses.append(card_solver.train_iteration(feeds))
+        stop = torch.cuda.Event(enable_timing=True)
+        stop.record()
+        stop.synchronize()
+        ms = start.elapsed_time(stop) / (LAYERS_STEPS - LAYERS_WARM)
+        fused = take_counts()[2]
+        fused_total += fused
+        cpu_losses = [float(cpu_solver.train_iteration(f)) for f in batches]
+        losses = [float(x) for x in losses]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+        placeholders = sum(is_placeholder(p) for pl in card_solver.variables.params.values()
+                           for p in pl)
+        shared = sum(e.span == 0 for e in card_solver.layout.entries)
+        print(f"layers: {name} b{batch}: {LAYERS_STEPS} steps, {ms:.3f} ms a step by events "
+              f"(steps {LAYERS_WARM}-{LAYERS_STEPS - 1}); loss {losses[0]:.6g} -> "
+              f"{losses[-1]:.6g}; card against the CPU port, worst step {rel:.3g} (gate "
+              f"{LAYERS_LOSS_RTOL:g}); B2 launches {fused}; arena {card_solver.layout.total} "
+              f"elements, {shared} placeholder blobs of 0 tiles [{card}]")
+        check(all(math.isfinite(x) for x in losses), f"{name}: a loss is not finite")
+        check(rel <= LAYERS_LOSS_RTOL, f"{name}: card against CPU {rel:.3g}")
+        check(fused == LAYERS_STEPS, f"{name}: {fused} B2 launches in {LAYERS_STEPS} steps")
+        check(placeholders == shared, f"{name}: {placeholders} placeholders against "
+              f"{shared} 0-tile entries")
+        if name == "mnist_siamese":
+            check(shared == 10, f"mnist_siamese: {shared} shared blobs, want 10")
+        # one more step under torch.profiler: the device's busy share
+        device_ms, rows = device_breakdown(lambda: card_solver.train_iteration(batches[-1]),
+                                           top=3)
+        check(device_ms > 0.0, f"{name}: torch.profiler recorded no device time")
+        print(f"layers: {name} b{batch}: one step under torch.profiler, {device_ms:.3f} ms of "
+              f"kernels, {100 * device_ms / ms:.1f}% of the unprofiled {ms:.3f} ms a step "
+              f"(device idle {100 * (1 - device_ms / ms):.1f}%); top kernels "
+              + "; ".join(f"{k[:40]} {t:.3f} ms x{c}" for t, k, c in rows) + f" [{card}]")
+        b2_against_plain(card, name, card_solver.layout, card_solver.config, card_solver.iter)
+        take_counts()  # the profiled step's and the check's launches are off the path
+        del card_solver, cpu_solver
+    return fused_total
+
+
+def phase_layers(card: str) -> dict:
+    """The layer library, weight sharing and the MNIST families on the card
+    (f32, TF32 off).  Returns the launches of the paths it drives."""
+    t_phase = time.perf_counter()
+    layers_sweep(card)
+    layers_fcn_upscore(card)
+    fused = layers_train(card)
+    print(f"layers: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return dict(lrn=0, lrn_backward=0, fused_update=fused)
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
           "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
-          "charlm_train", "engine", "replica", "zoo", "db_apps")
+          "charlm_train", "engine", "replica", "zoo", "db_apps", "layers")
 
 
 def main(argv=None) -> int:
@@ -5128,7 +5568,8 @@ def main(argv=None) -> int:
     if "replica" in phases:
         launches["flash_attention"] += phase_replica(card, per_replay)["flash"]
         lap("replica")
-    for name, run in (("zoo", phase_zoo), ("db_apps", phase_db_apps)):
+    for name, run in (("zoo", phase_zoo), ("db_apps", phase_db_apps),
+                      ("layers", phase_layers)):
         if name in phases:
             got = run(card)
             launches["lrn_across_channels"] += got["lrn"]
@@ -5172,8 +5613,8 @@ def main(argv=None) -> int:
         # LM's timed training steps and its sampling, the serving engine's
         # loads, traffic and swaps and the replica run: there, each graph
         # replay adds the launches its capture recorded, and a capture
-        # adds none; the ImageNet families' training steps), each counted
-        # from 0
+        # adds none; the ImageNet families' training steps; the DB apps;
+        # the MNIST families' steps), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -72,8 +72,8 @@ _UNPORTED_FLAGS = (
 )
 _DTYPE_ITEM = "Queue A3 (mixed precision, Config.compute_dtype)"
 _LAYOUT_ITEM = "Queue A6 (channels_last)"
-_PROTO_DATA_ITEM = ("Queue A9 (listfile.py) and A10 (the Data/ImageData/"
-                    "WindowData/HDF5Data readers)")
+_PROTO_DATA_ITEM = ("Queue A9 (listfile.py with the ImageData/WindowData layers, "
+                    "and HDF5)")
 
 
 def _refuse_unported(args) -> None:

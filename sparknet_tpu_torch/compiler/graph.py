@@ -8,7 +8,12 @@ plain rebinds, and each layer's ``apply`` is a function on tensors.
 
 Phase filtering follows NetStateRule semantics (net.cpp:287 FilterNet +
 StateMeetsRule: phase / min_level / max_level / stage / not_stage).
-Cross-layer weight sharing (``param { name: ... }``) is ROADMAP Queue A3.
+Cross-layer weight sharing (``param { name: ... }``, the siamese example's
+two towers) keeps the JAX layout: the first layer to name a param owns the
+tensor, a sharer's position holds a 0-size placeholder
+(:func:`is_placeholder`), and ``apply`` substitutes the owner's tensor
+(:meth:`Network.layer_params`), so autograd sums every tower's gradient
+into it (Caffe's shared-diff accumulation).
 """
 
 from __future__ import annotations
@@ -26,6 +31,13 @@ from sparknet_tpu_torch.proto.text_format import Message
 
 Params = dict[str, list[torch.Tensor]]
 State = dict[str, dict[str, torch.Tensor]]
+
+
+def is_placeholder(blob: torch.Tensor) -> bool:
+    """Whether ``blob`` is a shared param's 0-size placeholder: the
+    position a sharer holds in ``NetVars.params``, which stores its
+    owner's blob once (:meth:`Network.layer_params` resolves it)."""
+    return blob.numel() == 0
 
 
 @dataclasses.dataclass
@@ -112,18 +124,35 @@ class Network:
             create_layer(lp, phase)
             for lp in filter_phase(net_param, phase, level, stages)
         ]
-        for layer in self.layers:
-            if any(pm.get_str("name", "") for pm in layer.lp.get_all("param")):
-                raise NotImplementedError(
-                    f"layer {layer.name!r} shares a param by name; cross-layer "
-                    "weight sharing is not ported yet (ROADMAP Queue A3)")
         self.input_layers = [l for l in self.layers if isinstance(l, InputLayer)]
-        # External feed blobs: tops of the input layers.
-        self.feed_blobs: list[str] = [t for l in self.input_layers for t in l.tops]
+        # External feed blobs: tops of the input layers that do not feed
+        # themselves.
+        self.feed_blobs: list[str] = [t for l in self.input_layers
+                                      if not l.SELF_FEEDING for t in l.tops]
         # net-level legacy inputs: `input: "data"` + input_shape/input_dim
         self.net_inputs = self._net_level_inputs()
         self.feed_blobs.extend(n for n, _ in self.net_inputs)
         self._blob_info: dict[str, BlobInfo] | None = None
+        # Cross-layer weight sharing by name (ref: net.cpp:470+ AppendParam).
+        # The first layer to name a param owns it; a later (layer, index)
+        # of this phase aliases it.  Owners are elected over the UNFILTERED
+        # layer list, so the TRAIN and TEST views agree on them (the phases
+        # share one NetVars through the Solver).
+        self.param_aliases: dict[tuple[str, int], tuple[str, int]] = {}
+        self._shared_names: dict[tuple[str, int], str] = {}
+        owners: dict[str, tuple[str, int]] = {}
+        phase_names = {l.name for l in self.layers}
+        for lp in net_param.get_all("layer") or net_param.get_all("layers"):
+            lname = lp.get_str("name")
+            for i, pm in enumerate(lp.get_all("param")):
+                pname = pm.get_str("name", "")
+                if not pname:
+                    continue
+                if pname not in owners:
+                    owners[pname] = (lname, i)
+                elif lname in phase_names and owners[pname][0] != lname:
+                    self.param_aliases[(lname, i)] = owners[pname]
+                    self._shared_names[(lname, i)] = pname
 
     # -- legacy net-level inputs (ref: net.cpp AppendTop "deprecated 4D input
     # dimensions" / input_shape) ------------------------------------------
@@ -149,6 +178,8 @@ class Network:
         """Declared shapes for feed blobs (from layer params), where known."""
         out: dict[str, tuple[int, ...]] = {}
         for l in self.input_layers:
+            if l.SELF_FEEDING:
+                continue
             shapes = l.blob_shapes()
             if shapes:
                 for top, shape in zip(l.tops, shapes):
@@ -186,8 +217,11 @@ class Network:
         train = self.phase == Phase.TRAIN
         for layer in self.layers:
             if isinstance(layer, InputLayer):
+                if layer.SELF_FEEDING:
+                    blob.update(zip(layer.tops, layer.constant_values("meta")))
                 continue
             p, s = layer.init(gen, [tuple(blob[b].shape) for b in layer.bottoms])
+            p = self._alias_placeholders(layer, p, params)
             if p:
                 # params are keyed by layer name (Caffe snapshot layout)
                 if sum(1 for l2 in self.layers if l2.name == layer.name) > 1:
@@ -203,12 +237,69 @@ class Network:
                     )
                 state[layer.name] = {k: v.to(self.device) for k, v in s.items()}
             outs = layer.apply(
-                [t.to("meta") for t in p], {k: v.to("meta") for k, v in s.items()},
+                [t.to("meta") for t in self.layer_params(layer.name, params)],
+                {k: v.to("meta") for k, v in s.items()},
                 [blob[b] for b in layer.bottoms], train=train).outputs
             for top, o in zip(layer.tops, outs):
                 blob[top] = o
         self._blob_info = {k: BlobInfo(tuple(v.shape), v.dtype) for k, v in blob.items()}
         return NetVars(params=params, state=state)
+
+    def _alias_placeholders(self, layer: Layer, p: list, params: Params) -> list:
+        """``layer``'s fresh blobs with each aliased position replaced by a
+        0-size placeholder, after the JAX package's checks: the layer has
+        the position, and the owner (initialized earlier) a blob of the
+        same shape."""
+        for (aname, ai), pname in self._shared_names.items():
+            # an alias position the layer never makes would otherwise be
+            # dropped and train unshared (Caffe CHECK-fails, net.cpp:470+)
+            if aname == layer.name and ai >= len(p):
+                raise ValueError(
+                    f"param name {pname!r} at position {ai} of layer "
+                    f"{aname!r}, which has only {len(p)} learnable "
+                    "blob(s) — sharing would be silently dropped")
+        out = list(p)
+        for i, t in enumerate(p):
+            owner = self.param_aliases.get((layer.name, i))
+            if owner is None:
+                continue
+            pname = self._shared_names[(layer.name, i)]
+            olist = params.get(owner[0])
+            if olist is None or owner[1] >= len(olist):
+                raise ValueError(
+                    f"Cannot share param {pname!r}: owner layer {owner[0]!r} "
+                    f"(position {owner[1]}) declares no such blob (is the "
+                    "param{} on a param-less or later layer?)")
+            if tuple(olist[owner[1]].shape) != tuple(t.shape):
+                raise ValueError(
+                    f"Cannot share param {pname!r}: owner {owner[0]}[{owner[1]}] "
+                    f"has shape {tuple(olist[owner[1]].shape)} but "
+                    f"{layer.name}[{i}] expects {tuple(t.shape)}")
+            out[i] = torch.zeros((0,), dtype=t.dtype)
+        return out
+
+    def layer_params(self, name: str, params: Params) -> list:
+        """The blobs layer ``name`` computes with: its list in ``params``
+        with the owner's tensor at each shared position.  Every walk over
+        the layers takes a layer's params from here, never from ``params``
+        directly, where a sharer holds placeholders."""
+        p = params.get(name, [])
+        if not self.param_aliases or not p:
+            return p
+        out = list(p)
+        for i in range(len(out)):
+            owner = self.param_aliases.get((name, i))
+            if owner is None:
+                continue
+            olist = params.get(owner[0])
+            if olist is None or owner[1] >= len(olist):
+                raise ValueError(
+                    f"Cannot share param {self._shared_names[(name, i)]!r}: "
+                    f"owner {owner[0]!r} has no params in these variables (the "
+                    "owner layer may be filtered out of the phase that "
+                    "initialized the net)")
+            out[i] = olist[owner[1]]
+        return out
 
     def blob_info(self) -> dict[str, BlobInfo]:
         if self._blob_info is None:
@@ -272,6 +363,8 @@ class Network:
         with f32_precision():
             for layer in self.layers[si : ei + 1]:
                 if isinstance(layer, InputLayer):
+                    if layer.SELF_FEEDING:
+                        blob.update(zip(layer.tops, layer.constant_values(self.device)))
                     continue
                 missing = [b for b in layer.bottoms if b not in blob]
                 if missing:
@@ -281,7 +374,7 @@ class Network:
                     )
                 kwargs = {"gen": gen} if layer.NEEDS_GEN else {}
                 out = layer.apply(
-                    variables.params.get(layer.name, []),
+                    self.layer_params(layer.name, variables.params),
                     variables.state.get(layer.name, {}),
                     [blob[b] for b in layer.bottoms], train=train, **kwargs)
                 if out.state:

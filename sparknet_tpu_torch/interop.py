@@ -21,7 +21,9 @@ JAX ``Solver.restore`` loads it; a snapshot of either package restores into
 the other.
 
 Blob order is Caffe's in both packages (conv OIHW, fc (out, in) in NCHW
-flatten order), so every blob crosses as it is.
+flatten order), so every blob crosses as it is, a shared param's 0-size
+placeholder (``compiler/graph.py``) too: both packages keep it under its
+own key, and the owner's key holds the blob.
 """
 
 from __future__ import annotations

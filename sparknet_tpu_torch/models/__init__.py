@@ -31,6 +31,10 @@ from sparknet_tpu_torch.models.zoo import (  # noqa: F401
     googlenet_solver,
     lenet,
     lenet_solver,
+    mnist_autoencoder,
+    mnist_autoencoder_solver,
+    mnist_siamese,
+    mnist_siamese_solver,
     mobilenet,
     mobilenet_solver,
     resnet50,

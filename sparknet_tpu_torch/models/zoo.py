@@ -7,12 +7,13 @@ caffe/examples/cifar10/cifar10_{quick,full}_train_test.prototxt,
 caffe/models/bvlc_alexnet/train_val.prototxt,
 caffe/models/bvlc_reference_caffenet/train_val.prototxt,
 caffe/models/bvlc_googlenet/train_val.prototxt), the later ImageNet
-families (ResNet-50, VGG-16, SqueezeNet v1.1, MobileNet v1), plus the
-sequence models ``transformer`` and ``charlm`` (no reference analog).
+families (ResNet-50, VGG-16, SqueezeNet v1.1, MobileNet v1), the
+sequence models ``transformer`` and ``charlm`` (no reference analog), and
+the MNIST siamese net (ref: caffe/examples/siamese/) and deep autoencoder
+(ref: caffe/examples/mnist/mnist_autoencoder.prototxt).
 Architectures are the published ones; data enters through RDD layers and
 batch is a builder argument.  The ``*_solver()`` recipes are the
-published solver.prototxt settings of each; ``mnist_siamese`` and
-``mnist_autoencoder`` are ROADMAP Queue A10.
+published solver.prototxt settings of each.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from sparknet_tpu_torch.layers_dsl import (
     DropoutLayer,
     EltwiseLayer,
     EmbedLayer,
+    EuclideanLossLayer,
     FlattenLayer,
     InnerProductLayer,
     LRNLayer,
@@ -43,6 +45,8 @@ from sparknet_tpu_torch.layers_dsl import (
     RDDLayer,
     ReLULayer,
     ScaleLayer,
+    SigmoidCrossEntropyLossLayer,
+    SigmoidLayer,
     SoftmaxWithLoss,
     _filler,
 )
@@ -750,6 +754,136 @@ def squeezenet_solver() -> SolverConfig:
 
 
 # ---------------------------------------------------------------------------
+# The MNIST siamese net (ref: caffe/examples/siamese/
+# mnist_siamese_train_test.prototxt): two LeNet towers sharing every param
+# by name, a contrastive loss on their embeddings.  The deep autoencoder
+# (ref: caffe/examples/mnist/mnist_autoencoder.prototxt).
+# ---------------------------------------------------------------------------
+def _shared(m: Message, *names: str) -> Message:
+    """Attach named param{} messages for cross-layer weight sharing.
+    lr_mults follow the reference siamese file: weights 1, biases 2."""
+    for n, lr in zip(names, (1.0, 2.0)):
+        m.add("param", Message().set("name", n).set("lr_mult", lr))
+    return m
+
+
+def _siamese_tower(suffix: str, bottom: str, embed_dim: int) -> list[Message]:
+    s = suffix
+    return [
+        _shared(ConvolutionLayer(f"conv1{s}", [bottom], kernel=(5, 5),
+                                 num_output=20), "conv1_w", "conv1_b"),
+        PoolingLayer(f"pool1{s}", [f"conv1{s}"], Pooling.Max,
+                     kernel=(2, 2), stride=(2, 2)),
+        _shared(ConvolutionLayer(f"conv2{s}", [f"pool1{s}"], kernel=(5, 5),
+                                 num_output=50), "conv2_w", "conv2_b"),
+        PoolingLayer(f"pool2{s}", [f"conv2{s}"], Pooling.Max,
+                     kernel=(2, 2), stride=(2, 2)),
+        _shared(InnerProductLayer(f"ip1{s}", [f"pool2{s}"], num_output=500),
+                "ip1_w", "ip1_b"),
+        ReLULayer(f"relu1{s}", [f"ip1{s}"], in_place=True),
+        _shared(InnerProductLayer(f"ip2{s}", [f"ip1{s}"], num_output=10),
+                "ip2_w", "ip2_b"),
+        _shared(InnerProductLayer(f"feat{s}", [f"ip2{s}"],
+                                  num_output=embed_dim), "feat_w", "feat_b"),
+    ]
+
+
+def mnist_siamese(batch: int = 64, embed_dim: int = 2, margin: float = 1.0) -> Message:
+    slice_layer = Message()
+    slice_layer.set("name", "slice_pair").set("type", "Slice")
+    slice_layer.add("bottom", "pair_data")
+    slice_layer.add("top", "data")
+    slice_layer.add("top", "data_p")
+    slice_layer.set(
+        "slice_param", Message().set("slice_dim", 1).set("slice_point", 1)
+    )
+    loss = Message()
+    loss.set("name", "loss").set("type", "ContrastiveLoss")
+    for b in ("feat", "feat_p", "sim"):
+        loss.add("bottom", b)
+    loss.add("top", "loss")
+    loss.set("contrastive_loss_param", Message().set("margin", margin))
+    return NetParam(
+        "mnist_siamese",
+        RDDLayer("pair_data", shape=[batch, 2, 28, 28]),
+        RDDLayer("sim", shape=[batch]),
+        slice_layer,
+        *_siamese_tower("", "data", embed_dim),
+        *_siamese_tower("_p", "data_p", embed_dim),
+        loss,
+    )
+
+
+def mnist_siamese_solver() -> SolverConfig:
+    """ref: caffe/examples/siamese/mnist_siamese_solver.prototxt."""
+    return SolverConfig(
+        base_lr=0.01, lr_policy="inv", gamma=1e-4, power=0.75,
+        momentum=0.9, weight_decay=0.0, max_iter=50000,
+        solver_type="SGD", display=500,
+    )
+
+
+def _sparse_gauss(std: float, sparse: int) -> Message:
+    m = _filler("gaussian", std=std)
+    m.set("sparse", sparse)
+    return m
+
+
+def _ae_ip(name: str, bottom: str, n: int) -> Message:
+    """Autoencoder InnerProduct: gaussian(std=1, sparse=15) weights, lr_mult
+    1/1 with decay_mult 1/0 (ref: mnist_autoencoder.prototxt:58-84)."""
+    m = InnerProductLayer(
+        name, [bottom], num_output=n,
+        weight_filler=_sparse_gauss(1.0, 15),
+        bias_filler=_filler("constant", value=0.0),
+    )
+    for decay in (1.0, 0.0):
+        m.add("param", Message().set("lr_mult", 1.0).set("decay_mult", decay))
+    return m
+
+
+def mnist_autoencoder(batch: int = 100) -> Message:
+    """Deep autoencoder 784-1000-500-250-30-250-500-1000-784 with sigmoid
+    cross-entropy reconstruction loss and a loss_weight=0 euclidean monitor
+    (ref: caffe/examples/mnist/mnist_autoencoder.prototxt)."""
+    layers = [
+        RDDLayer("data", shape=[batch, 1, 28, 28]),
+        FlattenLayer("flatdata", ["data"]),
+        _ae_ip("encode1", "data", 1000),
+        SigmoidLayer("encode1neuron", ["encode1"]),
+        _ae_ip("encode2", "encode1neuron", 500),
+        SigmoidLayer("encode2neuron", ["encode2"]),
+        _ae_ip("encode3", "encode2neuron", 250),
+        SigmoidLayer("encode3neuron", ["encode3"]),
+        _ae_ip("encode4", "encode3neuron", 30),
+        _ae_ip("decode4", "encode4", 250),
+        SigmoidLayer("decode4neuron", ["decode4"]),
+        _ae_ip("decode3", "decode4neuron", 500),
+        SigmoidLayer("decode3neuron", ["decode3"]),
+        _ae_ip("decode2", "decode3neuron", 1000),
+        SigmoidLayer("decode2neuron", ["decode2"]),
+        _ae_ip("decode1", "decode2neuron", 784),
+        SigmoidCrossEntropyLossLayer(
+            "loss", ["decode1", "flatdata"], loss_weight=1.0,
+            top="cross_entropy_loss"),
+        SigmoidLayer("decode1neuron", ["decode1"]),
+        EuclideanLossLayer(
+            "l2_monitor", ["decode1neuron", "flatdata"], loss_weight=0.0,
+            top="l2_error"),
+    ]
+    return NetParam("MNISTAutoencoder", *layers)
+
+
+def mnist_autoencoder_solver() -> SolverConfig:
+    """ref: caffe/examples/mnist/mnist_autoencoder_solver.prototxt."""
+    return SolverConfig(
+        base_lr=0.01, lr_policy="step", gamma=0.1, stepsize=10000,
+        momentum=0.9, weight_decay=0.0005, max_iter=65000,
+        solver_type="SGD", display=100, snapshot=10000,
+    )
+
+
+# ---------------------------------------------------------------------------
 # Transformer sequence classifier and char-level causal LM (no reference
 # analog).  A causal decoder stack built from prototxt-compatible layers.
 # ---------------------------------------------------------------------------
@@ -973,7 +1107,7 @@ def _replay(network, variables, ids, attend, end: str):
         for layer in network.layers[: ei + 1]:
             if isinstance(layer, InputLayer):
                 continue
-            p = variables.params.get(layer.name, [])
+            p = network.layer_params(layer.name, variables.params)
             ins = [blob[b] for b in layer.bottoms]
             if isinstance(layer, _Attn):
                 w_qkv, b_qkv, w_out, b_out = p

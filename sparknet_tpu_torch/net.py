@@ -27,7 +27,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from sparknet_tpu_torch.compiler.graph import Network, NetVars
+from sparknet_tpu_torch.compiler.graph import Network, NetVars, is_placeholder
 from sparknet_tpu_torch.proto.text_format import Message
 from sparknet_tpu_torch.solvers.solver import Solver, SolverConfig
 
@@ -123,9 +123,10 @@ def copy_caffemodel_params(
     scale_factor), which Caffe keeps in the same ``blobs_`` vector after
     the learnable ones, in :func:`state_items` order.  Each loaded blob
     lands on its target's device in its target's dtype, one blob at a
-    time; the decoded file is the only host copy.  The port has no shared
-    params (ROADMAP Queue A3: ``compiler/graph.py`` raises on them), so no
-    layer holds an alias to skip."""
+    time; the decoded file is the only host copy.  A shared param's 0-size
+    placeholder (``compiler.graph.is_placeholder``) stays as it is: the owner layer's
+    record loads the one tensor (Caffe files hold a shared blob at every
+    layer that names it; the owner's copy wins)."""
     from sparknet_tpu_torch.proto.binary import load_caffemodel
 
     model = load_caffemodel(path)
@@ -147,6 +148,9 @@ def copy_caffemodel_params(
             continue  # permissive: e.g. the donor changed bias_term
         shapes = []
         for src, dst in zip(layer.blobs, target):
+            if is_placeholder(dst):  # a shared param's placeholder, kept
+                shapes.append(None)
+                continue
             if tuple(src.shape) != tuple(dst.shape) and src.size != dst.numel():
                 if strict_shapes:
                     raise ValueError(
@@ -155,7 +159,7 @@ def copy_caffemodel_params(
                 break  # permissive: skip the incompatible layer
             shapes.append(tuple(dst.shape))
         else:
-            new = [_on_device(src.reshape(shape), dst)
+            new = [dst if shape is None else _on_device(src.reshape(shape), dst)
                    for src, dst, shape in zip(layer.blobs, target, shapes)]
             n_p = len(t_params or [])
             if t_params is not None:
@@ -182,7 +186,9 @@ def export_caffemodel(network: Network, params: dict[str, list], path: str,
     Net::ToProto net.cpp:911 + Solver::SnapshotToBinaryProto): one layer
     record a param-owning or stateful layer, in ``params`` order and then
     the state-only layers, the bytes the JAX package's
-    ``export_caffemodel`` writes for the same arrays.  Returns ``path``."""
+    ``export_caffemodel`` writes for the same arrays.  A shared param's
+    placeholder writes its owner's blob, as Caffe duplicates a shared blob
+    at every layer that names it.  Returns ``path``."""
     from sparknet_tpu_torch.proto.binary import (
         CaffeModel,
         CaffeModelLayer,
@@ -196,7 +202,7 @@ def export_caffemodel(network: Network, params: dict[str, list], path: str,
     def layers():
         # one layer's blobs on the host at a time
         for lname in names:
-            blobs = [_host(p) for p in params.get(lname, [])]
+            blobs = [_host(p) for p in network.layer_params(lname, params)]
             blobs += [_host(v) for _, v in state_items((state or {}).get(lname, {}))]
             yield CaffeModelLayer(lname, type_by_name.get(lname, ""), blobs)
 

@@ -127,6 +127,18 @@ def hw_param(m: Message, base: str, default: int | None = None) -> tuple[int, in
     return default, default
 
 
+def conv_out_dim(size: int, kernel: int, pad: int, stride: int, dilation: int = 1) -> int:
+    """A convolution's output size; raises when the kernel leaves none."""
+    ke = dilation * (kernel - 1) + 1
+    out = (size + 2 * pad - ke) // stride + 1
+    if out <= 0:
+        raise ValueError(
+            f"conv kernel {kernel} (stride {stride}, pad {pad}, dilation "
+            f"{dilation}) produces no output for input size {size}"
+        )
+    return out
+
+
 def pool_out_dim(size: int, kernel: int, pad: int, stride: int) -> int:
     """Caffe's ceil-mode pooling shape rule (ref:
     caffe/src/caffe/layers/pooling_layer.cpp Reshape: ceil((H+2p-k)/s)+1,

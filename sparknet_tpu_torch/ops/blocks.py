@@ -1,11 +1,12 @@
 """Common layers: InnerProduct, BatchNorm, Scale, Bias, Embed, Eltwise,
-Split, Flatten, Concat.
+Concat, Slice, Split, Flatten, Reshape, Tile, ArgMax, BatchReindex,
+Reduction, MVN, Silence and Filter.
 
 Counterpart of ``sparknet_tpu/ops/blocks.py`` (ref:
 caffe/include/caffe/common_layers.hpp).  InnerProduct is one ``F.linear``
-(cuBLAS on the card), as the JAX package leaves this GEMM to XLA;
-BatchNorm, Scale and Bias are ATen elementwise work and reductions, as
-they are XLA ops there.  The other common layers are ROADMAP Queue A10.
+(cuBLAS on the card), as the JAX package leaves this GEMM to XLA; the
+others are ATen elementwise work, reductions, gathers and views, as they
+are XLA ops there.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sparknet_tpu_torch.common import f32_precision
 from sparknet_tpu_torch.ops import fillers, layout
 from sparknet_tpu_torch.ops.base import Layer, LayerOutput
 from sparknet_tpu_torch.ops.registry import register
@@ -293,3 +295,191 @@ class Flatten(Layer):
         axis = _canon_axis(p.get_int("axis", 1), x.dim())
         end = _canon_axis(p.get_int("end_axis", -1), x.dim())
         return LayerOutput([torch.flatten(x, axis, end)])
+
+
+@register
+class Slice(Layer):
+    """ref: slice_layer.cpp — cut at ``slice_point``s, or into #tops equal
+    parts, along ``axis`` (legacy ``slice_dim``)."""
+
+    TYPE = "Slice"
+
+    def apply(self, params, state, inputs, *, train):
+        p = self.lp.get_msg("slice_param")
+        x = inputs[0]
+        axis = _canon_axis(p.get_int("axis", p.get_int("slice_dim", 1)), x.dim())
+        points = [int(s) for s in p.get_all("slice_point")]
+        if not points:
+            size = x.shape[axis] // len(self.tops)
+            points = [size * i for i in range(1, len(self.tops))]
+        return LayerOutput(list(torch.tensor_split(x, points, dim=axis)))
+
+
+@register
+class Reshape(Layer):
+    """ref: reshape_layer.cpp — dims 0 (copy the bottom's) and -1 (infer),
+    over the axes ``axis`` .. ``axis + num_axes`` (-1: to the end)."""
+
+    TYPE = "Reshape"
+
+    def apply(self, params, state, inputs, *, train):
+        p = self.lp.get_msg("reshape_param")
+        dims = [int(d) for d in p.get_msg("shape").get_all("dim")]
+        x = inputs[0]
+        axis = _canon_axis(p.get_int("axis", 0), x.dim())
+        num_axes = p.get_int("num_axes", -1)
+        end = x.dim() if num_axes == -1 else axis + num_axes
+        shape = tuple(x.shape)
+        head, mid_in, tail = shape[:axis], shape[axis:end], shape[end:]
+        out_mid = [mid_in[i] if d == 0 else d for i, d in enumerate(dims)]
+        if -1 in out_mid:
+            known = int(np.prod([d for d in out_mid if d != -1]))
+            total = int(np.prod(mid_in)) if mid_in else 1
+            out_mid[out_mid.index(-1)] = total // max(known, 1)
+        return LayerOutput([x.reshape(head + tuple(out_mid) + tail)])
+
+
+@register
+class Tile(Layer):
+    """ref: tile_layer.cpp — ``tiles`` copies along ``axis``."""
+
+    TYPE = "Tile"
+
+    def apply(self, params, state, inputs, *, train):
+        p = self.lp.get_msg("tile_param")
+        x = inputs[0]
+        reps = [1] * x.dim()
+        reps[_canon_axis(p.get_int("axis", 1), x.dim())] = p.get_int("tiles")
+        return LayerOutput([x.repeat(reps)])
+
+
+@register
+class ArgMax(Layer):
+    """ref: argmax_layer.cpp — a sample's ``top_k`` over its flattened
+    non-batch dims: (N, 1, top_k) indices, or (N, 2, top_k) indices and
+    values with ``out_max_val``.  Ties go to the lower index, as
+    ``jax.lax.top_k`` puts them: a stable descending sort, since
+    ``torch.topk`` on CUDA promises no order among ties.  The indices come
+    out in the input's type, as JAX's do (exact below 2^24 elements a
+    sample in float32)."""
+
+    TYPE = "ArgMax"
+
+    def apply(self, params, state, inputs, *, train):
+        p = self.lp.get_msg("argmax_param")
+        top_k = p.get_int("top_k", 1)
+        x = inputs[0]
+        flat = x.reshape(x.shape[0], -1)
+        vals, idxs = torch.sort(flat, dim=1, descending=True, stable=True)
+        vals, idxs = vals[:, :top_k], idxs[:, :top_k].to(x.dtype)
+        if p.get_bool("out_max_val", False):
+            return LayerOutput([torch.stack([idxs, vals], dim=1)])
+        return LayerOutput([idxs[:, None, :]])
+
+
+def reindex_backward(g: torch.Tensor, index: torch.Tensor, rows: int) -> torch.Tensor:
+    """The gradient of ``x[index]`` (``x`` of ``rows`` rows) w.r.t. ``x``:
+    the rows of ``g`` summed by index as one matrix product in full
+    float32, one_hot(index)^T @ g.  A fixed order with no atomics and no
+    host read, so its bits repeat from run to run and a CUDA graph can
+    capture it.  A non-finite row of ``g``, times the zeros of the other
+    rows, makes NaN down its columns."""
+    pick = F.one_hot(index, rows).T.to(g.dtype)
+    with f32_precision():
+        gx = pick @ g.reshape(g.shape[0], -1)
+    return gx.reshape((rows,) + tuple(g.shape[1:]))
+
+
+class _Reindex(torch.autograd.Function):
+    """x[index] along the batch axis, with :func:`reindex_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.save_for_backward(index)
+        ctx.rows = x.shape[0]
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        return reindex_backward(g, index, ctx.rows), None
+
+
+@register
+class BatchReindex(Layer):
+    """output = x[permutation] (ref: batch_reindex_layer.cpp)."""
+
+    TYPE = "BatchReindex"
+
+    def apply(self, params, state, inputs, *, train):
+        return LayerOutput([_Reindex.apply(inputs[0], inputs[1].reshape(-1).to(torch.long))])
+
+
+@register
+class Reduction(Layer):
+    """SUM / ASUM / SUMSQ / MEAN over the tail dims from ``axis``, times
+    ``coeff`` (ref: reduction_layer.cpp)."""
+
+    TYPE = "Reduction"
+
+    def apply(self, params, state, inputs, *, train):
+        p = self.lp.get_msg("reduction_param")
+        op = p.get_str("operation", "SUM")
+        x = inputs[0]
+        axis = _canon_axis(p.get_int("axis", 0), x.dim())
+        flat = x.reshape(tuple(x.shape[:axis]) + (-1,)) if axis < x.dim() else x[..., None]
+        if op == "ASUM":
+            y = torch.sum(torch.abs(flat), dim=-1)
+        elif op == "SUMSQ":
+            y = torch.sum(flat * flat, dim=-1)
+        elif op == "MEAN":
+            y = torch.mean(flat, dim=-1)
+        else:
+            y = torch.sum(flat, dim=-1)
+        return LayerOutput([p.get_float("coeff", 1.0) * y])
+
+
+@register
+class MVN(Layer):
+    """Mean-variance normalization a sample (ref: mvn_layer.cpp), per
+    channel or ``across_channels``; eps is added to the standard
+    deviation, not to the variance."""
+
+    TYPE = "MVN"
+
+    def apply(self, params, state, inputs, *, train):
+        p = self.lp.get_msg("mvn_param")
+        x = inputs[0]
+        start = 1 if p.get_bool("across_channels", False) else 2
+        dims = tuple(range(start, x.dim()))
+        y = x - torch.mean(x, dim=dims, keepdim=True)
+        if p.get_bool("normalize_variance", True):
+            std = torch.sqrt(torch.mean(torch.square(y), dim=dims, keepdim=True))
+            y = y / (std + p.get_float("eps", 1e-9))
+        return LayerOutput([y])
+
+
+@register
+class Silence(Layer):
+    """Consumes its bottoms, produces nothing (ref: silence_layer.cpp)."""
+
+    TYPE = "Silence"
+
+    def apply(self, params, state, inputs, *, train):
+        return LayerOutput([])
+
+
+@register
+class Filter(Layer):
+    """ref: filter_layer.cpp — the items whose selector (the last bottom) is
+    nonzero.  The port computes the JAX package's jitted function on every
+    path: the filtered items are zeroed and the batch keeps its size.  (The
+    JAX layer gathers when it runs eagerly; a gather would need
+    ``nonzero``, a host sync, which a CUDA graph cannot capture.)"""
+
+    TYPE = "Filter"
+
+    def apply(self, params, state, inputs, *, train):
+        *data, selector = inputs
+        mask = (selector.reshape(selector.shape[0]) != 0).to(data[0].dtype)
+        return LayerOutput([x * mask.reshape((-1,) + (1,) * (x.dim() - 1)) for x in data])

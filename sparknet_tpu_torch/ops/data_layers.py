@@ -2,24 +2,30 @@
 
 Counterpart of ``sparknet_tpu/ops/data_layers.py``.  A data layer declares
 named input blobs and their shapes; the caller feeds the tensors.  The port
-carries the feed-shape layers the serving path meets: ``Input`` (deploy
-nets), ``MemoryData``, ``JavaData`` (the RDD-callback layer the zoo
-builders use through ``layers_dsl.RDDLayer``) and ``Data`` (a DB-backed
-source whose geometry comes from its DB, the ``--data db:`` path of the
-CLI).  Declared shapes are canonical Caffe blob order, (N, C, H, W) for
-images.
+carries ``Input`` (deploy nets), ``MemoryData``, ``JavaData`` (the
+RDD-callback layer the zoo builders use through ``layers_dsl.RDDLayer``),
+``Data`` (a DB-backed source whose geometry comes from its DB, the
+``--data db:`` path of the CLI) and ``DummyData``, the one source that
+feeds itself (``SELF_FEEDING``: its tops are made by the layer, never fed).
+Declared shapes are canonical Caffe blob order, (N, C, H, W) for images.
 """
 
 from __future__ import annotations
 
-from sparknet_tpu_torch.ops import layout
+import torch
+
+from sparknet_tpu_torch.ops import fillers, layout
 from sparknet_tpu_torch.ops.base import Layer
 from sparknet_tpu_torch.ops.registry import register
 
 
 class InputLayer(Layer):
     """Base for all source layers: tops are fed externally, and
-    ``Network`` skips the layer when it runs."""
+    ``Network`` skips the layer when it runs.  A ``SELF_FEEDING`` source
+    makes its tops itself (``constant_values``), and ``Network`` takes
+    them as present instead of asking for feeds."""
+
+    SELF_FEEDING = False
 
     def blob_shapes(self) -> list[tuple[int, ...]] | None:
         """Static top shapes if declared in the prototxt, else None."""
@@ -109,3 +115,54 @@ class Input(InputLayer):
         shapes = [layout.internal_shape(int(d) for d in s.get_all("dim"))
                   for s in self.lp.get_msg("input_param").get_all("shape")]
         return shapes or None
+
+
+@register
+class DummyData(InputLayer):
+    """Constant or filler-made blobs (ref: dummy_data_layer.cpp), which need
+    no feeding.  The values are made once, on the CPU, from a generator
+    seeded with 0 (the JAX layer draws from ``jax.random.key(0)``, so random
+    fillers give other values than JAX's, of the same distribution), and
+    kept a device."""
+
+    TYPE = "DummyData"
+    SELF_FEEDING = True
+
+    def __init__(self, lp, phase):
+        super().__init__(lp, phase)
+        self._values: dict = {}
+
+    def blob_shapes(self):
+        p = self.lp.get_msg("dummy_data_param")
+        shapes = [tuple(int(d) for d in s.get_all("dim")) for s in p.get_all("shape")]
+        if not shapes:  # legacy num/channels/height/width (the last value repeats)
+            nums = p.get_all("num")
+            chans = p.get_all("channels") or [1]
+            heights = p.get_all("height") or [1]
+            widths = p.get_all("width") or [1]
+
+            def pick(lst, i):
+                return int(lst[min(i, len(lst) - 1)])
+
+            shapes = [(int(nums[i]), pick(chans, i), pick(heights, i), pick(widths, i))
+                      for i in range(len(nums))]
+        while len(shapes) < len(self.tops):  # the last shape covers the other tops
+            shapes.append(shapes[-1])
+        return [layout.internal_shape(s) for s in shapes]
+
+    def constant_values(self, device="cpu") -> list:
+        """The tops' tensors on ``device``: zeros without a ``data_filler``,
+        else the filler of the top's index (the last one repeats)."""
+        device = torch.device(device)
+        if device.type == "meta":
+            return [torch.empty(s, device="meta") for s in self.blob_shapes()[:len(self.tops)]]
+        if "cpu" not in self._values:
+            fill_msgs = self.lp.get_msg("dummy_data_param").get_all("data_filler")
+            gen = torch.Generator().manual_seed(0)
+            self._values["cpu"] = [
+                fillers.fill(fill_msgs[min(i, len(fill_msgs) - 1)], gen, shape)
+                if fill_msgs else torch.zeros(shape, dtype=torch.float32)
+                for i, shape in enumerate(self.blob_shapes()[:len(self.tops)])]
+        if str(device) not in self._values:
+            self._values[str(device)] = [v.to(device) for v in self._values["cpu"]]
+        return self._values[str(device)]

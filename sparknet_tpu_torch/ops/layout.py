@@ -2,7 +2,7 @@
 
 Counterpart of ``sparknet_tpu/ops/layout.py``.  The JAX package makes the
 orientation a config knob (``Config.layout``: nchw or nhwc); the port runs
-Caffe's NCHW blob order only (channels-last is ROADMAP Queue A10), so each
+Caffe's NCHW blob order only (channels-last is ROADMAP Queue A6), so each
 helper here is the nchw branch of its JAX twin.  Prototxt axes are
 canonical NCHW axes, which under NCHW are the internal axes as well.
 """

@@ -1,11 +1,12 @@
-"""Vision layers: Convolution, Pooling, LRN.
+"""Vision layers: Convolution, Deconvolution, Pooling, LRN, Im2col, SPP.
 
 Counterpart of ``sparknet_tpu/ops/vision.py``.  Convolution goes to
-``F.conv2d`` (cuDNN on the card), as the JAX package leaves it to XLA.
-Pooling keeps Caffe's ceil-mode shapes and, for AVE, Caffe's padded-divisor
-rule, which differs from ``F.avg_pool2d``'s at the edges.  Cross-channel
-LRN runs the hand-written kernel (``ops/kernels.py``).  Deconvolution,
-STOCHASTIC pooling, Im2col and SPP are ROADMAP Queue A10.
+``F.conv2d`` and Deconvolution to ``F.conv_transpose2d`` (cuDNN on the
+card), as the JAX package leaves both to XLA.  Pooling keeps Caffe's
+ceil-mode shapes and, for AVE, Caffe's padded-divisor rule, which differs
+from ``F.avg_pool2d``'s at the edges; STOCHASTIC pooling samples a window
+position with ``F.unfold`` patches.  Cross-channel LRN runs the
+hand-written kernel (``ops/kernels.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,13 @@ import torch
 import torch.nn.functional as F
 
 from sparknet_tpu_torch.ops import fillers, layout
-from sparknet_tpu_torch.ops.base import Layer, LayerOutput, hw_param, pool_out_dim
+from sparknet_tpu_torch.ops.base import (
+    Layer,
+    LayerOutput,
+    conv_out_dim,
+    hw_param,
+    pool_out_dim,
+)
 from sparknet_tpu_torch.ops.kernels import lrn_across_channels
 from sparknet_tpu_torch.ops.registry import register
 
@@ -61,6 +68,37 @@ class Convolution(Layer):
         bias = params[1].to(x.dtype) if c["bias"] else None
         y = F.conv2d(x, params[0].to(x.dtype), bias, stride=c["stride"],
                      padding=c["pad"], dilation=c["dilation"], groups=c["group"])
+        return LayerOutput([y])
+
+
+@register
+class Deconvolution(Convolution):
+    """Transposed convolution (ref: caffe/src/caffe/layers/deconv_layer.cpp).
+
+    Caffe's weight blob is (in_channels, num_output/group, kh, kw), which
+    is ``F.conv_transpose2d``'s layout; out = stride*(in-1) + dil*(k-1)+1 -
+    2*pad.  (The JAX layer computes it as a forward convolution of the
+    stride-dilated input with the flipped, regrouped weight: the same
+    function, summed in another order.)"""
+
+    TYPE = "Deconvolution"
+
+    def init(self, gen, in_shapes):
+        c = self._conf()
+        ch = in_shapes[0][layout.channel_axis(ndim=len(in_shapes[0]))]
+        wshape = (ch, c["num_output"] // c["group"], *c["kernel"])
+        params = [fillers.fill(c["weight_filler"], gen, wshape)]
+        if c["bias"]:
+            params.append(fillers.fill(c["bias_filler"], gen, (c["num_output"],)))
+        return params, {}
+
+    def apply(self, params, state, inputs, *, train):
+        c = self._conf()
+        x = inputs[0]
+        bias = params[1].to(x.dtype) if c["bias"] else None
+        y = F.conv_transpose2d(x, params[0].to(x.dtype), bias, stride=c["stride"],
+                               padding=c["pad"], groups=c["group"],
+                               dilation=c["dilation"])
         return LayerOutput([y])
 
 
@@ -131,13 +169,58 @@ def caffe_max_pool(x, kernel, stride, pad):
     return F.max_pool2d(xp, kernel, stride)
 
 
+def _pool_patches(x, kernel, stride):
+    """Window patches with Caffe's ceil-mode output dims, (N, C, kh*kw, oh,
+    ow).  Windows that overhang the trailing edge read zeros, which carry
+    no activation mass (the reference's hstart/hend clipping)."""
+    h, w = x.shape[2], x.shape[3]
+    (kh, kw), (sh, sw) = kernel, stride
+    oh = pool_out_dim(h, kh, 0, sh)
+    ow = pool_out_dim(w, kw, 0, sw)
+    xp = F.pad(x, (0, max(0, (ow - 1) * sw + kw - w), 0, max(0, (oh - 1) * sh + kh - h)))
+    patches = F.unfold(xp, (kh, kw), stride=(sh, sw))
+    return patches.reshape(x.shape[0], x.shape[1], kh * kw, oh, ow)
+
+
+def caffe_stochastic_pool(x, kernel, stride, *, train, gen=None, uniforms=None):
+    """Stochastic pooling (ref: pooling_layer.cu:83-160 StoPoolForwardTrain/
+    Test; Zeiler & Fergus 2013), the JAX function.  TRAIN: one uniform u a
+    window; the output is the first window position whose running sum
+    reaches u * the window's sum, and the gradient goes to that element
+    alone (StoPoolBackward's index routing).  The uniforms come from
+    ``gen``, or are given (``uniforms``, shaped like the output: the parity
+    tests inject JAX's draws).  TEST: sum(a^2)/sum(a), 0 for a zero
+    window.  Assumes non-negative activations, as the reference does."""
+    patches = _pool_patches(x, kernel, stride)
+    total = patches.sum(dim=2)
+    if not train:
+        sq = (patches * patches).sum(dim=2)
+        pos = total > 0
+        return torch.where(pos, sq / torch.where(pos, total, torch.ones_like(total)),
+                           torch.zeros_like(total)).to(x.dtype)
+    if uniforms is None:
+        if x.device.type == "meta":  # shape inference in Network.init
+            uniforms = torch.empty(total.shape, device="meta")
+        elif gen is None:
+            raise ValueError("stochastic pooling needs a generator (gen) in train mode")
+        else:
+            uniforms = torch.rand(total.shape, generator=gen, device=x.device)
+    thres = uniforms.to(patches.dtype) * total
+    reached = (torch.cumsum(patches, dim=2) >= thres.unsqueeze(2)).to(torch.uint8)
+    idx = torch.argmax(reached, dim=2, keepdim=True)  # the first position reached
+    return torch.gather(patches, 2, idx).squeeze(2).to(x.dtype)
+
+
 @register
 class Pooling(Layer):
-    """MAX / AVE pooling with Caffe ceil-mode shapes; ``global_pooling``
-    collapses the spatial dims (ref: caffe/src/caffe/layers/pooling_layer.cpp).
-    STOCHASTIC pooling is ROADMAP Queue A10."""
+    """MAX / AVE / STOCHASTIC pooling with Caffe ceil-mode shapes;
+    ``global_pooling`` collapses the spatial dims (ref:
+    caffe/src/caffe/layers/pooling_layer.cpp, pooling_layer.cu).
+    STOCHASTIC draws its uniforms from the ``gen`` that ``Network.apply``
+    passes down, and raises without one in TRAIN."""
 
     TYPE = "Pooling"
+    NEEDS_GEN = True
 
     def _conf(self, in_shape):
         p = self.lp.get_msg("pooling_param")
@@ -151,7 +234,7 @@ class Pooling(Layer):
             pad = hw_param(p, "pad", default=0)
         return p.get_str("pool", "MAX"), kernel, stride, pad
 
-    def apply(self, params, state, inputs, *, train):
+    def apply(self, params, state, inputs, *, train, gen=None):
         x = inputs[0]
         method, kernel, stride, pad = self._conf(x.shape)
         if method == "AVE":
@@ -159,9 +242,11 @@ class Pooling(Layer):
         elif method == "MAX":
             y = caffe_max_pool(x, kernel, stride, pad)
         elif method == "STOCHASTIC":
-            raise NotImplementedError(
-                f"{self.name}: STOCHASTIC pooling is not ported yet "
-                "(ROADMAP Queue A10)")
+            if pad != (0, 0):
+                # the reference CHECKs this in LayerSetUp: padding is
+                # implemented only for AVE and MAX (pooling_layer.cpp)
+                raise ValueError(f"{self.name}: STOCHASTIC pooling does not support pad")
+            y = caffe_stochastic_pool(x, kernel, stride, train=train, gen=gen)
         else:
             raise ValueError(f"{self.name}: unknown pool method {method!r}")
         return LayerOutput([y])
@@ -195,3 +280,45 @@ class LRN(Layer):
             pooled = caffe_avg_pool(x * x, (size, size), (1, 1), (pre_pad, pre_pad))
             return LayerOutput([x * torch.pow(1.0 + alpha * pooled, -beta)])
         return LayerOutput([lrn_across_channels(x, size, alpha, beta, k)])
+
+
+@register
+class Im2col(Layer):
+    """im2col as a layer (ref: caffe/src/caffe/layers/im2col_layer.cpp):
+    (N, C*kh*kw, OH, OW) with the channel slowest, ``F.unfold``'s order."""
+
+    TYPE = "Im2col"
+
+    def apply(self, params, state, inputs, *, train):
+        p = self.lp.get_msg("convolution_param")
+        kh, kw = hw_param(p, "kernel")
+        sh, sw = hw_param(p, "stride", default=1)
+        ph, pw = hw_param(p, "pad", default=0)
+        x = inputs[0]
+        n, c, h, w = x.shape
+        oh = conv_out_dim(h, kh, ph, sh)
+        ow = conv_out_dim(w, kw, pw, sw)
+        cols = F.unfold(x, (kh, kw), padding=(ph, pw), stride=(sh, sw))
+        return LayerOutput([cols.reshape(n, c * kh * kw, oh, ow)])
+
+
+@register
+class SPP(Layer):
+    """Spatial pyramid pooling (ref: caffe/src/caffe/layers/spp_layer.cpp):
+    MAX or AVE pools into 2^l x 2^l bins at levels l < ``pyramid_height``,
+    each flattened, all concatenated."""
+
+    TYPE = "SPP"
+
+    def apply(self, params, state, inputs, *, train):
+        p = self.lp.get_msg("spp_param")
+        pool = caffe_avg_pool if p.get_str("pool", "MAX") == "AVE" else caffe_max_pool
+        x = inputs[0]
+        n, h, w = x.shape[0], x.shape[2], x.shape[3]
+        outs = []
+        for level in range(p.get_int("pyramid_height", 3)):
+            bins = 2**level
+            kh, kw = -(-h // bins), -(-w // bins)
+            pad = ((kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2)
+            outs.append(pool(x, (kh, kw), (kh, kw), pad).reshape(n, -1))
+        return LayerOutput([torch.cat(outs, dim=1)])

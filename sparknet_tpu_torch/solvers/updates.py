@@ -19,6 +19,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from sparknet_tpu_torch.compiler.graph import is_placeholder
+
 
 class UpdateCtx(NamedTuple):
     rate: torch.Tensor  # global lr for this iter, 0-dim float32
@@ -146,6 +148,12 @@ def apply_update(cfg, params: dict, grads: dict, slots: dict, specs: dict,
     for lname, plist in params.items():
         out_p, out_s = [], []
         for i, w in enumerate(plist):
+            if is_placeholder(w):
+                # a shared param's 0-size placeholder: the owner's blob is
+                # the one updated, once, under the owner's multipliers
+                out_p.append(w)
+                out_s.append(list(slots[lname][i]))
+                continue
             g = grads[lname][i].to(w.dtype)
             spec = specs[lname][i]
             # 2. normalize (ref: Normalize — 1/iter_size)

@@ -73,7 +73,7 @@ def time_layers(network, variables, feeds, iterations: int = 10) -> list[dict]:
     for layer in network.layers:
         if not layer.bottoms and all(t in blobs for t in layer.tops):
             continue  # an input layer: its tops are the feeds
-        params = variables.params.get(layer.name, [])
+        params = network.layer_params(layer.name, variables.params)
         state = variables.state.get(layer.name, {})
         inputs = [blobs[b] for b in layer.bottoms]
         kwargs = {"gen": gen} if layer.NEEDS_GEN else {}

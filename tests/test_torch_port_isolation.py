@@ -41,6 +41,14 @@ zoo = sorted(n for n in names if n in ("sparknet_tpu_torch.models.deploy",
 files = sorted(n for n in names if n in ("sparknet_tpu_torch.cli",
                                           "sparknet_tpu_torch.native",
                                           "sparknet_tpu_torch.proto.binary"))
+layers = sorted(n for n in names if n in ("sparknet_tpu_torch.compiler.graph",
+                                          "sparknet_tpu_torch.interop",
+                                          "sparknet_tpu_torch.ops.data_layers",
+                                          "sparknet_tpu_torch.ops.loss",
+                                          "sparknet_tpu_torch.ops.neuron",
+                                          "sparknet_tpu_torch.ops.python_layer",
+                                          "sparknet_tpu_torch.ops.vision"))
+print(layers)
 print(files)
 print(training)
 print(serving)
@@ -56,7 +64,8 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    files, training, serving, charlm, feed, zoo, last = out.stdout.strip().split("\n")[-7:]
+    layers, files, training, serving, charlm, feed, zoo, last = \
+        out.stdout.strip().split("\n")[-8:]
     n, bad = last.split(" ", 1)
     assert int(n) >= 30, out.stdout
     assert bad == "[]", out.stdout
@@ -86,6 +95,11 @@ def test_port_imports_no_jax():
     # the weights and record files' codec, the native data plane, the CLI
     assert files == str([f"sparknet_tpu_torch.{m}" for m in ("cli", "native", "proto.binary")]), \
         out.stdout
+    # the layer library, the Python layer, DummyData, shared params and the
+    # weights bridge that carries their placeholders
+    assert layers == str(["sparknet_tpu_torch.compiler.graph", "sparknet_tpu_torch.interop"] + [
+        f"sparknet_tpu_torch.ops.{m}" for m in
+        ("data_layers", "loss", "neuron", "python_layer", "vision")]), out.stdout
     # the ImageNet families: BatchNorm, Scale and Bias, the zoo, the fold
     assert zoo == str([f"sparknet_tpu_torch.models.{m}" for m in ("deploy", "fold_bn", "zoo")]
                       + ["sparknet_tpu_torch.ops.blocks"]), out.stdout

@@ -165,8 +165,12 @@ def test_net_level_inputs_and_phase_filter():
 
 
 def test_shared_param_names_are_not_ported():
+    """A param name that no other layer names makes its layer the owner:
+    no alias and a full blob (sharing itself is held against JAX in
+    ``test_torch_port_shared_params.py``)."""
     text = """name: "n" input: "data" input_dim: 1 input_dim: 4
       layer { name: "a" type: "InnerProduct" bottom: "data" top: "a"
         param { name: "w" } inner_product_param { num_output: 4 } }"""
-    with pytest.raises(NotImplementedError, match="Queue A3"):
-        Network(parse(text), Phase.TEST, device="cpu")
+    net = Network(parse(text), Phase.TEST, device="cpu")
+    assert net.param_aliases == {}
+    assert [tuple(p.shape) for p in net.init().params["a"]] == [(4, 4), (4,)]

@@ -267,7 +267,8 @@ def test_fillers(ftype, check):
     assert tuple(t.shape) == (32, 3, 4, 4) and check(t)
 
 
-@pytest.mark.parametrize("type_,queue", [("Slice", "A10"), ("Deconvolution", "A10"),
+@pytest.mark.parametrize("type_,queue", [("ImageData", "A9"), ("WindowData", "A9"),
+                                         ("HDF5Data", "A9"), ("HDF5Output", "A9"),
                                          ("MoE", "A12")])
 def test_unported_type_names_its_queue(type_, queue):
     lp = parse(f'layer {{ name: "l" type: "{type_}" bottom: "x" top: "y" }}').get_all("layer")[0]
