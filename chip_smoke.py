@@ -308,6 +308,32 @@ Phases, in order (any failure exits non-zero):
     on each family's arena with its recipe's constants and multipliers,
     timed beside its bound.
 
+27. precision: reduced precision (TF32 off, bf16 products summed in
+    float32).  B1 and B1' in bf16 at the AlexNet and CaffeNet b256 shapes
+    against their plain versions (one bf16 ulp), timed beside the bound,
+    the plain versions and ``F.local_response_norm`` (its autograd
+    backward for B1'); the zoo AlexNet b256 at ``compute_dtype`` bf16 on
+    float32 masters (fused update, B1/B1' on bf16 blobs, B2 in float32):
+    its first loss within ``PREC_LOSS_RTOL`` of the f32 step's from the
+    same seed, exact launches, 20 steps timed in turns against the f32
+    step; each remat policy (``full``, ``dots``, ``blocks``) and
+    ``activation_dtype`` ``blocks`` (bf16 and f32 steps): one step from the
+    same state (remat: its loss bit for bit the policy-free step's; every
+    update within ``PREC_UPDATE_RTOL`` relative L2), the peak memory and
+    ms/step; the full-width char LM at bf16 through ``TPUNet`` (B3/B3' on
+    bf16 q, k, v cast to float32 in the wrappers), 40 steps in turns
+    against f32, exact launches, the loss falling; the CaffeNet
+    ``Classifier`` (10 crops) calibrated with ``calibrate_int8`` and
+    predicting in int8: exact launches (8 int8 products and 2 LRN a
+    forward), top-1 agreement with f32; CaffeNet conv1-3's int32 sums bit
+    for bit the float64 convolution of the same int8 values, and
+    ``torch._int_mm`` and the int8 path timed at conv1-5 beside cuDNN's
+    float32 convolution and the int8 bound; the engine's ``int8`` arm for
+    ``cifar10_quick``, ``lenet`` and ``mobilenet`` (trained 5 steps) at
+    buckets 1/8/64/256: replay bit for bit eager, the int8 products each
+    replay launches, padded bit for bit full, scores beside the f32
+    arm's, 0 request-path captures, 0 dropped.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and runs nothing.  Weights are random, drawn from a fixed seed.
@@ -5446,10 +5472,590 @@ def phase_layers(card: str) -> dict:
     return dict(lrn=0, lrn_backward=0, fused_update=fused)
 
 
+# ---------------------------------------------------------------------------
+# Reduced precision: bf16 compute, remat and activation storage, int8 serving
+# ---------------------------------------------------------------------------
+
+PREC_TURN = 5  # steps a turn; the bf16 and f32 steps alternate turns
+PREC_TURNS = 4  # 20 timed steps of each
+PREC_POLICY_STEPS = 3  # timed steps a remat/storage policy, after its held step
+PREC_UPDATE_RTOL = 1e-2  # activation_dtype blocks' first update against no policy's (rel. L2)
+PREC_LOSS_RTOL = 2e-2  # the bf16 step's first loss against the f32 step's
+# the bf16 step's first gradient and update against the f32 step's from the
+# same weights, batch and masks (relative L2): about twice the bf16 gap
+# measured on the H100 (AlexNet 4.84e-2, the char LM 3.17e-3), a tenth or
+# less of what a different step gives there (another dropout draw 1.20, the
+# next batch 0.159); PERF.md's findings on reduced precision
+PREC_GRAD_RTOL = 0.1
+PREC_BF16_UPDATE_RTOL = 0.1
+PREC_CHARLM_GRAD_RTOL = 1e-2
+PREC_CHARLM_STEPS = 40  # char LM steps of each type, in turns of PREC_TURN
+PREC_IMAGES = 8  # seeded images the CaffeNet Classifier scores (10 crops each)
+PREC_CALIB_IMAGES = 4  # seeded images it calibrates on (40 crops, 4 batches)
+PREC_INT8_FAMILIES = ("cifar10_quick", "lenet", "mobilenet")
+PREC_ENGINE_REPS = 10  # CUDA-event samples of a replay's time
+
+# dense int8 tensor-core operations a second (NVIDIA's H100 data sheet gives
+# them with sparsity; dense is half), the first name that matches wins
+INT8_PEAKS = [("H100 PCIe", 1513e12), ("H100 NVL", 1670.5e12), ("H100", 1979e12)]
+
+
+@contextlib.contextmanager
+def port_config(**kw):
+    """The port's Config with ``kw`` for the block, restored after (the
+    compute dtype and the policies are read as the forward runs)."""
+    from sparknet_tpu_torch import common
+
+    prev = common.get_config()
+    common.set_config(**kw)
+    try:
+        yield
+    finally:
+        common._config = prev
+
+
+def precision_lrn(card: str) -> None:
+    """B1 and B1' in bf16 at the AlexNet and CaffeNet b256 shapes: against
+    their plain versions (one bf16 ulp of the float32 result cast to bf16),
+    timed beside the bound, the plain versions and F.local_response_norm
+    (its autograd backward for B1') on the same bf16 inputs."""
+    from sparknet_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    bw, _, _ = card_peaks(card)
+    for label, shape in MAIN_CASES:
+        x = torch.relu(torch.randn(shape, generator=gen, device="cuda") * 50).to(torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        y = kernels.lrn_across_channels(x, 5, ALPHA, 0.75, 1.0).float()
+        ref = kernels.lrn_across_channels_torch(x, 5, ALPHA, 0.75, 1.0).float()
+        dx = kernels.lrn_backward(x, g, 5, ALPHA, 0.75, 1.0).float()
+        dref = kernels.lrn_backward_torch(x, g, 5, ALPHA, 0.75, 1.0).float()
+        torch.cuda.synchronize()
+        ulp_f = float(((y - ref).abs() / bf16_ulp(ref)).max())
+        ulp_b = float(((dx - dref).abs() / bf16_ulp(dref)).max())
+        check(ulp_f <= 1 and ulp_b <= 1,
+              f"bf16 {label}: forward {ulp_f} / backward {ulp_b} ulps off the plain version")
+        t_k = time_ms(lambda: kernels.lrn_across_channels(x, 5, ALPHA, 0.75, 1.0))
+        t_kg = graph_ms(lambda: kernels.lrn_across_channels(x, 5, ALPHA, 0.75, 1.0))
+        t_p = time_ms(lambda: kernels.lrn_across_channels_torch(x, 5, ALPHA, 0.75, 1.0),
+                      reps=10, inner=3)
+        t_l = time_ms(lambda: F.local_response_norm(x, 5, ALPHA, 0.75, 1.0), reps=10, inner=3)
+        t_b = time_ms(lambda: kernels.lrn_backward(x, g, 5, ALPHA, 0.75, 1.0))
+        t_bp = time_ms(lambda: kernels.lrn_backward_torch(x, g, 5, ALPHA, 0.75, 1.0),
+                       reps=10, inner=3)
+        xr = x.clone().requires_grad_(True)
+        yr = F.local_response_norm(xr, 5, ALPHA, 0.75, 1.0)
+        t_bl = time_ms(lambda: torch.autograd.grad(yr, xr, g, retain_graph=True),
+                       reps=10, inner=3)
+        del xr, yr
+        bound, by = lrn_bound_ms(shape, 5, 2, card)
+        bound_b = 3 * x.numel() * 2 / bw * 1e3
+        print(f"precision lrn {label} {list(shape)} bf16: forward {ulp_f:.2f} / backward "
+              f"{ulp_b:.2f} bf16 ulps off the plain versions (gate 1); forward kernel "
+              f"{t_k:.4f} ms ({100 * bound / t_k:.1f}% of {bound:.4f} ms, {by}), by graph "
+              f"replay {t_kg:.4f} ms ({100 * bound / t_kg:.1f}%), plain {t_p:.4f} ms, "
+              f"F.local_response_norm {t_l:.4f} ms; backward kernel {t_b:.4f} ms "
+              f"({100 * bound_b / t_b:.1f}% of {bound_b:.4f} ms, bytes), plain {t_bp:.4f} "
+              f"ms, autograd of F.local_response_norm {t_bl:.4f} ms [{card}]")
+
+
+def _arena_state(solver):
+    return (solver._param_arena.clone(), [a.clone() for a in solver._slot_arenas],
+            solver.iter, {ln: dict(s) for ln, s in solver._state.items()})
+
+
+def _arena_restore(solver, saved) -> None:
+    arena, slots, it, state = saved
+    solver._param_arena.copy_(arena)
+    for a, b in zip(solver._slot_arenas, slots):
+        a.copy_(b)
+    solver.iter, solver._state = it, {ln: dict(s) for ln, s in state.items()}
+
+
+def grad_capture(solver, grads: dict, tag: str) -> None:
+    """Build ``solver``'s step with a reduce_grads hook that keeps a float32
+    copy of the grad arena under ``grads[tag]`` and passes it on unchanged
+    (``solver.set_reduce_grads(None)`` builds the plain step again)."""
+
+    def keep(g):
+        grads[tag] = g.detach().float().clone()
+        return g
+
+    solver.set_reduce_grads(keep)
+
+
+def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got.float() - ref.float()).norm() / ref.float().norm())
+
+
+def precision_alexnet(card: str) -> tuple[int, int, int]:
+    """AlexNet b256 at bf16 compute on float32 masters (fused update, B1 and
+    B1' in bf16, B2 in float32): its first gradient and update held against
+    the f32 step's from the same weights, batch and masks (PREC_GRAD_RTOL,
+    PREC_BF16_UPDATE_RTOL; beside the f32 gradient of another dropout draw),
+    then 20 steps timed in turns against the f32 step; then each remat
+    policy and activation storage policy: one held step from the same state
+    (a remat policy's loss and update bit for bit the policy-free step's,
+    activation storage's within PREC_LOSS_RTOL and PREC_UPDATE_RTOL), then
+    the peak memory and ms of PREC_POLICY_STEPS steps.  Returns the bf16
+    steps' (LRN forward, LRN backward, fused update) launches."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.ops import kernels
+
+    feeds = fixed_batch(256)
+    dts = {"f32": "f32", "bf16": "bf16"}
+    solvers = {}
+    set_config(fused_update=True, storage_dtype="f32")
+    try:
+        for tag in dts:
+            solvers[tag] = train_solver(models.alexnet(256), models.alexnet_solver())
+    finally:
+        set_config(fused_update=False)
+    bf = solvers["bf16"]
+    check(bf._param_arena.dtype == torch.float32 and bf.layout.storage_dtype == "f32",
+          "bf16 compute: the master arena is not float32")
+    f32 = solvers["f32"]
+    start = _arena_state(f32)
+    check(torch.equal(start[0], bf._param_arena), "bf16 and f32 solvers start apart")
+    first, grads, upd = {}, {}, {}
+    for tag, s in solvers.items():
+        grad_capture(s, grads, tag)
+        with port_config(compute_dtype=dts[tag]):
+            s.step(1, lambda it: feeds)
+        s.set_reduce_grads(None)
+        first[tag] = float(s._loss_window[-1])
+        upd[tag] = s._param_arena - start[0]
+    # the yardstick: the f32 gradient from the same weights and batch under
+    # another dropout draw (the solver's seed moved by one)
+    after = _arena_state(f32)
+    _arena_restore(f32, start)
+    f32._seed += 1
+    grad_capture(f32, grads, "other draw")
+    f32.step(1, lambda it: feeds)
+    f32._seed -= 1
+    f32.set_reduce_grads(None)
+    _arena_restore(f32, after)
+    del start, after
+    rel = abs(first["bf16"] - first["f32"]) / abs(first["f32"])
+    g_rel = rel_l2(grads["bf16"], grads["f32"])
+    g_other = rel_l2(grads["other draw"], grads["f32"])
+    u_rel = rel_l2(upd["bf16"], upd["f32"])
+    del grads, upd
+    print(f"precision alexnet b256 first step, bf16 against f32 from the same weights, batch "
+          f"and masks (relative L2): gradient {g_rel:.4e} (gate {PREC_GRAD_RTOL}), update "
+          f"{u_rel:.4e} (gate {PREC_BF16_UPDATE_RTOL}), loss {rel:.3e} (gate "
+          f"{PREC_LOSS_RTOL}); the f32 gradient under another dropout draw is {g_other:.4e} "
+          f"off [{card}]")
+    check(np.isfinite(first["bf16"]) and rel <= PREC_LOSS_RTOL,
+          f"bf16 first loss {first['bf16']} against f32 {first['f32']}")
+    check(g_rel <= PREC_GRAD_RTOL, f"bf16 first gradient {g_rel:.4e} off the f32 one")
+    check(u_rel <= PREC_BF16_UPDATE_RTOL, f"bf16 first update {u_rel:.4e} off the f32 one")
+    with port_config(compute_dtype="bf16"), torch.no_grad():
+        blobs, _, _ = bf.train_net.apply(bf.variables, feeds,
+                                         gen=torch.Generator(device="cuda").manual_seed(SEED))
+    check(blobs["norm1"].dtype == blobs["norm2"].dtype == torch.bfloat16
+          and blobs["loss"].dtype == torch.float32,
+          f"bf16 step: norm1 {blobs['norm1'].dtype}, loss {blobs['loss'].dtype}")
+    del blobs
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with port_config(compute_dtype="bf16"):
+        bf.step(PREC_TURN, lambda it: feeds)
+    torch.cuda.synchronize()
+    counts = (kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES,
+              kernels.FUSED_UPDATE_LAUNCHES)
+    n = PREC_TURN
+    check(counts == (2 * n, 2 * n, n), f"bf16 AlexNet launches {counts}, want {(2 * n,) * 2 + (n,)}")
+    secs = {"f32": 0.0, "bf16": 0.0}
+    for turn in range(PREC_TURNS):
+        order = ("f32", "bf16") if turn % 2 == 0 else ("bf16", "f32")
+        for tag in order:
+            with port_config(compute_dtype=dts[tag]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solvers[tag].step(PREC_TURN, lambda it: feeds)
+                torch.cuda.synchronize()
+                secs[tag] += time.perf_counter() - t0
+    steps = PREC_TURN * PREC_TURNS
+    losses = {t: [float(l) for l in s._loss_window[-PREC_TURN:]] for t, s in solvers.items()}
+    check(all(np.isfinite(losses["bf16"])), f"bf16 losses {losses['bf16']}")
+    ms = {t: 1e3 * secs[t] / steps for t in secs}
+    print(f"precision alexnet b256: first loss bf16 {first['bf16']:.6f} against f32 "
+          f"{first['f32']:.6f} (rel {rel:.2e}, gate {PREC_LOSS_RTOL}); launches a bf16 step: "
+          f"LRN forward {counts[0] // n} and backward {counts[1] // n} on bf16 blobs, fused "
+          f"update {counts[2] // n} on the float32 master arena; {steps} steps each in turns "
+          f"of {PREC_TURN}: bf16 {ms['bf16']:.3f} ms/step ({256e3 / ms['bf16']:.1f} img/s), "
+          f"f32 {ms['f32']:.3f} ms/step ({256e3 / ms['f32']:.1f} img/s), bf16 "
+          f"{ms['f32'] / ms['bf16']:.2f}x; last losses bf16 "
+          f"{[round(l, 4) for l in losses['bf16']]} f32 "
+          f"{[round(l, 4) for l in losses['f32']]} [{card}]")
+
+    with port_config(compute_dtype="bf16"):
+        device_ms, rows = device_breakdown(lambda: bf.step(1, lambda it: feeds))
+    if device_ms:
+        print(f"precision alexnet bf16 profile: one step under torch.profiler: "
+              f"{device_ms:.3f} ms of kernels, {100 * device_ms / ms['bf16']:.1f}% of the "
+              f"unprofiled {ms['bf16']:.3f} ms/step [{card}]")
+        for t, name, calls in rows:
+            print(f"  {t:8.3f} ms  {100 * t / device_ms:5.1f}%  x{calls}  {name[:90]}")
+    else:
+        print("precision alexnet bf16 profile: torch.profiler recorded no device time")
+    policies = [("bf16", "no policy", {}), ("bf16", "remat full", {"remat": "full"}),
+                ("bf16", "remat dots", {"remat": "dots"}),
+                ("bf16", "remat blocks", {"remat": "blocks"}),
+                ("bf16", "activation_dtype blocks", {"activation_dtype": "blocks"}),
+                ("f32", "no policy", {}),
+                ("f32", "activation_dtype blocks", {"activation_dtype": "blocks"})]
+    held = {}
+    for tag, label, kw in policies:
+        s = solvers[tag]
+        saved = _arena_state(s)
+        with port_config(compute_dtype=dts[tag], **kw):
+            s.set_reduce_grads(None)  # the step is built with the policy
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            s.step(1, lambda it: feeds)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            loss = float(s._loss_window[-1])
+            update = s._param_arena - saved[0]
+            if label == "no policy":
+                held[tag] = (loss, update)
+            ref_loss, ref_update = held[tag]
+            upd_rel = float((update - ref_update).norm() / ref_update.norm())
+            t0 = time.perf_counter()
+            s.step(PREC_POLICY_STEPS, lambda it: feeds)
+            torch.cuda.synchronize()
+            dt = 1e3 * (time.perf_counter() - t0) / PREC_POLICY_STEPS
+        _arena_restore(s, saved)
+        del saved
+        same = loss == ref_loss
+        same_update = torch.equal(update, ref_update)
+        del update
+        print(f"precision alexnet {tag} {label}: peak {peak / 2**20:.1f} MiB, of which the "
+              f"step's own {(peak - base) / 2**20:.1f} MiB; {dt:.3f} ms/step; held step: loss "
+              f"{loss:.6f} ({'bit for bit' if same else 'differs from'} the policy-free "
+              f"{ref_loss:.6f}), update {upd_rel:.2e} of the policy-free update (relative L2"
+              f"{', ' + ('bit for bit' if same_update else 'NOT bit for bit') if label.startswith('remat') else ''}; "
+              f"gate {'bit for bit' if label.startswith('remat') else PREC_UPDATE_RTOL}) [{card}]")
+        if label.startswith("remat"):
+            check(same, f"{tag} {label}: the forward's loss moved")
+            check(same_update, f"{tag} {label}: update {upd_rel:.3e} off the policy-free one")
+        else:
+            check(abs(loss - ref_loss) <= PREC_LOSS_RTOL * abs(ref_loss),
+                  f"{tag} {label}: loss {loss} against {ref_loss}")
+            check(upd_rel <= PREC_UPDATE_RTOL, f"{tag} {label}: update {upd_rel:.3e} off")
+    with port_config():
+        bf.set_reduce_grads(None)
+    del solvers, bf, held
+    gc.collect()
+    return counts
+
+
+def precision_charlm(card: str) -> tuple[int, int, int]:
+    """The full-width char LM at bf16 compute through TPUNet (Adam, fused
+    update on float32 masters): its first loss against the f32 handle's
+    from the same seed, 40 steps of each in turns (ms/step, tokens/s), the
+    bf16 run learning.  B3/B3' take the bf16 q, k, v cast to float32 in
+    their wrappers.  Returns the bf16 steps' (flash, flash backward, fused
+    update) launches."""
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.data import char_lm_batches
+    from sparknet_tpu_torch.ops import kernels
+
+    text, vocab = charlm_text()
+    batch, seq = CHARLM["slots"], CHARLM["seq_len"]
+    feed = char_lm_batches(text, vocab, batch, seq, seed=SEED + 5)
+    batches = [next(feed) for _ in range(PREC_CHARLM_STEPS + 1)]
+    dts = {"f32": "f32", "bf16": "bf16"}
+    try:
+        nets = {tag: charlm_handle(True) for tag in dts}
+    finally:
+        set_config(fused_update=False)
+    first, grads = {}, {}
+    f = nets["f32"].solver
+    start = _arena_state(f)
+    check(torch.equal(start[0], nets["bf16"].solver._param_arena),
+          "charlm bf16 and f32 handles start apart")
+    for tag, net in nets.items():
+        net.set_train_data(lambda it: batches[it])
+        grad_capture(net.solver, grads, tag)
+        with port_config(compute_dtype=dts[tag]):
+            net.train(1)
+        net.solver.set_reduce_grads(None)
+        first[tag] = float(net.solver._loss_window[-1])
+    # the yardstick: the f32 gradient of the next batch from the same weights
+    after = _arena_state(f)
+    _arena_restore(f, start)
+    grad_capture(f, grads, "next batch")
+    f.step(1, lambda it: batches[1])
+    f.set_reduce_grads(None)
+    _arena_restore(f, after)
+    del start, after
+    rel = abs(first["bf16"] - first["f32"]) / abs(first["f32"])
+    g_rel = rel_l2(grads["bf16"], grads["f32"])
+    g_other = rel_l2(grads["next batch"], grads["f32"])
+    del grads
+    print(f"precision charlm first step, bf16 against f32 from the same weights and batch "
+          f"(relative L2): gradient {g_rel:.4e} (gate {PREC_CHARLM_GRAD_RTOL}), loss "
+          f"{rel:.3e} (gate {PREC_LOSS_RTOL}); the f32 gradient of the next batch is "
+          f"{g_other:.4e} off [{card}]")
+    check(rel <= PREC_LOSS_RTOL, f"charlm bf16 first loss {first['bf16']} against {first['f32']}")
+    check(g_rel <= PREC_CHARLM_GRAD_RTOL, f"charlm bf16 first gradient {g_rel:.4e} off")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    secs = {"f32": 0.0, "bf16": 0.0}
+    losses = {"f32": [], "bf16": []}
+    for turn in range(PREC_CHARLM_STEPS // PREC_TURN):
+        order = ("f32", "bf16") if turn % 2 == 0 else ("bf16", "f32")
+        for tag in order:
+            before = (kernels.FLASH_LAUNCHES, kernels.FLASH_BACKWARD_LAUNCHES,
+                      kernels.FUSED_UPDATE_LAUNCHES)
+            with port_config(compute_dtype=dts[tag]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nets[tag].train(PREC_TURN)
+                torch.cuda.synchronize()
+                secs[tag] += time.perf_counter() - t0
+            losses[tag] += [float(l) for l in nets[tag].solver._loss_window[-PREC_TURN:]]
+            if tag == "f32":  # the f32 turns are the yardstick, off the count
+                (kernels.FLASH_LAUNCHES, kernels.FLASH_BACKWARD_LAUNCHES,
+                 kernels.FUSED_UPDATE_LAUNCHES) = before
+    counts = (kernels.FLASH_LAUNCHES, kernels.FLASH_BACKWARD_LAUNCHES,
+              kernels.FUSED_UPDATE_LAUNCHES)
+    n = PREC_CHARLM_STEPS
+    check(counts == (2 * n, 2 * n, n), f"charlm bf16 launches {counts}, want {(2 * n,) * 2 + (n,)}")
+    lb = losses["bf16"]
+    check(all(np.isfinite(lb)) and np.mean(lb[-10:]) < np.mean(lb[:10]),
+          f"charlm bf16 did not learn: {lb[:3]} ... {lb[-3:]}")
+    ms = {t: 1e3 * secs[t] / n for t in secs}
+    print(f"precision charlm b{batch} x {seq}: first loss bf16 {first['bf16']:.6f} against f32 "
+          f"{first['f32']:.6f} (rel {rel:.2e}); launches a bf16 step: flash "
+          f"{counts[0] // n}, flash backward {counts[1] // n}, fused update {counts[2] // n}; "
+          f"{n} steps each in turns: bf16 {ms['bf16']:.3f} ms/step "
+          f"({batch * seq / ms['bf16'] * 1e3:.1f} tokens/s), f32 {ms['f32']:.3f} ms/step; "
+          f"mean loss of the first / last 10: bf16 {np.mean(lb[:10]):.4f} / "
+          f"{np.mean(lb[-10:]):.4f}, f32 {np.mean(losses['f32'][:10]):.4f} / "
+          f"{np.mean(losses['f32'][-10:]):.4f} [{card}]")
+    del nets
+    gc.collect()
+    return counts
+
+
+def precision_classifier(card: str) -> int:
+    """The CaffeNet Classifier at full width (seeded weights, 10 crops a
+    request): float32 predictions, then ``calibrate_int8`` on other seeded
+    images and int8 predictions of the same requests (top-1 agreement,
+    exact launches); the int32 sums of conv1 (K 363), conv2 (group 2),
+    conv3, conv4 and conv5 (group 2) bit for bit the float64 convolution
+    of the same int8 values on the card; the int8 product (quantize,
+    im2col, ``torch._int_mm``, dequantize) and ``torch._int_mm`` alone timed at conv1-5 beside
+    cuDNN's float32 convolution (TF32 off) and the int8 bound.  Returns
+    the LRN launches of the int8 requests."""
+    from sparknet_tpu_torch import models, quant
+    from sparknet_tpu_torch.common import Phase, f32_precision
+    from sparknet_tpu_torch.compiler.graph import Network
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.proto import parse
+
+    clf = models.Classifier(parse(CAFFENET_DEPLOY), image_dims=(256, 256),
+                            mean=np.array([104.0, 117.0, 123.0], np.float32),
+                            raw_scale=255.0, channel_swap=(2, 1, 0))
+    clf.variables = Network(models.caffenet(10), Phase.TEST).init(
+        torch.Generator().manual_seed(SEED))
+    rs = np.random.RandomState(SEED + 23)
+    images = [rs.rand(320, 480, 3).astype(np.float32) for _ in range(PREC_IMAGES)]
+    calib = [rs.rand(320, 480, 3).astype(np.float32) for _ in range(PREC_CALIB_IMAGES)]
+    blobs = clf.preprocess_images(images, oversample=True)
+    p32 = clf.predict_blobs(blobs)
+    t0 = time.perf_counter()
+    qstate = clf.calibrate_int8(calib, oversample=True)
+    t_cal = time.perf_counter() - t0
+    check(set(qstate) == {"conv1", "conv2", "conv3", "conv4", "conv5", "fc6", "fc7", "fc8"},
+          f"CaffeNet calibrated {sorted(qstate)}")
+    clf.predict_blobs(blobs[:10])  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    p8 = clf.predict_blobs(blobs)
+    t_int8 = time.perf_counter() - t0
+    counts = (kernels.INT_MM_LAUNCHES, kernels.LRN_LAUNCHES)
+    check(counts == (8 * PREC_IMAGES, 2 * PREC_IMAGES),
+          f"int8 CaffeNet launches (int_mm, LRN) {counts}, want {(8 * PREC_IMAGES, 2 * PREC_IMAGES)}")
+    check(p8.shape == (PREC_IMAGES, 1000) and np.isfinite(p8).all()
+          and np.allclose(p8.sum(1), 1.0, atol=1e-4), "int8 probabilities")
+    agree = float((p8.argmax(1) == p32.argmax(1)).mean())
+    rel = float(np.linalg.norm(p8 - p32) / np.linalg.norm(p32))
+    print(f"precision classifier: CaffeNet int8 (8 layers calibrated on {PREC_CALIB_IMAGES} "
+          f"images x 10 crops in {t_cal:.2f} s): {PREC_IMAGES} requests, top-1 agreement with "
+          f"f32 {agree:.3f}, probabilities {rel:.3e} off f32 (relative L2); launches "
+          f"int_mm {counts[0]} and LRN {counts[1]} ({8} and 2 a forward); "
+          f"{1e3 * t_int8 / PREC_IMAGES:.2f} ms a request [{card}]")
+    check(rel < 0.5, f"int8 probabilities {rel:.3e} off f32")
+
+    net, v, qrun = clf.network, clf.variables, clf._qrun
+    x = torch.from_numpy(blobs[:10]).cuda()
+    with torch.no_grad(), quant.quantized_inference(qrun):
+        bl, _, _ = net.apply(v, {"data": x}, train=False)
+    int8_peak = next(peak for key, peak in INT8_PEAKS if key in card)
+    bw, _, _ = card_peaks(card)
+    for name in ("conv1", "conv2", "conv3", "conv4", "conv5"):
+        layer = net.layers[net.layer_index(name)]
+        c = layer._conf()
+        d = (c["dilation"], c["dilation"])
+        inp = bl[layer.bottoms[0]]
+        q = qrun[name]
+        x_q = quant.quantize_activation(inp, q["x_scale"])
+        got = quant.conv_int32(x_q, q["w_q"], stride=c["stride"], padding=c["pad"],
+                               dilation=d, groups=c["group"], w_mat=q["w_mat"])
+        ref = F.conv2d(x_q.double(), q["w_q"].double(), stride=c["stride"], padding=c["pad"],
+                       dilation=d, groups=c["group"])
+        torch.cuda.synchronize()
+        peak_sum = float(ref.abs().max())
+        same = torch.equal(got.double(), ref)
+        check(same, f"int8 {name}: int32 sums differ from the float64 convolution")
+        a, _ = quant.im2col_int8(x_q, q["w_q"].shape[2:], stride=c["stride"],
+                                 padding=c["pad"], dilation=d)
+        b = q["w_mat"]
+        t_mm = time_ms(lambda: torch._int_mm(a, b))
+        t_path = time_ms(lambda: quant.int8_conv(inp, q, stride=c["stride"], padding=c["pad"],
+                                                 dilation=d, groups=c["group"]))
+        t_plain = time_ms(lambda: F.conv2d(x_q.double(), q["w_q"].double(), stride=c["stride"],
+                                           padding=c["pad"], dilation=d, groups=c["group"]),
+                          reps=5, inner=1)
+        w = net.layer_params(name, v.params)
+        with f32_precision():
+            t_f32 = time_ms(lambda: F.conv2d(inp, w[0], w[1], stride=c["stride"],
+                                             padding=c["pad"], dilation=d, groups=c["group"]))
+        ops = 2 * a.shape[0] * a.shape[1] * b.shape[1]
+        useful = 2 * got.numel() * q["w_q"][0].numel()
+        # the product's own bound: the im2col matrix, the weight and the
+        # int32 sums once each (unpadded), or its useful int8 operations
+        m, k, o = got.numel() // got.shape[1], q["w_q"][0].numel() * c["group"], got.shape[1]
+        t_bytes = (m * k + k * o // c["group"] + 4 * m * o) / bw * 1e3
+        t_ops = useful / int8_peak * 1e3
+        bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        print(f"precision int8 {name} (batch 10, M {a.shape[0]}, K {a.shape[1]}, N "
+              f"{b.shape[1]}, padded to 8, group {c['group']}): int32 sums "
+              f"{'bit for bit' if same else 'NOT equal to'} the float64 convolution "
+              f"(max |sum| {peak_sum:.3e}); torch._int_mm {t_mm:.4f} ms "
+              f"({ops / 1e9:.3f} G int8 ops, padding and block-diagonal zeros included), the "
+              f"int8 path (quantize, im2col, product, dequantize) "
+              f"{t_path:.4f} ms, the float64 plain version {t_plain:.4f} ms, cuDNN float32 "
+              f"convolution {t_f32:.4f} ms; the product's "
+              f"bound {bound:.4f} ms ({by}; {useful / 1e9:.3f} G useful ops at "
+              f"{int8_peak / 1e12:.0f} TOPS: {t_ops:.4f} ms) [{card}]")
+    del clf, bl
+    gc.collect()
+    return counts[1]
+
+
+def precision_engine(card: str) -> None:
+    """The engine's int8 arm (fold, then calibrate once, every bucket captured
+    inside ``quantized_inference``) for cifar10_quick, lenet and mobilenet
+    (trained 5 steps) at buckets 1/8/64/256: replay bit for bit eager,
+    padded bit for bit full, the replays' int8 product launches, the
+    scores beside the f32 arm's; 0 request-path captures, 0 dropped."""
+    from sparknet_tpu_torch.models.zoo import GRAPH_SWEEP_FAMILIES
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS, ServeEngine, _synthetic_feeds
+    from sparknet_tpu_torch.serve.engine import _int8_resident_bytes as engine_int8_bytes
+
+    mfam = GRAPH_SWEEP_FAMILIES["mobilenet"]
+    solver = zoo_solver(mfam.net(32), "mobilenet", cfg=mfam.solver())
+    losses = [float(l) for l in zoo_steps(solver, zoo_batch(32, 64, classes=mfam.num_classes), 5)]
+    check(all(np.isfinite(losses)), f"int8 engine mobilenet training losses {losses}")
+    engine = ServeEngine(SERVE_BUCKETS, max_wait_ms=5.0, device="cuda")
+    tickets = []
+    try:
+        for fam_name in PREC_INT8_FAMILIES:
+            fam = GRAPH_SWEEP_FAMILIES[fam_name]
+            variables = solver.variables if fam_name == "mobilenet" else None
+            t0 = time.perf_counter()
+            m = engine.load_model(f"{fam_name}_int8", family=fam_name, arm="int8",
+                                  variables=variables)
+            t_load = time.perf_counter() - t0
+            f = engine.load_model(f"{fam_name}_f32", family=fam_name, arm="f32",
+                                  variables=variables)
+            # requests drawn as the calibration stream is (_synthetic_feeds),
+            # so the int8 arm meets the activation ranges it was calibrated on
+            items = _synthetic_feeds(fam, 256, seed=SEED + 29)["data"]
+            n_q = len(m.qstate)
+            for b, prog in m.programs.items():
+                rows = items[:prog.batch]
+                check(prog.launches.get("INT_MM_LAUNCHES") == n_q,
+                      f"{fam_name} int8 bucket {b}: the capture recorded "
+                      f"{prog.launches} int8 products, want {n_q}")
+                before = kernels.INT_MM_LAUNCHES
+                out = run_locked(m, prog, rows)
+                replayed = kernels.INT_MM_LAUNCHES - before
+                eager = prog.eager(torch.from_numpy(rows).cuda()).cpu().numpy()
+                ref = run_locked(f, f.programs[b], rows)
+                same = np.array_equal(out, eager)
+                rel = float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+                agree = float((out.argmax(-1) == ref.argmax(-1)).mean())
+                t_q = time_ms(prog.graph.replay, reps=PREC_ENGINE_REPS, inner=5)
+                t_f = time_ms(f.programs[b].graph.replay, reps=PREC_ENGINE_REPS, inner=5)
+                print(f"precision engine {fam_name} int8 bucket {b} (exec {prog.batch} rows, "
+                      f"{n_q} layers int8): replay and eager "
+                      f"{'bit for bit equal' if same else 'DIFFER'}; {replayed} int8 "
+                      f"products a replay; scores {rel:.3e} off the f32 arm (relative L2), "
+                      f"top-1 agreement {agree:.3f}; replay {t_q:.4f} ms, f32 replay "
+                      f"{t_f:.4f} ms [{card}]")
+                check(same and np.isfinite(out).all() and replayed == n_q,
+                      f"{fam_name} int8 bucket {b}: replay")
+            for b in SERVE_BUCKETS[1:]:
+                full = [engine.submit(m.name, it) for it in items[:b]]
+                engine.pump(force=True)
+                padded = [engine.submit(m.name, it) for it in items[:b // 2 + 1]]
+                engine.pump(force=True)
+                tickets += full + padded
+                same = all(np.array_equal(p.result, q.result) for p, q in zip(padded, full))
+                check(same and {t.bucket for t in full + padded} == {b},
+                      f"{fam_name} int8 bucket {b}: padded rows changed a real row")
+            priced = engine_int8_bytes(fam_name)()
+            print(f"precision engine {fam_name} int8: loaded in {t_load:.2f} s (fold, "
+                  f"calibrate, 4 captures), {len(m.folded)} chains folded; padded batches "
+                  f"bit for bit the full ones in buckets {list(SERVE_BUCKETS[1:])}; device "
+                  f"bytes after the captures: int8 {m.measured_bytes:,}, f32 "
+                  f"{f.measured_bytes:,} (int8 - f32 {m.measured_bytes - f.measured_bytes:,}); "
+                  f"the int8 records admission prices on top of the f32 row: "
+                  f"{priced:,} [{card}]")
+            engine.unload_model(f.name)
+        dropped = sum(not t.done() or t.error is not None for t in tickets)
+        print(f"precision engine: request-path captures {engine.serve_path_compiles}, "
+              f"dropped {dropped} of {len(tickets)} [{card}]")
+        check(engine.serve_path_compiles == 0, "int8 engine: a capture on the request path")
+        check(dropped == 0, f"int8 engine: {dropped} tickets dropped")
+    finally:
+        engine.shutdown()
+    del solver
+    gc.collect()
+
+
+def phase_precision(card: str) -> dict:
+    """Reduced precision on the card: B1/B1' in bf16, the bf16 AlexNet and
+    char LM train steps, the remat and activation storage policies, and the
+    int8 deploy arm (Classifier and engine).  Returns the launches of the
+    paths it drives."""
+    t_phase = time.perf_counter()
+    precision_lrn(card)
+    lrn, lrn_bwd, fused = precision_alexnet(card)
+    flash, flash_bwd, fused_lm = precision_charlm(card)
+    lrn += precision_classifier(card)
+    precision_engine(card)
+    print(f"precision: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return dict(lrn=lrn, lrn_backward=lrn_bwd, fused_update=fused + fused_lm, flash=flash,
+                flash_backward=flash_bwd)
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
           "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
-          "charlm_train", "engine", "replica", "zoo", "db_apps", "layers")
+          "charlm_train", "engine", "replica", "zoo", "db_apps", "layers", "precision")
 
 
 def main(argv=None) -> int:
@@ -5576,6 +6182,14 @@ def main(argv=None) -> int:
             launches["lrn_backward"] += got["lrn_backward"]
             launches["fused_update"] += got["fused_update"]
             lap(name)
+    if "precision" in phases:
+        prec = phase_precision(card)
+        launches["lrn_across_channels"] += prec["lrn"]
+        launches["lrn_backward"] += prec["lrn_backward"]
+        launches["fused_update"] += prec["fused_update"]
+        launches["flash_attention"] += prec["flash"]
+        launches["flash_attention_backward"] += prec["flash_backward"]
+        lap("precision")
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0
@@ -5614,7 +6228,8 @@ def main(argv=None) -> int:
         # loads, traffic and swaps and the replica run: there, each graph
         # replay adds the launches its capture recorded, and a capture
         # adds none; the ImageNet families' training steps; the DB apps;
-        # the MNIST families' steps), each counted from 0
+        # the MNIST families' steps; the precision phase's bf16 AlexNet and
+        # char LM steps and int8 CaffeNet requests), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -70,7 +70,6 @@ _UNPORTED_FLAGS = (
     ("platform", "", "Queue A9 (the CLI's remaining flags; the port takes --device)"),
     ("obs", "", "Queue A13 (obs)"),
 )
-_DTYPE_ITEM = "Queue A3 (mixed precision, Config.compute_dtype)"
 _LAYOUT_ITEM = "Queue A6 (channels_last)"
 _PROTO_DATA_ITEM = ("Queue A9 (listfile.py with the ImageData/WindowData layers, "
                     "and HDF5)")
@@ -82,8 +81,6 @@ def _refuse_unported(args) -> None:
             flag = "--" + dest.replace("_", "-")
             raise SystemExit(f"{flag} is not ported to sparknet_tpu_torch yet "
                              f"(ROADMAP {item})")
-    if getattr(args, "dtype", "") in ("bf16", "bfloat16"):
-        raise SystemExit(f"--dtype {args.dtype} is not ported yet (ROADMAP {_DTYPE_ITEM})")
     if getattr(args, "layout", "") == "nhwc":
         raise SystemExit(f"--layout nhwc is not ported yet (ROADMAP {_LAYOUT_ITEM})")
 
@@ -632,7 +629,8 @@ def main(argv=None) -> int:
         sp.add_argument("--iterations", type=int, default=0)
         sp.add_argument("--snapshot", help=".solverstate.npz to restore")
         sp.add_argument("--dtype", default="", choices=["", "bf16", "bfloat16", "f32"],
-                        help="f32 only (bf16: ROADMAP Queue A3)")
+                        help="compute dtype (Config.compute_dtype) for this call; "
+                        "params stay float32")
         sp.add_argument("--layout", default="", choices=["", "nchw", "nhwc"],
                         help="nchw only (nhwc: ROADMAP Queue A6)")
 
@@ -722,7 +720,19 @@ def main(argv=None) -> int:
             ("_net", "_benchmark")):
         p.error(f"unrecognized arguments: {' '.join(extra)}")
     _refuse_unported(args)
-    return args.fn(args)
+    if not getattr(args, "dtype", ""):
+        return args.fn(args)
+    # the compute dtype is set before any net is built and RESTORED after:
+    # an in-process main() (tests, interactive use) must not leak bf16 into
+    # the caller's config
+    from sparknet_tpu_torch.common import get_config, set_config
+
+    prev = get_config().compute_dtype
+    set_config(compute_dtype="bf16" if args.dtype in ("bf16", "bfloat16") else "f32")
+    try:
+        return args.fn(args)
+    finally:
+        set_config(compute_dtype=prev)
 
 
 if __name__ == "__main__":

@@ -18,12 +18,20 @@ into it (Caffe's shared-diff accumulation).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 
-from sparknet_tpu_torch.common import Phase, f32_precision, get_config, resolve_device
+from sparknet_tpu_torch.common import (
+    Phase,
+    act_storage_policy,
+    f32_precision,
+    get_config,
+    resolve_device,
+)
 from sparknet_tpu_torch.ops import create_layer
 from sparknet_tpu_torch.ops.base import Layer, ParamSpec
 from sparknet_tpu_torch.ops.data_layers import InputLayer
@@ -38,6 +46,117 @@ def is_placeholder(blob: torch.Tensor) -> bool:
     position a sharer holds in ``NetVars.params``, which stores its
     owner's blob once (:meth:`Network.layer_params` resolves it)."""
     return blob.numel() == 0
+
+
+def _cast(x, dtype: torch.dtype):
+    """``x`` in ``dtype`` if it is a floating tensor, else ``x`` (integer
+    labels and token ids keep their type)."""
+    return x.to(dtype) if x.is_floating_point() else x
+
+
+@contextlib.contextmanager
+def _saved_as_stored(stored: list, ins: list):
+    """While a layer runs on ``ins``, casts of its input blobs ``stored``,
+    autograd saves the bf16 blob in place of an upcast of it that it would
+    keep for the backward, and upcasts it again there (bf16 to float32 is
+    exact, so the backward sees the same values).  Without this a bf16
+    storage policy would save nothing (the consumer keeps its float32
+    input), and a loss layer under bf16 compute would keep a float32 copy
+    of its bf16 input.  JAX's compiled step saves the bf16 residual
+    itself."""
+    pairs = {x.data_ptr(): (s, x.numel()) for s, x in zip(stored, ins)
+             if s is not x and s.dtype == torch.bfloat16}
+    if not pairs or not torch.is_grad_enabled():
+        yield
+        return
+
+    def pack(t):
+        hit = pairs.get(t.data_ptr()) if t.dtype != torch.bfloat16 else None
+        if hit is not None and t.numel() == hit[1] and t.is_contiguous():
+            return (hit[0], t.dtype, t.shape)
+        return t
+
+    def unpack(packed):
+        if isinstance(packed, tuple):
+            src, dtype, shape = packed
+            return src.to(dtype).reshape(shape)
+        return packed
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+        yield
+
+
+def _pool_segments(layers: list) -> list[list]:
+    """``layers``, (index, layer) pairs, cut after each Pooling layer: the
+    segments of the ``"blocks"`` remat policy, whose boundaries are the
+    blobs the JAX package saves under ``remat="blocks"`` (its
+    ``BLOCK_SAVE_NAME`` tags)."""
+    segs: list[list] = [[]]
+    for item in layers:
+        segs[-1].append(item)
+        if item[1].TYPE == "Pooling":
+            segs.append([])
+    return [s for s in segs if s]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy (JAX's ``dots_saveable``): the outputs of the
+    matrix products are saved, everything else (the convolutions) is
+    recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten.bmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(run, layers: list, blob: dict, gen, context_fn=None):
+    """``run(layers, blob)`` under ``torch.utils.checkpoint``
+    (``use_reentrant=False``; ``context_fn`` as it takes it): the backward
+    keeps the segment's inputs, and what ``context_fn`` saves, and
+    recomputes the rest.  ``blob`` is updated with the segment's outputs,
+    and loses the blobs the segment dropped (``keep_blobs=False``).
+
+    The random layers draw from ``gen``, which the checkpoint does not
+    restore (it keeps the global generators only).  The forward draws and
+    advances ``gen`` as it would without the checkpoint; the recompute sets
+    the state the segment entered with, so it draws the forward's masks,
+    and then puts the caller's state back, so a later forward (the next
+    micro-batch of an ``iter_size`` step) draws on from where the forward
+    left it.  The recompute runs under ``f32_precision`` as the forward
+    did, wherever the backward is called from."""
+    from torch.utils.checkpoint import checkpoint
+
+    gen_state = gen.get_state() if gen is not None else None
+    inputs = dict(blob)
+    forward_ran = []  # the first call is the forward, a later one the recompute
+
+    def body(inputs):
+        local = dict(inputs)
+        with f32_precision():
+            st, loss, sink = run(layers, local)
+        made = {k: v for k, v in local.items() if inputs.get(k) is not v}
+        gone = [k for k in inputs if k not in local]
+        return made, gone, st, loss, sink
+
+    def segment(inputs):
+        if gen_state is None or not forward_ran:
+            forward_ran.append(True)
+            return body(inputs)
+        prev = gen.get_state()
+        gen.set_state(gen_state)
+        try:
+            return body(inputs)
+        finally:
+            gen.set_state(prev)
+
+    kwargs = {} if context_fn is None else {"context_fn": context_fn}
+    made, gone, st, loss, sink = checkpoint(segment, inputs, use_reentrant=False, **kwargs)
+    for k in gone:
+        del blob[k]
+    blob.update(made)
+    return st, loss, sink
 
 
 @dataclasses.dataclass
@@ -324,6 +443,9 @@ class Network:
         train: bool | None = None,
         start: str | None = None,
         end: str | None = None,
+        debug_sink: dict | None = None,
+        remat: str = "",
+        keep_blobs: bool = True,
     ) -> tuple[dict[str, torch.Tensor], State, torch.Tensor]:
         """Forward pass. Returns (all blobs, updated state, total weighted loss).
 
@@ -339,6 +461,31 @@ class Network:
         start layer's bottom blobs).  Loss accumulates over the executed
         range only (layer.hpp Forward loss() * loss_weight).  Convolutions
         and matrix products run in full float32 (``common.f32_precision``).
+
+        Mixed precision (``Config.compute_dtype``/``activation_dtype``, as the
+        JAX ``apply``): floating feeds are cast to ``compute_dtype``, and a
+        non-loss layer's params are cast to it inside the forward, so
+        autograd carries the gradient back to the ``param_dtype`` masters;
+        loss layers take float32 inputs; the activation-storage policy
+        stores bf16 (the feeds at ``io``, Pooling outputs at ``blocks``,
+        every non-loss output at ``full``) and the next consumer upcasts;
+        returned state keeps its stored dtype; ``total_loss`` is float32.
+        With float32 compute and no policy no cast is taken.
+
+        ``debug_sink``: a dict that receives ``(layer, top) -> mean |top|``
+        as each layer runs (in-place tops get their own post-op entry; ref:
+        Net::ForwardDebugInfo, net.cpp:658-683).  ``remat`` (when grad is
+        enabled; ``solvers/solver.apply_remat``) runs the layers under
+        ``torch.utils.checkpoint``, so the backward recomputes what was not
+        saved: ``"full"`` saves nothing but the run's inputs, ``"dots"``
+        saves the outputs of the matrix products too (:func:`_dots_policy`),
+        ``"blocks"`` runs segments that end at each Pooling layer and keeps
+        only the segments' inputs (the Pooling outputs).
+        ``keep_blobs=False`` drops each blob after the last layer of the run
+        that reads it (the returned dict keeps the blobs no layer reads): a
+        train step needs the loss and the state alone, and without this the
+        forward would hold every activation to its end, whatever autograd or
+        a checkpoint saves.
         """
         train = (self.phase == Phase.TRAIN) if train is None else train
         si = 0 if start is None else self.layer_index(start)
@@ -348,20 +495,39 @@ class Network:
                 f"start layer {start!r} (#{si}) comes after end layer "
                 f"{end!r} (#{ei})"
             )
+        cdt = get_config().compute_dtype
+        mixed = cdt != torch.float32
+        act_policy = act_storage_policy()
+        store_io = act_policy in ("io", "full")
+
+        def feed(val) -> torch.Tensor:
+            t = torch.as_tensor(val, device=self.device)
+            if mixed:
+                t = _cast(t, cdt)
+            return _cast(t, torch.bfloat16) if store_io else t
+
         blob: dict[str, torch.Tensor] = {}
         if si > 0:
             # mid-graph starts are primed with whatever the caller supplies
             for name, val in feeds.items():
-                blob[name] = torch.as_tensor(val, device=self.device)
+                blob[name] = feed(val)
         else:
             for name in self.feed_blobs:
                 if name not in feeds:
                     raise ValueError(f"missing feed for input blob {name!r}")
-                blob[name] = torch.as_tensor(feeds[name], device=self.device)
-        new_state: State = {}
-        total_loss = torch.zeros((), dtype=torch.float32, device=self.device)
-        with f32_precision():
-            for layer in self.layers[si : ei + 1]:
+                blob[name] = feed(feeds[name])
+
+        layers = list(enumerate(self.layers[si : ei + 1]))
+        last_read = {b: i for i, layer in layers for b in layer.bottoms}
+
+        def run(layers, blob):
+            """The (index, layer) pairs in order on ``blob`` (updated in
+            place): their new state, their weighted loss, their debug
+            entries."""
+            new_state: State = {}
+            loss = torch.zeros((), dtype=torch.float32, device=self.device)
+            sink: dict = {}
+            for i, layer in layers:
                 if isinstance(layer, InputLayer):
                     if layer.SELF_FEEDING:
                         blob.update(zip(layer.tops, layer.constant_values(self.device)))
@@ -372,18 +538,65 @@ class Network:
                         f"layer {layer.name!r} needs blob(s) {missing}; feed "
                         "them or start the run at an earlier layer"
                     )
+                p = self.layer_params(layer.name, variables.params)
+                ins = stored = [blob[b] for b in layer.bottoms]
+                if mixed or act_policy:
+                    if layer.IS_LOSS:
+                        ins = [_cast(x, torch.float32) for x in ins]
+                    else:
+                        if mixed:
+                            p = [_cast(x, cdt) for x in p]
+                        if act_policy:
+                            ins = [_cast(x, cdt) for x in ins]
                 kwargs = {"gen": gen} if layer.NEEDS_GEN else {}
-                out = layer.apply(
-                    self.layer_params(layer.name, variables.params),
-                    variables.state.get(layer.name, {}),
-                    [blob[b] for b in layer.bottoms], train=train, **kwargs)
+                with _saved_as_stored(stored, ins):
+                    out = layer.apply(p, variables.state.get(layer.name, {}), ins,
+                                      train=train, **kwargs)
+                outputs = out.outputs
+                if act_policy and not layer.IS_LOSS and (
+                        act_policy == "full"
+                        or (act_policy == "blocks" and layer.TYPE == "Pooling")):
+                    outputs = [_cast(o, torch.bfloat16) for o in outputs]
                 if out.state:
-                    new_state[layer.name] = out.state
-                for top, o in zip(layer.tops, out.outputs):
+                    st = out.state
+                    prev = variables.state.get(layer.name)
+                    if mixed and prev is not None:
+                        st = {k: _cast(v, prev[k].dtype) if k in prev else v
+                              for k, v in st.items()}
+                    new_state[layer.name] = st
+                for top, o in zip(layer.tops, outputs):
                     blob[top] = o
-                for w, o in zip(layer.loss_weights(), out.outputs):
+                    if debug_sink is not None and o.numel():
+                        sink[(layer.name, top)] = o.detach().abs().mean()
+                for w, o in zip(layer.loss_weights(), outputs):
                     if w != 0.0:
-                        total_loss = total_loss + w * o.sum().to(torch.float32)
+                        loss = loss + w * o.sum().to(torch.float32)
+                if not keep_blobs:
+                    for b in layer.bottoms:
+                        if last_read[b] == i and b not in layer.tops:
+                            blob.pop(b, None)
+            return new_state, loss, sink
+
+        with f32_precision():
+            if remat and torch.is_grad_enabled():
+                segments = _pool_segments(layers) if remat == "blocks" else [layers]
+                context_fn = None
+                if remat == "dots":
+                    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+                    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                                   _dots_policy)
+                new_state, total_loss, sink = {}, None, {}
+                for seg in segments:
+                    seg_state, seg_loss, seg_sink = _checkpointed(run, seg, blob, gen,
+                                                                  context_fn)
+                    new_state.update(seg_state)
+                    sink.update(seg_sink)
+                    total_loss = seg_loss if total_loss is None else total_loss + seg_loss
+            else:
+                new_state, total_loss, sink = run(layers, blob)
+        if debug_sink is not None:
+            debug_sink.update(sink)
         # carry forward unmodified state so the structure is stable
         for lname, s in variables.state.items():
             new_state.setdefault(lname, s)

@@ -23,7 +23,9 @@ the other.
 Blob order is Caffe's in both packages (conv OIHW, fc (out, in) in NCHW
 flatten order), so every blob crosses as it is, a shared param's 0-size
 placeholder (``compiler/graph.py``) too: both packages keep it under its
-own key, and the owner's key holds the blob.
+own key, and the owner's key holds the blob.  Blobs keep their dtype:
+bfloat16 params (``Config.param_dtype``) cross as bfloat16
+(``common.tensor_from_numpy``).
 """
 
 from __future__ import annotations
@@ -34,12 +36,12 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from sparknet_tpu_torch.common import resolve_device
+from sparknet_tpu_torch.common import resolve_device, tensor_from_numpy
 from sparknet_tpu_torch.compiler.graph import NetVars
 
 
 def _tensor(value: Any, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(value, copy=True)).to(device)
+    return tensor_from_numpy(value).to(device)
 
 
 def netvars_from_numpy(

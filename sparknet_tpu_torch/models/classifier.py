@@ -4,7 +4,8 @@ Counterpart of ``sparknet_tpu/models/classifier.py`` (ref:
 caffe/python/caffe/classifier.py:11-99): scale input images to
 ``image_dims``, center-crop or 10-crop oversample to the net's input size,
 preprocess through the Transformer, forward, and (for oversampling) average
-predictions over the 10 crops.  Int8 calibration is ROADMAP Queue A4.
+predictions over the 10 crops.  ``calibrate_int8`` switches it to the int8
+deploy path (``quant.py``).
 """
 
 from __future__ import annotations
@@ -59,6 +60,27 @@ class Classifier(DeployNet):
         return np.stack(
             [self.transformer.preprocess(in_, im) for im in crops]
         ).astype(np.float32)
+
+    def calibrate_int8(self, images=None, oversample: bool = False, *,
+                       blobs=None) -> dict:
+        """Calibrate the int8 deploy path on representative images (through
+        the preprocessing ``predict`` applies), then switch this
+        classifier's forward to it; returns the quant state.  ``blobs`` from
+        :meth:`preprocess_images` skip the preprocessing.  Every sample
+        counts toward the activation scales: a ragged tail is filled by
+        cycling the samples (a dropped outlier would shrink x_scale and
+        clip at inference)."""
+        if blobs is None:
+            blobs = self.preprocess_images(images, oversample)
+        in_ = self.inputs[0]
+        batch = self.feed_shapes[in_][0]
+        reps = -(-batch // len(blobs)) if len(blobs) < batch else 1
+        padded = np.concatenate([blobs] * reps) if reps > 1 else blobs
+        tail = len(padded) % batch
+        if tail:
+            padded = np.concatenate([padded, padded[:batch - tail]])
+        chunks = [{in_: padded[lo : lo + batch]} for lo in range(0, len(padded), batch)]
+        return self.quantize_int8(chunks, num_batches=len(chunks))
 
     def predict(self, inputs, oversample: bool = True) -> np.ndarray:
         """(N) iterable of (H, W, K) images -> (N, C) class probabilities."""

@@ -7,11 +7,15 @@ device and runs any number of inputs in net-batch-size chunks, padding the
 ragged tail and trimming it from the outputs.  ``fold_batchnorm`` is the
 ``merge_bn`` deploy flow (``models/fold_bn.py``).  ``pretrained_file`` is a
 ``.caffemodel`` (params and BatchNorm state, by layer name); HDF5 weights
-and the int8 path are ROADMAP Queue A4.  Without a file the weights come
-from ``Network.init``, or from the JAX package through ``interop.py``.
+are ROADMAP Queue A4.  Without a file the weights come from
+``Network.init``, or from the JAX package through ``interop.py``.
+``quantize_int8`` switches the forward to the post-training int8 path
+(``quant.py``); fold first, then quantize.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -55,6 +59,10 @@ class DeployNet:
         self.network = Network(net_param, Phase.TEST, device=device)
         self.device = self.network.device
         self.variables = self.network.init()
+        # the int8 quant state (quantize_int8), and its records with their
+        # weight matrices made once for the forward (quant.prepare)
+        self.qstate: dict | None = None
+        self._qrun: dict | None = None
         if pretrained_file is not None:
             from sparknet_tpu_torch.net import copy_caffemodel_params
 
@@ -89,12 +97,33 @@ class DeployNet:
         since the statistics are baked in."""
         from sparknet_tpu_torch.models.fold_bn import fold_batchnorm
 
+        if self.qstate is not None:
+            # folding rebuilds the float forward; after int8 calibration it
+            # would drop the quantized path while qstate still claims it
+            raise RuntimeError(
+                "fold_batchnorm() must run BEFORE quantize_int8 — the "
+                "fold rebuilds the network and the calibrated scales "
+                "would no longer match it")
         net2, params2, state2, folded = fold_batchnorm(
             self.network.net_param, self.variables.params, self.variables.state)
         if folded:
             self.network = Network(net2, Phase.TEST, device=self.device)
             self.variables = NetVars(params=params2, state=state2)
         return folded
+
+    def quantize_int8(self, calibration_batches, num_batches: int = 4) -> dict:
+        """Switch this deploy net's forward to the post-training int8 path
+        (``quant.py``): per-channel int8 weights and calibrated per-tensor
+        int8 activations, int32 sums.  ``calibration_batches``: an iterable
+        of feed dicts shaped like the forward's own (``{input_name: (B, C,
+        H, W)}``).  Returns the quant state; later ``predict``/
+        ``forward_all`` calls run quantized.  Inference only."""
+        from sparknet_tpu_torch import quant
+
+        self.qstate = quant.calibrate(self.network, self.variables,
+                                      calibration_batches, num_batches=num_batches)
+        self._qrun = quant.prepare(self.qstate, self.network)
+        return self.qstate
 
     def forward_all(self, in_: str, data: np.ndarray) -> dict[str, np.ndarray]:
         """Forward N preprocessed samples in net-batch chunks; concat outputs.
@@ -104,7 +133,11 @@ class DeployNet:
         batch = self.feed_shapes[in_][0]
         n = len(data)
         outs: dict[str, list[np.ndarray]] = {o: [] for o in self.outputs}
-        with torch.inference_mode():
+        from sparknet_tpu_torch import quant
+
+        qctx = (quant.quantized_inference(self._qrun) if self._qrun is not None
+                else contextlib.nullcontext())
+        with torch.inference_mode(), qctx:
             for lo in range(0, n, batch):
                 chunk = np.asarray(data[lo : lo + batch], np.float32)
                 if len(chunk) < batch:  # pad the ragged tail; trimmed below

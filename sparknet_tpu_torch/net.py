@@ -27,6 +27,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from sparknet_tpu_torch.common import host_array, tensor_from_numpy
 from sparknet_tpu_torch.compiler.graph import Network, NetVars, is_placeholder
 from sparknet_tpu_torch.proto.text_format import Message
 from sparknet_tpu_torch.solvers.solver import Solver, SolverConfig
@@ -78,7 +79,9 @@ def state_items(s: dict) -> list[tuple[str, Any]]:
 
 
 def _host(t) -> np.ndarray:
-    return t.detach().to("cpu").numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    # bf16 blobs widen to float32 (exact): the .caffemodel wire is float32,
+    # and the JAX package writes np.asarray(blob, np.float32)
+    return host_array(t)
 
 
 def variables_to_collection(variables: NetVars) -> WeightCollection:
@@ -95,7 +98,7 @@ def collection_to_variables(wc: WeightCollection, template: NetVars) -> NetVars:
     """WeightCollection -> NetVars shaped, typed and placed like
     ``template``."""
     def put(a, like: torch.Tensor) -> torch.Tensor:
-        return torch.from_numpy(np.array(a)).to(like.device, like.dtype).reshape(like.shape)
+        return tensor_from_numpy(a).to(like.device, like.dtype).reshape(like.shape)
 
     params = {lname: [put(a, p) for a, p in zip(wc[lname], plist)]
               for lname, plist in template.params.items()}

@@ -124,8 +124,12 @@ class MultiHeadAttentionLayer(Layer):
         return [w_qkv, torch.zeros(3 * e), w_out, torch.zeros(e)], {}
 
     def apply(self, params, state, inputs, *, train):
-        w_qkv, b_qkv, w_out, b_out = params
-        q, k, v = project_qkv(inputs[0], w_qkv, b_qkv, self.num_heads)
+        # the JAX layer's einsum promotes mixed operand types (bf16 rows
+        # from a bf16 Embed against float32 weights under param_dtype bf16
+        # give float32); F.linear takes one type
+        dt = torch.promote_types(inputs[0].dtype, params[0].dtype)
+        w_qkv, b_qkv, w_out, b_out = (p.to(dt) for p in params)
+        q, k, v = project_qkv(inputs[0].to(dt), w_qkv, b_qkv, self.num_heads)
         if self.rope:
             q, k = rope(q), rope(k)
         o = flash_attention(q, k, v, causal=self.causal)

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sparknet_tpu_torch.common import f32_precision
+from sparknet_tpu_torch import quant
+from sparknet_tpu_torch.common import f32_precision, get_config
 from sparknet_tpu_torch.ops import fillers, layout
 from sparknet_tpu_torch.ops.base import Layer, LayerOutput
 from sparknet_tpu_torch.ops.registry import register
@@ -47,9 +48,10 @@ class InnerProduct(Layer):
         n_out, axis, bias, wf, bf = self._conf()
         shape = tuple(in_shapes[0])
         dim = int(np.prod(shape[_canon_axis(axis, len(shape)):]))
-        params = [fillers.fill(wf, gen, (n_out, dim))]
+        dtype = get_config().param_dtype
+        params = [fillers.fill(wf, gen, (n_out, dim), dtype)]
         if bias:
-            params.append(fillers.fill(bf, gen, (n_out,)))
+            params.append(fillers.fill(bf, gen, (n_out,), dtype))
         return params, {}
 
     def apply(self, params, state, inputs, *, train):
@@ -58,6 +60,14 @@ class InnerProduct(Layer):
         axis = _canon_axis(axis, x.dim())
         lead = tuple(x.shape[:axis])
         flat = x.reshape(-1, int(np.prod(x.shape[axis:])))
+        if not train:
+            # the int8 deploy path (quant.py), as in Convolution
+            q = quant.layer_qparams(self.name)
+            if q is not None:
+                y = quant.int8_matmul(flat, q)
+                if bias:
+                    y = y + params[1].to(y.dtype)
+                return LayerOutput([y.to(x.dtype).reshape(lead + (n_out,))])
         b = params[1].to(x.dtype) if bias else None
         y = F.linear(flat, params[0].to(x.dtype), b)
         return LayerOutput([y.reshape(lead + (n_out,))])
@@ -83,10 +93,11 @@ class BatchNorm(Layer):
     def init(self, gen, in_shapes):
         shape = in_shapes[0]
         ch = shape[layout.channel_axis(ndim=len(shape))] if len(shape) > 1 else 1
+        dtype = get_config().param_dtype
         state = {
-            "mean": torch.zeros((ch,), dtype=torch.float32),
-            "variance": torch.zeros((ch,), dtype=torch.float32),
-            "scale_factor": torch.zeros((1,), dtype=torch.float32),
+            "mean": torch.zeros((ch,), dtype=dtype),
+            "variance": torch.zeros((ch,), dtype=dtype),
+            "scale_factor": torch.zeros((1,), dtype=dtype),
         }
         return [], state
 
@@ -152,11 +163,12 @@ class Scale(Layer):
 
     def init(self, gen, in_shapes):
         p = self.lp.get_msg("scale_param")
+        dtype = get_config().param_dtype
         params = []
         if len(in_shapes) > 1:
             if p.get_bool("bias_term", False):
                 params.append(fillers.fill(p.get_msg("bias_filler"), gen,
-                                           tuple(in_shapes[1])))
+                                           tuple(in_shapes[1]), dtype))
             return params, {}
         shape = _blob_shape(in_shapes[0], self._axis(len(in_shapes[0])),
                             p.get_int("num_axes", 1))
@@ -164,9 +176,9 @@ class Scale(Layer):
         if not filler.has("type"):
             filler = filler.copy()
             filler.set("type", "constant").set("value", 1.0)
-        params.append(fillers.fill(filler, gen, shape))
+        params.append(fillers.fill(filler, gen, shape, dtype))
         if p.get_bool("bias_term", False):
-            params.append(fillers.fill(p.get_msg("bias_filler"), gen, shape))
+            params.append(fillers.fill(p.get_msg("bias_filler"), gen, shape, dtype))
         return params, {}
 
     def apply(self, params, state, inputs, *, train):
@@ -196,7 +208,7 @@ class Bias(Layer):
         shape0 = tuple(in_shapes[0])
         shape = _blob_shape(shape0, _canon_axis(p.get_int("axis", 1), len(shape0)),
                             p.get_int("num_axes", 1))
-        return [fillers.fill(p.get_msg("filler"), gen, shape)], {}
+        return [fillers.fill(p.get_msg("filler"), gen, shape, get_config().param_dtype)], {}
 
     def apply(self, params, state, inputs, *, train):
         x = inputs[0]
@@ -218,9 +230,10 @@ class Embed(Layer):
     def init(self, gen, in_shapes):
         p = self.lp.get_msg("embed_param")
         shape = (p.get_int("input_dim"), p.get_int("num_output"))
-        params = [fillers.fill(p.get_msg("weight_filler"), gen, shape)]
+        dtype = get_config().param_dtype
+        params = [fillers.fill(p.get_msg("weight_filler"), gen, shape, dtype)]
         if p.get_bool("bias_term", True):
-            params.append(fillers.fill(p.get_msg("bias_filler"), gen, (shape[1],)))
+            params.append(fillers.fill(p.get_msg("bias_filler"), gen, (shape[1],), dtype))
         return params, {}
 
     def apply(self, params, state, inputs, *, train):

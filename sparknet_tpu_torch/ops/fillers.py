@@ -2,8 +2,10 @@
 
 Counterpart of ``sparknet_tpu/ops/fillers.py``.  Each filler takes a
 prototxt ``FillerParameter`` message, a ``torch.Generator`` and the blob
-shape, and returns a float32 tensor on the generator's device (the CPU in
-``Network.init``, which then moves the blobs to the net's device).  The
+shape, and returns a tensor on the generator's device (the CPU in
+``Network.init``, which then moves the blobs to the net's device), drawn in
+float32 and cast to ``dtype`` (a layer passes ``Config.param_dtype`` where
+the JAX layer fills in it).  The
 draws differ from ``jax.random``'s for the same seed; parity tests start
 from the JAX package's weights (``interop.py``) for that reason.
 Fan-in follows Caffe: ``fan_in = count / num``.
@@ -31,8 +33,12 @@ def _uniform(gen, shape, lo, hi):
     return lo + (hi - lo) * u
 
 
-def fill(filler: Message, gen: torch.Generator, shape) -> torch.Tensor:
-    shape = tuple(int(d) for d in shape)
+def fill(filler: Message, gen: torch.Generator, shape,
+         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return _fill(filler, gen, tuple(int(d) for d in shape)).to(dtype)
+
+
+def _fill(filler: Message, gen: torch.Generator, shape: tuple) -> torch.Tensor:
     ftype = filler.get_str("type", "constant")
     if ftype == "constant":
         return torch.full(shape, filler.get_float("value", 0.0), dtype=torch.float32)

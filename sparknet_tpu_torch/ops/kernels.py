@@ -76,14 +76,17 @@ FUSED_UPDATE_LAUNCHES = 0
 FLASH_LAUNCHES = 0
 FLASH_BACKWARD_LAUNCHES = 0
 PAGED_LAUNCHES = 0
+# the int8 product of ``quant.int_matmul`` on the card: ``torch._int_mm``, a
+# library call (no TPU kernel), counted the same way
+INT_MM_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every launch count to 0."""
     global LRN_LAUNCHES, LRN_BACKWARD_LAUNCHES, FUSED_UPDATE_LAUNCHES
-    global FLASH_LAUNCHES, FLASH_BACKWARD_LAUNCHES, PAGED_LAUNCHES
+    global FLASH_LAUNCHES, FLASH_BACKWARD_LAUNCHES, PAGED_LAUNCHES, INT_MM_LAUNCHES
     LRN_LAUNCHES = LRN_BACKWARD_LAUNCHES = FUSED_UPDATE_LAUNCHES = 0
-    FLASH_LAUNCHES = FLASH_BACKWARD_LAUNCHES = PAGED_LAUNCHES = 0
+    FLASH_LAUNCHES = FLASH_BACKWARD_LAUNCHES = PAGED_LAUNCHES = INT_MM_LAUNCHES = 0
 
 
 # the launches a CUDA graph capture open on this thread has recorded

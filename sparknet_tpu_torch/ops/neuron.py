@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sparknet_tpu_torch.common import get_config
 from sparknet_tpu_torch.ops import fillers, layout
 from sparknet_tpu_torch.ops.base import Layer, LayerOutput
 from sparknet_tpu_torch.ops.registry import register
@@ -49,7 +50,7 @@ class PReLU(Layer):
         if not filler.has("type"):
             filler = filler.copy()
             filler.set("type", "constant").set("value", 0.25)
-        return [fillers.fill(filler, gen, (n,))], {}
+        return [fillers.fill(filler, gen, (n,), get_config().param_dtype)], {}
 
     def apply(self, params, state, inputs, *, train):
         x = inputs[0]

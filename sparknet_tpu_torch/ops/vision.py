@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from sparknet_tpu_torch import quant
+from sparknet_tpu_torch.common import get_config
 from sparknet_tpu_torch.ops import fillers, layout
 from sparknet_tpu_torch.ops.base import (
     Layer,
@@ -57,14 +59,26 @@ class Convolution(Layer):
             raise ValueError(f"{self.name}: channels {ch} not divisible by "
                              f"group {c['group']}")
         wshape = (c["num_output"], ch // c["group"], *c["kernel"])
-        params = [fillers.fill(c["weight_filler"], gen, wshape)]
+        dtype = get_config().param_dtype
+        params = [fillers.fill(c["weight_filler"], gen, wshape, dtype)]
         if c["bias"]:
-            params.append(fillers.fill(c["bias_filler"], gen, (c["num_output"],)))
+            params.append(fillers.fill(c["bias_filler"], gen, (c["num_output"],), dtype))
         return params, {}
 
     def apply(self, params, state, inputs, *, train):
         c = self._conf()
         x = inputs[0]
+        if not train:
+            # the int8 deploy path: only inside quant.quantized_inference and
+            # only for calibrated layers
+            q = quant.layer_qparams(self.name)
+            if q is not None:
+                d = c["dilation"]
+                y = quant.int8_conv(x, q, stride=c["stride"], padding=c["pad"],
+                                    dilation=(d, d), groups=c["group"])
+                if c["bias"]:
+                    y = y + params[1].to(y.dtype)[None, :, None, None]
+                return LayerOutput([y.to(x.dtype)])
         bias = params[1].to(x.dtype) if c["bias"] else None
         y = F.conv2d(x, params[0].to(x.dtype), bias, stride=c["stride"],
                      padding=c["pad"], dilation=c["dilation"], groups=c["group"])
@@ -87,9 +101,10 @@ class Deconvolution(Convolution):
         c = self._conf()
         ch = in_shapes[0][layout.channel_axis(ndim=len(in_shapes[0]))]
         wshape = (ch, c["num_output"] // c["group"], *c["kernel"])
-        params = [fillers.fill(c["weight_filler"], gen, wshape)]
+        dtype = get_config().param_dtype
+        params = [fillers.fill(c["weight_filler"], gen, wshape, dtype)]
         if c["bias"]:
-            params.append(fillers.fill(c["bias_filler"], gen, (c["num_output"],)))
+            params.append(fillers.fill(c["bias_filler"], gen, (c["num_output"],), dtype))
         return params, {}
 
     def apply(self, params, state, inputs, *, train):

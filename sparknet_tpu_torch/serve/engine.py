@@ -50,10 +50,15 @@ from that folded layer list at the bucket's rows (a no-op for the
 BN-free families, whose ``fold_bn`` programs are the ``f32`` ones).  The
 JAX engine folds again for each bucket from the already-folded
 variables, which leaves a later bucket's BatchNorm layers without their
-state; the port does not repeat that.
+state; the port does not repeat that.  ``int8`` folds the same way, then
+calibrates once, at the smallest bucket's net on ``_synthetic_feeds``
+(``quant.calibrate``, the JAX arm's stream), and captures every bucket's
+graph inside ``quant.quantized_inference`` on the capturing thread, so
+each graph records the int8 convolutions and products
+(``quant.int_matmul``: ``torch._int_mm`` on the card).  Integer sums are
+exact, so within a bucket the int8 arm is bit for bit too.
 
-What is not ported here: the ``int8`` deploy arm raises, naming ROADMAP
-Queue A4 (it needs the int8 convolution); the obs journal
+What is not ported here: the obs journal
 (``rec.emit`` events, fenced spans, lineage, the recompile sentinel) is
 A13 and is left out: the latency ledgers and ``stats()`` carry the
 numbers.  The engine defaults to CUDA (``device=None``) and raises without
@@ -110,14 +115,14 @@ SHED_TICK_MS = 15.0
 
 _ARMS = ("f32", "fold_bn", "int8")
 
+# the int8 arm's calibration stream: batches of 8 synthetic requests (the
+# JAX engine's default)
+INT8_CALIBRATION_BATCHES = 2
+
 
 def _check_arm(arm: str) -> None:
     if arm not in _ARMS:
         raise ValueError(f"unknown arm {arm!r}; one of {_ARMS}")
-    if arm == "int8":
-        raise NotImplementedError(
-            "the int8 deploy arm needs quant and the int8 convolution, which "
-            "are not ported yet (ROADMAP Queue A4)")
 
 
 class AdmissionRefused(RuntimeError):
@@ -161,9 +166,18 @@ def _end_layer(network, blob: str) -> str:
     return name
 
 
-def _forward_fn(network, blob: str, end: str):
+def _forward_fn(network, blob: str, end: str, qstate: dict | None = None):
+    """The score forward; with ``qstate`` it runs inside
+    ``quant.quantized_inference`` on the calling thread (a capture's
+    warm-up and the capture itself included)."""
+    import contextlib
+
+    from sparknet_tpu_torch import quant
+
     def forward(variables, feeds):
-        with torch.no_grad():
+        ctx = (quant.quantized_inference(qstate) if qstate is not None
+               else contextlib.nullcontext())
+        with torch.no_grad(), ctx:
             blobs, _, _ = network.apply(variables, feeds, train=False, end=end)
         return blobs[blob]
     return forward
@@ -309,7 +323,7 @@ class ServedModel:
         self.source_variables = self.variables
         self.folded: list[str] = []
         folded_net = None
-        if arm == "fold_bn":
+        if arm in ("fold_bn", "int8"):
             from sparknet_tpu_torch.models.fold_bn import fold_batchnorm
 
             # the unfolded weights stay on the host, where the fold runs:
@@ -320,6 +334,25 @@ class ServedModel:
                 base.net_param, self.source_variables.params, self.source_variables.state)
             self.variables = _on(NetVars(params=params, state=state), self.device)
 
+        # the int8 arm's quant state (calibrated once, at the smallest
+        # bucket; the stream is batch-invariant) and its records prepared
+        # for the forward
+        self.qstate: dict | None = None
+        qrun = None
+        if arm == "int8":
+            from sparknet_tpu_torch import quant
+
+            net_param = family.net(exec_batch(self.buckets[0]))
+            if folded_net is not None:
+                net_param = _with_inputs_of(folded_net, net_param)
+            net0 = Network(net_param, Phase.TEST, device=self.device)
+            self.qstate = quant.calibrate(
+                net0, self.variables,
+                (_synthetic_feeds(family, 8, seed=s + 1)
+                 for s in range(INT8_CALIBRATION_BATCHES)),
+                num_batches=INT8_CALIBRATION_BATCHES)
+            qrun = quant.prepare(self.qstate, net0)
+
         pool = torch.cuda.graph_pool_handle() if cuda else None
         self.programs: dict[int, BucketProgram] = {}
         t0 = time.perf_counter()
@@ -328,7 +361,8 @@ class ServedModel:
             if folded_net is not None:
                 net_param = _with_inputs_of(folded_net, net_param)
             net_b = Network(net_param, Phase.TEST, device=self.device)
-            fn = _forward_fn(net_b, self.score_blob, _end_layer(net_b, self.score_blob))
+            fn = _forward_fn(net_b, self.score_blob, _end_layer(net_b, self.score_blob),
+                             qrun)
             self.programs[bucket] = BucketProgram(
                 lambda data, label, fn=fn: fn(self.variables, {"data": data, "label": label}),
                 self.item_shape, self.item_dtype, exec_batch(bucket), self.device, pool)
@@ -348,6 +382,21 @@ class ServedModel:
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
+
+
+def _int8_resident_bytes(family_name: str):
+    """The int8 arm's price on top of the f32 row, as a function the
+    admission calls only for a priced family: ``quant.resident_bytes`` of
+    the family's weight shapes (a host init, no device work)."""
+
+    def price() -> int:
+        from sparknet_tpu_torch import quant
+        from sparknet_tpu_torch.compiler.graph import Network
+
+        net = Network(_family(family_name).net(1), Phase.TEST, device="cpu")
+        return quant.resident_bytes(net, net.init().params)
+
+    return price
 
 
 class ServeEngine:
@@ -395,8 +444,9 @@ class ServeEngine:
     def models(self) -> list[str]:
         return list(self._models)
 
-    def _admit(self, family: str, buckets: tuple) -> dict:
-        verdict = self.policy.admit(family, buckets[-1], self._resident_bytes)
+    def _admit(self, family: str, buckets: tuple, arm: str) -> dict:
+        extra = _int8_resident_bytes(family) if arm == "int8" else 0
+        verdict = self.policy.admit(family, buckets[-1], self._resident_bytes, extra)
         if not verdict["fits"]:
             raise AdmissionRefused(verdict)
         return verdict
@@ -412,7 +462,7 @@ class ServeEngine:
         if name in self._models:
             raise ValueError(f"model {name!r} already resident")
         buckets = tuple(sorted(set(buckets or self.buckets)))
-        verdict = self._admit(family, buckets)
+        verdict = self._admit(family, buckets, arm)
         model = ServedModel(name, family, arm, buckets, self.max_wait_ms, self.clock,
                             verdict["predicted_bytes"], seed=seed,
                             variables=variables, device=self.device)
@@ -446,7 +496,7 @@ class ServeEngine:
             raise ValueError(f"no resident model {name!r} to replace — use "
                              "load_model for the first generation")
         buckets = tuple(sorted(set(buckets or self.buckets)))
-        verdict = self._admit(family, buckets)
+        verdict = self._admit(family, buckets, arm)
         return ServedModel(name, family, arm, buckets, self.max_wait_ms, self.clock,
                            verdict["predicted_bytes"], seed=seed,
                            variables=variables, device=self.device)

@@ -13,7 +13,16 @@ fit such a table holds), conservatively:
 
 the train-step prediction at the model's LARGEST bucket, minus the
 optimizer slots a forward never allocates, floored at the raw param bytes.
-Every arm is priced at the f32 row.
+Every arm is priced at the f32 row, as in the JAX module (its
+``residency.py:22``).  ``fold_bn`` keeps the param bytes, less two vectors a
+fold.  ``int8`` keeps the float weights (the bias and the uncalibrated
+layers read them) and adds each calibrated layer's int8 weight, scales and
+product matrix (``quant.prepare``).  A grouped convolution's matrix is
+block-diagonal, ``groups`` times its int8 weight: MobileNet's 13 depthwise
+layers alone hold about 25 MB of it against about 17 MB of float weights.
+The JAX arm has no such matrices (XLA convolves groups natively), so the
+port prices them on top of the f32 row: the engine passes
+``quant.resident_bytes`` as ``extra_bytes`` for an ``int8`` load.
 
 What differs from the JAX module:
 
@@ -87,12 +96,17 @@ class AdmissionPolicy:
         self.fit_table = fit_table
         self.budget_bytes = int(hbm_bytes * usable_frac)
 
-    def admit(self, family: str, max_bucket: int, resident_bytes: int) -> dict:
+    def admit(self, family: str, max_bucket: int, resident_bytes: int,
+              extra_bytes=0) -> dict:
         """Verdict for loading ``family`` (largest bucket ``max_bucket``)
         next to ``resident_bytes`` of already-loaded models.  ``fits`` is
         True for unpriceable families: the gate refuses only what it can
-        justify numerically."""
+        justify numerically.  ``extra_bytes`` (a count, or a function
+        that returns one, called only for a priced family) is added to the
+        f32 row's price: the ``int8`` arm's matrices."""
         predicted = price_residency(family, max_bucket, self.fit_table)
+        if predicted is not None:
+            predicted += int(extra_bytes() if callable(extra_bytes) else extra_bytes)
         verdict = {
             "family": family,
             "max_bucket": int(max_bucket),

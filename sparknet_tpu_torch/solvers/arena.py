@@ -18,7 +18,14 @@ Layout invariants (the JAX package's):
 * the index map is geometry only (offset/size/shape/dtype per blob):
   snapshots stay blob-wise, through ``pack``/``unpack``;
 * arenas may be stored in bf16 (``Config.storage_dtype``) while blobs and
-  snapshots keep the param dtype; the kernel computes in float32.
+  snapshots keep the param dtype; the kernel computes in float32.  Blobs
+  that are all bf16 (``Config.param_dtype``) get a bf16 arena whatever
+  ``storage_dtype`` says.  Under bf16 compute with float32 params the
+  arena stays float32: the update is a float32 sweep on float32 masters.
+  A float32 arena that holds some bf16 blobs (the attention weights stay
+  float32 under ``param_dtype`` bf16, as in the JAX package) rounds their
+  spans to bf16 after each update (:func:`round_to_blobs`), which is the
+  JAX step's pack and unpack at each step's boundary.
 
 The PyTorch form: the param arena is the one leaf tensor of the fused
 step, and ``unpack`` returns each blob as a view of its span (a cast of it
@@ -55,6 +62,7 @@ __all__ = [
     "pack_slots",
     "unpack_slots",
     "init_slot_arenas",
+    "round_to_blobs",
     "arena_apply_update",
     "update_statics",
 ]
@@ -102,6 +110,12 @@ class ArenaLayout:
         return torch.bfloat16 if self.storage_dtype == "bf16" else torch.float32
 
     @property
+    def mixed(self) -> bool:
+        """A float32 arena holding bf16 blobs (:func:`round_to_blobs`)."""
+        return self.storage_dtype == "f32" and any(
+            e.span and e.dtype == "bfloat16" for e in self.entries)
+
+    @property
     def itemsize(self) -> int:
         return 2 if self.storage_dtype == "bf16" else 4
 
@@ -138,6 +152,9 @@ def build_layout(params: dict, specs: dict, cfg, *,
         from sparknet_tpu_torch.common import get_config
 
         storage_dtype = get_config().storage_dtype
+        blobs = [p for pl in params.values() for p in pl if p.numel()]
+        if blobs and all(p.dtype == torch.bfloat16 for p in blobs):
+            storage_dtype = "bf16"
     if storage_dtype not in ("f32", "bf16"):
         raise ValueError(f"storage_dtype must be 'f32' or 'bf16', got {storage_dtype!r}")
     entries: list = []
@@ -214,6 +231,18 @@ class _Unpack(torch.autograd.Function):
             if e.span and gb is not None:
                 g[e.offset:e.offset + e.size] = gb.reshape(-1).to(layout.storage)
         return None, g
+
+
+def round_to_blobs(layout: ArenaLayout, arena: torch.Tensor) -> None:
+    """Round, in place, the spans of a float32 arena whose blobs are bf16
+    to bf16 values (nothing to do when the types agree)."""
+    if arena.dtype != torch.float32:
+        return
+    with torch.no_grad():
+        for e in layout.entries:
+            if e.span and e.dtype == "bfloat16":
+                seg = arena[e.offset:e.offset + e.size]
+                seg.copy_(seg.to(torch.bfloat16))
 
 
 def unpack(layout: ArenaLayout, arena: torch.Tensor) -> dict:

@@ -17,11 +17,18 @@ built:
   whole update is one launch of the fused kernel, in place.
 
 Forward and backward run in full float32 (``common.f32_precision``: TF32
-off for cuDNN and cuBLAS), because the JAX reference is float32.
+off for cuDNN and cuBLAS), because the JAX reference is float32; under
+``Config.compute_dtype = bfloat16`` the forward runs in bf16 with float32
+sums and the masters stay in ``Config.param_dtype`` (``Network.apply``).
+
+``remat`` (``SolverConfig.remat``, the prototxt bool, meaning ``"full"``,
+or ``Config.remat``) recomputes the forward in the backward
+(:func:`apply_remat`).  ``debug_info`` prints Caffe's per-layer lines each
+iteration and keeps the per-blob update path, as the JAX Solver does.
 
 Not ported yet (ROADMAP): ``jitted_scan_steps``/``scan_chunk`` (a CUDA
-graph is the tool for that), ``remat``, ``debug_info``, orbax snapshots,
-the ``.caffemodel``/HDF5 model file beside the state, ``solve``, and
+graph is the tool for that), orbax snapshots, the ``.caffemodel``/HDF5
+model file beside the state, ``solve``, and
 ``batch_override``/``feed_dtypes``.
 """
 
@@ -37,7 +44,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from sparknet_tpu_torch.common import Phase, f32_precision, get_config
+from sparknet_tpu_torch.common import (
+    Phase,
+    f32_precision,
+    get_config,
+    host_array,
+    tensor_from_numpy,
+)
 from sparknet_tpu_torch.compiler.graph import Network, NetVars
 from sparknet_tpu_torch.proto.text_format import Message, parse_file
 from sparknet_tpu_torch.solvers.lr_policy import learning_rate
@@ -79,7 +92,8 @@ class SolverConfig:
     clip_gradients: float = -1.0
     iter_size: int = 1
     solver_type: str = "SGD"
-    # rematerialization of the forward: not ported (ROADMAP); True raises
+    # rematerialize the forward under the backward (torch.utils.checkpoint):
+    # trades FLOPs for memory; True means the "full" policy (remat_policy)
     remat: bool = False
     random_seed: int = -1
     test_iter: tuple = ()
@@ -96,7 +110,9 @@ class SolverConfig:
     # BINARYPROTO/HDF5 name the model file beside the state in the JAX
     # package; the port writes the state npz only (see Solver.save)
     snapshot_format: str = "BINARYPROTO"
-    # per-iteration diagnostics: not ported (ROADMAP); True raises
+    # per-iteration per-layer forward/param/grad abs-mean diagnostics (ref:
+    # SolverParameter.debug_info + Net::ForwardDebugInfo / BackwardDebugInfo,
+    # net.cpp:658-735), printed each iteration
     debug_info: bool = False
 
     @classmethod
@@ -171,7 +187,36 @@ def _micro_batches(feeds: dict, iter_size: int) -> list[dict]:
     return [{k: v[m] for k, v in feeds.items()} for m in range(iter_size)]
 
 
-def build_train_step(cfg: SolverConfig, net: Network, specs, reduce_grads=None):
+def remat_policy(cfg: SolverConfig) -> str:
+    """The rematerialization policy of a train step: ``"full"`` when the
+    prototxt's ``remat`` bool is set, else ``Config.remat`` (``""`` is
+    off)."""
+    if cfg.remat:
+        return "full"
+    return get_config().remat
+
+
+def apply_remat(net: Network, policy: str):
+    """The forward of a train step under ``policy``: ``forward(variables,
+    feeds, gen, debug_sink) -> (blobs, state, loss)``, ``Network.apply``
+    with ``remat=policy`` (``""``, ``"full"``, ``"dots"`` or ``"blocks"``:
+    ``torch.utils.checkpoint`` over the layers, which draws the forward's
+    masks again in the recompute) and ``keep_blobs=False`` (each blob
+    dropped after its last reader)."""
+    if policy not in ("", "none", "full", "dots", "blocks"):
+        raise ValueError(f"unknown remat policy {policy!r} "
+                         "(want '', 'full', 'dots', or 'blocks')")
+    policy = "" if policy == "none" else policy
+
+    def forward(variables, feeds, gen, debug_sink=None):
+        return net.apply(variables, feeds, gen=gen, debug_sink=debug_sink, remat=policy,
+                         keep_blobs=False)
+
+    return forward
+
+
+def build_train_step(cfg: SolverConfig, net: Network, specs, reduce_grads=None,
+                     debug: bool = False):
     """The per-blob train step: ``step(variables, slots, it, feeds, gen) ->
     (variables, slots, loss)`` with new params and history (nothing is
     updated in place).  iter_size > 1 accumulates the grads of the
@@ -180,7 +225,12 @@ def build_train_step(cfg: SolverConfig, net: Network, specs, reduce_grads=None):
     ``reduce_grads(grads) -> grads``, when given, takes the list of
     accumulated grads (one a param blob, in params-dict order) between the
     backward and the update: synchronous data parallelism averages them
-    over the workers there (``parallel/trainer.py``)."""
+    over the workers there (``parallel/trainer.py``).
+
+    ``debug``: the step returns a fourth value, the ``debug_info`` stats
+    (``{"forward": {(layer, top): mean |top|}, "param": {...}, "diff":
+    {...}}``; of the last micro-batch's forward), as the JAX step does."""
+    forward = apply_remat(net, remat_policy(cfg))
 
     def train_step(variables: NetVars, slots, it: int, feeds: dict, gen):
         with f32_precision():
@@ -190,8 +240,10 @@ def build_train_step(cfg: SolverConfig, net: Network, specs, reduce_grads=None):
             state = variables.state
             gsum = None
             loss_sum = None
+            sink: dict | None = None
             for micro in _micro_batches(feeds, cfg.iter_size):
-                _, state, loss = net.apply(NetVars(leaves, state), micro, gen=gen)
+                sink = {} if debug else None
+                _, state, loss = forward(NetVars(leaves, state), micro, gen, sink)
                 grads = torch.autograd.grad(loss, flat, allow_unused=True)
                 grads = [torch.zeros_like(p) if g is None else g
                          for p, g in zip(flat, grads)]
@@ -211,7 +263,19 @@ def build_train_step(cfg: SolverConfig, net: Network, specs, reduce_grads=None):
                 new_params, new_slots = apply_update(
                     cfg, variables.params, it_grads, slots, specs, rate, it)
         state = {ln: {k2: v.detach() for k2, v in s.items()} for ln, s in state.items()}
-        return NetVars(params=new_params, state=state), new_slots, loss
+        out = NetVars(params=new_params, state=state), new_slots, loss
+        if not debug:
+            return out
+        stats = {
+            "forward": sink,
+            "param": {f"{ln}[{i}]": p.detach().abs().mean()
+                      for ln, pl in variables.params.items()
+                      for i, p in enumerate(pl) if p.numel()},
+            "diff": {f"{ln}[{i}]": g.abs().mean()
+                     for ln, gl in it_grads.items()
+                     for i, g in enumerate(gl) if g.numel()},
+        }
+        return (*out, stats)
 
     return train_step
 
@@ -230,6 +294,8 @@ def build_fused_step(cfg: SolverConfig, net: Network, layout, tables,
     :func:`build_train_step`)."""
     from sparknet_tpu_torch.solvers import arena as arena_mod
 
+    forward = apply_remat(net, remat_policy(cfg))
+
     def fused_step(param_arena, slot_arenas, state, it: int, feeds: dict, gen):
         with f32_precision():
             leaf = param_arena.detach().requires_grad_(True)
@@ -237,7 +303,7 @@ def build_fused_step(cfg: SolverConfig, net: Network, layout, tables,
             loss_sum = None
             for micro in _micro_batches(feeds, cfg.iter_size):
                 params = arena_mod.unpack(layout, leaf)
-                _, state, loss = net.apply(NetVars(params, state), micro, gen=gen)
+                _, state, loss = forward(NetVars(params, state), micro, gen)
                 (g,) = torch.autograd.grad(loss, leaf)
                 if cfg.iter_size > 1:
                     gsum = g.float() if gsum is None else gsum + g.float()
@@ -254,6 +320,9 @@ def build_fused_step(cfg: SolverConfig, net: Network, layout, tables,
             with torch.no_grad():
                 arena_mod.arena_apply_update(cfg, layout, param_arena, gsum,
                                              slot_arenas, rate, it, tables)
+                if layout.mixed:
+                    for a in (param_arena, *slot_arenas):
+                        arena_mod.round_to_blobs(layout, a)
         state = {ln: {k: v.detach() for k, v in s.items()} for ln, s in state.items()}
         return state, loss
 
@@ -287,7 +356,15 @@ def _write_npz_atomic(path: str, arrays: dict) -> None:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().to("cpu").numpy()
+    # bf16 blobs are written as float32 (exact); restore casts back
+    return host_array(t)
+
+
+def _like(value, current: torch.Tensor | None) -> torch.Tensor:
+    """A snapshot array as a tensor in the dtype of the blob it replaces
+    (a bf16 blob is saved as float32)."""
+    t = tensor_from_numpy(value)
+    return t if current is None else t.to(current.dtype)
 
 
 class Solver:
@@ -322,9 +399,6 @@ class Solver:
         if cfg.snapshot_format.upper() not in ("", "BINARYPROTO", "HDF5"):
             raise ValueError(f"unknown snapshot_format {cfg.snapshot_format!r} "
                              "(BINARYPROTO|HDF5|'')")
-        if cfg.remat or cfg.debug_info:
-            raise NotImplementedError(
-                "remat and debug_info are not ported yet (ROADMAP Queue A11)")
         self.net_param = net_param
         self.train_net = Network(net_param, Phase.TRAIN, device)
         self.device = self.train_net.device
@@ -351,7 +425,9 @@ class Solver:
         self.smoothed_loss = 0.0
         self._loss_window: list = []
         self._state = variables.state
-        if get_config().fused_update:
+        # debug_info keeps the per-blob path: its per-blob grad lines are
+        # what the arena erases (the JAX Solver's rule)
+        if get_config().fused_update and not cfg.debug_info:
             from sparknet_tpu_torch.solvers import arena as arena_mod
 
             self.layout = arena_mod.build_layout(variables.params, self._specs, cfg)
@@ -374,7 +450,8 @@ class Solver:
                                                 self._tables, reduce_grads=reduce_grads)
         else:
             self._train_step = build_train_step(self.config, self.train_net, self._specs,
-                                                reduce_grads=reduce_grads)
+                                                reduce_grads=reduce_grads,
+                                                debug=self.config.debug_info)
 
     # -- blob-wise views of the training state ---------------------------
     @property
@@ -435,12 +512,31 @@ class Solver:
                 self._param_arena, self._slot_arenas, self._state,
                 self.iter, feeds, self._gen)
         else:
-            variables, self._slots, loss = self._train_step(
+            variables, self._slots, loss, *stats = self._train_step(
                 NetVars(self._params, self._state), self._slots,
                 self.iter, feeds, self._gen)
             self._params, self._state = variables.params, variables.state
+            if stats:
+                self._print_debug_info(stats[0])
         self.iter += 1
         return loss
+
+    @staticmethod
+    def _print_debug_info(stats) -> None:
+        """Caffe's per-iteration diagnostic lines, the JAX Solver's (ref:
+        net.cpp:658-735 ForwardDebugInfo / BackwardDebugInfo /
+        UpdateDebugInfo): each top's mean |data| as its layer ran (in-place
+        layers included), each param blob's mean |diff|, then its mean
+        |data| before the update."""
+        for (layer, top), v in stats["forward"].items():
+            print(f"    [Forward] Layer {layer}, top blob {top} "
+                  f"data: {float(v):.6g}")
+        for name, v in stats["diff"].items():
+            print(f"    [Backward] Layer {name.split('[')[0]}, "
+                  f"param blob {name} diff: {float(v):.6g}")
+        for name, v in stats["param"].items():
+            print(f"    [Update] Layer {name.split('[')[0]}, "
+                  f"param blob {name} data: {float(v):.6g}")
 
     def step(self, num_iters: int, data_fn: DataFn, callback=None) -> float:
         """Run ``num_iters`` training iterations (ref: Solver::Step).
@@ -555,13 +651,13 @@ class Solver:
             kind, _, rest = key.partition("/")
             if kind == "param":
                 layer, _, i = rest.rpartition("/")
-                params[layer][int(i)] = torch.from_numpy(np.array(value))
+                params[layer][int(i)] = _like(value, params[layer][int(i)])
             elif kind == "state":
                 layer, _, name = rest.rpartition("/")
-                state[layer][name] = torch.from_numpy(np.array(value))
+                state[layer][name] = _like(value, state[layer].get(name))
             elif kind == "hist":
                 layer, i, j = rest.rsplit("/", 2)
-                slots[layer][int(i)][int(j)] = torch.from_numpy(np.array(value))
+                slots[layer][int(i)][int(j)] = _like(value, slots[layer][int(i)][int(j)])
         self.iter = int(arrays["__iter__"])
         self.variables = NetVars(params=params, state=state)
         self.slots = slots

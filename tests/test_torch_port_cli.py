@@ -277,7 +277,6 @@ def test_time_layers_backward_none_only_without_a_gradient(monkeypatch):
     (["train", "--profile", "d"], "Queue A13"),
     (["time", "--hlo"], "Queue A14"),
     (["time", "--trace"], "Queue A13"),
-    (["test", "--dtype", "bf16"], "Queue A3"),
     (["test", "--layout", "nhwc"], "Queue A6"),
     (["--obs", "x.jsonl", "test"], "Queue A13"),
     (["train", "--data", "proto"], "Queue A9"),

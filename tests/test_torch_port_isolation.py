@@ -48,6 +48,9 @@ layers = sorted(n for n in names if n in ("sparknet_tpu_torch.compiler.graph",
                                           "sparknet_tpu_torch.ops.neuron",
                                           "sparknet_tpu_torch.ops.python_layer",
                                           "sparknet_tpu_torch.ops.vision"))
+precision = sorted(n for n in names if n in ("sparknet_tpu_torch.common",
+                                             "sparknet_tpu_torch.quant"))
+print(precision)
 print(layers)
 print(files)
 print(training)
@@ -64,8 +67,8 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    layers, files, training, serving, charlm, feed, zoo, last = \
-        out.stdout.strip().split("\n")[-8:]
+    precision, layers, files, training, serving, charlm, feed, zoo, last = \
+        out.stdout.strip().split("\n")[-9:]
     n, bad = last.split(" ", 1)
     assert int(n) >= 30, out.stdout
     assert bad == "[]", out.stdout
@@ -100,6 +103,9 @@ def test_port_imports_no_jax():
     assert layers == str(["sparknet_tpu_torch.compiler.graph", "sparknet_tpu_torch.interop"] + [
         f"sparknet_tpu_torch.ops.{m}" for m in
         ("data_layers", "loss", "neuron", "python_layer", "vision")]), out.stdout
+    # reduced precision: the Config's dtypes and policies, the int8 path
+    assert precision == str(["sparknet_tpu_torch.common", "sparknet_tpu_torch.quant"]), \
+        out.stdout
     # the ImageNet families: BatchNorm, Scale and Bias, the zoo, the fold
     assert zoo == str([f"sparknet_tpu_torch.models.{m}" for m in ("deploy", "fold_bn", "zoo")]
                       + ["sparknet_tpu_torch.ops.blocks"]), out.stdout

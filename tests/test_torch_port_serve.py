@@ -304,8 +304,9 @@ def test_over_budget_refusal_through_an_injected_table():
 
 def test_arms_families_and_shapes_refused():
     engine = ServeEngine(buckets=(1,), **CPU)
-    with pytest.raises(NotImplementedError, match="A4"):
-        engine.load_model("m", family="lenet", arm="int8")
+    # the int8 arm loads since quant.py landed (tests/test_torch_port_quant.py)
+    assert engine.load_model("q", family="lenet", arm="int8").qstate
+    engine.unload_model("q")
     with pytest.raises(ValueError, match="unknown arm"):
         engine.load_model("m", family="lenet", arm="fp8")
     # the fold_bn arm and the mobilenet family load since BatchNorm landed

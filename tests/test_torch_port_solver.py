@@ -441,7 +441,11 @@ def test_config_knobs_validate_and_read_the_environment(fused_config):
 
 
 def test_solver_rejects_unported_knobs():
-    with pytest.raises(NotImplementedError, match="remat"):
-        Solver(SolverConfig(remat=True), models.lenet(2), device="cpu")
+    # remat and debug_info are ported (the prototxt's remat bool is the
+    # "full" policy); an unknown snapshot format is still refused
+    from sparknet_tpu_torch.solvers.solver import remat_policy
+
+    s = Solver(SolverConfig(remat=True, debug_info=True), models.lenet(2), device="cpu")
+    assert remat_policy(s.config) == "full" and s.layout is None
     with pytest.raises(ValueError, match="snapshot_format"):
         Solver(SolverConfig(snapshot_format="PNG"), models.lenet(2), device="cpu")
