@@ -333,6 +333,23 @@ Phases, in order (any failure exits non-zero):
     buckets 1/8/64/256: replay bit for bit eager, the int8 products each
     replay launches, padded bit for bit full, scores beside the f32
     arm's, 0 request-path captures, 0 dropped.
+28. listfile: the list-file data layers and the rest of the CLI (fused
+    update, f32, TF32 off, deterministic cuDNN) on 300 seeded 320x240
+    JPEGs, their lists, an R-CNN window file and a mean computed by the
+    CLI's ``convert_imageset`` and ``compute_image_mean``: BVLC Caffe's
+    finetune_flickr_style net (CaffeNet, ImageData b50, fc8_flickr 20)
+    through ``cli train --data auto`` for 4 steps and 2 test iterations,
+    its first step's gradient and update within ``LF_GRAD_RTOL`` of the
+    CPU port's from the same weights, batch and dropout masks, ms a step
+    and the share waiting on the host's decode and transform beside the
+    fixed-batch step; the same run at ``--tau 2`` in a world of one, bit
+    for bit its params and history; the PASCAL detection net (WindowData
+    b128, fc8_pascal 21) through ``--data proto`` for 3 steps; the R-CNN
+    ``Detector`` (fc-rcnn 200, context_pad 16) over 2 images x 16 windows
+    within ``LF_DET_TOL`` of the CPU Detector; ``classify`` on 4 images,
+    top-5 equal to ``Classifier.predict``; B1 and B1' against their plain
+    versions at the phase's shapes and B2 on the flickr arena bit for bit;
+    exact launches on every path.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -6052,10 +6069,524 @@ def phase_precision(card: str) -> dict:
                 flash_backward=flash_bwd)
 
 
+# The list-file data layers and the rest of the CLI: BVLC Caffe's
+# finetune_flickr_style (ImageData), finetune_pascal_detection (WindowData)
+# and the R-CNN deploy net, at CaffeNet's published widths on seeded data.
+LF_IMAGES = 300  # seeded 320x240 JPEGs; the first LF_TRAIN in train.txt, the rest test.txt
+LF_TRAIN = 250
+LF_BATCH = 50  # finetune_flickr_style's batch_size, TRAIN and TEST
+LF_CLASSES = 20  # fc8_flickr
+LF_STEPS = 4  # 2 rounds at --tau 2; the steps after the first are timed
+LF_TEST_ITERS = 2
+LF_PASCAL_IMAGES = 100  # images of the window file, 2 fg and 4 bg windows each
+LF_PASCAL_BATCH = 128
+LF_PASCAL_CLASSES = 21  # fc8_pascal
+LF_PASCAL_STEPS = 3
+LF_DET_IMAGES, LF_DET_WINDOWS = 2, 16
+LF_CLASSIFY_IMAGES = 4
+# gates: the card's first flickr step against the CPU port's from the same
+# weights, batch and masks (relative L2 of the gradient and of the update),
+# about 5x the 2.1e-4 / 2.2e-4 measured on the H100 and a hundredth of what
+# another dropout draw or the next batch gives (PREC_GRAD_RTOL's
+# yardsticks); the Detector's scores against the CPU Detector's, of max|ref|,
+# about 14x the 7.2e-7 measured (PERF.md's findings on the list-file slice)
+LF_GRAD_RTOL = 1e-3
+LF_DET_TOL = 1e-5
+
+FLICKR_SOLVER = ('net: "{net}"\ntest_iter: 100\ntest_interval: 1000\nbase_lr: 0.001\n'
+                 'lr_policy: "step"\ngamma: 0.1\nstepsize: 20000\ndisplay: 20\n'
+                 "max_iter: 100000\nmomentum: 0.9\nweight_decay: 0.0005\n"
+                 "snapshot: 10000\n")
+
+
+def lf_data(d: str) -> dict:
+    """LF_IMAGES seeded 320x240 JPEGs (128 + noise x40 + a +-80 pattern a
+    class, as the db_apps phase's), the flickr lists, an R-CNN window file
+    of the first LF_PASCAL_IMAGES (2 fg windows of overlap 0.6-0.9, label
+    1-20, and 4 bg of overlap 0-0.4 a image); returns the paths."""
+    import io
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    pattern = 80 * np.sign(np.random.default_rng(SEED + 30).standard_normal(
+        (LF_CLASSES, 240, 320, 3), dtype=np.float32))
+
+    def jpeg(i: int) -> None:
+        noise = np.random.default_rng([SEED + 30, i]).standard_normal((240, 320, 3),
+                                                                       dtype=np.float32)
+        Image.fromarray(np.clip(128 + 40 * noise + pattern[i % LF_CLASSES], 0, 255).astype(
+            np.uint8)).save(os.path.join(d, f"img{i:03d}.jpg"), format="JPEG")
+
+    with ThreadPoolExecutor(8) as pool:  # numpy's and PIL's loops leave the GIL
+        list(pool.map(jpeg, range(LF_IMAGES)))
+    lines = [f"img{i:03d}.jpg {i % LF_CLASSES}\n" for i in range(LF_IMAGES)]
+    paths = {k: os.path.join(d, f"{k}.txt") for k in ("train", "test", "windows")}
+    with open(paths["train"], "w") as f:
+        f.writelines(lines[:LF_TRAIN])
+    with open(paths["test"], "w") as f:
+        f.writelines(lines[LF_TRAIN:])
+    rs = np.random.RandomState(SEED + 31)
+    wl = []
+    for i in range(LF_PASCAL_IMAGES):
+        wins = []
+        for k in range(6):
+            x1, y1 = rs.randint(0, 200), rs.randint(0, 140)
+            x2, y2 = min(319, x1 + rs.randint(40, 160)), min(239, y1 + rs.randint(40, 120))
+            fg = k < 2
+            wins.append(f"{(i + k) % (LF_PASCAL_CLASSES - 1) + 1 if fg else 0} "
+                        f"{rs.uniform(0.6, 0.9) if fg else rs.uniform(0.0, 0.4):.3f} "
+                        f"{x1} {y1} {x2} {y2}")
+        wl += [f"# {i}", f"img{i:03d}.jpg", "3 240 320", str(len(wins))] + wins
+    with open(paths["windows"], "w") as f:
+        f.write("\n".join(wl) + "\n")
+    paths["images"] = [os.path.join(d, f"img{i:03d}.jpg") for i in range(LF_IMAGES)]
+    return paths
+
+
+def lf_caffenet_body(head: str, classes: int) -> str:
+    """zoo.caffenet's layers but its RDD inputs, fc8 renamed ``head`` with
+    ``classes`` outputs (the fine-tuning nets' new head)."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.proto import serialize
+
+    out = []
+    for lp in models.caffenet(LF_BATCH).get_all("layer"):
+        if lp.get_str("type") == "JavaData":
+            continue
+        text = serialize(lp, 1)
+        if lp.get_str("name") == "fc8":
+            text = text.replace('"fc8"', f'"{head}"').replace("num_output: 1000",
+                                                             f"num_output: {classes}")
+        elif "fc8" in lp.get_all("bottom"):
+            text = text.replace('bottom: "fc8"', f'bottom: "{head}"')
+        out.append("layer {\n" + text + "\n}")
+    return "\n".join(out) + "\n"
+
+
+def lf_nets(d: str, paths: dict, mean: str) -> tuple[str, str]:
+    """The flickr and pascal solver files: BVLC Caffe's
+    models/finetune_flickr_style/train_val.prototxt (ImageData: batch 50,
+    new 256x256, crop 227, mirror in TRAIN, the mean file; fc8_flickr of
+    20) and examples/finetune_pascal_detection/
+    pascal_finetune_trainval_test.prototxt (WindowData: batch 128,
+    fg/bg threshold 0.5, fg_fraction 0.25, context_pad 16, warp, crop 227,
+    mirror, the mean file; fc8_pascal of 21), with the flickr solver."""
+    import os
+
+    tp = f'mean_file: "{mean}" crop_size: 227'
+    flickr = 'name: "FlickrStyleCaffeNet"\n' + "".join(
+        f'layer {{ name: "data" type: "ImageData" top: "data" top: "label"\n'
+        f"  include {{ phase: {ph} }} transform_param {{ mirror: {m} {tp} }}\n"
+        f'  image_data_param {{ source: "{paths[lst]}" root_folder: "{d}/" '
+        f"batch_size: {LF_BATCH} new_height: 256 new_width: 256 }} }}\n"
+        for ph, m, lst in (("TRAIN", "true", "train"), ("TEST", "false", "test"))
+    ) + lf_caffenet_body("fc8_flickr", LF_CLASSES)
+    pascal = 'name: "CaffeNet"\n' + "".join(
+        f'layer {{ name: "data" type: "WindowData" top: "data" top: "label"\n'
+        f"  include {{ phase: {ph} }} transform_param {{ mirror: {m} {tp} }}\n"
+        f'  window_data_param {{ source: "{paths["windows"]}" root_folder: "{d}/" '
+        f"batch_size: {LF_PASCAL_BATCH} fg_threshold: 0.5 bg_threshold: 0.5 "
+        f'fg_fraction: 0.25 context_pad: 16 crop_mode: "warp" }} }}\n'
+        for ph, m in (("TRAIN", "true"), ("TEST", "false"))
+    ) + lf_caffenet_body("fc8_pascal", LF_PASCAL_CLASSES)
+    out = []
+    for name, text in (("flickr", flickr), ("pascal", pascal)):
+        net, solver = os.path.join(d, f"{name}.prototxt"), os.path.join(d, f"{name}_solver.prototxt")
+        with open(net, "w") as f:
+            f.write(text)
+        with open(solver, "w") as f:
+            f.write(FLICKR_SOLVER.format(net=net))
+        out.append(solver)
+    return out[0], out[1]
+
+
+def lf_deploy(head: str, classes: int, prob: bool) -> str:
+    """A CaffeNet deploy net (input 10x3x227x227, no dropout's labels) whose
+    last layer is ``head`` of ``classes`` (BVLC Caffe's
+    models/bvlc_reference_rcnn_ilsvrc13/deploy.prototxt with head fc-rcnn
+    of 200 and no softmax; the flickr deploy with fc8_flickr and prob)."""
+    text = CAFFENET_DEPLOY.replace('"fc8"', f'"{head}"').replace(
+        "num_output: 1000", f"num_output: {classes}")
+    return text if prob else text[:text.index('layer { name: "prob"')]
+
+
+@contextlib.contextmanager
+def dropout_masks(masks: dict, replay: bool):
+    """Every Dropout layer keeps the mask it draws under ``masks[name]``
+    (on the host), or, with ``replay``, applies the kept one: the CPU step
+    then sees the card step's masks.  The same arithmetic as
+    ``ops/neuron.Dropout``."""
+    from sparknet_tpu_torch.ops import neuron
+    from sparknet_tpu_torch.ops.base import LayerOutput
+
+    orig = neuron.Dropout.apply
+
+    def apply(self, params, state, inputs, *, train, gen=None):
+        ratio = self.lp.get_msg("dropout_param").get_float("dropout_ratio", 0.5)
+        x = inputs[0]
+        if not train or ratio == 0.0:
+            return orig(self, params, state, inputs, train=train, gen=gen)
+        keep = 1.0 - ratio
+        if replay:
+            mask = masks[self.name].to(x.device)
+        else:
+            mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+            mask = mask.bernoulli_(keep, generator=gen).bool()
+            masks[self.name] = mask.cpu()
+        return LayerOutput([torch.where(mask, x / keep, 0.0).to(x.dtype)])
+
+    neuron.Dropout.apply = apply
+    try:
+        yield
+    finally:
+        neuron.Dropout.apply = orig
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, wrapper):
+    """``owner.name`` replaced by ``wrapper(original)`` for the block."""
+    orig = getattr(owner, name)
+    setattr(owner, name, wrapper(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def lf_cli(argv, walls: list) -> str:
+    """``cli.main(argv)`` in process; its stdout, and its seconds in ``walls``."""
+    import io
+
+    from sparknet_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    check(rc == 0, f"cli {argv[0]} exited {rc}")
+    walls.append((argv[0] + (" --tau " + argv[argv.index("--tau") + 1]
+                             if "--tau" in argv else ""), time.perf_counter() - t0))
+    return buf.getvalue()
+
+
+def lf_source_share(steps: list, spans: list) -> tuple[float, float, float]:
+    """(ms a step, the share of it in the source's calls, the share in
+    ``train_iteration``'s own call): the steps between the second and the
+    last ``train_iteration`` entries (the first meets the new shapes); each
+    enqueues its step, waits on its loss (the CLI's hook reads it), then
+    on the next batch.  ``steps``: (entry, exit) clock pairs."""
+    lo, hi = steps[1][0], steps[-1][0]
+    host = sum(b - a for a, b in spans if lo <= a and b <= hi)
+    call = sum(b - a for a, b in steps[1:-1])
+    return 1e3 * (hi - lo) / (len(steps) - 2), host / (hi - lo), call / (hi - lo)
+
+
+def lf_first_step_vs_cpu(card: str, cap: dict, solver_file: str) -> dict:
+    """The card's first flickr step against the CPU port's from the same
+    weights, batch and dropout masks: loss, gradient and update."""
+    from sparknet_tpu_torch.proto.text_format import parse_file
+    from sparknet_tpu_torch.solvers.solver import Solver, SolverConfig, load_solver_net
+
+    msg = parse_file(solver_file)
+    cpu = Solver(SolverConfig.from_proto(msg), load_solver_net(msg), device="cpu")
+    check(cpu.layout is not None and cpu.layout.total == cap["w0"].numel(),
+          "the CPU solver's arena does not match the card's")
+    with torch.no_grad():
+        cpu._param_arena.copy_(cap["w0"].cpu())
+    grads = {}
+    grad_capture(cpu, grads, "cpu")
+    with dropout_masks(cap["masks"], replay=True):
+        loss = float(cpu.train_iteration(cap["feeds"]))
+    cpu.set_reduce_grads(None)
+    out = {"loss": abs(cap["loss"] - loss) / abs(loss),
+           "grad": rel_l2(cap["grad"].cpu(), grads["cpu"]),
+           "update": rel_l2(cap["update"].cpu(), cpu._param_arena - cap["w0"].cpu()),
+           "cpu_loss": loss}
+    del cpu, grads
+    gc.collect()
+    return out
+
+
+def lf_kernels_vs_plain(card: str, layout, cfg) -> None:
+    """B1 and B1' against their plain versions at the flickr and pascal
+    steps' LRN shapes, and B2 on the flickr arena (bit for bit)."""
+    from sparknet_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    for b in (LF_BATCH, LF_PASCAL_BATCH):
+        for shape in ((b, 96, 27, 27), (b, 256, 13, 13)):
+            x = torch.relu(torch.randn(shape, generator=gen, device="cuda") * 50)
+            g = torch.randn(shape, generator=gen, device="cuda")
+            for what, got, ref in (
+                    ("forward", kernels.lrn_across_channels(x, 5, ALPHA, 0.75, 1.0),
+                     kernels.lrn_across_channels_torch(x, 5, ALPHA, 0.75, 1.0)),
+                    ("backward", kernels.lrn_backward(x, g, 5, ALPHA, 0.75, 1.0),
+                     kernels.lrn_backward_torch(x, g, 5, ALPHA, 0.75, 1.0))):
+                err = (got - ref).abs()
+                ok = bool((err <= F32_TOL["atol"] + F32_TOL["rtol"] * ref.abs()).all())
+                print(f"listfile LRN {what} {list(shape)}: max abs err {float(err.max()):.3e} "
+                      f"(rtol 1e-5, atol 1e-6) {'ok' if ok else 'FAIL'}")
+                check(ok, f"listfile LRN {what} {shape}")
+    b2_against_plain(card, "flickr CaffeNet", layout, cfg, 0)
+
+
+def phase_listfile(card: str) -> dict:
+    """The list-file data layers and the rest of the CLI on the card (fused
+    update, f32, TF32 off, deterministic cuDNN).  Returns the launches of
+    the paths it drives."""
+    import os
+    import tempfile
+
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.data import listfile as lf
+    from sparknet_tpu_torch.data.io_utils import load_image
+    from sparknet_tpu_torch.data.transform import load_mean_file
+    from sparknet_tpu_torch.interop import netvars_from_numpy
+    from sparknet_tpu_torch.models import Classifier, Detector
+    from sparknet_tpu_torch.net import export_caffemodel
+    from sparknet_tpu_torch.parallel import trainer as trainer_mod
+    from sparknet_tpu_torch.proto import parse
+    from sparknet_tpu_torch.solvers import solver as solver_mod
+
+    t_phase = time.perf_counter()
+    set_config(fused_update=True, storage_dtype="f32")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    walls, total = [], [0, 0, 0]
+
+    def add(counts, want, what):
+        check(counts == want, f"listfile {what}: launches (lrn fwd, lrn bwd, fused) {counts}, "
+                              f"want {want}")
+        for i, x in enumerate(counts):
+            total[i] += x
+
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            os.environ["SPARKNET_TRAIN_LOG_DIR"] = d
+            t0 = time.perf_counter()
+            paths = lf_data(d)
+            t_data = time.perf_counter() - t0
+            db, mean = os.path.join(d, "train.sndb"), os.path.join(d, "mean.binaryproto")
+            lf_cli(["convert_imageset", "--root", d, "--listfile", paths["train"], "--db", db,
+                    "--resize", "256"], walls)
+            lf_cli(["compute_image_mean", "--db", db, "--out", mean], walls)
+            flickr, pascal = lf_nets(d, paths, mean)
+            take_counts()
+
+            # flickr: train --data auto from the net's own ImageData lists
+            cap, steps, spans = {}, [], []
+
+            def clocked(orig):
+                def ti(self, feeds):
+                    t = time.perf_counter()
+                    loss = orig(self, feeds)
+                    steps.append((t, time.perf_counter()))
+                    return loss
+                return ti
+
+            def spy_iteration(orig):
+                orig = clocked(orig)
+
+                def ti(self, feeds):
+                    if "w0" in cap:
+                        return orig(self, feeds)
+                    cap.update(solver=self, w0=self._param_arena.detach().clone(),
+                               feeds={k: np.array(v) for k, v in feeds.items()}, masks={})
+                    grads = {}
+                    grad_capture(self, grads, "card")
+                    with dropout_masks(cap["masks"], replay=False):
+                        loss = orig(self, feeds)
+                    self.set_reduce_grads(None)
+                    cap.update(loss=float(loss), grad=grads["card"],
+                               update=self._param_arena.detach() - cap["w0"])
+                    return loss
+                return ti
+
+            def timed_source(orig):
+                def call(self, it):
+                    t = time.perf_counter()
+                    out = orig(self, it)
+                    if self.train:
+                        spans.append((t, time.perf_counter()))
+                    return out
+                return call
+
+            with patched(solver_mod.Solver, "train_iteration", spy_iteration), \
+                    patched(lf.ImageDataSource, "__call__", timed_source):
+                lf_cli(["train", "--solver", flickr, "--iterations", str(LF_STEPS),
+                        "--test-iters", str(LF_TEST_ITERS), "--output",
+                        os.path.join(d, "flickr_final")], walls)
+            add(take_counts(), (2 * LF_STEPS + 2 * LF_TEST_ITERS, 2 * LF_STEPS, LF_STEPS),
+                "flickr train")
+            flickr_ms, host_share, call_share = lf_source_share(steps, spans)
+            solver = cap.pop("solver")
+            feeds = solver._feeds_on_device(cap["feeds"])
+            solver.train_iteration(feeds)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LF_STEPS):
+                solver.train_iteration(feeds)
+            torch.cuda.synchronize()
+            fixed_ms = 1e3 * (time.perf_counter() - t0) / LF_STEPS
+            take_counts()
+            lf_kernels_vs_plain(card, solver.layout, solver.config)
+            take_counts()
+            del solver, feeds
+            gc.collect()
+            vs_cpu = lf_first_step_vs_cpu(card, cap, flickr)
+            print(f"listfile flickr first step, the card against the CPU port from the same "
+                  f"weights, batch and masks: loss {cap['loss']:.6f} vs {vs_cpu['cpu_loss']:.6f} "
+                  f"(rel {vs_cpu['loss']:.2e}), gradient {vs_cpu['grad']:.3e}, update "
+                  f"{vs_cpu['update']:.3e} (relative L2; gate {LF_GRAD_RTOL}) [{card}]")
+            check(np.isfinite(cap["loss"]) and vs_cpu["grad"] <= LF_GRAD_RTOL
+                  and vs_cpu["update"] <= LF_GRAD_RTOL and vs_cpu["loss"] <= LF_GRAD_RTOL,
+                  "the card's first flickr step is off the CPU port's")
+            del cap
+            gc.collect()
+
+            # the same training as SparkNet's tau-2 rounds in a world of one
+            rounds = []
+
+            def timed_round(orig):
+                def train_round(self, data_fn):
+                    t = time.perf_counter()
+                    loss = orig(self, data_fn)
+                    rounds.append(1e3 * (time.perf_counter() - t))
+                    return loss
+                return train_round
+
+            with patched(trainer_mod.ParallelTrainer, "train_round", timed_round):
+                lf_cli(["train", "--solver", flickr, "--iterations", str(LF_STEPS), "--tau",
+                        "2", "--output", os.path.join(d, "tau_final")], walls)
+            add(take_counts(), (2 * LF_STEPS, 2 * LF_STEPS, LF_STEPS), "flickr --tau 2")
+            snaps = []
+            for name in ("flickr_final", "tau_final"):
+                with np.load(os.path.join(d, name + ".solverstate.npz")) as z:
+                    snaps.append({k: z[k] for k in z.files if k != "__meta__"})
+            same = snaps[0].keys() == snaps[1].keys() and all(
+                np.array_equal(snaps[0][k], snaps[1][k]) for k in snaps[0])
+            print(f"listfile flickr --tau 2 in a world of one: {len(rounds)} rounds "
+                  f"{[round(r, 3) for r in rounds]} ms; params and history "
+                  f"{'bit for bit' if same else 'NOT bit for bit'} the plain run's [{card}]")
+            check(same and len(rounds) == LF_STEPS // 2, "--tau 2 is not the plain run")
+            params = {}
+            for k, v in snaps[0].items():
+                if k.startswith("param/"):
+                    _, layer, i = k.split("/")
+                    params.setdefault(layer, {})[int(i)] = v
+            params = {ln: [b[i] for i in sorted(b)] for ln, b in params.items()}
+            del snaps
+
+            # pascal: train --data proto from the net's own WindowData file
+            steps.clear()
+            spans.clear()
+            with patched(solver_mod.Solver, "train_iteration", clocked), \
+                    patched(lf.WindowDataSource, "__call__", timed_source):
+                lf_cli(["train", "--solver", pascal, "--data", "proto", "--iterations",
+                        str(LF_PASCAL_STEPS), "--output", os.path.join(d, "pascal_final")],
+                       walls)
+            add(take_counts(), (2 * LF_PASCAL_STEPS, 2 * LF_PASCAL_STEPS, LF_PASCAL_STEPS),
+                "pascal train")
+            pascal_ms, pascal_share, pascal_call = lf_source_share(steps, spans)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # the R-CNN Detector over 2 images x 16 windows, card and CPU
+            m = load_mean_file(mean)
+            channel_mean = m.reshape(3, -1).mean(axis=1)
+            rs = np.random.RandomState(SEED + 33)
+            windows = []
+            for _ in range(LF_DET_IMAGES):
+                y1, x1 = rs.randint(0, 180, LF_DET_WINDOWS), rs.randint(0, 260, LF_DET_WINDOWS)
+                windows.append([(a, b, min(239, a + rs.randint(30, 200)),
+                                 min(319, b + rs.randint(30, 280))) for a, b in zip(y1, x1)])
+            pairs = list(zip(paths["images"][:LF_DET_IMAGES], windows))
+            rcnn = parse(lf_deploy("fc-rcnn", 200, prob=False))
+            head = np.random.RandomState(SEED + 34)
+            det_params = {ln: params[ln] for ln in params if not ln.startswith("fc8")}
+            det_params["fc-rcnn"] = [(head.randn(200, 4096) * 0.01).astype(np.float32),
+                                     np.zeros(200, np.float32)]
+            dets = {}
+            for dev in ("cuda", "cpu"):
+                det = Detector(rcnn, mean=channel_mean, raw_scale=255.0,
+                               channel_swap=(2, 1, 0), context_pad=16, device=dev)
+                det.variables = netvars_from_numpy(det_params, device=dev)
+                if dev == "cuda":
+                    take_counts()
+                    t0 = time.perf_counter()
+                    dets[dev] = det.detect_windows(pairs)
+                    det_ms = 1e3 * (time.perf_counter() - t0)
+                    n_fwd = -(-LF_DET_IMAGES * LF_DET_WINDOWS // 10)
+                    add(take_counts(), (2 * n_fwd, 0, 0), "Detector")
+                    inputs = det.window_inputs([(p, [np.asarray(w) for w in ws])
+                                                for p, ws in pairs])
+                else:
+                    dets[dev] = det.detect_windows(pairs)
+                    same_in = np.array_equal(inputs, det.window_inputs(
+                        [(p, [np.asarray(w) for w in ws]) for p, ws in pairs]))
+                del det
+            got = np.stack([x["prediction"] for x in dets["cuda"]])
+            ref = np.stack([x["prediction"] for x in dets["cpu"]])
+            det_err = float(np.abs(got - ref).max() / np.abs(ref).max())
+            print(f"listfile R-CNN Detector ({LF_DET_IMAGES} images x {LF_DET_WINDOWS} windows, "
+                  f"context_pad 16, fc-rcnn 200): {det_ms:.1f} ms on the card; net inputs "
+                  f"{'bit for bit' if same_in else 'NOT equal to'} the CPU Detector's, scores "
+                  f"{det_err:.2e} of max|ref| off its (gate {LF_DET_TOL}) [{card}]")
+            check(same_in and got.shape == (LF_DET_IMAGES * LF_DET_WINDOWS, 200)
+                  and np.isfinite(got).all() and det_err <= LF_DET_TOL,
+                  "the card's Detector is off the CPU's")
+
+            # classify: the flickr deploy net with the trained weights
+            deploy = os.path.join(d, "flickr_deploy.prototxt")
+            with open(deploy, "w") as f:
+                f.write(lf_deploy("fc8_flickr", LF_CLASSES, prob=True))
+            from sparknet_tpu_torch.common import Phase
+            from sparknet_tpu_torch.compiler.graph import Network
+
+            weights = export_caffemodel(Network(parse(open(deploy).read()), Phase.TEST,
+                                                device="cpu"),
+                                        params, os.path.join(d, "flickr.caffemodel"))
+            images = paths["images"][LF_TRAIN:LF_TRAIN + LF_CLASSIFY_IMAGES]
+            take_counts()
+            out = json.loads(lf_cli(["classify", "--model", deploy, "--weights", weights,
+                                     "--mean", mean, *images], walls).strip().splitlines()[-1])
+            add(take_counts(), (2, 0, 0), "classify")
+            clf = Classifier(deploy, weights, mean=channel_mean, raw_scale=255.0)
+            probs = clf.predict([load_image(p) for p in images], oversample=False)
+            take_counts()
+            want = [[int(i) for i in np.argsort(p)[::-1][:5]] for p in probs]
+            top5 = [[p["label"] for p in r["predictions"]] for r in out]
+            print(f"listfile classify {LF_CLASSIFY_IMAGES} images through the flickr deploy "
+                  f"net: top-5 {top5} {'equal to' if top5 == want else 'NOT'} "
+                  f"Classifier.predict's on the card [{card}]")
+            check(top5 == want, f"classify top-5 {top5} against Classifier.predict's {want}")
+            del clf, params, det_params
+            del os.environ["SPARKNET_TRAIN_LOG_DIR"]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        set_config(fused_update=False)
+    print(f"listfile: flickr ImageData step (CaffeNet b{LF_BATCH}, --data auto) {flickr_ms:.2f} "
+          f"ms, {100 * host_share:.1f}% of it waiting on the host's decode and transform, "
+          f"{100 * call_share:.1f}% in train_iteration's call, beside the fixed-batch step "
+          f"{fixed_ms:.2f} ms; --tau 2 rounds after the first {np.median(rounds[1:]):.2f} ms "
+          f"(median; all {[round(r, 2) for r in rounds]}); pascal WindowData step "
+          f"(b{LF_PASCAL_BATCH}, --data proto) {pascal_ms:.2f} ms, {100 * pascal_share:.1f}% "
+          f"of it in the window source, {100 * pascal_call:.1f}% in train_iteration's call "
+          f"[{card}]")
+    print(f"listfile: data written in {t_data:.1f} s; cli seconds: "
+          + ", ".join(f"{k} {s:.1f}" for k, s in walls))
+    print(f"listfile: launches (lrn fwd, lrn bwd, fused) {tuple(total)}; phase done in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(lrn=total[0], lrn_backward=total[1], fused_update=total[2])
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
           "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
-          "charlm_train", "engine", "replica", "zoo", "db_apps", "layers", "precision")
+          "charlm_train", "engine", "replica", "zoo", "db_apps", "layers", "precision",
+          "listfile")
 
 
 def main(argv=None) -> int:
@@ -6190,6 +6721,12 @@ def main(argv=None) -> int:
         launches["flash_attention"] += prec["flash"]
         launches["flash_attention_backward"] += prec["flash_backward"]
         lap("precision")
+    if "listfile" in phases:
+        got = phase_listfile(card)
+        launches["lrn_across_channels"] += got["lrn"]
+        launches["lrn_backward"] += got["lrn_backward"]
+        launches["fused_update"] += got["fused_update"]
+        lap("listfile")
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0
@@ -6229,7 +6766,8 @@ def main(argv=None) -> int:
         # replay adds the launches its capture recorded, and a capture
         # adds none; the ImageNet families' training steps; the DB apps;
         # the MNIST families' steps; the precision phase's bf16 AlexNet and
-        # char LM steps and int8 CaffeNet requests), each counted from 0
+        # char LM steps and int8 CaffeNet requests; the listfile phase's CLI
+        # training, Detector and classify), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

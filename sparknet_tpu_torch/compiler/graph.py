@@ -501,7 +501,9 @@ class Network:
         store_io = act_policy in ("io", "full")
 
         def feed(val) -> torch.Tensor:
-            t = torch.as_tensor(val, device=self.device)
+            # contiguous: a host transform's center crop is a strided view,
+            # and the hand kernels take dense NCHW
+            t = torch.as_tensor(val, device=self.device).contiguous()
             if mixed:
                 t = _cast(t, cdt)
             return _cast(t, torch.bfloat16) if store_io else t

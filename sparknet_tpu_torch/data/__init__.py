@@ -5,8 +5,10 @@ Counterpart of ``sparknet_tpu/data/``.  The host-only modules (the LMDB
 codec, the Datum and image helpers, the CIFAR and tar loaders, the
 transformer, the samplers, the ring and its record sources) are copies
 that import no torch, so the ring's worker processes make no CUDA call;
-so are ``createdb`` (the record/LMDB/LevelDB writers and readers) and
-``leveldb_io``.
+so are ``createdb`` (the record/LMDB/LevelDB writers and readers),
+``leveldb_io``, ``listfile`` (the host streams of the Data, ImageData and
+WindowData layers), ``resize_images``, ``digits`` and ``remote`` (local
+shard stores).
 The card side: ``prefetch.DevicePrefetcher`` (pinned staging, a copy
 stream and events), ``pipeline.device_feed`` and
 ``device_transform.DeviceAugment``.  The char-text feed of the char LM is

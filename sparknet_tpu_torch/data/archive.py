@@ -60,15 +60,15 @@ class ImageNetLoader:
     stream — the analog of the reference's ``RDD[(Array[Byte], Int)]``
     partition (ref: ImageNetLoader.scala:91-96).  A ``gs://`` / ``s3://``
     root (the reference's S3 walk, ImageNetLoader.scala:25-39) raises:
-    the object stores are the rest of ROADMAP Queue A9.
+    the network stores are ROADMAP Queue A9.
     """
 
     def __init__(self, root: str, label_file: str,
                  cache_dir: str | None = None):
         if "://" in root and not root.startswith("file://"):
             raise NotImplementedError(
-                f"{root!r}: remote shard stores (data/remote.py) are not "
-                "ported yet (ROADMAP Queue A9, the rest of the feed); copy "
+                f"{root!r}: the gs:// and s3:// shard stores (data/remote.py) "
+                "are not ported yet (ROADMAP Queue A9: they need a network); copy "
                 "the shards to a local directory")
         root = root.removeprefix("file://")
         self.root = root

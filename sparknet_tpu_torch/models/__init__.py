@@ -2,13 +2,14 @@
 
 Each builder returns a ``NetParameter`` Message ready for ``Network``
 (ref: caffe/models/ + caffe/examples/), each ``*_solver()`` the
-``SolverConfig`` of its published solver.prototxt; ``Classifier`` is pycaffe's
-deploy-time classifier on a torch device; ``generate_chars`` samples from a
-trained char LM.
+``SolverConfig`` of its published solver.prototxt; ``Classifier`` and
+``Detector`` are pycaffe's deploy-time classifier and R-CNN window detector
+on a torch device; ``generate_chars`` samples from a trained char LM.
 """
 
 from sparknet_tpu_torch.models.classifier import Classifier  # noqa: F401
 from sparknet_tpu_torch.models.deploy import DeployNet  # noqa: F401
+from sparknet_tpu_torch.models.detector import Detector  # noqa: F401
 from sparknet_tpu_torch.models.generate import generate_chars  # noqa: F401
 from sparknet_tpu_torch.models.zoo import (  # noqa: F401
     GRAPH_SWEEP_FAMILIES,

@@ -5,8 +5,10 @@ named input blobs and their shapes; the caller feeds the tensors.  The port
 carries ``Input`` (deploy nets), ``MemoryData``, ``JavaData`` (the
 RDD-callback layer the zoo builders use through ``layers_dsl.RDDLayer``),
 ``Data`` (a DB-backed source whose geometry comes from its DB, the
-``--data db:`` path of the CLI) and ``DummyData``, the one source that
-feeds itself (``SELF_FEEDING``: its tops are made by the layer, never fed).
+``--data db:`` path of the CLI), ``ImageData`` and ``WindowData`` (list
+files, streamed on the host by ``data/listfile.py``) and ``DummyData``, the
+one source that feeds itself (``SELF_FEEDING``: its tops are made by the
+layer, never fed).
 Declared shapes are canonical Caffe blob order, (N, C, H, W) for images.
 """
 
@@ -76,6 +78,63 @@ class Data(InputLayer):
         except (OSError, ValueError):
             return None  # an unreadable or empty DB: shapes from the feeds
         return self.shapes_for_chw(chw)
+
+
+@register
+class ImageData(InputLayer):
+    """File-list image source (ref: image_data_layer.cpp), fed by the host
+    stream ``data.listfile.ImageDataSource``."""
+
+    TYPE = "ImageData"
+
+    def batch_size(self) -> int:
+        return self.lp.get_msg("image_data_param").get_int("batch_size", 0)
+
+    def blob_shapes(self):
+        """The crop_size, else new_height/new_width, else the size of the
+        first listed image decoded, as the reference takes it
+        (image_data_layer.cpp:65-77); None when none is known."""
+        p = self.lp.get_msg("image_data_param")
+        n = p.get_int("batch_size", 0)
+        c = 3 if p.get_bool("is_color", True) else 1
+        crop = self.lp.get_msg("transform_param").get_int("crop_size", 0)
+        h, w = (crop, crop) if crop else (p.get_int("new_height", 0),
+                                          p.get_int("new_width", 0))
+        if not (h and w):
+            import os
+
+            from PIL import Image
+
+            try:
+                with open(p.get_str("source", "")) as f:
+                    first = f.readline().split()[0]
+                with Image.open(os.path.join(p.get_str("root_folder", ""), first)) as img:
+                    w, h = img.size
+            except (OSError, IndexError):
+                return None  # no list or image on this host: shapes from the feeds
+        if not (n and h and w):
+            return None
+        return [layout.internal_shape((n, c, h, w)), (n,)]
+
+
+@register
+class WindowData(InputLayer):
+    """R-CNN window source (ref: window_data_layer.cpp), fed by the host
+    stream ``data.listfile.WindowDataSource``."""
+
+    TYPE = "WindowData"
+
+    def batch_size(self) -> int:
+        return self.lp.get_msg("window_data_param").get_int("batch_size", 0)
+
+    def blob_shapes(self):
+        """(batch, 3, crop, crop): WindowData always warps to
+        transform_param.crop_size (window_data_layer.cpp:171-177)."""
+        n = self.batch_size()
+        crop = self.lp.get_msg("transform_param").get_int("crop_size", 0)
+        if not (n and crop):
+            return None
+        return [layout.internal_shape((n, 3, crop, crop)), (n,)]
 
 
 @register

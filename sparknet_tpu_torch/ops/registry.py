@@ -64,9 +64,7 @@ _V1_ALIASES = {
 _NOT_YET_PORTED = {
     "HDF5Data": "Queue A9 (HDF5 waits for h5py on the card's machine)",
     "HDF5Output": "Queue A9 (HDF5 waits for h5py on the card's machine)",
-    "ImageData": "Queue A9 (listfile.py)",
-    "WindowData": "Queue A9 (listfile.py)",
-    "MoE": "Queue A12",
+    "MoE": "Queue A12 (ops/moe.py)",
 }
 
 

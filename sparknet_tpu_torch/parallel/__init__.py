@@ -8,7 +8,7 @@ worker, collect, average) runs as one process a worker over
 trainer (``ElasticTrainer``, ``FaultPlan``: workers lost, joined and parked
 between rounds), process-group setup, the worker sets of either trainer
 and the data-parallel batch rule.  Not yet: tensor, sequence, pipeline
-and expert parallelism (ROADMAP Queue A item 3).
+and expert parallelism (ROADMAP Queue A12).
 """
 
 from sparknet_tpu_torch.parallel.elastic import (  # noqa: F401

@@ -8,9 +8,11 @@ its worker set from Spark's executors (ref: CifarApp.scala:27-33); here it
 is the ranks of a process group.
 
 Nothing in a cluster tells a program its address, rank or world size: the
-caller passes them, or sets ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
-``WORLD_SIZE`` for ``env://``, or names a file for a ``FileStore`` (which
-needs no port, so tests and one-host runs cannot collide on one).
+caller passes them: a ``host:port`` where rank 0 serves a TCP store (the
+CLI's ``--coordinator``, the counterpart of ``jax.distributed``'s
+coordinator address), a file for a ``FileStore`` (which needs no port, so
+tests and one-host runs cannot collide on one), or ``MASTER_ADDR``/
+``MASTER_PORT``/``RANK``/``WORLD_SIZE`` for ``env://``.
 
 ``worker_group`` re-cuts the worker set of the elastic trainer
 (``parallel/elastic.py``), the counterpart of ``sized_data_mesh``.  Not
@@ -38,11 +40,14 @@ def initialize_distributed(
     rank: int | None = None,
     world_size: int | None = None,
     device: str | torch.device | None = None,
+    coordinator: str | None = None,
 ) -> None:
     """Join this process to the default process group.
 
+    ``coordinator``: ``host:port`` of a TCP store that rank 0 serves and
+    every rank dials (give ``rank`` and ``world_size`` too).
     ``store_path``: a file every rank names (a ``FileStore``; give ``rank``
-    and ``world_size`` too).  Without it the group forms through
+    and ``world_size`` too).  Without either the group forms through
     ``env://`` (``MASTER_ADDR``, ``MASTER_PORT`` and, unless given here,
     ``RANK`` and ``WORLD_SIZE``).  ``backend`` defaults to NCCL when the
     replicas live on CUDA (``device``, ``None`` meaning CUDA) and to gloo
@@ -50,7 +55,13 @@ def initialize_distributed(
     through gloo."""
     if store_path is not None and (rank is None or world_size is None):
         raise ValueError("a FileStore needs rank and world_size")
+    if coordinator is not None and (rank is None or world_size is None):
+        raise ValueError("a TCP store at a coordinator needs rank and world_size")
     backend = backend or default_backend(device)
+    if coordinator is not None:
+        dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                                rank=int(rank), world_size=int(world_size))
+        return
     if store_path is not None:
         store = dist.FileStore(str(store_path), int(world_size))
         dist.init_process_group(backend, store=store, rank=int(rank),

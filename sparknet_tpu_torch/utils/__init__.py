@@ -1,8 +1,10 @@
 """Aux subsystems: event logging and signal control.
 
 Counterpart of ``sparknet_tpu/utils/``, with ``timing`` (``Timer`` on CUDA
-events, ``time_layers``); ``log_parse``, ``draw``, ``plotting`` and
-``op_profile`` are ROADMAP Queue A9 and A13.
+events, ``time_layers``), ``log_parse`` (training logs to CSV tables),
+``draw`` (nets to Graphviz DOT) and ``plotting`` (log charts, matplotlib
+imported in the call); ``op_profile`` and ``profiling`` are ROADMAP Queue
+A13.
 """
 
 from sparknet_tpu_torch.utils.event_log import EventLogger  # noqa: F401

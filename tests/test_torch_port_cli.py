@@ -6,8 +6,8 @@ written from numpy seeds and a ``.caffemodel`` the JAX package exports.
 scores and ``extract_features`` arrays agree within atol 1e-5; ``train
 --data db: --weights`` on LeNet (no dropout) gives a first-iteration loss
 within rtol 1e-4 (the port's solver tests' tolerance); ``time`` lists the
-JAX table's layers and types; every JAX flag or subcommand the port does
-not carry exits naming its ROADMAP item.
+JAX table's layers and types; every JAX flag, subcommand, layer type or
+store the port does not carry exits naming its ROADMAP item.
 """
 
 import json
@@ -134,7 +134,8 @@ def test_data_layer_net_from_a_solver_file_matches_jax(files, tmp_path, capsys):
     """A solver prototxt whose net reads a ``Data`` layer (its geometry
     peeked from the DB, transform_param cropping 32 to 28 and subtracting
     a ``.binaryproto`` mean): ``test`` scores within atol 1e-5 of the JAX
-    CLI's; ``--data auto`` on it names its ROADMAP items."""
+    CLI's; ``--data auto`` on it streams data_param.source and scores as
+    ``--data db:`` does."""
     from sparknet_tpu_torch.data.createdb import create_db, db_mean
     from sparknet_tpu_torch.data.io_utils import save_mean_binaryproto
 
@@ -155,9 +156,11 @@ def test_data_layer_net_from_a_solver_file_matches_jax(files, tmp_path, capsys):
     assert sorted(port) == sorted(jax_) == ["accuracy", "loss"]
     for k in port:
         np.testing.assert_allclose(port[k], jax_[k], atol=1e-5, rtol=0)
-    with pytest.raises(SystemExit, match="ROADMAP Queue A9"):
-        cli.main(["test", "--device", "cpu", "--solver", str(solver), "--weights",
-                  str(files / "lenet.caffemodel")])
+    # without --data the net streams its own data_param.source, as --data db:
+    auto = json.loads(_run(cli.main, ["test", "--device", "cpu", "--solver", str(solver),
+                                      "--iterations", "2", "--weights",
+                                      str(files / "lenet.caffemodel")], capsys))
+    assert auto == port
 
 
 def test_train_from_db_with_weights_matches_jax(files, tmp_path, capsys, monkeypatch):
@@ -264,36 +267,54 @@ def test_time_layers_backward_none_only_without_a_gradient(monkeypatch):
         time_layers(net, net.init(), feeds, iterations=1)
 
 
+HDF5_NET = ('name: "h" layer { name: "d" type: "HDF5Data" top: "data" top: "label" '
+            'hdf5_data_param { source: "h5.txt" batch_size: 2 } } '
+            'layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip" '
+            "inner_product_param { num_output: 2 } }")
+MOE_NET = ('name: "m" layer { name: "d" type: "Input" top: "data" '
+           "input_param { shape { dim: 2 dim: 4 dim: 8 } } } "
+           'layer { name: "moe" type: "MoE" bottom: "data" top: "y" }')
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--tau", "2"], "Queue A9"),
-    (["train", "--distributed"], "Queue A9"),
-    (["train", "--elastic-alpha", "0.9"], "Queue A9"),
-    (["train", "--coordinator", "h:1"], "Queue A9"),
-    (["train", "--num-processes", "2"], "Queue A9"),
-    (["train", "--prefetch", "2"], "Queue A9"),
-    (["train", "--feed", "process"], "Queue A9"),
-    (["train", "--augment", "device"], "Queue A9"),
+    (["train", "--solver", "{hdf5}", "--data", "proto"], "Queue A9"),
+    (["pull_shards", "--store", "gs://bucket/shards", "--start", "0", "--stop", "1",
+      "--out", "o"], "Queue A9"),
+    (["pull_shards", "--store", "s3://bucket/shards", "--start", "0", "--stop", "1",
+      "--out", "o"], "Queue A9"),
+    (["train", "--solver", "{hdf5}"], "Queue A9"),
+    (["test", "--solver", "{hdf5}", "--weights", "w.caffemodel"], "Queue A9"),
+    (["train", "--weights", "w.h5"], "Queue A4"),
+    (["classify", "--model", "m.prototxt", "--weights", "w.h5", "x.jpg"], "Queue A4"),
+    (["train", "--solver", "{moe}"], "Queue A12"),
     (["train", "--scan", "4"], "Queue A5"),
     (["train", "--profile", "d"], "Queue A13"),
     (["time", "--hlo"], "Queue A14"),
     (["time", "--trace"], "Queue A13"),
     (["test", "--layout", "nhwc"], "Queue A6"),
     (["--obs", "x.jsonl", "test"], "Queue A13"),
-    (["train", "--data", "proto"], "Queue A9"),
-    (["convert_imageset", "--root", "r"], "Queue A9"),
-    (["classify", "x.jpg"], "Queue A9"),
-    (["draw"], "Queue A9"),
-    (["parse_log", "l"], "Queue A9"),
+    (["train", "--scan", "2"], "Queue A5"),
+    (["time", "--trace-out", "t.json"], "Queue A13"),
+    (["train", "--layout", "nhwc"], "Queue A6"),
+    (["--obs", "x.jsonl", "train"], "Queue A13"),
+    (["extract_features", "--solver", "{hdf5}", "--blob", "ip", "--out", "f.npy"], "Queue A9"),
     (["bench"], "Queue A6"),
     (["serve"], "Queue A7"),
     (["loop"], "Queue A13"),
     (["pods"], "Queue A9"),
 ])
-def test_unported_flags_and_commands_name_their_item(argv, item):
-    if argv[0] in ("train", "test", "time") and "proto" not in argv:
-        argv = argv + ["--device", "cpu", "--solver", "zoo:lenet", "--batch", "2"]
-    elif "proto" in argv:
-        argv = argv + ["--device", "cpu", "--solver", "zoo:lenet", "--batch", "2"]
+def test_unported_flags_and_commands_name_their_item(argv, item, tmp_path):
+    nets = {}
+    for key, text in (("hdf5", HDF5_NET), ("moe", MOE_NET)):
+        (tmp_path / f"{key}.prototxt").write_text(text)
+        (tmp_path / f"{key}_solver.prototxt").write_text(
+            f'net: "{tmp_path / key}.prototxt"\nbase_lr: 0.01\nlr_policy: "fixed"\n')
+        nets[key] = str(tmp_path / f"{key}_solver.prototxt")
+    argv = [a.format(**nets) for a in argv]
+    if argv[0] in ("train", "test", "time", "extract_features", "classify"):
+        argv = argv + ["--device", "cpu"]
+        if "--solver" not in argv and argv[0] != "classify":
+            argv += ["--solver", "zoo:lenet", "--batch", "2"]
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         cli.main(argv)
 

@@ -35,12 +35,14 @@ feed = sorted(n for n in names if n.startswith(("sparknet_tpu_torch.data.",
                                                 "sparknet_tpu_torch.utils."))
               and n != "sparknet_tpu_torch.data.text")
 zoo = sorted(n for n in names if n in ("sparknet_tpu_torch.models.deploy",
+                                        "sparknet_tpu_torch.models.detector",
                                         "sparknet_tpu_torch.models.fold_bn",
                                         "sparknet_tpu_torch.models.zoo",
                                         "sparknet_tpu_torch.ops.blocks"))
 files = sorted(n for n in names if n in ("sparknet_tpu_torch.cli",
                                           "sparknet_tpu_torch.native",
-                                          "sparknet_tpu_torch.proto.binary"))
+                                          "sparknet_tpu_torch.proto.binary",
+                                          "sparknet_tpu_torch.worker_store"))
 layers = sorted(n for n in names if n in ("sparknet_tpu_torch.compiler.graph",
                                           "sparknet_tpu_torch.interop",
                                           "sparknet_tpu_torch.ops.data_layers",
@@ -90,14 +92,16 @@ def test_port_imports_no_jax():
         [f"sparknet_tpu_torch.apps.{m}" for m in
          ("cifar_app", "db_apps", "featurizer", "imagenet_app")]
         + [f"sparknet_tpu_torch.data.{m}" for m in
-           ("archive", "cifar", "createdb", "device_transform", "io_utils", "leveldb_io",
-            "lmdb_io", "minibatch", "pipeline", "prefetch", "records", "sampler",
-            "transform")]
-        + [f"sparknet_tpu_torch.utils.{m}" for m in ("event_log", "signals", "timing")])), \
+           ("archive", "cifar", "createdb", "device_transform", "digits", "io_utils",
+            "leveldb_io", "listfile", "lmdb_io", "minibatch", "pipeline", "prefetch",
+            "records", "remote", "resize_images", "sampler", "transform")]
+        + [f"sparknet_tpu_torch.utils.{m}" for m in
+           ("draw", "event_log", "log_parse", "plotting", "signals", "timing")])), \
         out.stdout
     # the weights and record files' codec, the native data plane, the CLI
-    assert files == str([f"sparknet_tpu_torch.{m}" for m in ("cli", "native", "proto.binary")]), \
-        out.stdout
+    # and the worker store
+    assert files == str([f"sparknet_tpu_torch.{m}" for m in
+                         ("cli", "native", "proto.binary", "worker_store")]), out.stdout
     # the layer library, the Python layer, DummyData, shared params and the
     # weights bridge that carries their placeholders
     assert layers == str(["sparknet_tpu_torch.compiler.graph", "sparknet_tpu_torch.interop"] + [
@@ -106,8 +110,10 @@ def test_port_imports_no_jax():
     # reduced precision: the Config's dtypes and policies, the int8 path
     assert precision == str(["sparknet_tpu_torch.common", "sparknet_tpu_torch.quant"]), \
         out.stdout
-    # the ImageNet families: BatchNorm, Scale and Bias, the zoo, the fold
-    assert zoo == str([f"sparknet_tpu_torch.models.{m}" for m in ("deploy", "fold_bn", "zoo")]
+    # the ImageNet families: BatchNorm, Scale and Bias, the zoo, the fold,
+    # the R-CNN detector
+    assert zoo == str([f"sparknet_tpu_torch.models.{m}" for m in
+                       ("deploy", "detector", "fold_bn", "zoo")]
                       + ["sparknet_tpu_torch.ops.blocks"]), out.stdout
 
 

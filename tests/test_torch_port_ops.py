@@ -267,7 +267,7 @@ def test_fillers(ftype, check):
     assert tuple(t.shape) == (32, 3, 4, 4) and check(t)
 
 
-@pytest.mark.parametrize("type_,queue", [("ImageData", "A9"), ("WindowData", "A9"),
+@pytest.mark.parametrize("type_,queue", [("HDF5_DATA", "A9"), ("HDF5_OUTPUT", "A9"),
                                          ("HDF5Data", "A9"), ("HDF5Output", "A9"),
                                          ("MoE", "A12")])
 def test_unported_type_names_its_queue(type_, queue):
