@@ -350,6 +350,27 @@ Phases, in order (any failure exits non-zero):
     top-5 equal to ``Classifier.predict``; B1 and B1' against their plain
     versions at the phase's shapes and B2 on the flickr arena bit for bit;
     exact launches on every path.
+29. seq_parallel: sequence parallelism, MoE and the GPipe schedule.
+    gloo's answer on CUDA tensors (``all_to_all_single`` with its values;
+    ``batch_isend_irecv`` in a 2-rank probe, which aborts: the ring's hops
+    go through pinned host buffers, ``collectives.GLOO_CUDA_HOST_STAGED``);
+    then four gloo ranks on cuda:0 (spawned, FileStore) train the
+    full-width char LM (b32 x 128, Adam, fused update, f32) through
+    ``ParallelTrainer`` over ``auto_mesh(seq_parallel=4)``, 3 checked and 5
+    timed steps under ring attention and under Ulysses: each checked step
+    from the pool's params and history against a lone ``Solver`` step
+    (loss rtol 1e-4; params rtol 1e-4, atol 1e-5 x max + 1e-2 x base_lr),
+    exact launches (ring: rank i 2(i + 1) B3 and 2(i + 1) B3' a step;
+    Ulysses 2 and 2; one B2 a rank), the host-staged hops counted; ms a
+    step and tokens/s beside the lone step; the all-to-all and a ring hop
+    timed alone; the MoE layer with one expert a rank over a model axis of
+    4 at [4096, 64] tokens, E 4, H 256 against the dense layer, and
+    ``expert_parallel_moe`` at capacity E and 1.0 (kept rows) against it
+    (``SP_MOE_TOL`` of max|dense|); ``pipeline_blocks`` S 4, D 64 against
+    ``sequential_blocks``; B3 (with lse) and B3' at the ring's blocks
+    [32,4,32,16] (causal and not) and Ulysses' [32,1,128,16] against their
+    plain versions (rtol 1e-5, atol 1e-6; backward atol 1e-6 x max|ref|),
+    timed by CUDA graph beside the plain versions, SDPA and the bound.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -6582,11 +6603,432 @@ def phase_listfile(card: str) -> dict:
     return dict(lrn=total[0], lrn_backward=total[1], fused_update=total[2])
 
 
+# ---------------------------------------------------------------------------
+# Sequence parallelism, MoE and the GPipe schedule over four gloo ranks
+# ---------------------------------------------------------------------------
+
+SP_POOL = 4
+SP_STEPS = 3  # checked steps a run, each against a lone Solver step from its state
+SP_TIMED = 5  # timed steps a run, after the checked ones
+SP_IMPLS = ("ring", "ulysses")
+SP_MOE = (4096, 64, 4, 256)  # tokens, D, experts, hidden
+SP_PIPE = (4, 64, 8, 32)  # stages, D, microbatches, rows a microbatch
+SP_MOE_TOL = 1e-5  # of max|dense|: the sharded layer and the dispatch against the dense
+SP_BLOCKS = (  # (label, shape, causal): B3/B3' at the shapes the two impls give them
+    ("ring block", (32, 4, 32, 16), False),
+    ("ring diagonal block", (32, 4, 32, 16), True),
+    ("Ulysses head group", (32, 1, 128, 16), True),
+)
+
+
+def sp_batches() -> list:
+    """The char LM's batches of this checkout's docs: the checked steps'
+    and the timed steps'."""
+    from sparknet_tpu_torch.data import char_lm_batches
+
+    text, vocab = charlm_text()
+    feed = char_lm_batches(text, vocab, CHARLM["slots"], CHARLM["seq_len"], seed=SEED + 19)
+    return [next(feed) for _ in range(SP_STEPS + SP_TIMED)]
+
+
+def sp_solver():
+    """The full-width char LM's Solver on the card (charlm_solver: Adam,
+    fused update, f32), weights from SEED."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    geo = {k: v for k, v in CHARLM.items() if k != "slots"}
+    cfg = dataclasses.replace(models.charlm_solver(), random_seed=SEED, display=0)
+    return Solver(cfg, models.charlm(batch=CHARLM["slots"], **geo))
+
+
+def sp_arenas(solver) -> list:
+    return [a.detach().clone().cpu() for a in (solver._param_arena, *solver._slot_arenas)]
+
+
+def sp_host_ms(fn, reps: int = 5) -> float:
+    """Median host ms of ``fn`` over ``reps`` synchronised calls after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def sp_p2p_probe(rank: int, work: str) -> None:
+    """gloo's answer for point-to-point on CUDA tensors: one hop between
+    two ranks on cuda:0 (a rank that aborts is the answer)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{work}/p2p_store", 2),
+                            rank=rank, world_size=2)
+    x = torch.full((4,), float(rank), device="cuda")
+    got = torch.empty_like(x)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                   dist.P2POp(dist.irecv, got, 1 - rank)])
+    for r in reqs:
+        r.wait()
+    torch.cuda.synchronize()
+    with open(f"{work}/p2p{rank}.json", "w") as f:
+        json.dump(bool(torch.equal(got, torch.full_like(x, float(1 - rank)))), f)
+    dist.destroy_process_group()
+
+
+def sp_worker(rank: int, work: str) -> None:
+    """One rank of the pool: gloo, every rank on cuda:0, joined through a
+    FileStore in ``work``.  gloo's all-to-all and the host-staged ring hop
+    on CUDA tensors with their values; the full-width char LM trained
+    SP_STEPS checked and SP_TIMED timed steps under ring and under Ulysses
+    over a seq axis of 4 (rank 0 saves the arenas before and after each
+    checked step for the parent's oracle); the collectives timed alone;
+    the MoE layer over a model axis of 4, the expert dispatch and the
+    pipeline against their oracles.  Writes its results into ``work``.
+    Spawned by ``phase_seq_parallel`` (start method spawn)."""
+    import torch.distributed as dist
+
+    from sparknet_tpu_torch.common import f32_precision, set_config
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.ops.moe import moe_dense, moe_model_parallel
+    from sparknet_tpu_torch.parallel import (
+        ParallelTrainer,
+        ShardingRules,
+        auto_mesh,
+        collectives,
+        expert_parallel_moe,
+        initialize_distributed,
+        pipeline_blocks,
+        process_mesh,
+        sequential_blocks,
+        stack_stage_params,
+    )
+
+    torch.cuda.set_device(0)
+    set_config(fused_update=True, storage_dtype="f32")
+    initialize_distributed(backend="gloo", store_path=f"{work}/store", rank=rank,
+                           world_size=SP_POOL)
+    res: dict = {}
+    try:
+        mesh = auto_mesh(seq_parallel=SP_POOL, device="cuda")
+        seq = mesh.comm("seq")
+        res["host_staged"] = sorted(seq.host_staged)
+        n = SP_POOL
+        x = (torch.arange(4 * n, device="cuda", dtype=torch.float32) + 100 * rank).view(n, 4)
+        want = torch.stack([torch.arange(4, device="cuda") + 4 * rank + 100 * j
+                            for j in range(n)]).float()
+        res["a2a_ok"] = bool(torch.equal(collectives.all_to_all(x, 0, 0, seq), want.view(-1, 4)))
+        (hop,) = collectives.ring_shift([x], seq)
+        res["hop_ok"] = bool(torch.equal(hop, x - 100 * rank + 100 * ((rank - 1) % n)))
+
+        batches = sp_batches()
+        for impl in SP_IMPLS:
+            solver = sp_solver()
+            tr = ParallelTrainer(solver, mesh=mesh, rules=ShardingRules(attention_impl=impl))
+            rows = []
+            for step in range(SP_STEPS):
+                if rank == 0:
+                    torch.save(sp_arenas(solver), f"{work}/{impl}{step}_pre.pt")
+                dist.barrier()
+                kernels.reset_launch_counts()
+                collectives.reset_staged_counts()
+                loss = tr.train_round(lambda it: batches[it])
+                rows.append(dict(loss=loss, counts=[
+                    kernels.FLASH_LAUNCHES, kernels.FLASH_BACKWARD_LAUNCHES,
+                    kernels.FUSED_UPDATE_LAUNCHES], staged=[
+                    collectives.STAGED_CALLS, collectives.STAGED_BYTES]))
+                if rank == 0:
+                    torch.save(sp_arenas(solver), f"{work}/{impl}{step}_post.pt")
+            dist.barrier()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(SP_TIMED):
+                tr.train_round(lambda it: batches[it])
+            torch.cuda.synchronize()
+            res[impl] = dict(rows=rows, ms=1e3 * (time.perf_counter() - t0) / SP_TIMED,
+                             timed=[kernels.FLASH_LAUNCHES, kernels.FLASH_BACKWARD_LAUNCHES,
+                                    kernels.FUSED_UPDATE_LAUNCHES])
+            tr.close()
+            del tr, solver
+        # the collectives alone: Ulysses' all-to-all of q, k, v and one ring
+        # hop of a K/V block pair (host-staged)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 29 + rank)
+        qkv = torch.randn((3, 32, 4, 32, 16), generator=gen, device="cuda")
+        kv = [torch.randn((32, 4, 32, 16), generator=gen, device="cuda") for _ in range(2)]
+
+        def aligned(fn):
+            def run():
+                dist.barrier()
+                fn()
+            return run
+
+        res["a2a_ms"] = sp_host_ms(aligned(lambda: collectives.all_to_all(qkv, 2, 3, seq)))
+        res["hop_ms"] = sp_host_ms(aligned(lambda: collectives.ring_shift(kv, seq)))
+        res["barrier_ms"] = sp_host_ms(aligned(lambda: None))
+
+        # MoE over a model axis of 4, the expert dispatch, the pipeline
+        tokens, d, e, h = SP_MOE
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 31)  # the same on every rank
+        params = [torch.randn(s, generator=gen, device="cuda") * c for s, c in (
+            ((e, d), 0.5), ((e, h, d), 0.1), ((e, h), 0.1), ((e, d, h), 0.1), ((e, d), 0.1))]
+        xm = torch.randn((tokens, d), generator=gen, device="cuda")
+        model = auto_mesh(model_parallel=SP_POOL, device="cuda").comm("model")
+        emesh = process_mesh({"expert": SP_POOL}, device="cuda")
+        smesh = process_mesh({"stage": SP_POOL}, device="cuda")
+        with f32_precision():
+            dense = moe_dense(params, xm)
+            mine = [p[model.rank:model.rank + 1] for p in params]
+            y = moe_model_parallel(mine, xm, model)
+            full = expert_parallel_moe(emesh, params, xm, capacity_factor=float(e))
+            tight = expert_parallel_moe(emesh, params, xm, capacity_factor=1.0)
+            kept = ~torch.all(tight == 0, dim=1)
+            res["moe"] = dict(
+                scale=float(dense.abs().max()), layer=float((y - dense).abs().max()),
+                dispatch=float((full - dense).abs().max()),
+                tight=float((tight[kept] - dense[kept]).abs().max()),
+                dropped=int((~kept).sum()),
+                layer_ms=sp_host_ms(aligned(lambda: moe_model_parallel(mine, xm, model))),
+                dense_ms=sp_host_ms(lambda: moe_dense(params, xm)),
+                dispatch_ms=sp_host_ms(aligned(lambda: expert_parallel_moe(
+                    emesh, params, xm, capacity_factor=1.0))))
+            stages, pd, micro, rows_ = SP_PIPE
+            stacked = stack_stage_params([
+                {"w": torch.randn((pd, pd), generator=gen, device="cuda") / pd ** 0.5,
+                 "b": torch.randn((pd,), generator=gen, device="cuda") * 0.1}
+                for _ in range(stages)])
+            xp = torch.randn((micro, rows_, pd), generator=gen, device="cuda")
+
+            def block(p, a):
+                return torch.tanh(a @ p["w"] + p["b"])
+
+            pipe = pipeline_blocks(smesh, block, stacked, xp)
+            ref = sequential_blocks(block, stacked, xp)
+            res["pipe"] = dict(err=float((pipe - ref).abs().max()),
+                               ms=sp_host_ms(aligned(lambda: pipeline_blocks(
+                                   smesh, block, stacked, xp))))
+        with open(f"{work}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_blob_close(got, want, layout, base_lr: float) -> tuple[bool, float]:
+    """The char LM's one-step Adam gate (``charlm_compare``'s), blob by blob
+    of two param arenas: rtol 1e-4, atol 1e-5 x the blob's max|want| + 1e-2
+    x base_lr."""
+    ok, worst = True, 0.0
+    for ent in layout.entries:
+        a = got[ent.offset:ent.offset + ent.size]
+        b = want[ent.offset:ent.offset + ent.size]
+        atol = 1e-5 * float(b.abs().max()) + 1e-2 * base_lr
+        ok = ok and bool(torch.allclose(a, b, rtol=1e-4, atol=atol))
+        worst = max(worst, float((a - b).abs().max()))
+    return ok, worst
+
+
+def sp_kernel_blocks(card: str) -> dict:
+    """B3 (with lse) and B3' at the blocks the ring and Ulysses give them,
+    against their plain versions at the attention gates, timed by CUDA
+    graph beside the plain versions, SDPA and the bound."""
+    from sparknet_tpu_torch.common import f32_precision
+    from sparknet_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 37)
+    out = {}
+    with f32_precision():
+        for label, shape, causal in SP_BLOCKS:
+            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+            o, lse = kernels._flash_attention_cuda(q, k, v, causal, with_lse=True)
+            o_ref, lse_ref = kernels.flash_attention_forward_lse_torch(q, k, v, causal)
+            got = kernels._flash_attention_backward_cuda(q, k, v, o, lse, g, causal)
+            ref = kernels.flash_attention_backward_torch(q, k, v, o, lse, g, causal)
+            torch.cuda.synchronize()
+            o_ok, o_err = attention_within(o, o_ref, 1e-6)
+            lse_ok, lse_err = attention_within(lse, lse_ref, 1e-5)
+            oks, errs, _ = zip(*(grads_within(a, r, 1e-5, 1e-6) for a, r in zip(got, ref)))
+            print(f"seq_parallel: B3 at the {label} {list(shape)} causal {int(causal)}: o max "
+                  f"abs err {o_err:.3e} (rtol 1e-5, atol 1e-6) {'ok' if o_ok else 'FAIL'}, lse "
+                  f"{lse_err:.3e} (1e-5) {'ok' if lse_ok else 'FAIL'}; B3' dq {errs[0]:.3e} "
+                  f"dk {errs[1]:.3e} dv {errs[2]:.3e} (rtol 1e-5, atol 1e-6 x max|ref|) "
+                  f"{'ok' if all(oks) else 'FAIL'}")
+            check(o_ok and lse_ok and all(oks), f"seq_parallel: the kernels at the {label}")
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+            def sdpa_forward():
+                return F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+            def sdpa_both():
+                return torch.autograd.grad(sdpa_forward(), leaves, g)
+
+            t = dict(
+                fwd=graph_ms(lambda: kernels._flash_attention_cuda(q, k, v, causal, True)),
+                fwd_plain=graph_ms(lambda: kernels.flash_attention_forward_lse_torch(
+                    q, k, v, causal)),
+                fwd_lib=graph_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal)),
+                bwd=graph_ms(lambda: kernels._flash_attention_backward_cuda(
+                    q, k, v, o, lse, g, causal)),
+                bwd_plain=graph_ms(lambda: kernels.flash_attention_backward_torch(
+                    q, k, v, o, lse, g, causal)))
+            try:
+                t["bwd_lib"] = graph_ms(sdpa_both) - graph_ms(sdpa_forward)
+            except RuntimeError as err:  # a backward that will not capture
+                print(f"seq_parallel {label}: SDPA's backward not timed by CUDA graph "
+                      f"({str(err)[:120]}); events over back-to-back calls instead")
+                torch.cuda.synchronize()
+                t["bwd_lib"] = time_ms(sdpa_both) - time_ms(sdpa_forward)
+            fb, fby = flash_bound_ms(shape, causal, card)
+            bb, bby = flash_backward_bound_ms(shape, causal, card)
+            print(f"time seq_parallel {label} {list(shape)} causal {int(causal)} (CUDA graph): "
+                  f"B3 with lse {t['fwd']:.4f} ms ({100 * fb / t['fwd']:.1f}% of bound "
+                  f"{fb:.5f} ms, {fby}), plain {t['fwd_plain']:.4f} ms, "
+                  f"F.scaled_dot_product_attention {t['fwd_lib']:.4f} ms; B3' {t['bwd']:.4f} "
+                  f"ms ({100 * bb / t['bwd']:.1f}% of bound {bb:.5f} ms, {bby}), plain (float64) "
+                  f"{t['bwd_plain']:.4f} ms, SDPA's autograd backward {t['bwd_lib']:.4f} ms "
+                  f"[{card}]")
+            out[label] = dict(t, fwd_bound=fb, bwd_bound=bb,
+                              max_abs_err=max(o_err, *errs))
+            del leaves
+    return out
+
+
+def phase_seq_parallel(card: str) -> dict:
+    """Sequence parallelism, MoE and the GPipe schedule: gloo's answers on
+    CUDA tensors, then a pool of four gloo ranks on cuda:0 trains the
+    full-width char LM over a seq axis of 4 under ring and Ulysses
+    attention, each checked step held against a lone Solver step from the
+    same state, with exact launches; the MoE layer, the expert dispatch and
+    the pipeline against their oracles; B3 and B3' at the blocks the two
+    impls give them."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.parallel.collectives import GLOO_CUDA_HOST_STAGED
+
+    t_phase = time.perf_counter()
+    counts = [0, 0, 0]
+    set_config(fused_update=True, storage_dtype="f32")
+    try:
+        with tempfile.TemporaryDirectory(prefix="sparknet_sp_") as work:
+            probe = mp.start_processes(sp_p2p_probe, args=(work,), nprocs=2, join=False,
+                                       start_method="spawn")
+            pool = mp.start_processes(sp_worker, args=(work,), nprocs=SP_POOL, join=False,
+                                      start_method="spawn")
+            try:
+                while not probe.join():
+                    pass
+                p2p = "takes them: both ranks received the other's values " + str(
+                    [json.load(open(f"{work}/p2p{r}.json")) for r in range(2)])
+            except ProcessException as err:  # a rank raised, or aborted
+                p2p = f"refuses them: {str(err).strip().splitlines()[-1]}"
+            while not pool.join():
+                pass
+            ranks = []
+            for r in range(SP_POOL):
+                with open(f"{work}/rank{r}.json") as f:
+                    ranks.append(json.load(f))
+            r0 = ranks[0]
+            print(f"seq_parallel: gloo and CUDA tensors (torch {torch.__version__}): "
+                  f"all_to_all_single {'exact' if all(x['a2a_ok'] for x in ranks) else 'WRONG'} "
+                  f"on every rank; batch_isend_irecv {p2p}; the port stages "
+                  f"{sorted(GLOO_CUDA_HOST_STAGED)} through pinned host buffers, the ring's "
+                  f"hop {'exact' if all(x['hop_ok'] for x in ranks) else 'WRONG'}")
+            check(all(x["a2a_ok"] and x["hop_ok"] for x in ranks),
+                  "seq_parallel: a collective on CUDA tensors gave wrong values")
+            check(r0["host_staged"] == sorted(GLOO_CUDA_HOST_STAGED),
+                  f"seq_parallel: the seq group stages {r0['host_staged']}")
+
+            batches = sp_batches()
+            solver = sp_solver()
+            base_lr = solver.config.base_lr
+            tokens = CHARLM["slots"] * CHARLM["seq_len"]
+            for impl in SP_IMPLS:
+                for step in range(SP_STEPS):
+                    pre = torch.load(f"{work}/{impl}{step}_pre.pt")
+                    post = torch.load(f"{work}/{impl}{step}_post.pt")
+                    with torch.no_grad():
+                        for a, b in zip((solver._param_arena, *solver._slot_arenas), pre):
+                            a.copy_(b)
+                    solver.iter = step
+                    want = float(solver.train_iteration(batches[step]))
+                    got = r0[impl]["rows"][step]["loss"]
+                    loss_ok = abs(got - want) <= 1e-4 * abs(want)
+                    ok, worst = sp_blob_close(post[0].cuda(), solver._param_arena,
+                                              solver.layout, base_lr)
+                    rows = [x[impl]["rows"][step] for x in ranks]
+                    per_rank = [row["counts"] for row in rows]
+                    expect = [[2 * (r + 1), 2 * (r + 1), 1] if impl == "ring" else [2, 2, 1]
+                              for r in range(SP_POOL)]
+                    print(f"seq_parallel: {impl} step {step} over 4 ranks against a lone Solver "
+                          f"step from the same params and history: loss {got:.6f} / {want:.6f} "
+                          f"(rtol 1e-4) {'ok' if loss_ok else 'FAIL'}; params max abs diff "
+                          f"{worst:.3e} (rtol 1e-4, atol 1e-5 x max + 1e-2 x base_lr) "
+                          f"{'ok' if ok else 'FAIL'}; launches (B3, B3', B2) by rank "
+                          f"{per_rank}; host-staged hops by rank "
+                          f"{[row['staged'][0] for row in rows]} ({rows[0]['staged'][1]} bytes "
+                          f"on rank 0) [{card}]")
+                    check(loss_ok and ok, f"seq_parallel: {impl} step {step} differs from the "
+                                          "lone Solver step")
+                    check(per_rank == expect, f"seq_parallel: {impl} launches {per_rank}, "
+                                              f"want {expect}")
+                    counts = [c + sum(rc[i] for rc in per_rank) for i, c in enumerate(counts)]
+                timed = [x[impl]["timed"] for x in ranks]
+                counts = [c + sum(t[i] for t in timed) for i, c in enumerate(counts)]
+                ms = max(x[impl]["ms"] for x in ranks)
+                print(f"seq_parallel: {impl}, {SP_TIMED} timed steps: {ms:.3f} ms/step "
+                      f"({tokens / ms * 1e3:.1f} tokens/s; 4 gloo ranks share one card: this "
+                      f"measures gloo and the host, not scaling), launches by rank {timed} "
+                      f"[{card}]")
+            kernels.reset_launch_counts()
+            one_ms = sp_host_ms(lambda: solver.train_iteration(batches[0]))
+            kernels.reset_launch_counts()
+            print(f"seq_parallel: a lone Solver step of the same net and batch: "
+                  f"{one_ms:.3f} ms/step ({tokens / one_ms * 1e3:.1f} tokens/s) [{card}]")
+            print(f"seq_parallel: collectives alone (host clock, median of 5, after a "
+                  f"barrier of {r0['barrier_ms']:.3f} ms): Ulysses' all-to-all of q, k, v "
+                  f"[3,32,4,32,16] {r0['a2a_ms']:.3f} ms, one ring hop of a K/V block pair "
+                  f"2 x [32,4,32,16] (host-staged) {r0['hop_ms']:.3f} ms [{card}]")
+            m = r0["moe"]
+            moe_ok = max(m["layer"], m["dispatch"], m["tight"]) <= SP_MOE_TOL * m["scale"]
+            print(f"seq_parallel: MoE [{SP_MOE[0]}, {SP_MOE[1]}] tokens, E {SP_MOE[2]}, H "
+                  f"{SP_MOE[3]}: the layer with one expert a rank over a model axis of 4 "
+                  f"against the dense layer, max abs diff {m['layer']:.3e}; "
+                  f"expert_parallel_moe at capacity E {m['dispatch']:.3e}, at 1.0 "
+                  f"{m['tight']:.3e} on the kept rows ({m['dropped']} dropped) (gate "
+                  f"{SP_MOE_TOL:g} x max|dense| = {SP_MOE_TOL * m['scale']:.3e}) "
+                  f"{'ok' if moe_ok else 'FAIL'}; ms: the sharded layer {m['layer_ms']:.3f}, "
+                  f"dense {m['dense_ms']:.3f}, dispatch {m['dispatch_ms']:.3f} [{card}]")
+            check(moe_ok, "seq_parallel: MoE differs from the dense layer")
+            pe = max(x["pipe"]["err"] for x in ranks)
+            print(f"seq_parallel: pipeline_blocks S {SP_PIPE[0]}, D {SP_PIPE[1]}, M "
+                  f"{SP_PIPE[2]} x [{SP_PIPE[3]}, {SP_PIPE[1]}] against sequential_blocks on "
+                  f"every rank: max abs diff {pe:.3e} (1e-5) {'ok' if pe <= 1e-5 else 'FAIL'}, "
+                  f"{r0['pipe']['ms']:.3f} ms [{card}]")
+            check(pe <= 1e-5, "seq_parallel: the pipeline differs from the sequential blocks")
+            del solver
+        blocks = sp_kernel_blocks(card)
+    finally:
+        set_config(fused_update=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"seq_parallel: phase done in {time.perf_counter() - t_phase:.1f} s")
+    return dict(flash=counts[0], flash_backward=counts[1], fused_update=counts[2],
+                blocks=blocks)
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
           "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
           "charlm_train", "engine", "replica", "zoo", "db_apps", "layers", "precision",
-          "listfile")
+          "listfile", "seq_parallel")
 
 
 def main(argv=None) -> int:
@@ -6727,6 +7169,12 @@ def main(argv=None) -> int:
         launches["lrn_backward"] += got["lrn_backward"]
         launches["fused_update"] += got["fused_update"]
         lap("listfile")
+    if "seq_parallel" in phases:
+        got = phase_seq_parallel(card)
+        launches["flash_attention"] += got["flash"]
+        launches["flash_attention_backward"] += got["flash_backward"]
+        launches["fused_update"] += got["fused_update"]
+        lap("seq_parallel")
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0
@@ -6767,7 +7215,8 @@ def main(argv=None) -> int:
         # adds none; the ImageNet families' training steps; the DB apps;
         # the MNIST families' steps; the precision phase's bf16 AlexNet and
         # char LM steps and int8 CaffeNet requests; the listfile phase's CLI
-        # training, Detector and classify), each counted from 0
+        # training, Detector and classify; the seq_parallel phase's char LM
+        # steps on its four ranks), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

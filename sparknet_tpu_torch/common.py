@@ -68,6 +68,9 @@ class Config:
     of the fused arenas (the kernel computes in float32 either way).  Only
     read with ``fused_update`` on; snapshots stay blob-wise in the net's
     param dtype.  ``SPARKNET_STORAGE_DTYPE`` seeds it.
+
+    ``data_axis``, ``model_axis``, ``seq_axis``: the names of the rank
+    grid's axes (``parallel/mesh.py``), the JAX package's mesh axis names.
     """
 
     seed: int = 1  # ref: common.cpp set_random_seed
@@ -77,6 +80,9 @@ class Config:
     storage_dtype: str = os.environ.get("SPARKNET_STORAGE_DTYPE", "f32").lower()
     remat: str = os.environ.get("SPARKNET_REMAT", "").lower()
     activation_dtype: str = os.environ.get("SPARKNET_ACT_DTYPE", "").lower()
+    data_axis: str = "data"
+    model_axis: str = "model"
+    seq_axis: str = "seq"
 
 
 # Canonical Config.activation_dtype policies and the spellings that

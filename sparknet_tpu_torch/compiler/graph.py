@@ -32,7 +32,7 @@ from sparknet_tpu_torch.common import (
     get_config,
     resolve_device,
 )
-from sparknet_tpu_torch.ops import create_layer
+from sparknet_tpu_torch.ops import attention, create_layer
 from sparknet_tpu_torch.ops.base import Layer, ParamSpec
 from sparknet_tpu_torch.ops.data_layers import InputLayer
 from sparknet_tpu_torch.proto.text_format import Message
@@ -84,6 +84,40 @@ def _saved_as_stored(stored: list, ins: list):
 
     with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
         yield
+
+
+# Layers that run on sequence blocks as they would on the whole sequence,
+# position by position (``Network.apply`` under sequence parallelism).
+_PER_POSITION = frozenset({
+    "Embed", "MultiHeadAttention", "Eltwise", "MoE", "Split", "Dropout", "ReLU",
+    "Sigmoid", "TanH", "AbsVal", "BNLL", "Power", "Exp", "Log", "Threshold", "ELU"})
+
+
+def _runs_on_blocks(layer: Layer, ndim: int) -> bool:
+    """Whether ``layer``, its inputs split along axis 1 (the sequence) and
+    of rank ``ndim``, computes on each block what it computes on those rows
+    of the whole sequence: the per-position types, and InnerProduct,
+    SoftmaxWithLoss and Accuracy over an axis past the sequence (the loss
+    and the accuracy when their normalizer is the count of positions, so
+    the mean over the seq ranks of the blocks' values is the whole's)."""
+    if layer.TYPE in _PER_POSITION:
+        return True
+    lp = layer.lp
+
+    def axis(msg: str) -> int:
+        a = lp.get_msg(msg).get_int("axis", 1)
+        return a + ndim if a < 0 else a
+
+    if layer.TYPE == "InnerProduct":
+        return axis("inner_product_param") >= 2
+    if layer.TYPE == "SoftmaxWithLoss":
+        loss = lp.get_msg("loss_param")
+        return (axis("softmax_param") >= 2 and not loss.has("ignore_label")
+                and loss.get_bool("normalize", True))
+    if layer.TYPE == "Accuracy":
+        return axis("accuracy_param") >= 2 and not lp.get_msg("accuracy_param").has(
+            "ignore_label")
+    return False
 
 
 def _pool_segments(layers: list) -> list[list]:
@@ -486,6 +520,16 @@ class Network:
         train step needs the loss and the state alone, and without this the
         forward would hold every activation to its end, whatever autograd or
         a checkpoint saves.
+
+        Sequence parallelism (``ops.attention.sequence_parallel``, opened by
+        a ``ParallelTrainer`` with a seq axis): the feeds it names hold this
+        rank's block of axis 1, and ``apply`` follows the blobs computed
+        from them.  A layer whose inputs are all blocks and that computes
+        position by position (:func:`_runs_on_blocks`) runs on the blocks
+        (MultiHeadAttention through ring or Ulysses attention) and its
+        outputs are blocks; any other layer first all-gathers the blocks
+        along axis 1 (the gather's backward sums the seq ranks' gradients
+        and keeps this rank's rows), as GSPMD reshards in the JAX package.
         """
         train = (self.phase == Phase.TRAIN) if train is None else train
         si = 0 if start is None else self.layer_index(start)
@@ -521,6 +565,9 @@ class Network:
 
         layers = list(enumerate(self.layers[si : ei + 1]))
         last_read = {b: i for i, layer in layers for b in layer.bottoms}
+        sp = attention.active_sequence_parallel()
+        # the blobs held as sequence blocks on this rank
+        blocks = {b for b in blob if b in sp.feeds} if sp is not None else set()
 
         def run(layers, blob):
             """The (index, layer) pairs in order on ``blob`` (updated in
@@ -551,10 +598,23 @@ class Network:
                         if act_policy:
                             ins = [_cast(x, cdt) for x in ins]
                 kwargs = {"gen": gen} if layer.NEEDS_GEN else {}
-                with _saved_as_stored(stored, ins):
+                split = [b in blocks for b in layer.bottoms]
+                on_blocks = any(split) and all(split) and _runs_on_blocks(layer, ins[0].dim())
+                if any(split) and not on_blocks:
+                    from sparknet_tpu_torch.parallel.collectives import all_gather
+
+                    ins = [all_gather(x, 1, sp.comm) if s else x
+                           for x, s in zip(ins, split)]
+                with _saved_as_stored(stored, ins), (
+                        attention.seq_blocks() if on_blocks else contextlib.nullcontext()):
                     out = layer.apply(p, variables.state.get(layer.name, {}), ins,
                                       train=train, **kwargs)
                 outputs = out.outputs
+                for top, o in zip(layer.tops, outputs):
+                    if on_blocks and o.dim() >= 2:
+                        blocks.add(top)
+                    else:
+                        blocks.discard(top)
                 if act_policy and not layer.IS_LOSS and (
                         act_policy == "full"
                         or (act_policy == "blocks" and layer.TYPE == "Pooling")):

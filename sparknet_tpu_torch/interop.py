@@ -15,7 +15,8 @@ every entry point of the port does, so the tests pass ``device="cpu"``):
   are skipped here; the port's ``Solver.restore`` reads all of them.
 
 Out of the port, ``solverstate_from_port(solver, path)`` writes a port
-``Solver``'s training state under the same key scheme (``param/…``,
+``Solver``'s (or a ``ParallelTrainer``'s, its model-sharded blobs gathered
+whole) training state under the same key scheme (``param/…``,
 ``state/…``, ``hist/<layer>/<i>/<j>``, ``__iter__``, ``__meta__``), so the
 JAX ``Solver.restore`` loads it; a snapshot of either package restores into
 the other.
@@ -93,7 +94,8 @@ def netvars_from_solverstate(
 
 
 def solverstate_from_port(solver, path: str | os.PathLike) -> str:
-    """Write ``solver``'s (a port ``Solver``) params, state, history and
+    """Write ``solver``'s (a port ``Solver``, or a ``ParallelTrainer``:
+    then a collective, every rank calls it) params, state, history and
     iteration to ``path`` as a ``.solverstate.npz`` in the JAX package's
     key scheme, atomically.  Returns the path."""
     from sparknet_tpu_torch.solvers.solver import _write_npz_atomic

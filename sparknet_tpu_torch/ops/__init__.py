@@ -17,4 +17,5 @@ from sparknet_tpu_torch.ops import neuron  # noqa: F401
 from sparknet_tpu_torch.ops import blocks  # noqa: F401
 from sparknet_tpu_torch.ops import loss  # noqa: F401
 from sparknet_tpu_torch.ops import attention  # noqa: F401
+from sparknet_tpu_torch.ops import moe  # noqa: F401
 from sparknet_tpu_torch.ops import python_layer  # noqa: F401

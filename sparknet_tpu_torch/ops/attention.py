@@ -11,8 +11,15 @@ Input/output blobs are [B, S, E].  Params follow Caffe blob order:
 [W_qkv (3E, E), b_qkv (3E), W_out (E, E), b_out (E)], the JAX layer's, so
 the weights bridge (``interop.py``) maps them one to one.  The attention
 core is ``ops/kernels.flash_attention`` (the flash kernel on the card).
-The JAX layer's sequence parallelism (ring/Ulysses over a 'seq' mesh axis)
-is a parallel mode and is not ported (ROADMAP Queue A12).
+
+Sequence parallelism composes here, as in the JAX layer: under an active
+:func:`sequence_parallel` context (a ``ParallelTrainer`` whose mesh has a
+'seq' axis opens it around its steps), a layer whose input ``Network.apply``
+holds as sequence blocks (axis 1 split over the seq ranks) runs its
+attention core through ring or Ulysses attention over the seq group
+(``parallel/ring_attention.py``, ``parallel/ulysses.py``), and applies rope
+at the block's global positions (``rope_at``, bit for bit the rows of the
+whole sequence's ``rope``).
 
 The helpers ``project_qkv`` and ``project_out`` are the layer's own
 expressions; the cached decode builders of ``models/zoo.py`` call them, so
@@ -22,14 +29,105 @@ around their attention cores.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import threading
+import warnings
+
 import torch
 import torch.nn.functional as F
 
+from sparknet_tpu_torch.common import get_config
 from sparknet_tpu_torch.ops.base import Layer, LayerOutput
 from sparknet_tpu_torch.ops.fillers import fill
 from sparknet_tpu_torch.ops.kernels import flash_attention
 from sparknet_tpu_torch.ops.registry import register
 from sparknet_tpu_torch.proto.text_format import Message
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel dispatch.
+#
+# The JAX layer consults a trace-time context; the port's layers run
+# eagerly, so the context is consulted as each forward runs: the trainer
+# opens ``sequence_parallel(mesh, impl, feeds)`` around its steps, naming
+# the feeds it split, ``Network.apply`` follows the split blobs through
+# the layers, and marks the layer calls whose inputs are sequence blocks
+# (``seq_blocks``).
+# ---------------------------------------------------------------------------
+
+_SP = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceParallel:
+    """An open sequence-parallel context: the mesh, the attention impl and
+    the feeds split along axis 1 over the seq ranks."""
+
+    mesh: object
+    impl: str
+    feeds: frozenset = frozenset()
+
+    @property
+    def comm(self):
+        return self.mesh.comm(get_config().seq_axis)
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh, impl: str = "ring", feeds=()):
+    """Route MultiHeadAttention layers whose inputs are sequence blocks
+    through sequence parallelism over ``mesh``'s 'seq' axis while the
+    context is open.  ``impl``: 'ring' (K/V blocks round the ring, any
+    head count) or 'ulysses' (head-scatter all-to-all, num_heads divisible
+    by the seq axis's size).  ``feeds``: the feed blobs split along axis 1
+    (``parallel.sharding.seq_shard``)."""
+    if impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sequence-parallel impl {impl!r}")
+    prev = getattr(_SP, "ctx", None)
+    _SP.ctx = SequenceParallel(mesh, impl, frozenset(feeds))
+    try:
+        yield
+    finally:
+        _SP.ctx = prev
+
+
+def active_sequence_parallel() -> SequenceParallel | None:
+    """The open context when its mesh has a real (>1) seq axis, else
+    None."""
+    ctx = getattr(_SP, "ctx", None)
+    if ctx is None:
+        return None
+    from sparknet_tpu_torch.parallel.mesh import mesh_seq_size
+
+    if mesh_seq_size(ctx.mesh) <= 1:
+        return None
+    return ctx
+
+
+@contextlib.contextmanager
+def seq_blocks():
+    """Open while ``Network.apply`` runs a layer on sequence blocks."""
+    prev = getattr(_SP, "blocks", False)
+    _SP.blocks = True
+    try:
+        yield
+    finally:
+        _SP.blocks = prev
+
+
+def _sp_attention(sp: SequenceParallel, q, k, v, causal: bool) -> torch.Tensor:
+    """The attention core on this rank's blocks [B, H, S_l, D], over the
+    seq group."""
+    from sparknet_tpu_torch.parallel.ring_attention import ring_attention
+    from sparknet_tpu_torch.parallel.ulysses import ulysses_attention
+
+    comm = sp.comm
+    if sp.impl == "ulysses" and q.shape[1] % comm.size != 0:
+        raise ValueError(
+            f"ulysses needs num_heads ({q.shape[1]}) divisible by the "
+            f"'{get_config().seq_axis}' mesh axis ({comm.size}); use impl='ring'")
+    core = ring_attention if sp.impl == "ring" else ulysses_attention
+    return core(q, k, v, comm, causal)
+
 
 # (half, base, device) -> theta [half] float32.  One tensor per device, so
 # ``rope`` and ``rope_at`` multiply by the same bits.
@@ -130,7 +228,27 @@ class MultiHeadAttentionLayer(Layer):
         dt = torch.promote_types(inputs[0].dtype, params[0].dtype)
         w_qkv, b_qkv, w_out, b_out = (p.to(dt) for p in params)
         q, k, v = project_qkv(inputs[0].to(dt), w_qkv, b_qkv, self.num_heads)
-        if self.rope:
-            q, k = rope(q), rope(k)
-        o = flash_attention(q, k, v, causal=self.causal)
+        sp = active_sequence_parallel()
+        if sp is not None and not getattr(_SP, "blocks", False):
+            size = sp.comm.size
+            if q.shape[2] % size:
+                # ring/Ulysses need equal sequence blocks; an indivisible S
+                # runs locally instead (correct, just not sequence-parallel)
+                warnings.warn(
+                    f"{self.name}: sequence length {q.shape[2]} not divisible by the "
+                    f"'seq' mesh axis ({size}); attention runs without sequence "
+                    "parallelism", stacklevel=2)
+            sp = None
+        if sp is None:
+            if self.rope:
+                q, k = rope(q), rope(k)
+            o = flash_attention(q, k, v, causal=self.causal)
+        else:
+            if self.rope:
+                # this block's rows of the whole sequence: global positions
+                b, _, s_l, _ = q.shape
+                pos = sp.comm.rank * s_l + torch.arange(s_l, device=q.device)
+                pos = pos.expand(b, s_l)
+                q, k = rope_at(q, pos), rope_at(k, pos)
+            o = _sp_attention(sp, q, k, v, self.causal)
         return LayerOutput([project_out(o, w_out, b_out)])

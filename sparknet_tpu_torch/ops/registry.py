@@ -64,7 +64,6 @@ _V1_ALIASES = {
 _NOT_YET_PORTED = {
     "HDF5Data": "Queue A9 (HDF5 waits for h5py on the card's machine)",
     "HDF5Output": "Queue A9 (HDF5 waits for h5py on the card's machine)",
-    "MoE": "Queue A12 (ops/moe.py)",
 }
 
 

@@ -15,17 +15,27 @@ tests and one-host runs cannot collide on one), or ``MASTER_ADDR``/
 ``MASTER_PORT``/``RANK``/``WORLD_SIZE`` for ``env://``.
 
 ``worker_group`` re-cuts the worker set of the elastic trainer
-(``parallel/elastic.py``), the counterpart of ``sized_data_mesh``.  Not
-ported: ``auto_mesh`` and the model/seq axes (they come with tensor and
-sequence parallelism, ROADMAP Queue A).
+(``parallel/elastic.py``), the counterpart of ``sized_data_mesh``.
+
+``auto_mesh`` lays the ranks of the default group out as JAX's ``(data,
+model[, seq])`` mesh (a :class:`ProcessMesh`): a grid of ranks, seq the
+minor-most axis, with one process group for each set of axes (the ranks
+that differ only along those axes), as ``Comm``s
+(``parallel/collectives.py``).  ``mesh_seq_size``, ``mesh_data_size`` and
+``mesh_model_size`` read it as the JAX functions read a ``Mesh``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
+
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from sparknet_tpu_torch.common import resolve_device
+from sparknet_tpu_torch.common import get_config, resolve_device
+from sparknet_tpu_torch.parallel.collectives import Comm
 
 
 def default_backend(device: str | torch.device | None = None) -> str:
@@ -112,3 +122,98 @@ def worker_group(ranks, cache: dict | None = None):
         cache[key] = group
     return group
 
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """A grid of ranks of the default process group: the port's
+    ``jax.sharding.Mesh``.  ``shape`` maps each axis name to its size in
+    JAX's order (``Mesh.shape``); ``coords`` are this rank's coordinates
+    (None on a rank outside the grid); ``grid`` holds the global ranks
+    (``Mesh.devices``).  :meth:`comm` gives the process group over a set
+    of axes for this rank."""
+
+    shape: dict
+    coords: dict | None
+    grid: np.ndarray
+    comms: dict = dataclasses.field(repr=False, default_factory=dict)
+
+    def comm(self, *axes: str) -> Comm:
+        """This rank's group over ``axes`` (the ranks whose coordinates on
+        every other axis equal this rank's), in grid order."""
+        key = frozenset(axes)
+        if key not in self.comms:
+            raise KeyError(f"no group over {sorted(axes)}; the mesh's axes are {list(self.shape)}")
+        return self.comms[key]
+
+
+def process_mesh(shape: dict, device: str | torch.device | None = None) -> ProcessMesh:
+    """The grid of the first ``prod(shape)`` ranks of the default group with
+    the named axes of ``shape`` (name -> size, major to minor), JAX's
+    ``Mesh(np.array(devices).reshape(sizes), names)``.  ``device`` is where
+    the ranks' tensors live (None: CUDA, and raise without a card): it
+    decides which collectives go through host buffers
+    (``collectives.Comm.make``).  Collective: every rank of the default
+    group calls it, and each makes the groups of every set of axes in the
+    same order."""
+    device = resolve_device(device)
+    axes, dims = list(shape), [int(d) for d in shape.values()]
+    n = int(np.prod(dims))
+    world = dist.get_world_size()
+    if not 1 <= n <= world:
+        raise ValueError(f"cannot lay out {n} devices over a world of {world} ranks")
+    grid = np.arange(n).reshape(dims)
+    me = dist.get_rank()
+    coords = None
+    if me < n:
+        coords = dict(zip(axes, (int(c) for c in np.unravel_index(me, dims))))
+    cache: dict = {}
+    comms = {}
+    for k in range(1, len(axes) + 1):
+        for sub in itertools.combinations(range(len(axes)), k):
+            # the grid's lines along ``sub``: the other axes first, flattened
+            rest = [a for a in range(len(axes)) if a not in sub]
+            width = int(np.prod([dims[a] for a in sub]))
+            for line in np.transpose(grid, rest + list(sub)).reshape(-1, width):
+                ranks = [int(r) for r in line]
+                group = worker_group(ranks, cache)
+                if me in ranks:
+                    comms[frozenset(axes[a] for a in sub)] = Comm.make(group, ranks, device)
+    return ProcessMesh(shape=dict(zip(axes, dims)), coords=coords, grid=grid, comms=comms)
+
+
+def auto_mesh(
+    num_devices: int | None = None,
+    model_parallel: int = 1,
+    seq_parallel: int = 1,
+    device: str | torch.device | None = None,
+) -> ProcessMesh:
+    """The ``(data, model[, seq])`` grid over the first ``num_devices``
+    ranks of the default group (all of them by default), JAX's
+    ``auto_mesh``: ``model_parallel`` ranks on the model axis,
+    ``seq_parallel`` on the seq axis (present only above 1, minor-most),
+    the rest on the data axis.  ``device`` as :func:`process_mesh`
+    takes it.  Collective."""
+    cfg = get_config()
+    n = dist.get_world_size() if num_devices is None else int(num_devices)
+    denom = model_parallel * seq_parallel
+    if n % denom != 0:
+        raise ValueError(
+            f"{n} devices not divisible by model_parallel={model_parallel} "
+            f"* seq_parallel={seq_parallel}"
+        )
+    shape = {cfg.data_axis: n // denom, cfg.model_axis: model_parallel}
+    if seq_parallel > 1:
+        shape[cfg.seq_axis] = seq_parallel
+    return process_mesh(shape, device)
+
+
+def mesh_seq_size(mesh: ProcessMesh) -> int:
+    return mesh.shape.get(get_config().seq_axis, 1)
+
+
+def mesh_data_size(mesh: ProcessMesh) -> int:
+    return mesh.shape.get(get_config().data_axis, 1)
+
+
+def mesh_model_size(mesh: ProcessMesh) -> int:
+    return mesh.shape.get(get_config().model_axis, 1)

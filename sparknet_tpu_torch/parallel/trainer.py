@@ -41,6 +41,32 @@ the uint8-wire augment hook (``DeviceAugment.trainer_device_fn``, which
 gives each slot of a rank-5 feed its own draws).  ``test`` applies no hook,
 as in the JAX package.
 
+A mesh (``mesh=auto_mesh(model_parallel=, seq_parallel=)``, JAX's
+``(data, model[, seq])`` layout over the ranks) adds the model and seq
+axes, at ``tau == 1`` for seq (JAX's refusal otherwise):
+
+* the workers are the data axis; ranks that share a data coordinate get
+  the same batch from ``data_fn``, and under a seq axis a feed of rank 2
+  or more keeps this rank's block of axis 1 (``sharding.seq_shard``,
+  JAX's ``_put_feeds`` rule, ``ShardingRules.seq_feeds``); the steps and
+  ``test`` run under ``ops.attention.sequence_parallel``, so
+  ``Network.apply`` follows the blocks and MultiHeadAttention runs ring
+  or Ulysses attention (``ShardingRules.attention_impl``);
+* MoE blobs split axis 0 over the model axis (``sharding.param_shardings``;
+  Megatron splits of other layers raise, not yet ported): the wrapped
+  Solver holds this rank's experts (``Solver.hold``) and the steps run
+  under ``ops.moe.model_parallel``;
+* the gradient rule: every grad is averaged over the data x seq ranks, none
+  over the model ranks (a replicated blob's grad is the same on each model
+  rank, a sharded blob's is its own slice's).  Under a seq axis each rank's
+  loss is its blocks' mean, and the gathers' backward sums the seq ranks'
+  gradients, so the mean over the seq ranks is the whole sequence's
+  gradient, for blobs before and after a gather alike;
+* ``get_weights``, ``sync_to_solver`` and ``snapshot_arrays`` (what
+  ``interop.solverstate_from_port`` writes) gather the sharded blobs back
+  to whole ones (collectives: every rank calls them); the next round
+  splits them again.
+
 Dropout: rank r's Solver has ``worker = r``, so its generator is reseeded
 at every iteration from (seed, r, it) (``solvers.solver.dropout_seed``);
 rank 0 draws the masks a ``Solver`` alone would.  The JAX package folds
@@ -53,6 +79,7 @@ Not ported: ``save``/``restore`` (orbax) and the obs round records;
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable
 
 import torch
@@ -64,7 +91,10 @@ from sparknet_tpu_torch.net import (
     collection_to_variables,
     variables_to_collection,
 )
-from sparknet_tpu_torch.parallel.mesh import default_backend
+from sparknet_tpu_torch.common import get_config
+from sparknet_tpu_torch.parallel.collectives import all_gather
+from sparknet_tpu_torch.parallel.mesh import default_backend, mesh_model_size, mesh_seq_size
+from sparknet_tpu_torch.parallel.sharding import ShardingRules, param_shardings, seq_shard
 
 DataFn = Callable[[int], dict[str, Any]]
 
@@ -135,7 +165,8 @@ class ParallelTrainer:
     back to stepping alone (no grad hook, worker 0).
     """
 
-    def __init__(self, solver, group=None, tau: int = 1, elastic_alpha: float = 0.0):
+    def __init__(self, solver, group=None, tau: int = 1, elastic_alpha: float = 0.0,
+                 mesh=None, rules: ShardingRules | None = None):
         cfg = solver.config
         if cfg.iter_size > 1:
             raise ValueError(
@@ -146,6 +177,21 @@ class ParallelTrainer:
         self.tau = int(tau)
         if self.tau < 1:
             raise ValueError(f"tau must be >= 1, got {tau}")
+        self.mesh = mesh
+        self.rules = rules or ShardingRules()
+        if mesh is not None:
+            if group is not None:
+                raise ValueError("ParallelTrainer takes a group or a mesh, not both")
+            group = mesh.comm(get_config().data_axis).group
+        self._seq_size = (mesh_seq_size(mesh) if mesh is not None
+                          and self.rules.sequence_parallel else 1)
+        if self._seq_size > 1 and (self.tau > 1 or elastic_alpha > 0):
+            raise ValueError(
+                "sequence parallelism (a 'seq' mesh axis) composes with "
+                "tau=1 synchronous DP only: the tau>1/EASGD rounds are "
+                "already a manual shard_map over 'data' and cannot nest "
+                "the seq-axis attention shard_map. Use tau=1, or a mesh "
+                "without a 'seq' axis.")
         num_workers = dist.get_world_size(group) if dist.is_initialized() else 1
         self.elastic_alpha = float(elastic_alpha)
         self._elastic = self.elastic_alpha > 0.0
@@ -167,11 +213,27 @@ class ParallelTrainer:
         if self.rank < 0:
             raise ValueError("this process is not in the trainer's group")
         self.num_workers = dist.get_world_size(self.group)
-        solver.worker = self.rank
+        # the ranks a grad, the loss and the state are averaged over: the
+        # data x seq ranks (the workers alone without a seq axis)
+        self._grad_group, self._grad_ranks = self.group, self.num_workers
+        if self._seq_size > 1:
+            cfg_axes = get_config()
+            both = mesh.comm(cfg_axes.data_axis, cfg_axes.seq_axis)
+            self._grad_group, self._grad_ranks = both.group, both.size
+        self._shardings = None
+        if mesh is not None and mesh_model_size(mesh) > 1:
+            self._shardings = param_shardings(solver.train_net, solver.variables, mesh,
+                                              self.rules).params
+            if not any(sh.axis for specs in self._shardings.values() for sh in specs):
+                self._shardings = None
+        self._split = False  # whether the Solver holds this rank's slices
+        solver.worker = self.rank if mesh is None else int(
+            mesh.coords[get_config().data_axis])
         # fn(feeds, it) -> feeds, applied after placement, before the round
         self.feed_device_fn = None
         if self.tau == 1 and not self._elastic:
             solver.set_reduce_grads(self._mean_grads)
+        self._split_solver()
         # EASGD's center: a replicated copy of the params
         with torch.no_grad():
             self._center = ([t.clone() for t in param_tensors(self.solver)]
@@ -208,22 +270,23 @@ class ParallelTrainer:
 
     def _mean_grads(self, grads):
         """The ``reduce_grads`` hook of sync data parallelism: the grad arena
-        (fused) or the list of blob grads, averaged over the workers by one
-        all-reduce."""
+        (fused) or the list of blob grads, averaged over the workers (and
+        the seq ranks) by one all-reduce."""
         if isinstance(grads, torch.Tensor):
-            self._all_reduce(grads)
-            return grads.div_(self.num_workers)
-        self._mean_(grads)
+            dist.all_reduce(grads, op=dist.ReduceOp.SUM, group=self._grad_group)
+            return grads.div_(self._grad_ranks)
+        all_reduce_mean_(grads, self._grad_group, self._grad_ranks)
         return grads
 
     def _mean_loss_and_state(self, loss: torch.Tensor) -> torch.Tensor:
         """The round's loss and the state blobs, averaged over the workers
-        by one all-reduce of a small buffer; returns the mean loss."""
+        (and the seq ranks) by one all-reduce of a small buffer; returns the
+        mean loss."""
         state = state_tensors(self.solver)
         buf = torch.cat([loss.detach().reshape(1).float()]
                         + [s.reshape(-1).float() for s in state])
-        self._all_reduce(buf)
-        buf.div_(self.num_workers)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self._grad_group)
+        buf.div_(self._grad_ranks)
         for s, v in zip(state, _views(buf[1:], state)):
             s.copy_(v)
         return buf[0]
@@ -241,20 +304,72 @@ class ParallelTrainer:
         for c, d in zip(self._center, _views(diff, xs)):
             c.add_(a * d)
 
+    # -- the mesh's axes ----------------------------------------------------
+    def _place(self, raw: dict) -> tuple[dict, frozenset]:
+        """This rank's feeds on the device (its seq block of each split feed)
+        and the names of the split feeds."""
+        split = frozenset()
+        if self._seq_size > 1:
+            seq = self.mesh.comm(get_config().seq_axis)
+            raw, split = seq_shard(raw, seq.rank, seq.size, self.rules.seq_feeds)
+        return {k: torch.as_tensor(v, device=self.device) for k, v in raw.items()}, split
+
+    def _context(self, split: frozenset = frozenset()):
+        """The parallel modes' contexts for a step or a test forward:
+        sequence parallelism over the split feeds, the MoE layers' model
+        group."""
+        from sparknet_tpu_torch.ops.attention import sequence_parallel
+        from sparknet_tpu_torch.ops.moe import model_parallel
+
+        stack = contextlib.ExitStack()
+        if self._seq_size > 1:
+            stack.enter_context(sequence_parallel(self.mesh, self.rules.attention_impl, split))
+        if self.mesh is not None and mesh_model_size(self.mesh) > 1:
+            stack.enter_context(model_parallel(self.mesh))
+        return stack
+
+    def _whole(self, tensors: list, specs: list) -> list:
+        """The whole blobs of this rank's ``tensors`` (their slices by
+        ``specs``), gathered on axis 0 over each blob's group."""
+        with torch.no_grad():
+            return [t if sh.axis is None else all_gather(t, 0, sh.comm)
+                    for t, sh in zip(tensors, specs)]
+
+    def _split_solver(self) -> None:
+        """Make the Solver hold this rank's slices of the sharded blobs."""
+        if self._shardings is None or self._split:
+            return
+        v, slots = self.solver.variables, self.solver.slots
+        params = {ln: [sh.local(p) for p, sh in zip(pl, self._shardings[ln])]
+                  for ln, pl in v.params.items()}
+        slots = {ln: [[sh.local(h) for h in hl] for hl, sh in zip(sl, self._shardings[ln])]
+                 for ln, sl in slots.items()}
+        self.solver.hold(NetVars(params=params, state=v.state), slots)
+        self._split = True
+
+    def _whole_variables(self, variables: NetVars) -> NetVars:
+        if not self._split:
+            return variables
+        return NetVars(params={ln: self._whole(pl, self._shardings[ln])
+                               for ln, pl in variables.params.items()},
+                       state=variables.state)
+
     # -- rounds ------------------------------------------------------------
     def train_round(self, data_fn: DataFn) -> float:
         """One outer iteration; returns the mean loss over the workers (at
         tau > 1 and under EASGD each worker's mean over its tau steps,
         averaged).  Every rank must call it."""
-        feeds = {k: torch.as_tensor(v, device=self.device)
-                 for k, v in data_fn(self.iter).items()}
+        self._split_solver()
+        feeds, split = self._place(data_fn(self.iter))
         if self.feed_device_fn is not None:
             feeds = self.feed_device_fn(feeds, self.iter)
         if self.tau == 1 and not self._elastic:
-            loss = self.solver.train_iteration(feeds)
+            with self._context(split):
+                loss = self.solver.train_iteration(feeds)
             return float(self._mean_loss_and_state(loss))
-        losses = [self.solver.train_iteration({k: v[i] for k, v in feeds.items()})
-                  for i in range(self.tau)]
+        with self._context():
+            losses = [self.solver.train_iteration({k: v[i] for k, v in feeds.items()})
+                      for i in range(self.tau)]
         with torch.no_grad():
             if self._elastic:
                 self._elastic_update()
@@ -304,9 +419,9 @@ class ParallelTrainer:
         scalar: dict[str, bool] = {}
         with torch.inference_mode():
             for b in range(num_batches):
-                feeds = {k: torch.as_tensor(v, device=self.device)
-                         for k, v in data_fn(b).items()}
-                blobs, _, _ = net.apply(variables, feeds, train=False)
+                feeds, split = self._place(data_fn(b))
+                with self._context(split):
+                    blobs, _, _ = net.apply(variables, feeds, train=False)
                 for name in outputs:
                     if name in blobs:
                         sums[name] = sums.get(name, 0.0) + float(torch.sum(blobs[name]))
@@ -314,19 +429,24 @@ class ParallelTrainer:
         names = sorted(sums)
         buf = torch.tensor([sums[n] for n in names], dtype=torch.float64,
                            device=self.device)
-        self._all_reduce(buf)
-        return {n: float(buf[i]) / (self.num_workers if scalar[n] else 1) / num_batches
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self._grad_group)
+        return {n: float(buf[i]) / (self._grad_ranks if scalar[n] else 1) / num_batches
                 for i, n in enumerate(names)}
 
     def get_weights(self) -> WeightCollection:
         """The outer loop's model as host arrays (ref: Net.scala
-        getWeights)."""
-        return variables_to_collection(self._averaged_variables())
+        getWeights), sharded blobs whole (a collective then)."""
+        return variables_to_collection(self._whole_variables(self._averaged_variables()))
 
     def set_weights(self, wc: WeightCollection) -> None:
-        """Load ``wc`` into this worker's replica (and the EASGD center);
-        the history is kept.  Every rank should load the same weights."""
-        self.solver.variables = collection_to_variables(wc, self.solver.variables)
+        """Load ``wc`` (whole blobs) into this worker's replica (and the
+        EASGD center); the history is kept.  Every rank should load the
+        same weights (a collective when blobs are model-sharded)."""
+        v = collection_to_variables(wc, self._whole_variables(self.solver.variables))
+        if self._split:
+            v = NetVars(params={ln: [sh.local(p) for p, sh in zip(pl, self._shardings[ln])]
+                                for ln, pl in v.params.items()}, state=v.state)
+        self.solver.variables = v
         if self._elastic:
             with torch.no_grad():
                 self._center = [t.clone() for t in param_tensors(self.solver)]
@@ -344,6 +464,19 @@ class ParallelTrainer:
             if self._elastic:
                 for x, c in zip(param_tensors(self.solver), self._center):
                     x.copy_(c)
+        if self._split:
+            slots = {ln: [self._whole(hs, [sh] * len(hs)) for hs, sh in
+                          zip(sl, self._shardings[ln])]
+                     for ln, sl in self.solver.slots.items()}
+            self.solver.hold(self._whole_variables(self.solver.variables), slots)
+            self._split = False
+
+    def snapshot_arrays(self) -> dict:
+        """The Solver's snapshot arrays with whole blobs
+        (``interop.solverstate_from_port`` writes them): ``sync_to_solver``,
+        then ``Solver.snapshot_arrays``.  A collective."""
+        self.sync_to_solver()
+        return self.solver.snapshot_arrays()
 
     def save(self, prefix: str) -> str:
         raise NotImplementedError(
@@ -358,7 +491,9 @@ class ParallelTrainer:
 
     def close(self) -> None:
         """Hand the solver back to stepping alone, and destroy the world of
-        one this trainer formed (if it formed one)."""
+        one this trainer formed (if it formed one).  A Solver holding its
+        rank's slices of model-sharded blobs keeps them: call
+        :meth:`sync_to_solver` first for whole ones."""
         self.solver.set_reduce_grads(None)
         self.solver.worker = 0
         if self._owns_group and dist.is_initialized():

@@ -427,6 +427,7 @@ class Solver:
         self._state = variables.state
         # debug_info keeps the per-blob path: its per-blob grad lines are
         # what the arena erases (the JAX Solver's rule)
+        self.layout = None
         if get_config().fused_update and not cfg.debug_info:
             from sparknet_tpu_torch.solvers import arena as arena_mod
 
@@ -435,16 +436,36 @@ class Solver:
             self._param_arena = arena_mod.pack(self.layout, variables.params, self.device)
             self._slot_arenas = arena_mod.init_slot_arenas(self.layout, self.device)
         else:
-            self.layout = None
             self._params = variables.params
             self._slots = init_slots(cfg.solver_type, variables.params)
         self.set_reduce_grads(None)
+
+    def hold(self, variables: NetVars, slots: dict) -> None:
+        """Hold ``variables`` and ``slots`` whose blob shapes may differ from
+        the ones held (a model-parallel ``ParallelTrainer`` keeps its rank's
+        slice of each sharded blob, and gathers the whole blobs back): the
+        arenas and their layout, or the blob dicts, are made anew for them,
+        and the train step keeps its ``reduce_grads``."""
+        if self.layout is not None:
+            from sparknet_tpu_torch.solvers import arena as arena_mod
+
+            self.layout = arena_mod.build_layout(variables.params, self._specs, self.config)
+            self._tables = arena_mod.ArenaTables(self.layout, self.device)
+            self._param_arena = arena_mod.pack(self.layout, variables.params, self.device)
+            self._slot_arenas = arena_mod.pack_slots(self.layout, slots, self.device)
+            self._state = {ln: {k: t.to(self.device) for k, t in st.items()}
+                           for ln, st in variables.state.items()}
+        else:
+            self.variables = variables
+            self.slots = slots
+        self.set_reduce_grads(self._reduce_grads)
 
     def set_reduce_grads(self, reduce_grads) -> None:
         """(Re)build the train step with ``reduce_grads`` between the
         backward and the update (see :func:`build_fused_step`); ``None``
         is the plain step.  Synchronous data parallelism averages the grads
         over the workers there (``parallel/trainer.py``)."""
+        self._reduce_grads = reduce_grads
         if self.layout is not None:
             self._fused_step = build_fused_step(self.config, self.train_net, self.layout,
                                                 self._tables, reduce_grads=reduce_grads)

@@ -271,9 +271,6 @@ HDF5_NET = ('name: "h" layer { name: "d" type: "HDF5Data" top: "data" top: "labe
             'hdf5_data_param { source: "h5.txt" batch_size: 2 } } '
             'layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip" '
             "inner_product_param { num_output: 2 } }")
-MOE_NET = ('name: "m" layer { name: "d" type: "Input" top: "data" '
-           "input_param { shape { dim: 2 dim: 4 dim: 8 } } } "
-           'layer { name: "moe" type: "MoE" bottom: "data" top: "y" }')
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -286,7 +283,6 @@ MOE_NET = ('name: "m" layer { name: "d" type: "Input" top: "data" '
     (["test", "--solver", "{hdf5}", "--weights", "w.caffemodel"], "Queue A9"),
     (["train", "--weights", "w.h5"], "Queue A4"),
     (["classify", "--model", "m.prototxt", "--weights", "w.h5", "x.jpg"], "Queue A4"),
-    (["train", "--solver", "{moe}"], "Queue A12"),
     (["train", "--scan", "4"], "Queue A5"),
     (["train", "--profile", "d"], "Queue A13"),
     (["time", "--hlo"], "Queue A14"),
@@ -305,7 +301,7 @@ MOE_NET = ('name: "m" layer { name: "d" type: "Input" top: "data" '
 ])
 def test_unported_flags_and_commands_name_their_item(argv, item, tmp_path):
     nets = {}
-    for key, text in (("hdf5", HDF5_NET), ("moe", MOE_NET)):
+    for key, text in (("hdf5", HDF5_NET),):
         (tmp_path / f"{key}.prototxt").write_text(text)
         (tmp_path / f"{key}_solver.prototxt").write_text(
             f'net: "{tmp_path / key}.prototxt"\nbase_lr: 0.01\nlr_policy: "fixed"\n')

@@ -47,6 +47,7 @@ layers = sorted(n for n in names if n in ("sparknet_tpu_torch.compiler.graph",
                                           "sparknet_tpu_torch.interop",
                                           "sparknet_tpu_torch.ops.data_layers",
                                           "sparknet_tpu_torch.ops.loss",
+                                          "sparknet_tpu_torch.ops.moe",
                                           "sparknet_tpu_torch.ops.neuron",
                                           "sparknet_tpu_torch.ops.python_layer",
                                           "sparknet_tpu_torch.ops.vision"))
@@ -77,7 +78,9 @@ def test_port_imports_no_jax():
     # the training, distributed-training, token-serving, char-LM training
     # and feed slices' modules are among those imported
     assert training == str(["sparknet_tpu_torch.net"] + [
-        f"sparknet_tpu_torch.parallel.{m}" for m in ("elastic", "mesh", "sharding", "trainer")] + [
+        f"sparknet_tpu_torch.parallel.{m}" for m in
+        ("collectives", "elastic", "expert", "mesh", "pipeline", "ring_attention",
+         "sharding", "trainer", "ulysses")] + [
         f"sparknet_tpu_torch.solvers.{m}" for m in
         ("arena", "lr_policy", "solver", "updates")]), out.stdout
     assert serving == str(["sparknet_tpu_torch.ops.attention"] + [
@@ -106,7 +109,7 @@ def test_port_imports_no_jax():
     # weights bridge that carries their placeholders
     assert layers == str(["sparknet_tpu_torch.compiler.graph", "sparknet_tpu_torch.interop"] + [
         f"sparknet_tpu_torch.ops.{m}" for m in
-        ("data_layers", "loss", "neuron", "python_layer", "vision")]), out.stdout
+        ("data_layers", "loss", "moe", "neuron", "python_layer", "vision")]), out.stdout
     # reduced precision: the Config's dtypes and policies, the int8 path
     assert precision == str(["sparknet_tpu_torch.common", "sparknet_tpu_torch.quant"]), \
         out.stdout

@@ -268,8 +268,7 @@ def test_fillers(ftype, check):
 
 
 @pytest.mark.parametrize("type_,queue", [("HDF5_DATA", "A9"), ("HDF5_OUTPUT", "A9"),
-                                         ("HDF5Data", "A9"), ("HDF5Output", "A9"),
-                                         ("MoE", "A12")])
+                                         ("HDF5Data", "A9"), ("HDF5Output", "A9")])
 def test_unported_type_names_its_queue(type_, queue):
     lp = parse(f'layer {{ name: "l" type: "{type_}" bottom: "x" top: "y" }}').get_all("layer")[0]
     with pytest.raises(NotImplementedError, match=f"Queue {queue}"):
