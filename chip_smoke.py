@@ -371,6 +371,32 @@ Phases, in order (any failure exits non-zero):
     [32,4,32,16] (causal and not) and Ulysses' [32,1,128,16] against their
     plain versions (rtol 1e-5, atol 1e-6; backward atol 1e-6 x max|ref|),
     timed by CUDA graph beside the plain versions, SDPA and the bound.
+30. loop: the train-to-serve production loop (``loop.dryrun.loop_run``)
+    with its obs journal, fused update, f32, deterministic cuDNN.
+    cifar10_quick at its published batch of 100 in a world of one (NCCL):
+    two iterations of two elastic rounds at tau 2, each checkpointed
+    atomically, its candidate captured on a builder thread at buckets
+    1/8/64/256 and swapped into the live engine with tickets in flight,
+    then a refused over-budget ``resnet50`` candidate and a bitwise
+    rollback: every gate holds (0 captures on the request path and on the
+    serving thread, 0 dropped, scores changed then restored bit for bit,
+    the refusal, the incumbent intact), 8 B2 launches for 8 steps, the
+    journal valid with no dangling lineage, its round, save, build and
+    swap walls printed; the same run with obs off gives the same launches
+    and bit for bit the same last checkpoint.  Then the serving latency
+    (p50/p99 by phase: before, during training, during the rollout, after)
+    of a client thread served by a pump thread while the main thread
+    trains two rounds and rolls out.  The transformer family (batch 32 a
+    worker, one iteration): the gates, and B3 launched once a layer for
+    each replay, each capture's warm-up forwards and each training
+    forward, B3' once a layer a step.  A pool of two gloo ranks on cuda:0
+    (spawned, FileStore), rank 0 serving and journaling, the plan killing
+    worker 1 at round 1: the gates, ``worker_lost`` and ``mesh_resize`` in
+    rank 0's journal, the rounds at widths 2 and 1, B2 launches by rank.
+    Last, B2 against ``fused_update_torch`` bit for bit on the loop's arena
+    (timed beside its bound), B3 (with lse) and B3' at the transformer's
+    [32,4,32,4] and [256,4,32,4] causal against their plain versions (rtol
+    1e-5, atol 1e-6).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -7024,11 +7050,473 @@ def phase_seq_parallel(card: str) -> dict:
                 blocks=blocks)
 
 
+# ---------------------------------------------------------------------------
+# The train-to-serve production loop and its obs journal
+# ---------------------------------------------------------------------------
+
+LOOP_BATCH = 100  # cifar10_quick's published batch, a worker
+LOOP_TAU = 2
+LOOP_ROUNDS = 2  # elastic rounds a rollout
+LOOP_ITERS = 2  # train -> checkpoint -> rollout cycles of the cifar10_quick run
+LOOP_TOKEN_BATCH = 32  # the transformer family's batch a worker
+LOOP_REQUESTS = 48
+LOOP_LATENCY_S = 1.0  # seconds of traffic before the first rollout
+LOOP_ROLLOUTS = 8  # rollouts under traffic, so a phase's p99 rests on hundreds of requests
+LOOP_AFTER_S = 0.25  # seconds of traffic after each rollout
+LOOP_GAP_S = 0.002  # the client's pause between two requests
+
+
+def loop_counts() -> dict:
+    from sparknet_tpu_torch.ops import kernels
+
+    return {"lrn": kernels.LRN_LAUNCHES, "lrn_backward": kernels.LRN_BACKWARD_LAUNCHES,
+            "fused_update": kernels.FUSED_UPDATE_LAUNCHES, "flash": kernels.FLASH_LAUNCHES,
+            "flash_backward": kernels.FLASH_BACKWARD_LAUNCHES,
+            "paged": kernels.PAGED_LAUNCHES}
+
+
+def loop_journal_gates(card: str, path: str, label: str) -> list:
+    """The journal validates under the port's validator and its lineage
+    audit finds no dangling parent; returns its events."""
+    from sparknet_tpu_torch.obs import lineage, schema
+
+    n, _, errors = schema.validate_journal(path)
+    audit = lineage.audit(schema.stream_journal(path))
+    print(f"loop {label}: journal of {n} lines, {len(errors)} schema finding(s); lineage "
+          f"{audit['spans']} spans, {audit['edges']} edges, {audit['requests_linked']} "
+          f"requests linked, dangling {audit['dangling'][:3]}")
+    check(n > 0 and not errors, f"loop {label}: the journal fails validation: {errors[:3]}")
+    check(not audit["dangling"], f"loop {label}: dangling lineage {audit['dangling'][:3]}")
+    return schema.load_journal(path)
+
+
+def loop_gates(label: str, s: dict) -> None:
+    gates = {k: s[k] for k in ("ok", "serve_path_compiles", "serving_thread_captures",
+                               "dropped", "swap_drained", "rollback_drained",
+                               "scores_changed", "scores_restored", "refused",
+                               "incumbent_intact_after_refusal")}
+    print(f"loop {label}: gates {gates}; {s['requests']} requests, {s['rounds']} rounds, "
+          f"{s['rollouts']} rollout(s), {s['replays']} replays, {s['captures']} captures "
+          f"(the builder's: {s['rollout']['captures']} the last rollout), loss "
+          f"{s['loss']:.6f}, {s['wall_s']:.1f} s")
+    check(s["ok"] and s["serve_path_compiles"] == 0 and s["serving_thread_captures"] == 0,
+          f"loop {label}: a gate failed: {gates}")
+
+
+def loop_run_counted(**kw) -> tuple[dict, dict]:
+    """``loop_run`` on the card with every launch count set to 0 just before
+    it; returns the summary and the counts just after."""
+    from sparknet_tpu_torch.loop.dryrun import loop_run
+    from sparknet_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    summary = loop_run(device="cuda", **kw)
+    torch.cuda.synchronize()
+    return summary, loop_counts()
+
+
+def loop_cifar(card: str, work: str) -> dict:
+    """cifar10_quick at batch 100, a world of one (NCCL), obs on then off:
+    the gates, B2's launches against the steps, the journal, and obs off
+    bit for bit obs on with the same launches."""
+    import glob
+
+    from sparknet_tpu_torch.obs.recorder import Recorder, set_recorder
+    from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS
+
+    kw = dict(family="cifar10_quick", iterations=LOOP_ITERS, rounds_per_rollout=LOOP_ROUNDS,
+              per_worker_batch=LOOP_BATCH, tau=LOOP_TAU, buckets=SERVE_BUCKETS,
+              requests=LOOP_REQUESTS)
+    runs = {}
+    for armed in (True, False):
+        path = f"{work}/cifar.jsonl"
+        rec = set_recorder(Recorder(path if armed else None))
+        t0 = time.perf_counter()
+        try:
+            s, counts = loop_run_counted(workdir=f"{work}/cifar_{int(armed)}", **kw)
+        finally:
+            rec.close()
+            set_recorder(None)
+        wall = time.perf_counter() - t0
+        label = f"cifar10_quick b{LOOP_BATCH} obs {'on' if armed else 'off'}"
+        loop_gates(label, s)
+        steps = LOOP_ITERS * LOOP_ROUNDS * LOOP_TAU
+        print(f"loop {label}: launches {counts} ({steps} steps), {wall:.1f} s [{card}]")
+        check(counts["fused_update"] == steps,
+              f"loop {label}: B2 launched {counts['fused_update']} times for {steps} steps")
+        check(s["rollout"]["captures"] == len(SERVE_BUCKETS),
+              f"loop {label}: the builder captured {s['rollout']['captures']} graphs")
+        last = sorted(glob.glob(f"{work}/cifar_{int(armed)}/*.solverstate.npz"))[-1]
+        with np.load(last) as data:
+            runs[armed] = (counts, {k: data[k] for k in data.files})
+        if armed:
+            loop_journal_print(card, loop_journal_gates(card, path, label))
+    (c_on, a_on), (c_off, a_off) = runs[True], runs[False]
+    same = sorted(a_on) == sorted(a_off) and all(np.array_equal(a_on[k], a_off[k])
+                                                 for k in a_on)
+    print(f"loop: obs off against obs on: launches {c_off} against {c_on}; the last "
+          f"checkpoint's {len(a_on)} arrays {'bit for bit equal' if same else 'DIFFER'}")
+    check(same and c_on == c_off, "loop: obs off is not obs on")
+    return {k: c_on[k] + c_off[k] for k in c_on}
+
+
+def loop_journal_print(card: str, events: list) -> None:
+    """The walls the journal holds: rounds, the atomic save, the candidate's
+    build and captures, the swap and what it drained."""
+    rounds = [e["wall_s"] * 1e3 for e in events if e["event"] == "round"]
+    ckpt = [e["wall_s"] * 1e3 for e in events
+            if e["event"] == "loop" and e["kind"] == "checkpoint"]
+    built = [(e["wall_s"] * 1e3, len(e["buckets"])) for e in events
+             if e["event"] == "serve" and e["kind"] == "candidate_built"]
+    swaps = [(e["wall_s"] * 1e3, e["drained"]) for e in events
+             if e["event"] == "serve" and e["kind"] == "rollout"]
+    print(f"loop journal: round walls (fenced on the round's loss) "
+          f"{[round(x, 2) for x in rounds]} ms; sync_to_solver + Solver.save "
+          f"{[round(x, 2) for x in ckpt]} ms; candidate builds (ms, graphs captured) "
+          f"{[(round(a, 1), b) for a, b in built]}; swaps (ms, drained) "
+          f"{[(round(a, 2), b) for a, b in swaps]} [{card}]")
+
+
+def loop_latency(card: str, work: str) -> dict:
+    """Serving latency before, during and after rollouts: a pump thread
+    (``serve_forever``) and a client thread serve cifar10_quick while the
+    main thread, ``LOOP_ROLLOUTS`` times, trains two rounds, checkpoints and
+    rolls the candidate out (captured on the builder thread).  The Python
+    collector's pauses are timed beside the slowest request.  Returns the
+    launch counts."""
+    import threading
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.loop import ProductionLoop, synthetic_shard_feed
+    from sparknet_tpu_torch.models.zoo import GRAPH_SWEEP_FAMILIES
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS, ServeEngine, percentile
+    from sparknet_tpu_torch.serve.loadgen import synthetic_items
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    fam = GRAPH_SWEEP_FAMILIES["cifar10_quick"]
+    engine = ServeEngine(buckets=SERVE_BUCKETS, device="cuda")
+    loop = ProductionLoop(Solver(models.cifar10_quick_solver(), models.cifar10_quick(LOOP_BATCH),
+                                 device="cuda"), engine,
+                          synthetic_shard_feed(fam, LOOP_BATCH, seed=1), workdir=f"{work}/lat",
+                          buckets=SERVE_BUCKETS, tau=LOOP_TAU)
+    gc_spans: list = []  # (start, end, generation) on the engine's clock
+    gc_start = [0.0]
+
+    def on_gc(stage: str, info: dict) -> None:
+        if stage == "start":
+            gc_start[0] = time.monotonic()
+        else:
+            gc_spans.append((gc_start[0], time.monotonic(), info["generation"]))
+
+    kernels.reset_launch_counts()
+    try:
+        model = loop.ensure_serving()
+        rs = np.random.RandomState(SEED + 41)
+        items = synthetic_items(model, 64, rs)
+        for b in SERVE_BUCKETS:
+            for item in items[:max(1, b // 2)]:
+                engine.submit("live", item)
+            engine.pump(force=True)
+        compiles0 = engine.serve_path_compiles
+        phase = ["before"]
+        tickets: list = []
+        infos: list = []
+        stop = threading.Event()
+        pump = threading.Thread(target=engine.serve_forever, kwargs={"until": stop.is_set},
+                                daemon=True)
+
+        def client():
+            i = 0
+            while not stop.is_set():
+                tickets.append((phase[0], engine.submit("live", items[i % len(items)])))
+                i += 1
+                time.sleep(LOOP_GAP_S)
+
+        feeder = threading.Thread(target=client, daemon=True)
+        gc.callbacks.append(on_gc)
+        pump.start()
+        feeder.start()
+        try:
+            time.sleep(LOOP_LATENCY_S)
+            for _ in range(LOOP_ROLLOUTS):
+                phase[0] = "training"
+                loop.trainer.train(LOOP_ROUNDS, loop.data_fn)
+                path = loop.checkpoint()
+                phase[0] = "rollout"
+                t0 = time.perf_counter()
+                info = loop.rollout(path)
+                infos.append((time.perf_counter() - t0, info))
+                phase[0] = "after"
+                time.sleep(LOOP_AFTER_S)
+        finally:
+            stop.set()
+            feeder.join(timeout=30.0)
+            pump.join(timeout=30.0)
+            gc.callbacks.remove(on_gc)
+        engine.shutdown()
+        for _, t in tickets:
+            t.wait(timeout=60.0)
+        torch.cuda.synchronize()
+        dropped = sum(not t.done() for _, t in tickets)
+        lat, split = {}, {}
+        for tag in ("before", "training", "rollout", "after"):
+            done = [t for p, t in tickets if p == tag and t.done()]
+            ms = [(t.t_done - t.t_submit) * 1e3 for t in done]
+            lat[tag] = (len(ms), percentile(ms, 50), percentile(ms, 99), max(ms, default=0.0))
+            # the wait for a batch (the pump thread) against the batch's run
+            # (copy in, replay, copy out)
+            split[tag] = (percentile([(t.t_batch - t.t_submit) * 1e3 for t in done], 99),
+                          percentile([(t.t_done - t.t_batch) * 1e3 for t in done], 99))
+        worst_tag, worst = max(((p, t) for p, t in tickets if t.done()),
+                               key=lambda pt: pt[1].t_done - pt[1].t_submit)
+        overlap = [(b - a) * 1e3 for a, b, g in gc_spans
+                   if a < worst.t_done and b > worst.t_submit]
+        gen2 = [(b - a) * 1e3 for a, b, g in gc_spans if g == 2]
+        captured = engine.serve_path_compiles - compiles0
+        walls = [w * 1e3 for w, _ in infos]
+        builds = [i["build_s"] * 1e3 for _, i in infos]
+        swaps = [i["swap_wall_s"] * 1e3 for _, i in infos]
+        print(f"loop latency (host clock, submit to result, requests every "
+              f"{LOOP_GAP_S * 1e3:.0f} ms while a pump thread serves, {LOOP_ROLLOUTS} "
+              f"rollouts): "
+              + "; ".join(f"{tag} {n} requests p50 {p50:.2f} ms p99 {p99:.2f} ms max "
+                          f"{top:.2f} ms" for tag, (n, p50, p99, top) in lat.items())
+              + f"; rollouts {min(walls):.1f}-{max(walls):.1f} ms (builds "
+              f"{min(builds):.1f}-{max(builds):.1f} ms, {infos[-1][1]['captures']} graphs "
+              f"each captured on the builder thread; swaps {min(swaps):.2f}-{max(swaps):.2f} "
+              f"ms, {sum(i['drained'] for _, i in infos)} drained); {captured} captures on "
+              f"the request path, {dropped} dropped [{card}]")
+        print(f"loop latency: the slowest request ({worst_tag}) "
+              f"{(worst.t_done - worst.t_submit) * 1e3:.2f} ms overlapped {len(overlap)} of "
+              f"{len(gc_spans)} collector pauses ({sum(overlap):.2f} ms of them); the "
+              f"longest generation-2 pause {max(gen2, default=0.0):.2f} ms of {len(gen2)}; "
+              f"p99 of the wait for a batch / of the batch's run: "
+              + "; ".join(f"{tag} {q:.2f} / {r:.2f} ms" for tag, (q, r) in split.items())
+              + f" [{card}]")
+        check(captured == 0 and dropped == 0 and lat["rollout"][0] > 0,
+              f"loop latency: {captured} request-path captures, {dropped} dropped, "
+              f"{lat['rollout'][0]} requests during the rollouts")
+        counts = loop_counts()
+        steps = LOOP_ROLLOUTS * LOOP_ROUNDS * LOOP_TAU
+        check(counts["fused_update"] == steps,
+              f"loop latency: B2 launched {counts['fused_update']} times for {steps} steps")
+        return counts
+    finally:
+        loop.close()
+
+
+def loop_cli(card: str, work: str) -> dict:
+    """``tpunet loop`` in process, as a user calls it, with ``--obs``:
+    cifar10_quick at batch 100 over the serving buckets, two iterations, the
+    fused update on (the phase's config; ``SPARKNET_FUSED_UPDATE=1`` seeds it
+    in a fresh process).  Exit 0, B2's launches against the steps, the
+    summary's gates and the journal.  The environment's ``SPARKNET_OBS`` is
+    put back after."""
+    import io
+    import os
+
+    from sparknet_tpu_torch import cli
+    from sparknet_tpu_torch.obs.recorder import get_recorder, rebuild_from_env
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS
+
+    path, iters = f"{work}/cli.jsonl", 2
+    argv = ["--obs", path, "loop", "--batch", str(LOOP_BATCH), "--iterations", str(iters),
+            "--rounds", str(LOOP_ROUNDS), "--tau", str(LOOP_TAU),
+            "--buckets", ",".join(str(b) for b in SERVE_BUCKETS),
+            "--requests", str(LOOP_REQUESTS), "--workdir", f"{work}/cli"]
+    prev = os.environ.get("SPARKNET_OBS")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        counts = loop_counts()
+        get_recorder().close()
+    finally:
+        if prev is None:
+            os.environ.pop("SPARKNET_OBS", None)
+        else:
+            os.environ["SPARKNET_OBS"] = prev
+        rebuild_from_env()
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and lines, f"loop cli: exit {rc}, stdout {lines[-3:]}")
+    s = json.loads(lines[-1])  # the summary; a solver's display lines come before it
+    loop_gates(f"cli b{LOOP_BATCH} x{iters}", s)
+    steps = iters * LOOP_ROUNDS * LOOP_TAU
+    print(f"loop cli: exit {rc}, launches {counts} ({steps} steps), "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    check(counts["fused_update"] == steps,
+          f"loop cli: B2 launched {counts['fused_update']} times for {steps} steps")
+    events = loop_journal_gates(card, path, "cli")
+    check(sum(e["event"] == "round" for e in events) == iters * LOOP_ROUNDS,
+          "loop cli: the journal's round records")
+    return counts
+
+
+def loop_transformer(card: str) -> dict:
+    """The transformer family, one iteration: the gates, and B3's and B3''s
+    launches against the engine's replays and captures and the steps."""
+    from sparknet_tpu_torch.common import Phase
+    from sparknet_tpu_torch.compiler.graph import Network
+    from sparknet_tpu_torch.models.zoo import GRAPH_SWEEP_FAMILIES
+    from sparknet_tpu_torch.ops.attention import MultiHeadAttentionLayer
+    from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS
+    from sparknet_tpu_torch.serve.graphs import WARMUP_FORWARDS
+
+    fam = GRAPH_SWEEP_FAMILIES["transformer"]
+    layers = sum(isinstance(layer, MultiHeadAttentionLayer)
+                 for layer in Network(fam.net(2), Phase.TEST, device="cuda").layers)
+    s, counts = loop_run_counted(family="transformer", iterations=1,
+                                 rounds_per_rollout=LOOP_ROUNDS,
+                                 per_worker_batch=LOOP_TOKEN_BATCH, tau=LOOP_TAU,
+                                 buckets=SERVE_BUCKETS, requests=LOOP_REQUESTS)
+    loop_gates(f"transformer b{LOOP_TOKEN_BATCH}", s)
+    steps = LOOP_ROUNDS * LOOP_TAU
+    want = layers * (s["replays"] + WARMUP_FORWARDS * s["captures"] + steps)
+    print(f"loop transformer: launches {counts}; {layers} attention layer(s) x "
+          f"({s['replays']} replays + {WARMUP_FORWARDS} x {s['captures']} capture warm-ups "
+          f"+ {steps} training forwards) = {want} B3, {layers} x {steps} = {layers * steps} "
+          f"B3' [{card}]")
+    check(counts["flash"] == want, f"loop transformer: B3 launched {counts['flash']}, "
+                                   f"the books give {want}")
+    check(counts["flash_backward"] == layers * steps and counts["fused_update"] == steps,
+          f"loop transformer: B3'/B2 launches {counts}")
+    return counts
+
+
+def loop_kernels(card: str) -> None:
+    """B2 on the loop's cifar10_quick arena; B3 (with lse) and B3' at the
+    transformer family's training and top serving shapes, against their
+    plain versions."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import f32_precision
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS, exec_batch
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    s = Solver(models.cifar10_quick_solver(), models.cifar10_quick(LOOP_BATCH), device="cuda")
+    b2_against_plain(card, f"cifar10_quick b{LOOP_BATCH} (loop)", s.layout, s.config, it=0)
+    del s
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    with f32_precision():
+        for rows in (LOOP_TOKEN_BATCH, exec_batch(SERVE_BUCKETS[-1])):
+            shape = (rows, 4, 32, 4)  # the family's heads, sequence and head width
+            q, k, v, g = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+            o, lse = kernels._flash_attention_cuda(q, k, v, True, with_lse=True)
+            o_ref, lse_ref = kernels.flash_attention_forward_lse_torch(q, k, v, True)
+            got = kernels._flash_attention_backward_cuda(q, k, v, o, lse, g, True)
+            ref = kernels.flash_attention_backward_torch(q, k, v, o, lse, g, True)
+            torch.cuda.synchronize()
+            o_ok, o_err = attention_within(o, o_ref, 1e-6)
+            lse_ok, lse_err = attention_within(lse, lse_ref, 1e-5)
+            oks, errs, _ = zip(*(grads_within(a, r, 1e-5, 1e-6) for a, r in zip(got, ref)))
+            print(f"loop: B3 at the transformer's {list(shape)} causal: o max abs err "
+                  f"{o_err:.3e} (rtol 1e-5, atol 1e-6), lse {lse_err:.3e} (1e-5); B3' dq "
+                  f"{errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (rtol 1e-5, atol 1e-6 x "
+                  f"max|ref|) {'ok' if o_ok and lse_ok and all(oks) else 'FAIL'} [{card}]")
+            check(o_ok and lse_ok and all(oks), f"loop: B3/B3' at {list(shape)}")
+
+
+def loop_pool_worker(rank: int, work: str) -> None:
+    """One rank of the loop's pool of two: gloo on cuda:0, joined through a
+    FileStore; rank 0 serves and journals.  The plan kills worker 1 at
+    round 1.  Writes its summary and launch counts into ``work``.  Spawned
+    by ``phase_loop`` (start method spawn), so module level."""
+    import torch.distributed as dist
+
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.obs.recorder import Recorder, set_recorder
+    from sparknet_tpu_torch.parallel import FaultPlan, initialize_distributed, kill
+    from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS
+
+    torch.cuda.set_device(0)
+    set_config(fused_update=True, storage_dtype="f32")
+    initialize_distributed(backend="gloo", store_path=f"{work}/store", rank=rank,
+                           world_size=2)
+    if rank == 0:
+        set_recorder(Recorder(f"{work}/pool.jsonl"))
+    try:
+        s, counts = loop_run_counted(
+            family="cifar10_quick", iterations=1, rounds_per_rollout=LOOP_ROUNDS,
+            per_worker_batch=LOOP_BATCH, tau=LOOP_TAU, buckets=SERVE_BUCKETS,
+            requests=LOOP_REQUESTS, plan=FaultPlan([kill(1, at_round=1)]))
+        with open(f"{work}/pool{rank}.json", "w") as f:
+            json.dump({"summary": s, "counts": counts}, f, default=str)
+        dist.barrier()
+    finally:
+        if rank == 0:
+            set_recorder(None)
+        dist.destroy_process_group()
+
+
+def loop_pool(card: str, work: str) -> dict:
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    pool = mp.start_processes(loop_pool_worker, args=(work,), nprocs=2, join=False,
+                              start_method="spawn")
+    while not pool.join():
+        pass
+    ranks = [json.load(open(f"{work}/pool{r}.json")) for r in range(2)]
+    s = ranks[0]["summary"]
+    loop_gates("pool of two (gloo on cuda:0), worker 1 killed at round 1", s)
+    events = loop_journal_gates(card, f"{work}/pool.jsonl", "pool of two")
+    member = [(e["event"], e.get("worker"), e["round"], e.get("width", e.get("to_width")))
+              for e in events if e["event"] in ("worker_lost", "worker_joined", "mesh_resize")]
+    rounds = [(e["devices"], e["batch"]) for e in events if e["event"] == "round"]
+    counts = [r["counts"] for r in ranks]
+    print(f"loop pool: rank 0's journal: membership {member}, rounds (width, images a step) "
+          f"{rounds}; launches by rank {counts}; {time.perf_counter() - t0:.1f} s spawned, "
+          f"ran and joined [{card}]")
+    check(member == [("worker_lost", 1, 1, 1), ("mesh_resize", None, 1, 1)],
+          f"loop pool: the membership events {member}")
+    check(rounds == [(2, 2 * LOOP_BATCH), (1, LOOP_BATCH)], f"loop pool: rounds {rounds}")
+    check([c["fused_update"] for c in counts] == [2 * LOOP_TAU, LOOP_TAU],
+          f"loop pool: B2 launches by rank {[c['fused_update'] for c in counts]}")
+    return {k: counts[0][k] + counts[1][k] for k in counts[0]}
+
+
+def phase_loop(card: str) -> dict:
+    """The train-to-serve production loop (``loop_run``) on the card with
+    its obs journal: cifar10_quick at its published batch (obs on, then
+    off), ``tpunet loop --obs`` in process, the serving latency across
+    rollouts, the transformer family, a
+    pool of two gloo ranks losing a worker, and the kernels of the path
+    against their plain versions.  Returns the launch counts."""
+    import tempfile
+
+    from sparknet_tpu_torch.common import set_config
+
+    t_phase = time.perf_counter()
+    set_config(fused_update=True, storage_dtype="f32")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    total: dict = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="sparknet_loop_") as work:
+            for got in (loop_cifar(card, work), loop_cli(card, work),
+                        loop_latency(card, work), loop_transformer(card),
+                        loop_pool(card, work)):
+                total = {k: total.get(k, 0) + n for k, n in got.items()}
+            loop_kernels(card)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        set_config(fused_update=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"loop: phase done in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return total
+
+
 PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
           "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
           "charlm_train", "engine", "replica", "zoo", "db_apps", "layers", "precision",
-          "listfile", "seq_parallel")
+          "listfile", "seq_parallel", "loop")
 
 
 def main(argv=None) -> int:
@@ -7175,6 +7663,12 @@ def main(argv=None) -> int:
         launches["flash_attention_backward"] += got["flash_backward"]
         launches["fused_update"] += got["fused_update"]
         lap("seq_parallel")
+    if "loop" in phases:
+        got = phase_loop(card)
+        launches["fused_update"] += got["fused_update"]
+        launches["flash_attention"] += got["flash"]
+        launches["flash_attention_backward"] += got["flash_backward"]
+        lap("loop")
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0
@@ -7216,7 +7710,8 @@ def main(argv=None) -> int:
         # the MNIST families' steps; the precision phase's bf16 AlexNet and
         # char LM steps and int8 CaffeNet requests; the listfile phase's CLI
         # training, Detector and classify; the seq_parallel phase's char LM
-        # steps on its four ranks), each counted from 0
+        # steps on its four ranks; the loop phase's training rounds, replays
+        # and capture warm-ups), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

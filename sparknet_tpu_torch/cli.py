@@ -20,7 +20,14 @@ SparkNet's dataset and log tools.  Subcommands:
   NFS stores);
 - ``upgrade_net_proto_text``, ``upgrade_net_proto_binary`` and
   ``upgrade_solver_proto_text``; ``draw``, ``parse_log`` and
-  ``plot_training_log``; ``device_query``.
+  ``plot_training_log``; ``device_query``;
+- ``serve`` (the serving engine's load run, or ``--replicas K`` through
+  the replica router, ``--controller`` arming the SLO controller) and
+  ``loop`` (the train-to-serve production loop: elastic rounds, an atomic
+  checkpoint, a candidate captured off the request path, a hot swap, a
+  refused over-budget candidate and a bitwise rollback, with traffic in
+  flight); each prints one JSON summary line and exits 1 unless its gates
+  hold.  ``--obs PATH`` arms the obs journal (``SPARKNET_OBS``).
 
 Flags, messages and JSON outputs are the JAX CLI's; ``--device`` (default
 ``cuda``) names where nets run, and a run without a card exits unless
@@ -38,9 +45,9 @@ binaries) and ``db:<path>[,<test_path>]`` (a RecordDB, LMDB or LevelDB;
 transform_param crops, mirrors, scales and subtracts its mean_file on the
 host).  Across processes each trains on its own batches.
 
-``bench``, ``serve``, ``loop`` and ``pods``, and the flags ``--scan``,
-``--profile``, ``--hlo``, ``--trace``, ``--trace-out`` and ``--obs``, exit
-with a message naming their ROADMAP item; none is ignored.
+``bench`` and ``pods``, and the flags ``--scan``, ``--profile``,
+``--hlo``, ``--trace`` and ``--trace-out``, exit with a message naming
+their ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
@@ -57,8 +64,6 @@ import numpy as np
 # The JAX CLI's subcommands the port does not carry, with their ROADMAP item.
 _UNPORTED_COMMANDS = {
     "bench": "Queue A6 (the single-GPU bench)",
-    "serve": "Queue A7 (the engine's CLI)",
-    "loop": "Queue A13 (the production loop)",
     "pods": "Queue A9 (pods.py provisions TPU VMs; it has no one-card counterpart)",
 }
 
@@ -70,7 +75,6 @@ _UNPORTED_FLAGS = (
     ("hlo", False, "Queue A14 (XLA cost analysis has no counterpart yet)"),
     ("trace", False, "Queue A13 (utils/op_profile.py over torch.profiler)"),
     ("trace_out", None, "Queue A13 (utils/op_profile.py over torch.profiler)"),
-    ("obs", "", "Queue A13 (obs)"),
 )
 _LAYOUT_ITEM = "Queue A6 (channels_last)"
 # --platform of the JAX CLI, onto the port's --device
@@ -1297,6 +1301,76 @@ def cmd_device_query(args) -> int:
     return 0
 
 
+def _summary_json(summary: dict) -> str:
+    """One JSON line of a run summary (numpy scalars as numbers)."""
+    return json.dumps(summary, default=lambda v: v.item() if hasattr(v, "item") else str(v))
+
+
+def _hbm_bytes(device) -> int | None:
+    """The memory admission prices against: the card's (None), or off the
+    card the CPU engine's 16 GiB."""
+    from sparknet_tpu_torch.loop.dryrun import CPU_HBM_BYTES
+
+    return None if device.type == "cuda" else CPU_HBM_BYTES
+
+
+def cmd_serve(args) -> int:
+    """Synthetic load through the serving engine: a primary and an aux
+    model, the priced over-budget refusal, a closed-loop burst plan through
+    every bucket, one summary JSON line; exits 1 unless 0 graphs were
+    captured after the warm-up.  With ``--replicas K`` (K > 1) the run goes
+    through the ``ReplicaRouter`` pod on K + 1 device slots of the card (a
+    free one for the controller's join; open-loop arrivals, deadline
+    shedding; exits 1 unless 0 captures and 0 dropped tickets).
+
+    ref: apps/FeaturizerApp.scala:1 (the reference's batch scoring app)."""
+    from sparknet_tpu_torch.serve.loadgen import load_run, pod_run
+
+    device = _device(args)
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    log = lambda m: print(f"serve: {m}", file=sys.stderr)  # noqa: E731
+    if args.replicas > 1:
+        summary = pod_run(
+            replicas=args.replicas, family=args.family, arm=args.arm, buckets=buckets,
+            max_wait_ms=args.max_wait_ms, rate=args.rate, seconds=args.seconds,
+            controller=args.controller, log=log,
+            devices=[str(device)] * (args.replicas + 1), hbm_bytes=_hbm_bytes(device))
+        print(_summary_json({k: v for k, v in summary.items() if k != "per_replica"}))
+        return 0 if summary["compiles_post_warmup"] == 0 and summary["dropped"] == 0 else 1
+    summary = load_run(requests=args.requests, family=args.family, arm=args.arm,
+                       buckets=buckets, max_wait_ms=args.max_wait_ms, log=log,
+                       device=device, hbm_bytes=_hbm_bytes(device))
+    print(_summary_json(summary))
+    return 0 if summary["compiles_post_warmup"] == 0 else 1
+
+
+def cmd_loop(args) -> int:
+    """The train-to-serve production loop (``loop/dryrun.py``): elastic
+    rounds -> atomic checkpoint -> candidate captured on a builder thread
+    -> hot swap into the live engine -> over-budget refusal -> bitwise
+    rollback, with traffic in flight.  Prints one summary JSON line; exits
+    1 unless every gate holds (0 captures on the request path, 0 dropped
+    tickets, scores change on the rollout and are restored on the
+    rollback).  A world of one (the elastic trainer forms it: NCCL on the
+    card, gloo on the CPU), on the card unless ``--device cpu``;
+    ``SPARKNET_FUSED_UPDATE=1`` runs the fused update (kernel B2).
+
+    ref: apps/FeaturizerApp.scala:1 (the reference's single Spark app
+    owning both training and scoring)."""
+    from sparknet_tpu_torch.loop.dryrun import loop_run
+
+    device = _device(args)
+    summary = loop_run(
+        iterations=args.iterations, rounds_per_rollout=args.rounds, family=args.family,
+        arm=args.arm, buckets=tuple(int(b) for b in args.buckets.split(",")),
+        per_worker_batch=args.batch, width=args.width or None, tau=args.tau,
+        requests=args.requests, max_wait_ms=args.max_wait_ms,
+        workdir=args.workdir or None, controller=args.controller,
+        log=lambda m: print(f"loop: {m}", file=sys.stderr), device=device)
+    print(_summary_json(summary))
+    return 0 if summary["ok"] else 1
+
+
 def _cmd_unported(name: str):
     def fn(args) -> int:
         raise SystemExit(f"tpunet {name} is not ported to sparknet_tpu_torch yet "
@@ -1318,7 +1392,8 @@ def main(argv=None) -> int:
     p.add_argument("--platform", default="",
                    help="the JAX CLI's platform pin, onto --device: cpu, gpu or cuda")
     p.add_argument("--obs", default="", metavar="PATH.jsonl",
-                   help="the obs journal (not ported: ROADMAP Queue A13)")
+                   help="arm the obs journal for this run (same as SPARKNET_OBS=PATH; "
+                   "off by default)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def device(sp):
@@ -1518,6 +1593,50 @@ def main(argv=None) -> int:
                     help="driver query timeout in seconds (0 = in process)")
     sp.set_defaults(fn=cmd_device_query)
 
+    sp = sub.add_parser("serve", help="serving engine load run")
+    device(sp)
+    sp.add_argument("--requests", type=int, default=504)
+    sp.add_argument("--family", default="cifar10_quick",
+                    help="cifar10_quick|lenet|mobilenet|transformer")
+    sp.add_argument("--arm", default="f32", choices=["f32", "fold_bn", "int8"])
+    sp.add_argument("--buckets", default="1,8,64,256",
+                    help="comma-separated bucket ladder (one CUDA graph a bucket)")
+    sp.add_argument("--max-wait-ms", type=float, default=5.0,
+                    help="deadline bound on any request's queue wait")
+    sp.add_argument("--replicas", type=int, default=1,
+                    help="K > 1 serves through the replica pod (ReplicaRouter, "
+                    "open-loop arrivals)")
+    sp.add_argument("--rate", type=float, default=2000.0,
+                    help="pod mode: offered open-loop req/s")
+    sp.add_argument("--seconds", type=float, default=1.0,
+                    help="pod mode: open-loop run length")
+    sp.add_argument("--controller", action="store_true",
+                    help="pod mode: arm the SLO burn controller (loop/autoctl.py: "
+                    "priced join/kill off the live burn stream)")
+    sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("loop", help="train-to-serve production loop (hot reload)")
+    device(sp)
+    sp.add_argument("--iterations", type=int, default=1,
+                    help="train->checkpoint->rollout cycles")
+    sp.add_argument("--rounds", type=int, default=2, help="elastic rounds per rollout")
+    sp.add_argument("--family", default="cifar10_quick",
+                    help="cifar10_quick|lenet|mobilenet|transformer")
+    sp.add_argument("--arm", default="f32", choices=["f32", "fold_bn", "int8"])
+    sp.add_argument("--buckets", default="1,8", help="comma-separated bucket ladder")
+    sp.add_argument("--batch", type=int, default=2, help="per-worker batch")
+    sp.add_argument("--width", type=int, default=0,
+                    help="elastic worker-pool width (default: the pool, a world of one)")
+    sp.add_argument("--tau", type=int, default=2, help="local steps per elastic round")
+    sp.add_argument("--requests", type=int, default=48,
+                    help="in-flight traffic across the cycle")
+    sp.add_argument("--max-wait-ms", type=float, default=5.0)
+    sp.add_argument("--workdir", default="", help="checkpoint dir (default: a temp dir)")
+    sp.add_argument("--controller", action="store_true",
+                    help="arm the SLO burn controller (loop/autoctl.py: lend/restore "
+                    "training width, canary rollback)")
+    sp.set_defaults(fn=cmd_loop)
+
     # these take any arguments: they exit naming their item (or replacement)
     for name in _UNPORTED_COMMANDS:
         sub.add_parser(name, help=f"not ported (ROADMAP {_UNPORTED_COMMANDS[name]})"
@@ -1537,6 +1656,14 @@ def main(argv=None) -> int:
         p.error(f"unrecognized arguments: {' '.join(extra)}")
     _refuse_unported(args)
     _apply_platform(args)
+    if args.obs:
+        # the environment is the one arming point the Recorder (and any
+        # child process, e.g. a process feed) reads; a recorder already
+        # built from it is rebuilt
+        from sparknet_tpu_torch.obs.recorder import rebuild_from_env
+
+        os.environ["SPARKNET_OBS"] = args.obs
+        rebuild_from_env()
     if not getattr(args, "dtype", ""):
         return args.fn(args)
     # the compute dtype is set before any net is built and RESTORED after:

@@ -26,7 +26,8 @@ per 256-image batch, ref: src/test/scala/apps/CallbackBenchmarkSpec.scala:
   held the queue's write lock left every other worker blocked for good.
 * **Per-stage walls** (``FEED_STAGES``) accumulate in ``pipeline.stats``
   as plain numbers (the JAX package also journals them as obs ``feed``
-  events; the port has no recorder yet, ROADMAP Queue A13).
+  events; this module's journal sites are still to be ported, ROADMAP
+  Queue A13).
 * **A double-buffered device stage** (:func:`device_feed`) copies each ring
   batch to the card ahead of the step (``data/prefetch.py``) and releases
   the ring slot only after the transfer that read it completed.
@@ -67,6 +68,7 @@ __all__ = [
     "ProcessPipeline",
     "device_feed",
     "feed_workers",
+    "shard_batches",
 ]
 
 # the stage vocabulary of ``ProcessPipeline.stats``:
@@ -274,6 +276,19 @@ class PrestagedSource(BatchSource):
 
     def get(self, epoch: int, index: int) -> dict[str, np.ndarray]:
         return self.feeds
+
+
+def shard_batches(source: BatchSource):
+    """Adapt a :class:`BatchSource` to the elastic shard-feed contract
+    (``parallel/elastic.py`` ``ShardFn``): global shard id ``g`` -> that
+    shard's raw batch, deterministically.  ``source.get`` keys on the index
+    alone, so a shard reassigned across a resize replays identical data.
+    The data plane's hand-off to the train-to-serve loop
+    (``loop/feed.py`` turns these raw batches into net feeds)."""
+    def data_fn(g: int) -> dict:
+        return source.get(0, int(g))
+
+    return data_fn
 
 
 class TransformStage:

@@ -52,14 +52,21 @@ set, cached).
   stacked ``[tau, B, ...]`` before the steps (the uint8-wire augment hook,
   ``DeviceAugment.trainer_device_fn``: a draw per slot).
 
-Not ported: the obs membership events and round records (``_emit_member``
-is the seam, with the reference's event names; ROADMAP A13).
+* **Journal**: with ``SPARKNET_OBS`` armed, rank 0 writes the JAX
+  trainer's membership events (``worker_lost``, ``worker_joined``,
+  ``mesh_resize``, from the boundary every rank replays) and one
+  ``round`` record a round (mode ``elastic``, the shard range as its
+  lineage; ``batch`` the images a step over the workers).  The other
+  ranks' recorders are disabled.  A round in which rank 0 holds no worker
+  has no loss on rank 0 and journals no round record (its membership
+  events still land).  The optional ``comm`` field waits for A14.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -68,6 +75,8 @@ import torch.distributed as dist
 
 from sparknet_tpu_torch.compiler.graph import NetVars
 from sparknet_tpu_torch.net import WeightCollection, variables_to_collection
+from sparknet_tpu_torch.obs import lineage as obs_lineage
+from sparknet_tpu_torch.obs.recorder import get_recorder
 from sparknet_tpu_torch.parallel.mesh import default_backend, worker_group
 from sparknet_tpu_torch.parallel.trainer import (
     _views,
@@ -284,9 +293,11 @@ class ElasticTrainer:
         return [self._rank_of[w] for w in self._wids]
 
     def _emit_member(self, event: str, **fields) -> None:
-        """The membership journal's seam (``worker_lost``,
-        ``worker_joined``, ``mesh_resize``): the obs recorder is not ported
-        (ROADMAP A13), so nothing is written."""
+        """Journal one membership event (``worker_lost``,
+        ``worker_joined``, ``mesh_resize``); rank 0 alone writes."""
+        rec = get_recorder()
+        if rec:
+            rec.emit(event, **fields)
 
     def _apply_boundary(self, rnd: int) -> None:
         """Apply rejoins due and the plan's events for round ``rnd``: the
@@ -411,12 +422,15 @@ class ElasticTrainer:
         local steps a worker on its shards and the weighted average.
         Returns the mean loss over the workers on an active rank, None on
         an idle or parked one.  Every rank must call it."""
+        rec = get_recorder()
+        t0 = time.perf_counter() if rec else 0.0
         rnd = self.round
         self._apply_boundary(rnd)
         W = self.width
         group = self._group()  # collective the first time a set is seen
         grid = round_shards(self.cursor, self.tau, W)
         loss = None
+        batch = 0
         if self.active:
             pos = self._ranks().index(self.rank)
             s = self.solver
@@ -433,9 +447,19 @@ class ElasticTrainer:
             losses = [s.train_iteration(f) for f in shards]
             with torch.no_grad():
                 loss = self._weighted_average(group, pos, torch.stack(losses).mean())
+            batch = next((int(v.shape[0]) for v in shards[0].values() if v.dim()), 0)
+        cursor0 = self.cursor
         self.iter += self.tau
         self.cursor += self.tau * W
         self.round += 1
+        if rec and loss is not None:
+            # fenced on the round's loss VALUE, read in the weighted average
+            rec.round(
+                mode="elastic", tau=self.tau, devices=W, workers=W, iters=self.tau,
+                batch=batch * W, wall_s=time.perf_counter() - t0, loss=loss,
+                fenced=True, iteration=self.iter,
+                lineage=obs_lineage.round_lineage(
+                    "elastic", rnd, cursor0, cursor0 + self.tau * W - 1))
         return loss
 
     def _weighted_average(self, group, pos: int, loss: torch.Tensor) -> float:

@@ -63,6 +63,11 @@ def initialize_distributed(
     replicas live on CUDA (``device``, ``None`` meaning CUDA) and to gloo
     on the CPU.  NCCL takes one rank a card; several ranks on one card go
     through gloo."""
+    from sparknet_tpu_torch.obs.recorder import rebuild_from_env
+
+    # an env-built obs recorder is rebuilt for this rank on next use: only
+    # rank 0 journals
+    rebuild_from_env()
     if store_path is not None and (rank is None or world_size is None):
         raise ValueError("a FileStore needs rank and world_size")
     if coordinator is not None and (rank is None or world_size is None):

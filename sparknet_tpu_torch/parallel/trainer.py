@@ -73,15 +73,22 @@ rank 0 draws the masks a ``Solver`` alone would.  The JAX package folds
 the worker index into its key instead; the two never agree, so parity
 with it runs at dropout 0.
 
-Not ported: ``save``/``restore`` (orbax) and the obs round records;
-``train_rounds`` is a loop of rounds (a CUDA graph of it is ROADMAP A5).
+With ``SPARKNET_OBS`` armed each round writes the JAX trainer's
+``round`` record (modes ``dp``, ``tau``, ``easgd``); only rank 0 journals.
+The record's optional ``comm`` field (the JAX package's analytic
+collective budget) is left out until A14 brings its model.
+
+Not ported: ``save``/``restore`` (orbax); ``train_rounds`` is a loop of
+rounds (a CUDA graph of it is ROADMAP A5).
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -92,6 +99,8 @@ from sparknet_tpu_torch.net import (
     variables_to_collection,
 )
 from sparknet_tpu_torch.common import get_config
+from sparknet_tpu_torch.obs import lineage as obs_lineage
+from sparknet_tpu_torch.obs.recorder import get_recorder
 from sparknet_tpu_torch.parallel.collectives import all_gather
 from sparknet_tpu_torch.parallel.mesh import default_backend, mesh_model_size, mesh_seq_size
 from sparknet_tpu_torch.parallel.sharding import ShardingRules, param_shardings, seq_shard
@@ -358,26 +367,63 @@ class ParallelTrainer:
     def train_round(self, data_fn: DataFn) -> float:
         """One outer iteration; returns the mean loss over the workers (at
         tau > 1 and under EASGD each worker's mean over its tau steps,
-        averaged).  Every rank must call it."""
+        averaged).  Every rank must call it.
+
+        With ``SPARKNET_OBS`` armed (rank 0 alone journals) each round
+        writes one ``round`` record, its wall fence-stamped on the round's
+        loss VALUE, the one read this method always makes."""
+        rec = get_recorder()
+        t0 = time.perf_counter() if rec else 0.0
         self._split_solver()
-        feeds, split = self._place(data_fn(self.iter))
+        raw = data_fn(self.iter)
+        feeds, split = self._place(raw)
         if self.feed_device_fn is not None:
             feeds = self.feed_device_fn(feeds, self.iter)
         if self.tau == 1 and not self._elastic:
             with self._context(split):
                 loss = self.solver.train_iteration(feeds)
-            return float(self._mean_loss_and_state(loss))
-        with self._context():
-            losses = [self.solver.train_iteration({k: v[i] for k, v in feeds.items()})
-                      for i in range(self.tau)]
-        with torch.no_grad():
-            if self._elastic:
-                self._elastic_update()
-            else:
-                # THE sync: collect + average (ref: CifarApp.scala:132-134)
-                self._mean_(param_tensors(self.solver))
-            loss = self._mean_loss_and_state(torch.stack(losses).mean())
-        return float(loss)
+            loss = float(self._mean_loss_and_state(loss))
+        else:
+            with self._context():
+                losses = [self.solver.train_iteration({k: v[i] for k, v in feeds.items()})
+                          for i in range(self.tau)]
+            with torch.no_grad():
+                if self._elastic:
+                    self._elastic_update()
+                else:
+                    # THE sync: collect + average (ref: CifarApp.scala:132-134)
+                    self._mean_(param_tensors(self.solver))
+                loss = float(self._mean_loss_and_state(torch.stack(losses).mean()))
+        if rec:
+            self._emit_obs_round(rec, raw, t0, loss)
+        return loss
+
+    def _obs_mode(self) -> str:
+        """The mode name this trainer's rounds journal as."""
+        if self._elastic:
+            return "easgd"
+        return "tau" if self.tau > 1 else "dp"
+
+    def _emit_obs_round(self, rec, raw: dict, t0: float, loss: float) -> None:
+        """One ``round`` record with the JAX trainer's fields: ``batch`` is
+        the images a step over the workers (each rank feeds its own
+        ``B_local``), ``devices`` the ranks of the default group."""
+        stacked = self.tau > 1 or self._elastic
+        batch = 0
+        for v in raw.values():
+            shp = np.shape(v)
+            if shp:
+                batch = int(shp[1] if stacked and len(shp) > 1 else shp[0])
+                break
+        it_consumed = self.tau if stacked else 1
+        mode = self._obs_mode()
+        rec.round(
+            mode=mode, tau=self.tau, devices=dist.get_world_size(),
+            workers=self.num_workers, iters=it_consumed,
+            batch=batch * self.num_workers, wall_s=time.perf_counter() - t0,
+            loss=loss, fenced=True, iteration=self.iter,
+            lineage=obs_lineage.round_lineage(
+                mode, self.iter - it_consumed, self.iter - it_consumed, self.iter - 1))
 
     def train(self, num_outer: int, data_fn: DataFn, callback=None) -> float:
         loss = 0.0

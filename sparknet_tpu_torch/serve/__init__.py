@@ -17,9 +17,11 @@ Counterpart of ``sparknet_tpu/serve/``:
   flash-attention prefill, paged-attention decode), its cacheless twin
   ``continuous.ContinuousDecoder``, and ``paged.TokenRouter``.
 
-Not ported yet: the engine's ``int8`` deploy arm (ROADMAP Queue A4), and
-the obs journal and the SLO controller (A13); each raises or is left out,
-naming its item.
+The engine and the router journal their ``serve``, ``request`` and
+``replica`` events to the obs journal (``SPARKNET_OBS``), and ``loadgen.
+pod_run(controller=True)`` arms the SLO controller (``loop/autoctl.py``).
+Not ported yet: the journal sites of ``paged``, ``continuous`` and
+``dryrun`` (ROADMAP Queue A13).
 """
 
 from sparknet_tpu_torch.serve.batcher import DynamicBatcher, Ticket

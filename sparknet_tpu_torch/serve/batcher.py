@@ -130,6 +130,7 @@ class DynamicBatcher:
         self._ids = itertools.count()
         self._cv = threading.Condition()
         self.closed = False
+        self._drains = 0  # hot-swap drains so far: each wakes wait_due
         # drain-rate EWMA (rows/s), sampled over >= _WIN_S windows of take()
         # history during which a backlog persisted throughout: a pod pump
         # drains one replica in a burst of back-to-back takes and then
@@ -333,14 +334,19 @@ class DynamicBatcher:
 
     def wait_due(self, timeout: float | None = None) -> bool:
         """Worker-loop helper: block until a flush is due or the batcher
-        closes.  Wakes at the oldest request's deadline without polling.
-        Only meaningful with a real clock."""
+        closes.  Wakes at the oldest request's deadline without polling,
+        and at once when a hot swap drains this batcher: new submits then
+        go to the next generation's batcher, which the worker loop must
+        wait on instead.  Only meaningful with a real clock."""
         with self._cv:
             deadline = None if timeout is None else self.clock() + timeout
+            drains = self._drains
             while not self.closed:
                 now = self.clock()
                 if self._due(now):
                     return True
+                if self._drains != drains:
+                    return False
                 waits = []
                 if self._q:
                     waits.append(self._q[0].t_submit + self.max_wait_ms / 1e3 - now)
@@ -361,6 +367,9 @@ class DynamicBatcher:
         batches: list[list[Ticket]] = []
         while (batch := self.take(force=True)) is not None:
             batches.append(batch)
+        with self._cv:
+            self._drains += 1
+            self._cv.notify_all()
         return batches
 
     def close(self, drain: bool = True) -> list[list[Ticket]]:

@@ -58,10 +58,18 @@ each graph records the int8 convolutions and products
 (``quant.int_matmul``: ``torch._int_mm`` on the card).  Integer sums are
 exact, so within a bucket the int8 arm is bit for bit too.
 
-What is not ported here: the obs journal
-(``rec.emit`` events, fenced spans, lineage, the recompile sentinel) is
-A13 and is left out: the latency ledgers and ``stats()`` carry the
-numbers.  The engine defaults to CUDA (``device=None``) and raises without
+The obs journal: with ``SPARKNET_OBS`` armed the engine writes the JAX
+engine's ``serve`` events (``model_loaded``, ``load_refused`` before any
+capture, ``model_unloaded``, ``candidate_built``, ``rollout``,
+``rollback``, a throttled ``shed`` line, ``shutdown``), a fenced
+``serve_device`` span and one ``request`` record a ticket, each with its
+lineage: a generation ``gen:<model>:v<V>`` descends from the seed, from the
+loop's checkpoint (``lineage.ambient``) or from the generation it
+displaced, and a request names its generation.  ``serve_path_compiles``
+is the capture sentinel's count on the serving thread across each replay
+(``obs/sentinel.py``): a candidate's captures land on its builder's
+thread, never there.  With obs off none of the journal's work runs.  The
+engine defaults to CUDA (``device=None``) and raises without
 a card; a CPU engine (the tests) must be given ``hbm_bytes``.
 
 ref: apps/FeaturizerApp.scala:1 (the reference's batch-scoring inference
@@ -77,6 +85,9 @@ import numpy as np
 import torch
 
 from sparknet_tpu_torch.common import Phase, resolve_device
+from sparknet_tpu_torch.obs import lineage as obs_lineage
+from sparknet_tpu_torch.obs.recorder import get_recorder
+from sparknet_tpu_torch.obs.sentinel import get_sentinel
 from sparknet_tpu_torch.serve.batcher import DynamicBatcher, Ticket
 from sparknet_tpu_torch.serve.graphs import BucketProgram
 from sparknet_tpu_torch.serve.residency import AdmissionPolicy
@@ -431,10 +442,16 @@ class ServeEngine:
         # or in the candidate's, never in a drained queue).  Execution runs
         # outside it, under the model's own lock.
         self._lock = threading.RLock()
-        # graph captures made on the request path: 0 by construction (the
-        # module docstring), kept as the JAX engine's gate
+        # graph captures attributed (per thread, obs/sentinel.py) to the
+        # replays on the request path: 0 by construction (the module
+        # docstring), kept as the JAX engine's gate
         self.serve_path_compiles = 0
+        # the deadline-shed ledger: rejections journal THROTTLED, at most
+        # one ``serve/shed`` line an interval with the count since the last
         self.shed_total = 0
+        self._shed_pending = 0
+        self._shed_last_emit: float | None = None
+        self._shed_emit_interval_s = 0.25
 
     # -- model lifecycle ---------------------------------------------------
 
@@ -444,10 +461,16 @@ class ServeEngine:
     def models(self) -> list[str]:
         return list(self._models)
 
-    def _admit(self, family: str, buckets: tuple, arm: str) -> dict:
+    def _admit(self, name: str, family: str, buckets: tuple, arm: str,
+               note: str) -> dict:
         extra = _int8_resident_bytes(family) if arm == "int8" else 0
         verdict = self.policy.admit(family, buckets[-1], self._resident_bytes, extra)
         if not verdict["fits"]:
+            get_recorder().emit(
+                "serve", kind="load_refused", model=name, family=family, arm=arm,
+                buckets=list(buckets), predicted_bytes=verdict["predicted_bytes"],
+                resident_bytes=verdict["resident_bytes"],
+                budget_bytes=verdict["budget_bytes"], note=note)
             raise AdmissionRefused(verdict)
         return verdict
 
@@ -462,13 +485,30 @@ class ServeEngine:
         if name in self._models:
             raise ValueError(f"model {name!r} already resident")
         buckets = tuple(sorted(set(buckets or self.buckets)))
-        verdict = self._admit(family, buckets, arm)
+        verdict = self._admit(name, family, buckets, arm,
+                              "the fit table predicts over-budget residency: refused "
+                              "before any capture")
         model = ServedModel(name, family, arm, buckets, self.max_wait_ms, self.clock,
                             verdict["predicted_bytes"], seed=seed,
                             variables=variables, device=self.device)
         with self._lock:
             self._models[name] = model
             self._resident_bytes += model.predicted_bytes
+        rec = get_recorder()
+        if rec:
+            # this load defines generation v0: seeded weights are a root,
+            # injected ones adopt the caller's ambient parent when pushed
+            lin: dict = {"span": obs_lineage.generation_span(name, model.version)}
+            parent = obs_lineage.current_parent() or (
+                obs_lineage.seed_root(seed) if variables is None else None)
+            if parent:
+                lin["parent"] = parent
+            rec.emit("serve", kind="model_loaded", model=name, family=family, arm=arm,
+                     buckets=list(model.buckets), predicted_bytes=model.predicted_bytes,
+                     resident_bytes=self._resident_bytes,
+                     budget_bytes=verdict["budget_bytes"],
+                     wall_s=round(model.compile_wall_s, 6), lineage=lin,
+                     note="every bucket captured at load (one CUDA graph a bucket)")
         return model
 
     def unload_model(self, name: str) -> None:
@@ -479,6 +519,9 @@ class ServeEngine:
                 self._resident_bytes -= model.previous.predicted_bytes
                 model.previous = None
         model.batcher.close(drain=False)
+        get_recorder().emit("serve", kind="model_unloaded", model=name,
+                            family=model.family_name, arm=model.arm,
+                            resident_bytes=self._resident_bytes)
 
     # -- hot reload --------------------------------------------------------
 
@@ -496,10 +539,27 @@ class ServeEngine:
             raise ValueError(f"no resident model {name!r} to replace — use "
                              "load_model for the first generation")
         buckets = tuple(sorted(set(buckets or self.buckets)))
-        verdict = self._admit(family, buckets, arm)
-        return ServedModel(name, family, arm, buckets, self.max_wait_ms, self.clock,
-                           verdict["predicted_bytes"], seed=seed,
-                           variables=variables, device=self.device)
+        verdict = self._admit(name, family, buckets, arm,
+                              "rollout candidate refused by the fit-table pricing: the "
+                              "incumbent keeps serving, nothing captured")
+        candidate = ServedModel(name, family, arm, buckets, self.max_wait_ms, self.clock,
+                                verdict["predicted_bytes"], seed=seed,
+                                variables=variables, device=self.device)
+        rec = get_recorder()
+        if rec:
+            fields: dict = {}
+            parent = obs_lineage.current_parent()
+            if parent:
+                # the loop pushed its checkpoint span; the candidate has no
+                # generation until the swap, so it carries the edge only
+                fields["lineage"] = {"parent": parent}
+            rec.emit("serve", kind="candidate_built", model=name, family=family, arm=arm,
+                     buckets=list(candidate.buckets),
+                     predicted_bytes=candidate.predicted_bytes,
+                     wall_s=round(candidate.compile_wall_s, 6),
+                     note="every bucket captured on the builder's thread: none on the "
+                          "request path", **fields)
+        return candidate
 
     def swap_model(self, name: str, candidate: ServedModel) -> dict:
         """Atomically replace resident model ``name`` with a captured
@@ -524,8 +584,23 @@ class ServeEngine:
         for batch in stale:
             self._execute(old, batch)
             drained += len(batch)
-        return {"version": candidate.version, "drained": drained,
-                "swap_wall_s": time.perf_counter() - t0}
+        wall = time.perf_counter() - t0
+        rec = get_recorder()
+        if rec:
+            # the new generation descends from the loop's ambient checkpoint
+            # when one is pushed, else from the generation it displaced
+            parent = (obs_lineage.current_parent()
+                      or obs_lineage.generation_span(name, old.version))
+            rec.emit("serve", kind="rollout", model=name, family=candidate.family_name,
+                     arm=candidate.arm, buckets=list(candidate.buckets),
+                     version=candidate.version, drained=drained,
+                     predicted_bytes=candidate.predicted_bytes,
+                     resident_bytes=self._resident_bytes, wall_s=round(wall, 6),
+                     lineage={"span": obs_lineage.generation_span(name, candidate.version),
+                              "parent": parent},
+                     note="hot swap under the pump lock: the incumbent drained with "
+                          "its own graphs, zero dropped tickets")
+        return {"version": candidate.version, "drained": drained, "swap_wall_s": wall}
 
     def rollback(self, name: str) -> ServedModel:
         """Restore the previous generation of resident model ``name``: the
@@ -543,8 +618,17 @@ class ServeEngine:
             self._models[name] = prev
             self._resident_bytes -= cur.predicted_bytes
             stale = cur.batcher.drain()
+        drained = 0
         for batch in stale:
             self._execute(cur, batch)
+            drained += len(batch)
+        get_recorder().emit(
+            "serve", kind="rollback", model=name, family=prev.family_name, arm=prev.arm,
+            buckets=list(prev.buckets), version=prev.version, drained=drained,
+            resident_bytes=self._resident_bytes,
+            lineage={"span": obs_lineage.generation_span(name, prev.version)},
+            note="previous ServedModel restored bitwise (same object, same graphs); "
+                 "the rolled-back candidate drained with its own graphs")
         return prev
 
     # -- request path ------------------------------------------------------
@@ -570,7 +654,7 @@ class ServeEngine:
                 return model.batcher.submit(item)
             ticket = model.batcher.shed(item, tick_ms=SHED_TICK_MS)
             if ticket is None:
-                self.shed_total += 1
+                self._note_shed_locked(model_name, model, 1)
             return ticket
 
     def submit_many(self, model_name: str, items: list, *,
@@ -583,8 +667,31 @@ class ServeEngine:
             payloads = [self._item(model, item) for item in items]
             tickets, n_shed = model.batcher.submit_many(payloads, shed=shed,
                                                         tick_ms=SHED_TICK_MS)
-            self.shed_total += n_shed
+            if n_shed:
+                self._note_shed_locked(model_name, model, n_shed)
         return tickets, n_shed
+
+    def _note_shed_locked(self, model_name: str, model: ServedModel, n: int) -> None:
+        """Count ``n`` rejections and journal a throttled ``serve/shed`` line
+        (at most one an interval, with the count since the previous line).
+        The caller holds the pump lock."""
+        self.shed_total += n
+        rec = get_recorder()
+        if not rec:
+            return
+        self._shed_pending += n
+        now = self.clock()
+        if (self._shed_last_emit is not None
+                and now - self._shed_last_emit < self._shed_emit_interval_s):
+            return
+        pending, self._shed_pending = self._shed_pending, 0
+        self._shed_last_emit = now
+        rec.emit("serve", kind="shed", model=model_name, shed=pending,
+                 projected_wait_ms=round(model.batcher.last_projected_ms, 3),
+                 tick_ms=SHED_TICK_MS,
+                 note="deadline-aware admission: projected queue wait over "
+                      "max_wait_ms + one pump tick, rejected, not queued (count "
+                      "since the previous shed line)")
 
     def infer(self, model_name: str, item, timeout: float | None = 60.0):
         """Synchronous single request: submit, flush now, return the scores.
@@ -640,6 +747,8 @@ class ServeEngine:
             for batch in model.batcher.close(drain=True):
                 self._execute(model, batch)
                 drained += len(batch)
+        get_recorder().emit("serve", kind="shutdown", requests=drained,
+                            note="queue drained on shutdown: zero in-flight requests lost")
         return drained
 
     # -- execution ---------------------------------------------------------
@@ -661,25 +770,51 @@ class ServeEngine:
             data[i] = t.payload
         data[len(tickets):] = 0
         asm_ms = (time.perf_counter() - asm0) * 1e3
+        rec = get_recorder()
+        sentinel = get_sentinel()
+        captures0 = sentinel.thread_count()
         dev0 = time.perf_counter()
         try:
-            out = program.run()
+            if rec:
+                with rec.span("serve_device", note=f"{model.name}/b{bucket}") as sp:
+                    out = program.run()
+                    # the scores were copied from the graph's own output after
+                    # its stream finished: their last value is the fence
+                    sp.fence_value(float(out.ravel()[-1]))
+            else:
+                out = program.run()
         except Exception as e:
             for t in tickets:
                 t.resolve(error=e)
             raise
         device_ms = (time.perf_counter() - dev0) * 1e3
+        # per-THREAD attribution: a concurrent builder's captures land on its
+        # own thread's count, so a delta here means the replay itself captured
+        captured = sentinel.thread_count() - captures0
+        if captured:
+            with self._lock:
+                self.serve_path_compiles += captured
         now = self.clock()
         model.batches += 1
         model.padded_rows += bucket - len(tickets)
+        # one shared lineage dict a batch: every row's parent is the generation
+        lineage = {"parent": f"gen:{model.name}:v{model.version}"} if rec else None
         for i, t in enumerate(tickets):
             t.t_done = now
             queue_ms = max(0.0, (t.t_batch - t.t_submit) * 1e3)
+            total_ms = queue_ms + asm_ms + device_ms
             t.resolve(result=out[i])
             model.requests += 1
-            model.lat_total_ms.append(queue_ms + asm_ms + device_ms)
+            model.lat_total_ms.append(total_ms)
             model.lat_queue_ms.append(queue_ms)
             model.lat_device_ms.append(device_ms)
+            if rec:
+                rec.emit("request", model=model.name, bucket=bucket,
+                         queue_wait_ms=round(queue_ms, 4),
+                         batch_assembly_ms=round(asm_ms, 4),
+                         device_ms=round(device_ms, 4), total_ms=round(total_ms, 4),
+                         batch_n=len(tickets), padded=bucket > len(tickets),
+                         deadline_flush=bool(t.deadline_flush), lineage=lineage)
 
     # -- telemetry ---------------------------------------------------------
 

@@ -8,7 +8,7 @@ per bucket at load: a :class:`BucketProgram` holds
 
 * a static input on the device, ``[exec_batch, *item_shape]`` (float32
   NCHW images or int32 token ids), and a static all-zero label;
-* the TEST-phase forward captured once with ``torch.cuda.graph``, after
+* the TEST-phase forward captured once (``CUDAGraph.capture_begin``), after
   warm-up forwards on the capture's own side stream (they load the
   kernels, create the cuBLAS/cuDNN handles and workspaces for that
   stream, build the port's attention library and set its shared-memory
@@ -50,7 +50,8 @@ Capture rules this module keeps:
   takes them off the launch counts and keeps them as the program's
   ``launches``, which :meth:`BucketProgram.run` adds at each replay.
 
-Captures are counted process-wide (:func:`capture_count`).  Only the
+Captures are counted by the obs capture sentinel (``obs/sentinel.py``),
+process-wide (:func:`capture_count`) and per capturing thread.  Only the
 :class:`BucketProgram` constructor captures, and the engine's request path
 constructs none, so a replay can never trigger a capture: unlike a lazily
 recompiling ``jax.jit``, a CUDA graph is recorded once or not at all.
@@ -65,6 +66,7 @@ import time
 import numpy as np
 import torch
 
+from ..obs.sentinel import get_sentinel
 from ..ops import kernels
 
 __all__ = ["BucketProgram", "capture_count"]
@@ -74,12 +76,11 @@ WARMUP_FORWARDS = 2
 
 _CAPTURE_LOCK = threading.Lock()
 _CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}  # under the lock
-_CAPTURES = 0  # under the lock
 
 
 def capture_count() -> int:
     """CUDA graph captures made in this process, on every thread."""
-    return _CAPTURES
+    return get_sentinel().count
 
 
 @contextlib.contextmanager
@@ -132,7 +133,6 @@ class BucketProgram:
             self._capture(pool)
 
     def _capture(self, pool) -> None:
-        global _CAPTURES
         t0 = time.perf_counter()
         with _CAPTURE_LOCK, _capture_settings():
             stream = _CAPTURE_STREAMS.get(self.device)
@@ -144,11 +144,18 @@ class BucketProgram:
                     self._forward(self.data, self.label)
             stream.synchronize()
             graph = torch.cuda.CUDAGraph()
-            with kernels.recording_launches() as launches, torch.cuda.graph(
-                    graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
-                out = self._forward(self.data, self.label)
+            # capture_begin/end, not torch.cuda.graph: its entry would
+            # synchronize the card and empty the allocator's and the pinned
+            # host caches, stalling the pump thread's replays for the length
+            # of a build
+            with kernels.recording_launches() as launches, torch.cuda.stream(stream):
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    out = self._forward(self.data, self.label)
+                finally:
+                    graph.capture_end()
             stream.synchronize()
-            _CAPTURES += 1
+            get_sentinel().note_capture()
         self.graph, self.out, self.launches = graph, out, launches
         self._host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         self.capture_s = time.perf_counter() - t0

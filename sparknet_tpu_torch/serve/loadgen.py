@@ -11,8 +11,10 @@ The refusal is priced through an injected fit table: no table is banked
 for the card (``serve/residency.py``), so ``load_run`` builds its engine
 with :func:`over_budget_table`, one row that prices the refusal family
 above any device's memory, and leaves the served families unpriced
-(admitted).  ``pod_run``'s SLO controller
-(``controller=True``) is ROADMAP Queue A13 and raises.
+(admitted).  ``pod_run(controller=True)`` arms the SLO controller
+(``loop/autoctl.py``) over a ``RouterPlane``, stepped from the submit loop
+and tailing the armed obs journal.  With ``SPARKNET_OBS`` armed
+``load_run`` journals its ``serve`` summary.
 
 ref: apps/ImageNetRunDBApp.scala:1 (the reference's synthetic-drive
 scoring loop; open/closed-loop arrival processes are new surface).
@@ -25,6 +27,7 @@ import time
 
 import numpy as np
 
+from sparknet_tpu_torch.obs.recorder import get_recorder
 from sparknet_tpu_torch.serve.engine import (
     SERVE_BUCKETS,
     AdmissionRefused,
@@ -93,14 +96,15 @@ def pod_run(replicas: int = 2, family: str = "transformer", arm: str = "f32",
     is ``dryrun.replica_run``'s job): boots a ``ReplicaRouter``, warms every
     bucket on every replica, reads the capture ledger, then sprays a seeded
     Poisson schedule in ``chunk_s`` horizons with deadline shedding on.
+
+    ``controller=True`` arms an :class:`~sparknet_tpu_torch.loop.autoctl.
+    SLOController` over a ``RouterPlane``, stepped from THIS loop (never a
+    thread of its own), tailing the armed obs journal for the request
+    stream when ``SPARKNET_OBS`` is set.  Off, nothing is constructed.
+
     Returns the pod summary; ``compiles_post_warmup`` and ``dropped`` are
     the gates (both must be 0)."""
     from sparknet_tpu_torch.serve.router import ReplicaRouter
-
-    if controller:
-        raise NotImplementedError(
-            "pod_run's SLO controller (loop.autoctl) is not ported yet "
-            "(ROADMAP Queue A13)")
 
     def say(msg: str) -> None:
         if log:
@@ -114,6 +118,27 @@ def pod_run(replicas: int = 2, family: str = "transformer", arm: str = "f32",
     rs = np.random.RandomState(seed)
     router.warmup(rs)
     captures0 = capture_count()
+
+    ctl = tail = None
+    if controller:
+        from sparknet_tpu_torch.loop.autoctl import RouterPlane, SLOController
+        from sparknet_tpu_torch.obs.metrics import JournalTail
+
+        rec = get_recorder()
+        if rec.enabled:
+            tail = JournalTail(rec.path)
+        ctl = SLOController(RouterPlane(router, baseline=replicas))
+        say("controller armed (RouterPlane: priced join/kill"
+            + (", tailing the obs journal)" if tail is not None
+               else "; no journal armed: the burn gates see only summaries)"))
+
+    def ctl_step() -> None:
+        if ctl is None:
+            return
+        if tail is not None:
+            ctl.feed_tail(tail)
+        ctl.step()
+
     schedule = open_loop_schedule(rate, seconds, seed=seed)
     say(f"traffic: {len(schedule)} open-loop arrival(s) at {rate:g} req/s offered ...")
     items = synthetic_items(next(iter(router._replicas.values())).model, 256, rs)
@@ -137,6 +162,7 @@ def pod_run(replicas: int = 2, family: str = "transformer", arm: str = "f32",
                 i = j
             else:
                 time.sleep(min(chunk_s, schedule[i] - now))
+            ctl_step()
         for t in tickets:
             t.wait(timeout=60.0)
         wall_s = time.perf_counter() - t0
@@ -144,11 +170,14 @@ def pod_run(replicas: int = 2, family: str = "transformer", arm: str = "f32",
         stop.set()
         pump.join(timeout=30.0)
     router.pump(force=True)
+    ctl_step()
     summary = router.summary(wall_s)
     summary["offered"] = len(schedule)
     summary["admitted"] = len(tickets)
     summary["compiles_post_warmup"] = capture_count() - captures0
     summary["wall_s"] = round(wall_s, 3)
+    if ctl is not None:
+        summary["ctl"] = {**ctl.summary(), "actions": list(ctl.actions)}
     router.shutdown()
     return summary
 
@@ -229,5 +258,12 @@ def load_run(requests: int = 504, family: str = "cifar10_quick", arm: str = "f32
         "refused": refused,
         "stats": engine.stats(),
     }
+    get_recorder().emit(
+        "serve", kind="summary", model="primary", family=family, arm=arm,
+        buckets=summary["buckets_exercised"], requests=summary["requests"],
+        batches=summary["batches"], padded=summary["padded_rows"],
+        compiles=compiles_post, p50_ms=summary["p50_ms"], p99_ms=summary["p99_ms"],
+        rps=round(summary["rps"], 1), wall_s=round(wall_s, 3),
+        note="closed-loop load run (host-side walls)")
     engine.shutdown()
     return summary

@@ -31,7 +31,7 @@ device, because a GEMM of another row count may take another kernel
 "interleaved == alone" would break.
 
 The graph-analysis twins (``build_rect_program``/``build_decode_program``)
-and the telemetry recorder are ROADMAP Queue A14/A13.
+are ROADMAP Queue A14, and this module's ``token`` journal events A13.
 """
 
 from __future__ import annotations

@@ -29,8 +29,11 @@ every resize; here a resize re-counts the live slots (``live_slots``).
 K replicas on one card share its SMs and copy engines, so they show the
 pool's routing, kill, join and rollout behaviour, not K cards' scaling:
 as with the elastic trainer's ranks on one card, throughput across cards
-is not measured.  The obs journal's ``replica`` events are ROADMAP Queue
-A13; :meth:`summary` returns the roll-up instead.
+is not measured.  With ``SPARKNET_OBS`` armed the router journals the JAX
+router's ``replica`` events: ``replica_up`` (boot and join),
+``replica_down`` (with ``rerouted``), ``resize`` (a kill or a join re-cut
+the live slots), ``rollout`` (per replica) and the ``summary``
+(:meth:`summary`: ``dropped`` = submitted - resolved, which must be 0).
 
 ref: caffe/src/caffe/parallel.cpp P2PSync (the reference's replica
 fan-out across train replicas; serve-side routing is new surface).
@@ -44,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from sparknet_tpu_torch.obs.recorder import get_recorder
 from sparknet_tpu_torch.serve.batcher import Ticket
 from sparknet_tpu_torch.serve.engine import ServeEngine, percentile
 
@@ -115,8 +119,12 @@ class ReplicaRouter:
         self._retired_lat: list[float] = []
         self._retired_queue: list[float] = []
         self.live_slots: list[int] = []
+        rec = get_recorder()
         for _ in range(replicas):
-            self._boot_replica(variables=None)
+            rep = self._boot_replica(variables=None)
+            rec.emit("replica", kind="replica_up", replica=rep.rid, model=model_name,
+                     family=family, arm=arm, width=len(self._replicas),
+                     predicted_bytes=rep.model.predicted_bytes, note="initial pool boot")
 
     # -- membership internals ----------------------------------------------
 
@@ -171,6 +179,16 @@ class ReplicaRouter:
     def width(self) -> int:
         return len(self._replicas)
 
+    def free_devices(self) -> int:
+        """Pool slots not hosting a replica (the SLO controller's can-grow
+        preview, ``loop/autoctl.py``)."""
+        with self._lock:
+            return len(self._device_pool) - len(self._replicas)
+
+    def _resized(self, from_width: int, reason: str) -> None:
+        get_recorder().emit("replica", kind="resize", from_width=from_width,
+                            to_width=len(self._replicas), note=reason)
+
     def kill_replica(self, rid: int) -> int:
         """A replica dies: steal its pending tickets and adopt them onto the
         least-loaded survivor (the SAME Ticket objects resolve there).
@@ -179,6 +197,7 @@ class ReplicaRouter:
             if len(self._replicas) <= 1:
                 raise RuntimeError("cannot kill the last replica (the pool would "
                                    "drop its queue)")
+            from_width = len(self._replicas)
             dead = self._replicas.pop(rid)
             stolen = dead.model.batcher.steal()
             dead.model.batcher.close(drain=False)
@@ -191,21 +210,37 @@ class ReplicaRouter:
         # model's lock before its ledger is folded in
         with dead.model.lock, self._lock:
             self._retire_counters(dead.model, dead.engine)
+        get_recorder().emit(
+            "replica", kind="replica_down", replica=rid, model=self.model_name,
+            family=self.family, arm=self.arm, width=len(self._replicas),
+            rerouted=len(stolen), outstanding=target.outstanding(),
+            note=f"pending tickets adopted by replica {target.rid} merged by original "
+                 "submit time: zero dropped")
+        self._resized(from_width, f"replica {rid} killed")
         return len(stolen)
 
     def join_replica(self) -> int:
         """A fresh replica joins on a free slot with the live weights COPIED
         from a serving replica.  Returns the new replica id."""
         with self._lock:
+            from_width = len(self._replicas)
             donor = next(iter(self._replicas.values()))
             variables = donor.model.source_variables
-        return self._boot_replica(variables=variables).rid
+        rep = self._boot_replica(variables=variables)
+        get_recorder().emit(
+            "replica", kind="replica_up", replica=rep.rid, model=self.model_name,
+            family=self.family, arm=self.arm, width=len(self._replicas),
+            predicted_bytes=rep.model.predicted_bytes,
+            note=f"elastic join: weights copied from replica {donor.rid}")
+        self._resized(from_width, f"replica {rep.rid} joined")
+        return rep.rid
 
     def rollout(self, variables=None, seed: int | None = None) -> int:
         """Hot-swap every replica to a new generation, one after another:
         each candidate captures off the request path, then swaps under its
         replica's pump lock while the others keep serving.  Returns the
         tickets drained through retiring models."""
+        rec = get_recorder()
         drained = 0
         for rid in self.replica_ids():
             with self._lock:
@@ -225,6 +260,11 @@ class ReplicaRouter:
                 self._retire_counters(rep.model)
                 rep.model = candidate
             drained += info["drained"]
+            rec.emit("replica", kind="rollout", replica=rid, model=self.model_name,
+                     family=self.family, arm=self.arm, version=info["version"],
+                     drained=info["drained"], wall_s=round(info["swap_wall_s"], 6),
+                     note="per-replica hot swap: the pool kept serving through the "
+                          "capture")
         return drained
 
     # -- request path ------------------------------------------------------
@@ -352,8 +392,15 @@ class ReplicaRouter:
 
     def summary(self, wall_s: float) -> dict:
         """:meth:`stats` plus ``dropped`` (submitted minus resolved, which
-        MUST be 0) and ``rps`` over ``wall_s``."""
+        MUST be 0) and ``rps`` over ``wall_s``; journaled as the ``replica``
+        summary event."""
         s = self.stats()
         s["dropped"] = self.submitted - s["requests"]
         s["rps"] = s["requests"] / wall_s if wall_s > 0 else 0.0
+        get_recorder().emit(
+            "replica", kind="summary", model=self.model_name, family=self.family,
+            arm=self.arm, width=s["replicas"], requests=s["requests"], shed=s["shed"],
+            rerouted=s["rerouted"], dropped=s["dropped"], rps=round(s["rps"], 2),
+            p50_ms=round(s["p50_ms"], 3), p99_ms=round(s["p99_ms"], 3),
+            wall_s=round(wall_s, 3), note="pod aggregate (host-side walls)")
         return s

@@ -39,6 +39,7 @@ import dataclasses
 import json
 import os
 import tempfile
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -52,6 +53,8 @@ from sparknet_tpu_torch.common import (
     tensor_from_numpy,
 )
 from sparknet_tpu_torch.compiler.graph import Network, NetVars
+from sparknet_tpu_torch.obs import lineage as obs_lineage
+from sparknet_tpu_torch.obs.recorder import get_recorder
 from sparknet_tpu_torch.proto.text_format import Message, parse_file
 from sparknet_tpu_torch.solvers.lr_policy import learning_rate
 from sparknet_tpu_torch.solvers.updates import apply_update, init_slots
@@ -355,6 +358,24 @@ def _write_npz_atomic(path: str, arrays: dict) -> None:
         raise
 
 
+def _feed_images(feeds: dict, iter_size: int) -> int:
+    """Images per solver iteration in one feed dict (iter_size > 1 feeds
+    carry a leading [iter_size] micro-batch axis)."""
+    for v in feeds.values():
+        shp = np.shape(v)
+        if shp:
+            if iter_size > 1 and len(shp) > 1:
+                return int(shp[0]) * int(shp[1])
+            return int(shp[0])
+    return 0
+
+
+def _value(loss) -> float:
+    """A loss's value on the host: ``.item()`` of the step's own output
+    tensor (the obs fence), or the number itself."""
+    return float(loss.item() if isinstance(loss, torch.Tensor) else loss)
+
+
 def _numpy(t: torch.Tensor) -> np.ndarray:
     # bf16 blobs are written as float32 (exact); restore casts back
     return host_array(t)
@@ -562,10 +583,20 @@ class Solver:
     def step(self, num_iters: int, data_fn: DataFn, callback=None) -> float:
         """Run ``num_iters`` training iterations (ref: Solver::Step).
         Returns the final smoothed loss; ``callback(iter, loss)`` runs
-        after every iteration on the host."""
+        after every iteration on the host.
+
+        With ``SPARKNET_OBS`` armed, one ``round`` record (mode ``solo``)
+        covers the call, its wall fence-stamped on the VALUE of the last
+        loss (the read the smoothed loss makes anyway); with obs off it
+        adds no host sync, launch or allocation to the loop."""
+        rec = get_recorder() if num_iters > 0 else None
         cfg = self.config
+        t0, it0, images = time.perf_counter(), self.iter, 0
         for _ in range(num_iters):
-            loss = self.train_iteration(data_fn(self.iter))
+            feeds = data_fn(self.iter)
+            if rec:
+                images = _feed_images(feeds, cfg.iter_size)
+            loss = self.train_iteration(feeds)
             # losses stay on the device (no sync per iteration); smoothing
             # window per solver.cpp:235-257
             self._loss_window.append(loss)
@@ -579,6 +610,13 @@ class Solver:
             if cfg.snapshot and self.iter % cfg.snapshot == 0 and cfg.snapshot_prefix:
                 self.save(f"{cfg.snapshot_prefix}_iter_{self.iter}")
         self.smoothed_loss = self._smoothed()
+        if rec:
+            rec.round(
+                mode="solo", tau=1, devices=1, iters=self.iter - it0, batch=images,
+                wall_s=time.perf_counter() - t0, loss=_value(self._loss_window[-1]),
+                fenced=True, iteration=self.iter,
+                lineage=obs_lineage.round_lineage("solo", it0, it0,
+                                                  max(it0, self.iter - 1)))
         return self.smoothed_loss
 
     def _smoothed(self) -> float:

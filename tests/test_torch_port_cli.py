@@ -288,16 +288,16 @@ HDF5_NET = ('name: "h" layer { name: "d" type: "HDF5Data" top: "data" top: "labe
     (["time", "--hlo"], "Queue A14"),
     (["time", "--trace"], "Queue A13"),
     (["test", "--layout", "nhwc"], "Queue A6"),
-    (["--obs", "x.jsonl", "test"], "Queue A13"),
+    (["time", "--trace", "--trace-out", "t2.json"], "Queue A13"),
     (["train", "--scan", "2"], "Queue A5"),
     (["time", "--trace-out", "t.json"], "Queue A13"),
     (["train", "--layout", "nhwc"], "Queue A6"),
-    (["--obs", "x.jsonl", "train"], "Queue A13"),
+    (["train", "--profile", "d2", "--output", "o"], "Queue A13"),
     (["extract_features", "--solver", "{hdf5}", "--blob", "ip", "--out", "f.npy"], "Queue A9"),
     (["bench"], "Queue A6"),
-    (["serve"], "Queue A7"),
-    (["loop"], "Queue A13"),
     (["pods"], "Queue A9"),
+    (["train", "--profile", "d3"], "Queue A13"),
+    (["pods", "create"], "Queue A9"),
 ])
 def test_unported_flags_and_commands_name_their_item(argv, item, tmp_path):
     nets = {}

@@ -53,6 +53,9 @@ layers = sorted(n for n in names if n in ("sparknet_tpu_torch.compiler.graph",
                                           "sparknet_tpu_torch.ops.vision"))
 precision = sorted(n for n in names if n in ("sparknet_tpu_torch.common",
                                              "sparknet_tpu_torch.quant"))
+loop = sorted(n for n in names if n.startswith(("sparknet_tpu_torch.obs",
+                                                "sparknet_tpu_torch.loop")))
+print(loop)
 print(precision)
 print(layers)
 print(files)
@@ -70,8 +73,8 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    precision, layers, files, training, serving, charlm, feed, zoo, last = \
-        out.stdout.strip().split("\n")[-9:]
+    loop, precision, layers, files, training, serving, charlm, feed, zoo, last = \
+        out.stdout.strip().split("\n")[-10:]
     n, bad = last.split(" ", 1)
     assert int(n) >= 30, out.stdout
     assert bad == "[]", out.stdout
@@ -110,6 +113,14 @@ def test_port_imports_no_jax():
     assert layers == str(["sparknet_tpu_torch.compiler.graph", "sparknet_tpu_torch.interop"] + [
         f"sparknet_tpu_torch.ops.{m}" for m in
         ("data_layers", "loss", "moe", "neuron", "python_layer", "vision")]), out.stdout
+    # the production loop and its obs journal
+    assert loop == str(["sparknet_tpu_torch.loop"] + [
+        f"sparknet_tpu_torch.loop.{m}" for m in
+        ("autoctl", "controller", "deploy", "dryrun", "feed", "watcher")]
+        + ["sparknet_tpu_torch.obs"] + [
+        f"sparknet_tpu_torch.obs.{m}" for m in
+        ("__main__", "burn", "lineage", "metrics", "recorder", "schema", "sentinel",
+         "slo")]), out.stdout
     # reduced precision: the Config's dtypes and policies, the int8 path
     assert precision == str(["sparknet_tpu_torch.common", "sparknet_tpu_torch.quant"]), \
         out.stdout

@@ -158,8 +158,11 @@ def test_pod_run_steady_load():
     assert s["dropped"] == 0 and s["compiles_post_warmup"] == 0
     assert s["admitted"] + s["shed"] == s["offered"] > 0
     assert s["replicas"] == 2
-    with pytest.raises(NotImplementedError, match="A13"):
-        pod_run(controller=True, devices=["cpu"], hbm_bytes=HBM)
+    # the SLO controller (loop/autoctl.py) steps from the submit loop
+    c = pod_run(replicas=2, family="lenet", buckets=(1, 8), rate=300.0, seconds=0.3,
+                devices=["cpu"] * 3, hbm_bytes=HBM, controller=True)
+    assert c["dropped"] == 0 and c["compiles_post_warmup"] == 0
+    assert c["ctl"]["observes"] >= 1 and c["ctl"]["ok"]
 
 
 def test_replica_run_gates_short_schedule():

@@ -478,3 +478,23 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
                   lambda: loadgen.load_run(), lambda: build_serve_program()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
+
+
+def test_wait_due_wakes_when_a_hot_swap_drains_the_batcher():
+    """A worker blocked in ``wait_due`` on the generation a hot swap
+    retires returns at once (False: nothing due), so it goes on to wait on
+    the next generation's batcher instead of sleeping out its timeout."""
+    b = port_batcher.DynamicBatcher(buckets=(1, 8), max_wait_ms=5.0)
+    out = []
+
+    def worker():
+        t0 = time.monotonic()
+        out.append((b.wait_due(timeout=60.0), time.monotonic() - t0))
+
+    th = threading.Thread(target=worker, daemon=True)
+    th.start()
+    t0 = time.monotonic()
+    while th.is_alive() and time.monotonic() - t0 < 20.0:
+        assert b.drain() == []  # a drain before the worker waits wakes nothing
+        th.join(timeout=0.05)
+    assert out and out[0][0] is False and out[0][1] < 20.0, out
