@@ -398,6 +398,40 @@ Phases, in order (any failure exits non-zero):
     [32,4,32,4] and [256,4,32,4] causal against their plain versions (rtol
     1e-5, atol 1e-6).
 
+31. trace (run first, right after the build: late in a long process
+    about half of all profiler windows lose device records, see 32): the
+    port's profiler (fused update, f32, TF32 off).  ``tpunet time --trace
+    --iterations 5`` on the zoo AlexNet b256 and on the full-width char LM
+    (b32 x 128), through the CLI's ``main``: the per-layer table with
+    norm1/norm2's B1 time in ``fwd`` and their B1' time in ``bwd`` (every
+    B1 record scoped ``L.norm<i>``, every B1' record
+    ``transpose(jvp(L.norm<i>))``), every B3' record in an attention layer's
+    ``bwd``, the records of B1, B1', B2, B3 and B3' in both traced windows
+    equal to the launch counts of those windows, ``(other)``'s kernels
+    printed by name (the update and what runs outside ``Network.apply``,
+    no layer's hand kernel), the device time a step at most the wall, the
+    MFU below 1 against ``h100_sxm_f32``; an AlexNet b256 step traced and
+    untraced bit for bit (loss, params, history) with the same launches;
+    ``tpunet train --profile`` (AlexNet b64, 2 steps) writing a trace that
+    holds every launch.  ``time --trace`` takes a window that lost
+    hand-kernel records again (up to 3 times; the count is printed).
+    Prints each command's seconds and the phase's.
+32. obs_cli (last): what a journal line costs the emitting thread on the
+    journals' filesystem (the Recorder's one handle against reopening the
+    file a line, fault C18 in ROADMAP Queue C; printed); the 64-request
+    token mix through a ``PagedDecoder`` with a Recorder armed (one
+    ``request`` event a ticket, one ``prefill`` event a prefill, a summary
+    with 0 leaked); ``obs dryrun --replica --replicas 2`` in a process of
+    its own, as a user starts it, with its host-clock queue gate; ``obs
+    dryrun --serve --family transformer``, ``--replica --replicas 2``, the dp/tau
+    legs with ``--elastic`` at ``--devices 2`` (two spawned gloo ranks on
+    the card) and ``--ctl`` exiting 0; ``obs validate`` and ``obs report
+    --lineage`` on every journal, ``obs top --once`` on one; then 100
+    one-replay ``trace_step`` windows of a transformer bucket and 50 bare
+    ``torch.profiler`` windows around the same replay: how many lose B3's
+    record, the kinds of record they lose and how far before its launch
+    the device's first record was stamped (printed, not gated).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and runs nothing.  Weights are random, drawn from a fixed seed.
@@ -408,12 +442,15 @@ run) and then prints no result lines; with no arguments every phase runs.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -627,21 +664,33 @@ def forward_with_plain_lrn(net, variables, feeds):
 
 
 def device_breakdown(fn, top: int = 8) -> tuple[float, list]:
-    """Device time of one call of ``fn`` under ``torch.profiler``: (total
-    kernel ms, [(ms, kernel name, calls)] of the ``top`` kernels)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call of ``fn`` under ``torch.profiler``
+    (``utils/profiling.trace``), read by ``utils/op_profile``'s lane
+    policy, the one ``tpunet time --trace`` reads: (total device ms,
+    [(ms, kernel name, calls)] of the ``top`` kernels)."""
+    import tempfile
+
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.utils import op_profile, profiling
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        if e.device_type == DeviceType.CUDA and us > 0:
-            rows.append((us / 1e3, e.key, e.count))
-    rows.sort(reverse=True)
+    before = {k: getattr(kernels, k) for k in op_profile.KERNEL_RECORDS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        with profiling.trace(d):
+            fn()
+        events = op_profile._device_events(d)
+    records = op_profile.kernel_records(events)
+    short = {k: (records[k], getattr(kernels, k) - n) for k, n in before.items()
+             if records[k] < getattr(kernels, k) - n}
+    if short:
+        print(f"  (this profiler window lost hand-kernel records (records, launches) {short}: "
+              "its device time reads low and is left out of PERF.md's comparisons, §7)")
+    by_name: dict = {}
+    for name, us in events:
+        key = name.split("|", 1)[0]
+        ms, n = by_name.get(key, (0.0, 0))
+        by_name[key] = (ms + us / 1e3, n + 1)
+    rows = sorted(((ms, key, n) for key, (ms, n) in by_name.items()), reverse=True)
     return sum(r[0] for r in rows), rows[:top]
 
 
@@ -4171,10 +4220,18 @@ def b2_against_plain(card: str, what: str, layout, cfg, it: int) -> None:
                                                      tables.tile_decay, sc), reps=10)
     nbytes = 5 * layout.total * 4
     bound = nbytes / bw * 1e3
+    graph = ""
+    if layout.total < (1 << 22):
+        # a small arena's kernel is shorter than its launch on the host:
+        # CUDA-graph replay times the kernel alone
+        t_g = graph_ms(lambda: kernels.fused_update("SGD", st, w, g, [h], tables.tile_lr,
+                                                    tables.tile_decay, sc), reps=10)
+        graph = (f"; by CUDA-graph replay {t_g:.4f} ms ({100 * bound / t_g:.1f}% of "
+                 "bound)")
     print(f"time fused_update SGD f32 reg {st.reg} momentum {st.momentum:g} on the {what} "
           f"arena ({layout.param_count():,} params, {layout.total:,} after padding, "
           f"{sum(e.span == 0 for e in layout.entries)} blobs of 0 tiles): kernel {t_k:.4f} ms "
-          f"({nbytes / 1e9:.3f} GB, {100 * bound / t_k:.1f}% of bound), plain "
+          f"({nbytes / 1e9:.3f} GB, {100 * bound / t_k:.1f}% of bound){graph}, plain "
           f"{t_p:.4f} ms, bound {bound:.4f} ms (bytes); kernel against plain "
           f"{'bitwise equal' if same else 'NOT bitwise equal'} [{card}]")
     check(same, f"fused_update on the {what} arena differs from its plain version")
@@ -7389,7 +7446,7 @@ def loop_transformer(card: str) -> dict:
 
 
 def loop_kernels(card: str) -> None:
-    """B2 on the loop's cifar10_quick arena; B3 (with lse) and B3' at the
+    """B2 on the loop's cifar10_quick and transformer arenas; B3 (with lse) and B3' at the
     transformer family's training and top serving shapes, against their
     plain versions."""
     from sparknet_tpu_torch import models
@@ -7398,8 +7455,14 @@ def loop_kernels(card: str) -> None:
     from sparknet_tpu_torch.serve.engine import SERVE_BUCKETS, exec_batch
     from sparknet_tpu_torch.solvers.solver import Solver
 
+    from sparknet_tpu_torch.models.zoo import GRAPH_SWEEP_FAMILIES
+
     s = Solver(models.cifar10_quick_solver(), models.cifar10_quick(LOOP_BATCH), device="cuda")
     b2_against_plain(card, f"cifar10_quick b{LOOP_BATCH} (loop)", s.layout, s.config, it=0)
+    fam = GRAPH_SWEEP_FAMILIES["transformer"]
+    s = Solver(fam.solver(), fam.net(LOOP_TOKEN_BATCH), device="cuda")
+    b2_against_plain(card, f"transformer b{LOOP_TOKEN_BATCH} (loop)", s.layout, s.config,
+                     it=0)
     del s
     gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
     with f32_precision():
@@ -7512,11 +7575,457 @@ def phase_loop(card: str) -> dict:
     return total
 
 
-PHASES = ("kernel", "path", "serve", "profile", "lrn_backward", "train",
+TRACE_ITERS = 5  # steps of `time --trace`'s final window (its short window is 1)
+LOST_WINDOWS = 100  # one-replay trace_step windows of a transformer bucket (half as many bare)
+TRACE_BUCKET = 8
+FRESH_OBS_TIMEOUT_S = 150  # an `obs` command in a process of its own (about 25 s)
+
+
+def trace_cli(argv, walls: list) -> str:
+    """``cli.main(argv)`` in process, stdout captured and printed; its
+    seconds in ``walls``."""
+    import io
+
+    from sparknet_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    walls.append((" ".join(argv[:2]), time.perf_counter() - t0))
+    print(buf.getvalue().rstrip())
+    check(rc == 0, f"trace: cli {' '.join(argv)} exited {rc}")
+    return buf.getvalue()
+
+
+def trace_obs(argv, walls: list, fresh: bool = False) -> None:
+    """``python -m sparknet_tpu_torch.obs`` in process, or with ``fresh`` in
+    a new process of its own from the checkout's root, as a user starts it
+    (its lines printed); it must exit 0."""
+    from sparknet_tpu_torch.obs.__main__ import main as obs_main
+
+    t0 = time.perf_counter()
+    if fresh:
+        import multiprocessing
+        import threading
+
+        # what this process holds while the new one runs beside it
+        print(f"  (fresh process) started beside this process's "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated and "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved on the card, its "
+              f"threads {sorted(t.name for t in threading.enumerate())}, children "
+              f"{[p.pid for p in multiprocessing.active_children()]}, load average "
+              f"{open('/proc/loadavg').read().split()[:3]}")
+        # faulthandler on: a process that outlives its limit is sent SIGABRT,
+        # which prints every thread's stack before it dies
+        proc = subprocess.Popen([sys.executable, "-m", "sparknet_tpu_torch.obs", *argv],
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                env={**os.environ, "PYTHONFAULTHANDLER": "1"},
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            out, err = proc.communicate(timeout=FRESH_OBS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.send_signal(signal.SIGABRT)
+            try:
+                out, err = proc.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            journal = argv[argv.index("--out") + 1] if "--out" in argv else None
+            lines = (sum(1 for _ in open(journal)) if journal and os.path.exists(journal)
+                     else None)
+            err += (f"\n(fresh process) stopped after {FRESH_OBS_TIMEOUT_S} s, its journal "
+                    f"{lines} line(s) long")
+        print("\n".join(f"  (fresh process) {line}" for line in
+                        (out + err).splitlines() if "queue p99" in line))
+        rc = proc.returncode
+        if rc:  # on standard error, whose end a failed run's report shows
+            print(out[-4000:] + err[-12000:], file=sys.stderr)
+    else:
+        rc = obs_main(list(argv))
+    walls.append(("obs " + " ".join(a for a in argv[:2] if not a.startswith("/"))
+                  + (" (fresh process)" if fresh else ""), time.perf_counter() - t0))
+    check(rc == 0, f"trace: obs {' '.join(argv)} exited {rc}")
+
+
+def journal_write_cost(card: str, work: str, lines: int = 6000) -> None:
+    """What one journal line costs the thread that emits it, on the
+    filesystem of the phase's journals: ``Recorder.emit`` of a serving
+    ``request`` event, and its write alone through the Recorder's one open
+    handle against reopening the file a line, as the Recorder did before
+    fault C18's fix (printed, not gated)."""
+    from sparknet_tpu_torch.obs.recorder import Recorder
+
+    real = os.path.realpath(work)
+    fs = max((m for m in (line.split() for line in open("/proc/mounts"))
+              if real == m[1] or real.startswith(m[1].rstrip("/") + "/")),
+             key=lambda m: len(m[1]))
+    path = f"{work}/write_cost.jsonl"
+    rec = Recorder(path)
+    t0 = time.perf_counter()
+    for _ in range(lines):
+        rec.emit("request", model="m", bucket=64, queue_wait_ms=1.0, batch_assembly_ms=0.1,
+                 device_ms=0.5, total_ms=1.6, batch_n=50, padded=True, deadline_flush=True,
+                 lineage={"parent": "gen:m:v0"})
+    emit_us = 1e6 * (time.perf_counter() - t0) / lines
+    rec.close()
+    with open(path, encoding="utf-8") as f:
+        payload = f.readlines()[1]  # the first request event
+    costs = {}
+    for mode in ("one handle", "reopened a line"):
+        ts = []
+        f = open(path, "a", encoding="utf-8") if mode == "one handle" else None
+        for _ in range(lines):
+            t = time.perf_counter()
+            if f is None:
+                with open(path, "a", encoding="utf-8") as g:
+                    g.write(payload)
+            else:
+                f.write(payload)
+                f.flush()
+            ts.append(time.perf_counter() - t)
+        if f is not None:
+            f.close()
+        ts.sort()
+        costs[mode] = (1e6 * sum(ts) / lines, 1e6 * ts[int(0.99 * lines)], 1e3 * ts[-1])
+    os.remove(path)
+    print(f"obs_cli: a journal line on {fs[1]} ({fs[2]}): Recorder.emit of a request event "
+          f"{emit_us:.1f} us; the write alone " + "; ".join(
+              f"{m} mean {a:.1f} us, p99 {b:.1f} us, max {c:.3f} ms"
+              for m, (a, b, c) in costs.items()) + f" ({lines} lines each) [{card}]")
+
+
+def trace_time(card: str, work: str, solver: str, batch: int, walls: list) -> dict:
+    """``tpunet time --trace`` on the card through the CLI: its artifact,
+    with every kernel record of both traced windows (``events``), held
+    against the launch counts the CLI banked for the same windows."""
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.utils import op_profile
+
+    out = f"{work}/{solver[4:]}_trace.json"
+    kernels.reset_launch_counts()
+    trace_cli(["time", "--trace", "--solver", solver, "--batch", str(batch), "--data",
+               "synthetic", "--iterations", str(TRACE_ITERS), "--trace-out", out], walls)
+    art = json.load(open(out))
+    art["counts"] = {k: getattr(kernels, k) for k in op_profile.KERNEL_RECORDS}
+    art["events"] = []
+    for d, key in ((art["trace_dir_short"], "kernel_launches_short"),
+                   (art["trace_dir"], "kernel_launches")):
+        events = op_profile._device_events(d, full=True)
+        records = op_profile.kernel_records(events)
+        launched = art[key]
+        got = {k: records[k] for k in op_profile.KERNEL_RECORDS if records[k] or k in launched}
+        print(f"trace {solver}: window {d}: hand-kernel records {got}, launches {launched} "
+              f"[{card}]")
+        check(got == launched, f"trace {solver}: records {got} against launches {launched}")
+        art["events"] += events
+    wall_us = art["wall_ms_per_step"] * 1e3
+    print(f"trace {solver}: device {art['device_us_per_step'] / 1e3:.3f} ms a step against "
+          f"the wall's {wall_us / 1e3:.3f} ms (attributed {100 * art['attributed_frac']:.1f} "
+          f"%); MFU {art['mfu']} of {art['mfu_vs_peak']}, {art['gflop_per_step']} GFLOP a "
+          f"step (FlopCounterMode); untraced {art['wall_ms_per_step_untraced']} ms a step; "
+          f"windows taken again for lost records {art['windows_discarded']} [{card}]")
+    check(art["device_us_per_step"] <= wall_us,
+          f"trace {solver}: device time {art['device_us_per_step']} us above the wall "
+          f"{wall_us} us (lanes counted twice?)")
+    check(art["mfu"] is not None and 0 < art["mfu"] < 1.0
+          and art["mfu_vs_peak"] == "h100_sxm_f32",
+          f"trace {solver}: mfu {art['mfu']} of {art['mfu_vs_peak']}")
+    return art
+
+
+def trace_scopes(events: list, counter: str) -> collections.Counter:
+    """The scopes of one hand kernel's records: Counter of tf_op."""
+    from sparknet_tpu_torch.utils import op_profile
+
+    groups = op_profile.KERNEL_RECORDS[counter]
+    return collections.Counter(
+        e["args"].get("tf_op", "") for e in events
+        if any(op_profile._kernel_group(e["name"], g) for g in groups))
+
+
+def trace_other(card: str, label: str, events: list) -> set:
+    """Print the unattributed kernels of a trace by name; their names."""
+    other = collections.Counter(
+        e["name"] for e in events if not re.search(r"\bL\.", e["args"].get("tf_op", "")))
+    print(f"trace {label}: (other) holds {sum(other.values())} record(s): "
+          + "; ".join(f"{n} x{k}" for n, k in other.most_common()) + f" [{card}]")
+    return set(other)
+
+
+def trace_alexnet(card: str, work: str, walls: list) -> dict:
+    art = trace_time(card, work, "zoo:alexnet", 256, walls)
+    rows = {n: (f, b) for n, f, b in art["rows_fwd_bwd"]}
+    for layer in ("norm1", "norm2"):
+        f, b = rows.get(layer, (0.0, 0.0))
+        check(f > 0 and b > 0, f"trace alexnet: {layer} fwd {f} bwd {b} us")
+    fwd = trace_scopes(art["events"], "LRN_LAUNCHES")
+    bwd = trace_scopes(art["events"], "LRN_BACKWARD_LAUNCHES")
+    print(f"trace alexnet: B1 records by scope {dict(fwd)}; B1' {dict(bwd)} [{card}]")
+    check(set(fwd) == {"L.norm1", "L.norm2"}, f"trace alexnet: B1 scopes {dict(fwd)}")
+    check(set(bwd) == {"transpose(jvp(L.norm1))", "transpose(jvp(L.norm2))"},
+          f"trace alexnet: B1' scopes {dict(bwd)}")
+    other = trace_other(card, "alexnet", art["events"])
+    check(not any(re.search(r"\b(lrn|flash|paged)_\w*kernel\b", n) for n in other),
+          f"trace alexnet: a layer's hand kernel in (other): {other}")
+    check(any("fused_update_kernel" in n for n in other),
+          "trace alexnet: the update (B2) is not in (other)")
+    return art["counts"]
+
+
+def trace_charlm(card: str, work: str, walls: list) -> dict:
+    from sparknet_tpu_torch import models
+
+    art = trace_time(card, work, "zoo:charlm", 32, walls)
+    attention = {f"transpose(jvp(L.{lp.get_str('name').replace('/', '.')}))"
+                 for lp in models.charlm(32).get_all("layer")
+                 if lp.get_str("type") == "MultiHeadAttention"}
+    bwd = trace_scopes(art["events"], "FLASH_BACKWARD_LAUNCHES")
+    fwd = trace_scopes(art["events"], "FLASH_LAUNCHES")
+    print(f"trace charlm: B3 records by scope {dict(fwd)}; B3' {dict(bwd)} (attention "
+          f"layers {sorted(attention)}) [{card}]")
+    check(set(bwd) == attention, f"trace charlm: B3' scopes {dict(bwd)}")
+    trace_other(card, "charlm", art["events"])
+    return art["counts"]
+
+
+def trace_bits(card: str) -> None:
+    """One AlexNet b256 step with the profiler and the layer scopes on, one
+    with them off, from the same weights, batch and dropout masks: the
+    same loss, params and history bit for bit, the same launches."""
+    import tempfile
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import f32_precision
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.utils import profiling
+
+    feeds = fixed_batch(256)
+    got = []
+    with f32_precision(), deterministic_algorithms():
+        for traced in (False, True):
+            s = train_solver(models.alexnet(256), models.alexnet_solver())
+            s.train_iteration(feeds)  # warm-up: cuDNN's algorithm choice
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with (tempfile.TemporaryDirectory(prefix="chip_smoke_bits_") as d,
+                  profiling.trace(d) if traced else contextlib.nullcontext()):
+                loss = float(s.train_iteration(feeds))
+            counts = (kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES,
+                      kernels.FUSED_UPDATE_LAUNCHES)
+            got.append((loss, solver_state(s), counts))
+            del s
+            gc.collect()
+    (l0, (p0, h0), c0), (l1, (p1, h1), c1) = got
+    same = l0 == l1 and all(
+        torch.equal(a, b) for ln in p0 for a, b in zip(p0[ln], p1[ln])) and all(
+        torch.equal(a, b) for ln in h0 for x, y in zip(h0[ln], h1[ln]) for a, b in zip(x, y))
+    print(f"trace bits: an AlexNet b256 step traced and untraced: loss {l0!r} / {l1!r}, "
+          f"params and history {'bit for bit equal' if same else 'DIFFER'}, launches "
+          f"{c0} / {c1} [{card}]")
+    check(same and c0 == c1, "trace bits: profiling changed the step")
+
+
+def trace_train_profile(card: str, work: str, walls: list) -> dict:
+    """``tpunet train --profile DIR``: its trace holds every hand-kernel
+    launch of the run."""
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.utils import op_profile
+
+    d = f"{work}/train_profile"
+    kernels.reset_launch_counts()
+    trace_cli(["train", "--solver", "zoo:alexnet", "--batch", "64", "--data", "synthetic",
+               "--iterations", "2", "--profile", d, "--output", f"{work}/final"], walls)
+    counts = {k: getattr(kernels, k) for k in op_profile.KERNEL_RECORDS}
+    records = op_profile.kernel_records(op_profile._device_events(d, full=True))
+    print(f"trace train --profile: {sorted(os.listdir(d))}: records {records}, launches "
+          f"{counts} [{card}]")
+    check(counts["LRN_LAUNCHES"] > 0 and all(records[k] >= n for k, n in counts.items()),
+          f"trace train --profile: records {records} against launches {counts}")
+    return counts
+
+
+def trace_token(card: str, work: str) -> tuple[str, dict]:
+    """The 64-request token mix through a PagedDecoder with a Recorder
+    armed: one request event a ticket, one prefill event a prefill, a
+    clean summary.  Returns the journal and the launches."""
+    from sparknet_tpu_torch.obs.recorder import Recorder
+    from sparknet_tpu_torch.obs.schema import stream_journal
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve.paged import PagedDecoder
+
+    path = f"{work}/token.jsonl"
+    rec = Recorder(path)
+    d = PagedDecoder(**CHARLM, block_tokens=BLOCK_TOKENS, seed=SEED, recorder=rec)
+    reqs = request_mix(N_REQUESTS, SEED + 6)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tickets = [d.submit(p, m) for p, m in reqs]
+    d.run()
+    counts = {"flash": kernels.FLASH_LAUNCHES, "paged": kernels.PAGED_LAUNCHES}
+    rec.close()
+    st = d.stats()
+    kinds = collections.Counter(e.get("kind") for e in stream_journal(path)
+                                if e.get("event") == "token")
+    summary = [e for e in stream_journal(path) if e.get("kind") == "summary"]
+    print(f"trace token: {len(reqs)} requests journaled: {dict(kinds)}; summary "
+          f"{summary[-1] if summary else None}; launches {counts} [{card}]")
+    check(all(t.done() for t in tickets), "trace token: a ticket did not resolve")
+    check(kinds == {"request": len(reqs), "prefill": st["prefills"], "summary": 1},
+          f"trace token: events {dict(kinds)}")
+    check(summary[0]["leaked"] == 0 and summary[0]["requests"] == len(reqs),
+          f"trace token: summary {summary[0]}")
+    check(counts == {"flash": 2 * st["prefills"], "paged": 2 * st["steps"]},
+          f"trace token: launches {counts}")
+    return path, counts
+
+
+def trace_window_kinds(d: str) -> tuple[collections.Counter, float | None]:
+    """A window's records by kind (device events by category, and the
+    host's runtime calls that carry a correlation id), and the least lag
+    of a device record's start behind its launch's, in µs (negative: the
+    device's timestamps were converted to the host's clock early)."""
+    from sparknet_tpu_torch.utils import op_profile
+
+    (trace,) = op_profile._traces(d)
+    raw = trace["traceEvents"]
+    dev = op_profile._device_pids(raw)
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in raw
+                 if e.get("ph") == "X" and e.get("pid") not in dev
+                 and "correlation" in (e.get("args") or {})}
+    kinds = collections.Counter(
+        (e.get("cat") if e.get("pid") in dev else "host " + str(e.get("cat")))
+        for e in raw if e.get("ph") == "X"
+        and (e.get("pid") in dev or "correlation" in (e.get("args") or {})))
+    lags = [e["ts"] - launch_ts[e["args"]["correlation"]] for e in raw
+            if e.get("ph") == "X" and e.get("pid") in dev
+            and (e.get("args") or {}).get("correlation") in launch_ts]
+    return kinds, (min(lags) if lags else None)
+
+
+def trace_lost_records(card: str) -> None:
+    """One-replay profiler windows of a transformer bucket (as the engine
+    phase's), late in the script: through ``op_profile.trace_step`` (``profiling.trace``,
+    with its start margin) and through a bare ``torch.profiler`` window
+    around the replay.  How many lose B3's record, the kinds of record
+    they lose, and the device records' least lag behind their launches
+    (a figure, not a gate)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.serve.engine import ServeEngine
+    from sparknet_tpu_torch.utils import op_profile
+
+    engine = ServeEngine((TRACE_BUCKET,), max_wait_ms=5.0, device="cuda")
+    prog = engine.load_model("t", family="transformer", seed=SEED).programs[TRACE_BUCKET]
+    prog.run()
+    for label, windows in (("trace_step", LOST_WINDOWS),
+                           ("a bare profiler window", LOST_WINDOWS // 2)):
+        lost, kinds, lags = [], [], []
+        for i in range(windows):
+            if label == "trace_step":
+                try:
+                    d = op_profile.trace_step(prog.run, (), iters=1)["trace_dir"]
+                except op_profile.LostRecords as e:
+                    d = e.trace_dir
+                    lost.append(i)
+            else:
+                d = tempfile.mkdtemp(prefix="chip_smoke_window_")
+                before = kernels.FLASH_LAUNCHES
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    prog.run()
+                    torch.cuda.synchronize()
+                prof.export_chrome_trace(f"{d}/w.trace.json.gz")
+                records = op_profile.kernel_records(op_profile._device_events(d))
+                if records["FLASH_LAUNCHES"] < kernels.FLASH_LAUNCHES - before:
+                    lost.append(i)
+            k, lag = trace_window_kinds(d)
+            kinds.append(k)
+            lags.append(lag)
+        full = {key: max(c[key] for c in kinds) for c in kinds for key in c}
+        missing = collections.Counter(key for i in lost for key, n in full.items()
+                                      if kinds[i][key] < n)
+        lost_lags = sorted(round(lags[i]) for i in lost if lags[i] is not None)
+        kept = [x for j, x in enumerate(lags) if j not in lost and x is not None]
+        print(f"trace lost records, {label}: {len(lost)} of {windows} one-replay "
+              f"windows of the transformer bucket {TRACE_BUCKET} lost B3's record; the most "
+              f"records of a window by kind {full}; kinds short in the lost windows "
+              f"{dict(missing)}; least device-after-launch lag (us) in the lost windows "
+              f"{lost_lags[:10]}, in the others "
+              f"{f'{min(kept):.1f} to {max(kept):.1f}' if kept else 'none'} [{card}]")
+    del prog, engine
+
+
+def phase_trace(card: str) -> dict:
+    """The port's profiler on the card (``utils/op_profile``,
+    ``utils/profiling``, ``time --trace``, ``train --profile``).  Returns
+    the launch counts of its main paths (the two ``time --trace`` runs,
+    ``train --profile``)."""
+    import tempfile
+
+    from sparknet_tpu_torch.common import set_config
+
+    t_phase = time.perf_counter()
+    walls: list = []
+    set_config(fused_update=True, storage_dtype="f32")
+    total = collections.Counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="sparknet_trace_") as work:
+            for counts in (trace_alexnet(card, work, walls), trace_charlm(card, work, walls),
+                           trace_train_profile(card, work, walls)):
+                total.update(counts)
+            trace_bits(card)
+    finally:
+        set_config(fused_update=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("trace: seconds by command: " + "; ".join(f"{n} {s:.1f}" for n, s in walls))
+    print(f"trace: phase done in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return dict(total)
+
+
+def phase_obs_cli(card: str) -> dict:
+    """The journaled token serving and the obs CLI on the card (``obs
+    dryrun`` legs, ``validate``, ``report --lineage``, ``top``), then the
+    late profiler windows (:func:`trace_lost_records`).  Returns the token
+    run's launch counts."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    walls: list = []
+    with tempfile.TemporaryDirectory(prefix="sparknet_obs_") as work:
+        journal_write_cost(card, work)
+        journal, counts = trace_token(card, work)
+        journals = [journal]
+        # the replica leg also in a process of its own, the way a user runs it
+        journals.append(f"{work}/dryrun_replica_fresh.jsonl")
+        trace_obs(["dryrun", "--replica", "--replicas", "2", "--out", journals[-1]], walls,
+                  fresh=True)
+        for leg in (["--serve", "--family", "transformer"], ["--replica", "--replicas", "2"],
+                    ["--devices", "2", "--elastic"], ["--ctl"]):
+            journals.append(f"{work}/dryrun_{leg[0][2:]}.jsonl")
+            trace_obs(["dryrun", *leg, "--out", journals[-1]], walls)
+        for path in journals:
+            trace_obs(["validate", path], walls)
+            trace_obs(["report", path, "--lineage", "--out", path + ".md"], walls)
+            print(f"obs report --lineage {os.path.basename(path)}: "
+                  f"{len(open(path + '.md').read().splitlines())} lines")
+        trace_obs(["top", "--once", journal], walls)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace_lost_records(card)
+    print("obs_cli: seconds by command: " + "; ".join(f"{n} {s:.1f}" for n, s in walls))
+    print(f"obs_cli: phase done in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"FLASH_LAUNCHES": counts["flash"], "PAGED_LAUNCHES": counts["paged"]}
+
+
+PHASES = ("trace", "kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
           "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
           "charlm_train", "engine", "replica", "zoo", "db_apps", "layers", "precision",
-          "listfile", "seq_parallel", "loop")
+          "listfile", "seq_parallel", "loop", "obs_cli")
 
 
 def main(argv=None) -> int:
@@ -7548,6 +8057,17 @@ def main(argv=None) -> int:
     launches = {"lrn_across_channels": 0, "lrn_backward": 0, "fused_update": 0,
                 "flash_attention": 0, "flash_attention_backward": 0,
                 "paged_attention": 0}
+    if "trace" in phases:
+        # first: late in a long process about half of all profiler windows
+        # lose device records (PERF.md §7; obs_cli, the last phase, counts them)
+        got = phase_trace(card)
+        launches["lrn_across_channels"] += got.get("LRN_LAUNCHES", 0)
+        launches["lrn_backward"] += got.get("LRN_BACKWARD_LAUNCHES", 0)
+        launches["fused_update"] += got.get("FUSED_UPDATE_LAUNCHES", 0)
+        launches["flash_attention"] += got.get("FLASH_LAUNCHES", 0)
+        launches["flash_attention_backward"] += got.get("FLASH_BACKWARD_LAUNCHES", 0)
+        launches["paged_attention"] += got.get("PAGED_LAUNCHES", 0)
+        lap("trace")
     if "kernel" in phases:
         stats["lrn"] = phase_kernel(card)
         lap("kernel")
@@ -7669,6 +8189,11 @@ def main(argv=None) -> int:
         launches["flash_attention"] += got["flash"]
         launches["flash_attention_backward"] += got["flash_backward"]
         lap("loop")
+    if "obs_cli" in phases:
+        got = phase_obs_cli(card)
+        launches["flash_attention"] += got["FLASH_LAUNCHES"]
+        launches["paged_attention"] += got["PAGED_LAUNCHES"]
+        lap("obs_cli")
     print(f"chip_smoke: phases {phases} done in {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         return 0

@@ -10,9 +10,12 @@ SparkNet's dataset and log tools.  Subcommands:
   world of one or across ``--num-processes`` processes that meet at
   ``--coordinator host:port``; ``--prefetch N``, ``--feed
   threaded|process``, ``--feed-workers`` and ``--augment device`` pick
-  the host feed;
-- ``test``, ``time`` (per layer, or ``--fused`` over the whole ``Solver``
-  step) and ``extract_features``;
+  the host feed; ``--profile DIR`` writes a ``torch.profiler`` trace of
+  the run into DIR (``utils/profiling.py``);
+- ``test``, ``time`` (per layer; ``--fused`` over the whole ``Solver``
+  step; ``--trace [--trace-out PATH]`` the whole step under
+  ``torch.profiler`` with its device time attributed to layers, FLOPs and
+  MFU, ``utils/op_profile.py``) and ``extract_features``;
 - ``classify`` (``Classifier``: ``--oversample``, ``--images-dim``,
   ``--fold-bn``, ``--int8``);
 - ``convert_imageset``, ``convert_db``, ``compute_image_mean``,
@@ -45,9 +48,8 @@ binaries) and ``db:<path>[,<test_path>]`` (a RecordDB, LMDB or LevelDB;
 transform_param crops, mirrors, scales and subtracts its mean_file on the
 host).  Across processes each trains on its own batches.
 
-``bench`` and ``pods``, and the flags ``--scan``, ``--profile``,
-``--hlo``, ``--trace`` and ``--trace-out``, exit with a message naming
-their ROADMAP item; none is ignored.
+``bench`` and ``pods``, and the flags ``--scan``, ``--hlo`` and ``--layout
+nhwc``, exit with a message naming their ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
@@ -71,11 +73,21 @@ _UNPORTED_COMMANDS = {
 # value that means "not asked for", ROADMAP item).
 _UNPORTED_FLAGS = (
     ("scan", 1, "Queue A5 (a CUDA graph of the step loop)"),
-    ("profile", None, "Queue A13 (utils/op_profile.py over torch.profiler)"),
     ("hlo", False, "Queue A14 (XLA cost analysis has no counterpart yet)"),
-    ("trace", False, "Queue A13 (utils/op_profile.py over torch.profiler)"),
-    ("trace_out", None, "Queue A13 (utils/op_profile.py over torch.profiler)"),
 )
+# dense data-sheet FLOP/s of a card by ``torch.cuda.get_device_name()`` and
+# compute dtype (PERF.md §3: float32 outside the tensor cores, which is
+# what a float32 step with TF32 off runs on; bf16 on the tensor cores);
+# ``time --trace`` names the cell its MFU is against, and a card missing
+# here gets no MFU
+PEAK_FLOPS = {
+    "NVIDIA H100 80GB HBM3": ("h100_sxm", {"f32": 67e12, "bf16": 989e12}),
+}
+# traced windows of `time --trace` taken again when the profiler dropped
+# records of the hand kernels (utils/op_profile.LostRecords).  This only
+# works round a loss whose cause is not known (PERF.md §7): it goes once
+# that loss is explained and fixed
+TRACE_RETRIES = 3
 _LAYOUT_ITEM = "Queue A6 (channels_last)"
 # --platform of the JAX CLI, onto the port's --device
 _PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
@@ -314,7 +326,8 @@ def _data_fns(args, net, closing: contextlib.ExitStack, test_net=None):
     if args.data.startswith("db:"):
         return _db_fns(args, net, test_net, data_shape, batch, pid, nproc)
     if args.data == "synthetic":
-        return _synthetic_fns(data_shape, batch, pid)
+        return _synthetic_fns(data_shape, batch, pid, _token_vocab(net),
+                              shapes.get("label", (batch,)))
     raise SystemExit(f"unknown --data source {args.data!r}")
 
 
@@ -427,18 +440,34 @@ def _cifar_fns(args, batch, pid, nproc):
     return train_fn, test_fn
 
 
-def _synthetic_fns(data_shape, batch, pid):
+def _token_vocab(net) -> int:
+    """The vocabulary of a net whose ``data`` feeds an Embed layer (the
+    char LM, the transformer), else 0."""
+    for layer in net.layers:
+        if layer.type == "Embed" and "data" in layer.bottoms:
+            return layer.lp.get_msg("embed_param").get_int("input_dim")
+    return 0
+
+
+def _synthetic_fns(data_shape, batch, pid, vocab=0, label_shape=None):
+    """Pixel-scale random batches, 10 classes; for a token net (``vocab``
+    > 0) token ids and per-position labels in ``[0, vocab)``."""
     rs = np.random.RandomState(pid)
     num_classes = 10
+    label_shape = tuple(label_shape or (batch,))
+
+    def draw(r):
+        if vocab:
+            return {"data": r.randint(0, vocab, data_shape).astype(np.int32),
+                    "label": r.randint(0, vocab, label_shape).astype(np.int32)}
+        return {"data": (r.randn(*data_shape) * 50).astype(np.float32),
+                "label": r.randint(0, num_classes, batch).astype(np.int32)}
 
     def synth_train(it):
-        return {"data": (rs.randn(*data_shape) * 50).astype(np.float32),
-                "label": rs.randint(0, num_classes, batch).astype(np.int32)}
+        return draw(rs)
 
     def synth_test(b):
-        rs2 = np.random.RandomState(100_000 + b)
-        return {"data": (rs2.randn(*data_shape) * 50).astype(np.float32),
-                "label": rs2.randint(0, num_classes, batch).astype(np.int32)}
+        return draw(np.random.RandomState(100_000 + b))
 
     def pipeline_factory(num_batches, start_index=0, workers=None):
         """The process feed's twin: seeded by (rank, index), since workers
@@ -446,9 +475,7 @@ def _synthetic_fns(data_shape, batch, pid):
         from sparknet_tpu_torch.data.pipeline import DataFnSource, ProcessPipeline
 
         def indexed(it):
-            rs2 = np.random.RandomState((pid * 1_000_003 + it) & 0x7FFFFFFF)
-            return {"data": (rs2.randn(*data_shape) * 50).astype(np.float32),
-                    "label": rs2.randint(0, num_classes, batch).astype(np.int32)}
+            return draw(np.random.RandomState((pid * 1_000_003 + it) & 0x7FFFFFFF))
 
         return ProcessPipeline(DataFnSource(indexed), num_batches=num_batches,
                                start_index=start_index, workers=workers,
@@ -755,6 +782,11 @@ def _train(args) -> int:
                 closing.callback(src.close)
                 test_fn = src
         iters = args.iterations or solver_cfg.max_iter
+        if args.profile:
+            from sparknet_tpu_torch.utils import profiling
+
+            closing.enter_context(profiling.trace(args.profile))
+            log(f"profiling -> {args.profile}")
         if args.tau > 1 or args.distributed or args.elastic_alpha > 0:
             _train_rounds(args, solver, train_fn, iters, log)
         else:
@@ -890,8 +922,10 @@ def cmd_test(args) -> int:
 
 
 def cmd_time(args) -> int:
-    """Per-layer forward/backward table (ref: caffe.cpp:290-380), or with
-    ``--fused`` the whole ``Solver`` step on one fixed batch."""
+    """Per-layer forward/backward table (ref: caffe.cpp:290-380); with
+    ``--fused`` the whole ``Solver`` step on one fixed batch; with
+    ``--trace`` the whole step under ``torch.profiler``, its device time
+    attributed to layers (:func:`_time_trace`)."""
     import torch
 
     from sparknet_tpu_torch.common import Phase
@@ -899,6 +933,8 @@ def cmd_time(args) -> int:
     from sparknet_tpu_torch.utils.timing import Timer, time_layers
 
     net_param, solver_cfg = _build_net_and_solver(args)
+    if args.trace:
+        return _time_trace(args, net_param, solver_cfg)
     iters = args.iterations or 10
     if args.fused:
         solver = _make_solver(solver_cfg, net_param, args)
@@ -933,6 +969,154 @@ def cmd_time(args) -> int:
         tot_b += r["backward_ms"] or 0.0
     print(f"{'TOTAL':<{w}}{'':<18}{tot_f:>9.3f}ms {tot_b:>9.3f}ms")
     print("(layers timed in isolation; the whole step is faster)")
+    return 0
+
+
+def _time_trace(args, net_param, solver_cfg) -> int:
+    """``tpunet time --trace``: profiler-attributed per-layer device time
+    of the whole ``Solver`` step, with FLOPs and MFU (the JAX CLI's
+    ``_time_trace``).
+
+    Staged and flushed as it goes: every stage banks its evidence to
+    ``--trace-out`` (default ``tpunet_trace.json``) before the next one
+    runs: ``compiled`` (FLOPs of one step by ``FlopCounterMode``, which
+    also warms the step up), ``wall_timed`` (3 steps without the
+    profiler), ``trace_short`` (a one-step trace) and ``final`` (an
+    ``--iterations`` trace).  A float32 step runs with TF32 off, the
+    condition its MFU cell assumes.  A traced window that lost records of
+    a hand kernel is discarded and taken again, up to ``TRACE_RETRIES``
+    times (the artifact counts them), so no table is short."""
+    import time as _time
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sparknet_tpu_torch.common import f32_precision, get_config
+    from sparknet_tpu_torch.utils.op_profile import LostRecords, table_from_trace, trace_step
+
+    out_path = args.trace_out or "tpunet_trace.json"
+    artifact: dict = {"stage": "init", "argv_solver": args.solver,
+                      "utc": _time.strftime("%Y-%m-%d %H:%M:%SZ", _time.gmtime())}
+
+    def bank(stage: str, **kv) -> None:
+        artifact["stage"] = stage
+        artifact.update(kv)
+        try:
+            with open(out_path + ".tmp", "w") as f:
+                json.dump(artifact, f, indent=1, default=str)
+            os.replace(out_path + ".tmp", out_path)
+        except OSError:
+            pass  # stdout remains the record
+
+    solver = _make_solver(solver_cfg, net_param, args)
+    with contextlib.ExitStack() as closing:
+        train_fn, _ = _data_fns(args, solver.train_net, closing)
+        feeds = solver._feeds_on_device(train_fn(0))
+    iters = args.iterations or 10
+    batch = int(next(iter(feeds.values())).shape[0])
+    platform = solver.device.type
+    kind = torch.cuda.get_device_name(solver.device) if platform == "cuda" else platform
+    dtype_name = "bf16" if get_config().compute_dtype == torch.bfloat16 else "f32"
+    peak = peak_label = None
+    if kind in PEAK_FLOPS:
+        cell, peaks = PEAK_FLOPS[kind]
+        peak, peak_label = peaks[dtype_name], f"{cell}_{dtype_name}"
+
+    def step(f):
+        return solver.train_iteration(f)
+
+    discarded = {}
+
+    def traced(n: int, key: str) -> dict:
+        for attempt in range(TRACE_RETRIES + 1):
+            try:
+                return trace_step(step, (feeds,), iters=n)
+            except LostRecords as e:
+                discarded[key] = attempt + 1
+                print(f"time --trace: {e}; taking the window again", file=sys.stderr)
+                if attempt == TRACE_RETRIES:
+                    raise
+
+    with f32_precision() if dtype_name == "f32" else contextlib.nullcontext():
+        with FlopCounterMode(display=False) as counter:
+            loss = step(feeds)  # the warm-up step, counted
+        float(loss)
+        flops = float(counter.get_total_flops())
+        bank("compiled", batch=batch, dtype=dtype_name, platform=platform,
+             device_kind=kind, iters=int(iters), gflop_per_step=round(flops / 1e9, 2),
+             flop_source="torch.utils.flop_counter.FlopCounterMode over one step "
+             "(aten ops; the hand kernels' own work is not counted)",
+             hbm_gb_per_step=None)
+
+        # wall timing WITHOUT the profiler, fenced on the loss value; the
+        # Solver threads its own state from step to step
+        t0 = _time.perf_counter()
+        for _ in range(3):
+            loss = step(feeds)
+        float(loss)
+        wall_untraced_s = (_time.perf_counter() - t0) / 3
+        mfu_untraced = flops / wall_untraced_s / peak if peak else None
+        bank("wall_timed",
+             wall_ms_per_step_untraced=round(wall_untraced_s * 1e3, 3),
+             img_per_sec_untraced=round(batch / wall_untraced_s, 1),
+             mfu_untraced=round(mfu_untraced, 4) if mfu_untraced is not None else None,
+             mfu_vs_peak=peak_label, fence_protocol="loss-value+threaded-args")
+
+        layer_names = [layer.name for layer in solver.train_net.layers]
+        prof = traced(1, "short")
+        table = table_from_trace(prof, layer_names, iters=1)
+        bank("trace_short",
+             kernel_launches_short={k: n for k, n in prof["launches"].items() if n},
+             rows_short=[(n, round(us, 1)) for n, us in table["rows"]],
+             device_us_per_step_short=round(table["device_us_per_step"], 1),
+             attributed_frac_short=round(table["attributed_frac"], 3),
+             trace_dir_short=table["trace_dir"])
+        if iters > 1:
+            prof = traced(iters, "final")
+            table = table_from_trace(prof, layer_names, iters=iters)
+
+    wall_s = table["wall_us_per_step"] / 1e6
+    mfu = flops / wall_s / peak if peak and wall_s else None
+    if table["rows"]:
+        # the reference's `caffe time` table: per-layer Forward and
+        # Backward walls plus the total (ref: caffe/tools/caffe.cpp:
+        # 290-380); here attributed from the whole step's device trace
+        fb = {name: (f, b) for name, f, b in table["rows_fwd_bwd"]}
+        w = max(len(r) for r, _ in table["rows"]) + 2
+        print(f"{'layer':<{w}}{'fwd ms':>10}{'bwd ms':>10}{'total ms':>11}")
+        for name, us in table["rows"]:
+            f_us, b_us = fb.get(name, (0.0, 0.0))
+            print(f"{name:<{w}}{f_us / 1e3:>10.3f}{b_us / 1e3:>10.3f}{us / 1e3:>11.3f}")
+        print(f"{'DEVICE TOTAL':<{w}}{'':>10}{'':>10}"
+              f"{table['device_us_per_step'] / 1e3:>11.3f}"
+              f"  (attributed {table['attributed_frac'] * 100:.0f}%)")
+    else:
+        print("(no device-op lanes in the trace — per-layer attribution needs an "
+              "accelerator backend; wall/MFU numbers below are still measured)")
+    summary = {
+        "wall_ms_per_step": round(wall_s * 1e3, 3),
+        "img_per_sec": round(batch / wall_s, 1),
+        "batch": batch,
+        "mfu": round(mfu, 4) if mfu is not None else None,
+        "mfu_vs_peak": peak_label,
+        "gflop_per_step": round(flops / 1e9, 2),
+        "hbm_gb_per_step": None,
+        "platform": platform,
+        "trace_dir": table["trace_dir"],
+    }
+    bank("final",
+         windows_discarded=discarded,
+         kernel_launches={k: n for k, n in prof["launches"].items() if n},
+         rows=[(n, round(us, 1)) for n, us in table["rows"]],
+         rows_fwd_bwd=[(n, round(f, 1), round(b, 1)) for n, f, b in table["rows_fwd_bwd"]],
+         device_us_per_step=round(table["device_us_per_step"], 1),
+         attributed_frac=round(table["attributed_frac"], 3),
+         **summary)
+    print(json.dumps(summary))
+    if platform == "cuda" and not table["rows"]:
+        print(f"time --trace: the profiler window ({table['trace_dir']}) recorded no CUDA "
+              "kernel", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -1306,14 +1490,6 @@ def _summary_json(summary: dict) -> str:
     return json.dumps(summary, default=lambda v: v.item() if hasattr(v, "item") else str(v))
 
 
-def _hbm_bytes(device) -> int | None:
-    """The memory admission prices against: the card's (None), or off the
-    card the CPU engine's 16 GiB."""
-    from sparknet_tpu_torch.loop.dryrun import CPU_HBM_BYTES
-
-    return None if device.type == "cuda" else CPU_HBM_BYTES
-
-
 def cmd_serve(args) -> int:
     """Synthetic load through the serving engine: a primary and an aux
     model, the priced over-budget refusal, a closed-loop burst plan through
@@ -1334,12 +1510,12 @@ def cmd_serve(args) -> int:
             replicas=args.replicas, family=args.family, arm=args.arm, buckets=buckets,
             max_wait_ms=args.max_wait_ms, rate=args.rate, seconds=args.seconds,
             controller=args.controller, log=log,
-            devices=[str(device)] * (args.replicas + 1), hbm_bytes=_hbm_bytes(device))
+            devices=[str(device)] * (args.replicas + 1))
         print(_summary_json({k: v for k, v in summary.items() if k != "per_replica"}))
         return 0 if summary["compiles_post_warmup"] == 0 and summary["dropped"] == 0 else 1
     summary = load_run(requests=args.requests, family=args.family, arm=args.arm,
                        buckets=buckets, max_wait_ms=args.max_wait_ms, log=log,
-                       device=device, hbm_bytes=_hbm_bytes(device))
+                       device=device)
     print(_summary_json(summary))
     return 0 if summary["compiles_post_warmup"] == 0 else 1
 
@@ -1457,7 +1633,8 @@ def main(argv=None) -> int:
                     "augmentation stream")
     sp.add_argument("--scan", type=int, default=1, help="not ported (ROADMAP Queue A5)")
     sp.add_argument("--output", help="snapshot prefix for the final model")
-    sp.add_argument("--profile", help="not ported (ROADMAP Queue A13)")
+    sp.add_argument("--profile", metavar="DIR",
+                    help="capture a torch.profiler trace of the run into DIR")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("test", help="score a model")
@@ -1469,9 +1646,12 @@ def main(argv=None) -> int:
     common(sp)
     sp.add_argument("--fused", action="store_true", help="time the whole Solver step instead")
     sp.add_argument("--hlo", action="store_true", help="not ported (ROADMAP Queue A14)")
-    sp.add_argument("--trace", action="store_true", help="not ported (ROADMAP Queue A13)")
+    sp.add_argument("--trace", action="store_true",
+                    help="profiler-attributed per-layer device time of the whole "
+                    "Solver step + FLOPs + MFU")
     sp.add_argument("--trace-out", default=None, metavar="PATH",
-                    help="not ported (ROADMAP Queue A13)")
+                    help="JSON artifact for --trace, flushed after every stage "
+                    "(default: ./tpunet_trace.json)")
     sp.set_defaults(fn=cmd_time)
 
     sp = sub.add_parser("convert_imageset", help="image list -> record DB")

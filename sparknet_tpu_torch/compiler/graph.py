@@ -36,6 +36,7 @@ from sparknet_tpu_torch.ops import attention, create_layer
 from sparknet_tpu_torch.ops.base import Layer, ParamSpec
 from sparknet_tpu_torch.ops.data_layers import InputLayer
 from sparknet_tpu_torch.proto.text_format import Message
+from sparknet_tpu_torch.utils import profiling
 
 Params = dict[str, list[torch.Tensor]]
 State = dict[str, dict[str, torch.Tensor]]
@@ -568,6 +569,7 @@ class Network:
         sp = attention.active_sequence_parallel()
         # the blobs held as sequence blocks on this rank
         blocks = {b for b in blob if b in sp.feeds} if sp is not None else set()
+        scoped = profiling.layer_scopes()
 
         def run(layers, blob):
             """The (index, layer) pairs in order on ``blob`` (updated in
@@ -605,7 +607,12 @@ class Network:
 
                     ins = [all_gather(x, 1, sp.comm) if s else x
                            for x, s in zip(ins, split)]
-                with _saved_as_stored(stored, ins), (
+                # the layer's range while a profiling.trace is open: the
+                # counterpart of JAX's named_scope, read by utils/op_profile
+                # ('/' would read as nesting there, so it is flattened)
+                scope = (torch.profiler.record_function("L." + layer.name.replace("/", "."))
+                         if scoped else contextlib.nullcontext())
+                with scope, _saved_as_stored(stored, ins), (
                         attention.seq_blocks() if on_blocks else contextlib.nullcontext()):
                     out = layer.apply(p, variables.state.get(layer.name, {}), ins,
                                       train=train, **kwargs)

@@ -25,9 +25,10 @@ per 256-image batch, ref: src/test/scala/apps/CallbackBenchmarkSpec.scala:
   own: on one shared queue, a worker that died while its feeder thread
   held the queue's write lock left every other worker blocked for good.
 * **Per-stage walls** (``FEED_STAGES``) accumulate in ``pipeline.stats``
-  as plain numbers (the JAX package also journals them as obs ``feed``
-  events; this module's journal sites are still to be ported, ROADMAP
-  Queue A13).
+  as plain numbers, and with the obs Recorder armed every ``obs_every``
+  batches are journaled as a ``feed`` event carrying the window's global
+  batch-index range as its lineage (a worker's respawn and the device
+  stage's puts journal ``feed`` events too), as the JAX package does.
 * **A double-buffered device stage** (:func:`device_feed`) copies each ring
   batch to the card ahead of the step (``data/prefetch.py``) and releases
   the ring slot only after the transfer that read it completed.
@@ -55,6 +56,8 @@ import warnings
 from typing import Callable, Iterator
 
 import numpy as np
+
+from sparknet_tpu_torch.obs import lineage as obs_lineage
 
 __all__ = [
     "FEED_STAGES",
@@ -196,6 +199,13 @@ class BatchSource:
 
     def get(self, epoch: int, index: int) -> dict[str, np.ndarray]:
         raise NotImplementedError
+
+    def lineage_source(self) -> str | None:
+        """A deterministic identity string for lineage (``obs/lineage.py``):
+        with a journal's ``(epoch, index)`` cursor range it pins which
+        records a feed window delivered.  None (the default): no durable
+        identity worth journaling (synthetic feeds)."""
+        return None
 
 
 class DataFnSource(BatchSource):
@@ -424,6 +434,67 @@ class _WorkerDeath(Exception):
         self.message = message
 
 
+class _StageClock:
+    """The consumer's stage walls: run-lifetime ``totals`` (the pipeline's
+    ``stats``, kept whether or not a journal is armed) and, with the
+    Recorder armed, one obs ``feed`` event every ``every`` batches."""
+
+    def __init__(self, name: str, workers: int, images_per_batch: int, every: int,
+                 totals: dict, source_id: str | None = None):
+        from sparknet_tpu_torch.obs import get_recorder
+
+        self.rec = get_recorder()
+        self.name = name
+        self.workers = workers
+        self.images = images_per_batch
+        self.every = max(int(every), 1)
+        self.source_id = source_id
+        self.stages = {s: 0.0 for s in FEED_STAGES[:5]}
+        self.totals = totals
+        self.batches = 0
+        self._t0 = time.perf_counter()
+        self._first_g: int | None = None
+        self._last_g: int | None = None
+
+    def add(self, slot_wait: float, source: float, decode: float, transform: float,
+            write: float, g: int) -> None:
+        for key, val in (("slot_wait", slot_wait), ("source", source), ("decode", decode),
+                         ("transform", transform), ("write", write)):
+            self.totals[key] += val
+            if self.rec:
+                self.stages[key] += val
+        self.totals["batches"] += 1
+        if not self.rec:
+            return
+        self.batches += 1
+        if self._first_g is None:
+            self._first_g = g
+        self._last_g = g
+        if self.batches % self.every == 0:
+            self.flush()
+
+    def flush(self) -> None:
+        if not (self.rec and self.batches):
+            return
+        wall = time.perf_counter() - self._t0
+        # lineage: the window's global batch-index range, the deterministic
+        # cursor (epoch, index) = divmod(g, batches_per_epoch) the workers
+        # decode, so any batch of the window is re-derivable from the journal
+        lin = obs_lineage.feed_lineage(self.name, self._first_g, self._last_g)
+        if self.source_id:
+            lin["source"] = self.source_id
+        self.rec.emit(
+            "feed", name=self.name, batches=self.batches,
+            images=self.batches * self.images, wall_s=round(wall, 6),
+            stages={k: round(v, 6) for k, v in self.stages.items()},
+            images_per_sec=round(self.batches * self.images / wall, 1) if wall > 0 else 0.0,
+            workers=self.workers, lineage=lin)
+        self.stages = {s: 0.0 for s in FEED_STAGES[:5]}
+        self.batches = 0
+        self._t0 = time.perf_counter()
+        self._first_g = self._last_g = None
+
+
 class ProcessPipeline:
     """Multi-process shared-memory batch feed (see module docstring).
 
@@ -436,13 +507,14 @@ class ProcessPipeline:
 
     ``stats``: the run-lifetime stage walls in seconds (``FEED_STAGES``;
     ``put`` is added by :func:`device_feed`) and ``batches``, the count.
+    ``obs_every``: the batches a journaled ``feed`` event covers.
     """
 
     def __init__(self, source: BatchSource, transform=None, *,
                  num_batches: int, workers: int | None = None,
                  slots: int | None = None, start_index: int = 0,
                  name: str = "feed", hold: int = 1, poll_s: float = 0.2,
-                 spec: FeedSpec | None = None,
+                 obs_every: int = 32, spec: FeedSpec | None = None,
                  start_method: str | None = None,
                  max_respawns: int | None = None):
         from multiprocessing import shared_memory
@@ -473,6 +545,7 @@ class ProcessPipeline:
                 f"{self.workers * (self.hold + 1)})")
         self.name = name
         self._poll_s = float(poll_s)
+        self._obs_every = int(obs_every)
         self.stats: dict = {s: 0.0 for s in FEED_STAGES}
         self.stats["batches"] = 0
 
@@ -550,7 +623,9 @@ class ProcessPipeline:
         """In-order batch views (see class docstring for the lifetime
         contract).  Raises RuntimeError naming the worker on any producer
         death; always safe to ``close()`` after."""
-        pending, held, stats = self._pending, self._held, self.stats
+        clock = _StageClock(self.name, self.workers, self._images_per_batch(),
+                            self._obs_every, self.stats, self.source.lineage_source())
+        pending, held = self._pending, self._held
         try:
             for g in range(self.start_index, self.start_index + self.num_batches):
                 t0 = time.perf_counter()
@@ -575,16 +650,14 @@ class ProcessPipeline:
                             wid, f"feed worker {wid} raised:\n{extra}")
                     # "done" needs no handling: the loop bound already
                     # knows how many batches are owed
-                slot, walls = pending.pop(g)
-                stats["slot_wait"] += time.perf_counter() - t0
-                for key, val in zip(("source", "decode", "transform", "write"), walls):
-                    stats[key] += val
-                stats["batches"] += 1
+                slot, (src_s, dec_s, tr_s, wr_s) = pending.pop(g)
+                clock.add(time.perf_counter() - t0, src_s, dec_s, tr_s, wr_s, g)
                 held.append(slot)
                 while len(held) > self.hold:
                     self._release(held.pop(0))
                 yield self._views[slot]
         finally:
+            clock.flush()
             for slot in held:
                 try:
                     self._release(slot)
@@ -595,6 +668,12 @@ class ProcessPipeline:
     def _release(self, slot: int) -> None:
         """Hand a consumed slot back to the worker that owns it."""
         self._free_qs[self._owner[slot]].put(slot)
+
+    def _images_per_batch(self) -> int:
+        for _, shape, _ in self.spec.fields:
+            if shape:
+                return int(shape[0])
+        return 0
 
     def as_data_fn(self, copy: bool = False) -> Callable[[int], dict]:
         """Adapt to the solver's ``data_fn(it)`` contract: each call returns
@@ -687,6 +766,16 @@ class ProcessPipeline:
             else self.start_index + wid
         self._procs[wid] = self._start_worker(ctx, wid, q, first_g,
                                               f"r{self._respawns_used}")
+        from sparknet_tpu_torch.obs import get_recorder
+
+        rec = get_recorder()
+        if rec:
+            rec.emit(
+                "feed", name=f"{self.name}.respawn", batches=0, images=0, wall_s=0.0,
+                stages={}, workers=self.workers,
+                note=f"worker {wid} died; shard re-owned from batch {first_g} (respawn "
+                     f"{self._respawns_used}/{self.max_respawns}): "
+                     f"{message.splitlines()[0]}")
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -762,16 +851,35 @@ def device_feed(pipeline: ProcessPipeline, depth: int = 2, device_fn=None,
     made with ``torch.from_numpy`` would alias the slot).  ``device_fn(feeds,
     it)`` (e.g. ``DeviceAugment.device_fn``) runs after the gate, on the
     prefetcher's stream.  The gate's wall accumulates in
-    ``pipeline.stats["put"]``."""
+    ``pipeline.stats["put"]``, and with the Recorder armed every
+    ``obs_every`` puts are journaled as a ``<name>.put`` ``feed`` event."""
     from sparknet_tpu_torch.data.prefetch import DevicePrefetcher
+    from sparknet_tpu_torch.obs import get_recorder
 
     it = pipeline.batches()
+    rec = get_recorder()
+    window = {"put_s": 0.0, "puts": 0, "done": 0}
 
     def data_fn(_it: int) -> dict[str, np.ndarray]:
         return next(it)
 
     def on_transfer(put_s: float) -> None:
         pipeline.stats["put"] += put_s
+        window["done"] += 1
+        if rec:
+            window["put_s"] += put_s
+            window["puts"] += 1
+            if window["puts"] % pipeline._obs_every == 0:
+                rec.emit("feed", name=pipeline.name + ".put", batches=window["puts"],
+                         images=window["puts"] * pipeline._images_per_batch(),
+                         wall_s=round(window["put_s"], 6),
+                         stages={"put": round(window["put_s"], 6)}, workers=1)
+                window["put_s"], window["puts"] = 0.0, 0
+        if window["done"] == pipeline.num_batches:
+            # the last batch's copy completed: end the ring's stream now (its
+            # slots go back, its last stage window is journaled), not when
+            # the generator is collected
+            it.close()
 
     return DevicePrefetcher(
         data_fn, num_iters=pipeline.num_batches, depth=depth,

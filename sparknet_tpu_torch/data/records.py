@@ -271,6 +271,17 @@ class RecordShardSource(BatchSource):
             self._f.close()
             self._f = None
 
+    def lineage_source(self) -> str | None:
+        """The source's durable identity for lineage: names the shard file
+        and every :meth:`_record_ids` input but the cursor, so a journal's
+        ``(epoch, index)`` window plus this string re-derives the record ids
+        each batch assembled (the JAX source's string, character for
+        character)."""
+        shuffle = f"seed{self.seed}" if self.shuffle else "off"
+        return (f"{self.backend}:{os.path.basename(self.path)}"
+                f"#batch={self.batch},stride={self.stride},"
+                f"offset={self.offset},shuffle={shuffle}")
+
     # -- the index walk -------------------------------------------------
     def _record_ids(self, epoch: int, index: int) -> np.ndarray:
         """The record ids batch (epoch, index) assembles — the

@@ -43,10 +43,6 @@ import numpy as np
 
 __all__ = ["loop_run"]
 
-# the memory a CPU engine prices admission against (the tests' figure): a
-# CPU has no card whose memory the engine could read
-CPU_HBM_BYTES = 16 << 30
-
 
 def loop_run(iterations: int = 1, rounds_per_rollout: int = 2,
              family: str = "cifar10_quick", arm: str = "f32",
@@ -70,7 +66,7 @@ def loop_run(iterations: int = 1, rounds_per_rollout: int = 2,
     from sparknet_tpu_torch.loop.feed import synthetic_shard_feed
     from sparknet_tpu_torch.models.zoo import GRAPH_SWEEP_FAMILIES
     from sparknet_tpu_torch.serve.engine import ServeEngine
-    from sparknet_tpu_torch.serve.loadgen import over_budget_table
+    from sparknet_tpu_torch.serve.loadgen import hbm_budget, over_budget_table
     from sparknet_tpu_torch.solvers.solver import Solver
 
     def say(msg: str) -> None:
@@ -91,7 +87,7 @@ def loop_run(iterations: int = 1, rounds_per_rollout: int = 2,
     if rank == 0:
         engine = ServeEngine(
             buckets=buckets, max_wait_ms=max_wait_ms, device=device,
-            hbm_bytes=None if device.type == "cuda" else CPU_HBM_BYTES,
+            hbm_bytes=hbm_budget(device),
             fit_table=over_budget_table(refusal_family) if refusal_family else None)
     loop = ProductionLoop(
         Solver(fam.solver(), fam.net(per_worker_batch), device=device), engine,

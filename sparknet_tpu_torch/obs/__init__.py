@@ -11,7 +11,7 @@ instrumented hot paths are unchanged: no host sync, no kernel launch, no
 allocation and no capture is added (pinned by
 ``tests/test_torch_port_obs.py``).
 
-CLI: ``python -m sparknet_tpu_torch.obs {validate|dryrun --loop}``.
+CLI: ``python -m sparknet_tpu_torch.obs {report|validate|slo|top|dryrun}``.
 
 This ``__init__`` stays import-light: ``schema`` is stdlib-only, and the
 Recorder loads lazily behind :func:`get_recorder`.

@@ -120,6 +120,7 @@ class Recorder:
         self.enabled = bool(path)
         self._lock = threading.Lock()
         self._started = False
+        self._file = None
         # every journaled event folds into bounded counters/histograms, and
         # the cumulative state flushes as a periodic ``metrics`` event
         self._hub = MetricsHub(metrics_flush_every) if path else None
@@ -191,9 +192,14 @@ class Recorder:
             print(f"obs: metrics fold failed: {e}", file=sys.stderr)
 
     def _write(self, payload: str) -> None:
+        # one handle a run, flushed line by line (a live ``top`` reads every
+        # line): reopening the journal for each line held the serving pump
+        # thread up on a slow filesystem (ROADMAP Queue C, C18)
         try:
-            with open(self.path, "a", encoding="utf-8") as f:
-                f.write(payload + "\n")
+            if self._file is None:
+                self._file = open(self.path, "a", encoding="utf-8")
+            self._file.write(payload + "\n")
+            self._file.flush()
         except OSError as e:
             print(f"obs: could not append to {self.path}: {e}", file=sys.stderr)
 
@@ -280,6 +286,10 @@ class Recorder:
                 self.emit("metrics", **snap)
         self.emit("run_end", rounds=self._n_rounds, spans=self._n_spans,
                   compiles=self.sentinel.count - self._compiles0)
+        with self._lock:
+            if self._file is not None:
+                self._file.close()
+                self._file = None
 
 
 _recorder: Recorder | None = None

@@ -17,11 +17,10 @@ Counterpart of ``sparknet_tpu/serve/``:
   flash-attention prefill, paged-attention decode), its cacheless twin
   ``continuous.ContinuousDecoder``, and ``paged.TokenRouter``.
 
-The engine and the router journal their ``serve``, ``request`` and
-``replica`` events to the obs journal (``SPARKNET_OBS``), and ``loadgen.
+The engine, the router and ``dryrun.replica_run`` journal their ``serve``,
+``request`` and ``replica`` events to the obs journal (``SPARKNET_OBS``),
+``paged.PagedDecoder`` its ``token`` events, and ``loadgen.
 pod_run(controller=True)`` arms the SLO controller (``loop/autoctl.py``).
-Not ported yet: the journal sites of ``paged``, ``continuous`` and
-``dryrun`` (ROADMAP Queue A13).
 """
 
 from sparknet_tpu_torch.serve.batcher import DynamicBatcher, Ticket

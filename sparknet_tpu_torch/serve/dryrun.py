@@ -1,7 +1,7 @@
 """The pod-serving drive: kill, join and swap under Poisson load.
 
-Counterpart of ``sparknet_tpu/serve/dryrun.py`` (``replica_run``), with no
-journal.  One deterministic run against a live K-replica pool:
+Counterpart of ``sparknet_tpu/serve/dryrun.py`` (``replica_run``).  One
+deterministic run against a live K-replica pool:
 
 1. a kill with a KNOWN backlog: tickets submitted without a pump, one
    replica killed; its pending tickets are stolen and adopted by a
@@ -21,7 +21,8 @@ journal.  One deterministic run against a live K-replica pool:
    alone (``ContinuousDecoder``, which runs eagerly and captures nothing).
 
 Returns the summary; ``gates`` holds each gate's verdict and ``ok`` their
-conjunction.  Every gate but ``queue_p99`` is deterministic; that one is
+conjunction.  The router journals the pod's roll-up and the run its own
+``replica`` summary event (the Recorder's, when one is armed).  Every gate but ``queue_p99`` is deterministic; that one is
 read on the host clock, so it holds only where the pump thread is not
 starved of a core.
 """
@@ -45,9 +46,11 @@ def replica_run(replicas: int = 4, family: str = "transformer", arm: str = "f32"
     device slots (``devices``, as ``ReplicaRouter`` takes them; they must
     hold one more slot than ``replicas`` for the join); returns the gate
     summary."""
+    from sparknet_tpu_torch.obs.recorder import get_recorder
     from sparknet_tpu_torch.serve.continuous import ContinuousDecoder
     from sparknet_tpu_torch.serve.engine import SHED_TICK_MS
-    from sparknet_tpu_torch.serve.loadgen import open_loop_schedule, synthetic_items
+    from sparknet_tpu_torch.serve.loadgen import (
+        hbm_budget, open_loop_schedule, synthetic_items)
     from sparknet_tpu_torch.serve.router import ReplicaRouter
 
     def say(msg: str) -> None:
@@ -59,7 +62,7 @@ def replica_run(replicas: int = 4, family: str = "transformer", arm: str = "f32"
         f"{len(buckets)} bucket(s) each ...")
     router = ReplicaRouter(replicas=replicas, family=family, arm=arm, buckets=buckets,
                            max_wait_ms=max_wait_ms, seed=seed, devices=devices,
-                           hbm_bytes=hbm_bytes)
+                           hbm_bytes=hbm_budget(devices[0] if devices else None, hbm_bytes))
     some_model = next(iter(router._replicas.values())).model
     rs = np.random.RandomState(seed)
     router.warmup(rs)
@@ -136,10 +139,12 @@ def replica_run(replicas: int = 4, family: str = "transformer", arm: str = "f32"
     finally:
         stop.set()
         worker.join(timeout=30.0)
+    if worker.is_alive():  # the drain below would wait on its model's lock
+        raise RuntimeError("the pod's pump thread did not stop within 30 s of its stop")
     router.shutdown()
     for t in tickets:
         t.wait(timeout=60.0)
-    stats = router.summary(wall)
+    stats = router.emit_summary(wall)
     dropped = sum(1 for t in pre + steady + tickets if not t.done())
     say(f"faulted open loop: {len(tickets)} admitted, captures on the request "
         f"path {stats['serve_path_compiles']}, dropped {dropped}")
@@ -186,4 +191,11 @@ def replica_run(replicas: int = 4, family: str = "transformer", arm: str = "f32"
         "continuous_exact": continuous_exact and summary["slot_churn"],
     }
     summary["ok"] = all(summary["gates"].values())
+    get_recorder().emit(
+        "replica", kind="summary", model="dryrun", family=family, arm=arm,
+        width=router.width(), requests=summary["requests"], shed=shed,
+        rerouted=stats["rerouted"], dropped=dropped, p99_ms=round(stats["p99_ms"], 3),
+        wall_s=round(summary["wall_s"], 3),
+        note=f"mode-20 fault plan {fired}: gates ok={summary['ok']} "
+             f"compiles={summary['serve_path_compiles']} dropped={dropped}")
     return summary

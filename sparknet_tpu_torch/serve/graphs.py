@@ -60,6 +60,7 @@ recompiling ``jax.jit``, a CUDA graph is recorded once or not at all.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 
@@ -147,13 +148,22 @@ class BucketProgram:
             # capture_begin/end, not torch.cuda.graph: its entry would
             # synchronize the card and empty the allocator's and the pinned
             # host caches, stalling the pump thread's replays for the length
-            # of a build
-            with kernels.recording_launches() as launches, torch.cuda.stream(stream):
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    out = self._forward(self.data, self.label)
-                finally:
-                    graph.capture_end()
+            # of a build.  No automatic collection while this thread
+            # captures: a collected generation's graphs would be destroyed
+            # here, mid-capture, which CUDA refuses and which invalidates the
+            # capture (torch.cuda.graph collected before it began)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with kernels.recording_launches() as launches, torch.cuda.stream(stream):
+                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                    try:
+                        out = self._forward(self.data, self.label)
+                    finally:
+                        graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
             stream.synchronize()
             get_sentinel().note_capture()
         self.graph, self.out, self.launches = graph, out, launches

@@ -26,6 +26,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from sparknet_tpu_torch.obs.recorder import get_recorder
 from sparknet_tpu_torch.serve.engine import (
@@ -36,8 +37,21 @@ from sparknet_tpu_torch.serve.engine import (
 )
 from sparknet_tpu_torch.serve.graphs import capture_count
 
-__all__ = ["burst_plan", "load_run", "open_loop_schedule", "over_budget_table",
+__all__ = ["burst_plan", "hbm_budget", "load_run", "open_loop_schedule", "over_budget_table",
            "pod_run", "synthetic_items"]
+
+# the memory a CPU engine prices admission against (the tests' figure): a
+# CPU has no card whose memory the engine could read
+CPU_HBM_BYTES = 16 << 30
+
+
+def hbm_budget(device, hbm_bytes: int | None = None) -> int | None:
+    """The memory an engine on ``device`` prices admission against:
+    ``hbm_bytes`` when given; else on the card None (the engine reads the
+    card's memory) and off it :data:`CPU_HBM_BYTES`."""
+    if hbm_bytes is None and device is not None and torch.device(device).type != "cuda":
+        return CPU_HBM_BYTES
+    return hbm_bytes
 
 
 def open_loop_schedule(rate: float, seconds: float, seed: int = 7) -> np.ndarray:
@@ -114,7 +128,7 @@ def pod_run(replicas: int = 2, family: str = "transformer", arm: str = "f32",
         f"{len(buckets)} bucket(s) each ...")
     router = ReplicaRouter(replicas=replicas, family=family, arm=arm, buckets=buckets,
                            max_wait_ms=max_wait_ms, seed=seed, devices=devices,
-                           hbm_bytes=hbm_bytes)
+                           hbm_bytes=hbm_budget(devices[0] if devices else None, hbm_bytes))
     rs = np.random.RandomState(seed)
     router.warmup(rs)
     captures0 = capture_count()
@@ -171,7 +185,7 @@ def pod_run(replicas: int = 2, family: str = "transformer", arm: str = "f32",
         pump.join(timeout=30.0)
     router.pump(force=True)
     ctl_step()
-    summary = router.summary(wall_s)
+    summary = router.emit_summary(wall_s)
     summary["offered"] = len(schedule)
     summary["admitted"] = len(tickets)
     summary["compiles_post_warmup"] = capture_count() - captures0
@@ -197,7 +211,7 @@ def load_run(requests: int = 504, family: str = "cifar10_quick", arm: str = "f32
 
     fit_table = over_budget_table(refusal_family) if refusal_family else None
     engine = ServeEngine(buckets=buckets, max_wait_ms=max_wait_ms, fit_table=fit_table,
-                         hbm_bytes=hbm_bytes, device=device)
+                         hbm_bytes=hbm_budget(device, hbm_bytes), device=device)
     say(f"loading primary ({family}/{arm}), capturing {len(engine.buckets)} "
         "bucket(s) ...")
     primary = engine.load_model("primary", family=family, arm=arm, seed=seed)

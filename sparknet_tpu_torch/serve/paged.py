@@ -30,8 +30,15 @@ device, because a GEMM of another row count may take another kernel
 (cuBLAS, or a threaded CPU GEMM) and so other bits for the same row, and
 "interleaved == alone" would break.
 
+With the obs Recorder armed (``recorder=``, or ``SPARKNET_OBS``) the
+decoder journals the JAX decoder's ``token`` events, with its names and
+fields: ``admission_refused``, one ``request`` a retired generation, one
+``prefill`` a prefill (its ``bucket`` is the rows it ran: ``slots``), and a
+``summary`` when :meth:`PagedDecoder.run` drains.  With it off no event is
+built and no wall is taken for one.
+
 The graph-analysis twins (``build_rect_program``/``build_decode_program``)
-are ROADMAP Queue A14, and this module's ``token`` journal events A13.
+are ROADMAP Queue A14.
 """
 
 from __future__ import annotations
@@ -141,7 +148,7 @@ def capacity_ratio(seq_len: int, block_tokens: int, totals) -> float:
 
 class _Gen:
     __slots__ = ("ticket", "ids", "n_prompt", "remaining", "blocks",
-                 "t_prev", "logits")
+                 "t_prev", "logits", "t_first", "deltas_ms")
 
     def __init__(self, ticket: Ticket, ids: list[int], remaining: int):
         self.ticket = ticket
@@ -151,6 +158,8 @@ class _Gen:
         self.blocks: list[int] = []
         self.t_prev: float | None = None
         self.logits: list = []
+        self.t_first: float | None = None
+        self.deltas_ms: list[float] = []  # inter-token gaps, journaled runs only
 
 
 class PagedDecoder:
@@ -166,16 +175,21 @@ class PagedDecoder:
     ``hbm_bytes`` (the memory admission prices against) defaults to the
     card's, and must be given on the CPU.  ``keep_logits`` keeps every
     generated token's logits row on the device (``generation_logits``,
-    by ticket id) for checks against a full-window forward.
+    by ticket id) for checks against a full-window forward.  ``recorder``
+    (default: the process's, ``obs.get_recorder()``) journals the ``token``
+    events under ``note=run_id`` (a ``TokenRouter``'s replica
+    ``token_router/r<i>``).
     """
 
     def __init__(self, slots: int = 8, seq_len: int = 32, vocab: int = 64,
                  embed_dim: int = 32, heads: int = 4, ffn_dim: int = 64,
                  blocks: int = 1, seed: int = 0, variables=None, device=None,
                  block_tokens: int = 8, num_blocks: int | None = None,
-                 hbm_bytes: int | None = None, keep_logits: bool = False):
+                 hbm_bytes: int | None = None, keep_logits: bool = False,
+                 recorder=None, run_id: str = "paged"):
         from sparknet_tpu_torch.models.zoo import (
             build_decode_step, build_prefill, decode_spec)
+        from sparknet_tpu_torch.obs.recorder import get_recorder
 
         if slots < 2:
             raise ValueError(f"need >= 2 slots, got {slots}")
@@ -184,6 +198,8 @@ class PagedDecoder:
         self.vocab = int(vocab)
         self.block_tokens = int(block_tokens)
         self.device = resolve_device(device)
+        self._rec = recorder if recorder is not None else get_recorder()
+        self._run_id = run_id
         if hbm_bytes is None:
             if self.device.type != "cuda":
                 raise ValueError("hbm_bytes: pass the memory to price "
@@ -210,6 +226,10 @@ class PagedDecoder:
         predicted = params_bytes + self.pool_hbm_bytes
         budget = int(hbm_bytes * HBM_USABLE_FRAC)
         if predicted > budget:
+            if self._rec:
+                self._rec.emit("token", kind="admission_refused", note=self._run_id,
+                               predicted_bytes=predicted, budget_bytes=budget,
+                               blocks_total=num_blocks - 1)
             raise AdmissionRefused({
                 "family": "charlm", "max_bucket": self.slots,
                 "predicted_bytes": predicted, "resident_bytes": 0,
@@ -275,6 +295,15 @@ class PagedDecoder:
         self._tables[slot] = 0
         self._free_slots.append(slot)
         self.completed += 1
+        if self._rec:
+            d = sorted(st.deltas_ms)
+            self._rec.emit(
+                "token", kind="request", note=self._run_id,
+                tokens=len(st.ids) - st.n_prompt, prompt_tokens=st.n_prompt,
+                ttft_ms=round((st.t_first - st.ticket.t_submit) * 1e3, 3),
+                total_ms=round((time.perf_counter() - st.ticket.t_submit) * 1e3, 3),
+                inter_token_p50_ms=round(d[len(d) // 2], 3) if d else 0.0,
+                inter_token_max_ms=round(d[-1], 3) if d else 0.0)
 
     def _admit(self) -> list[int]:
         """A request enters only when a slot AND its whole block budget
@@ -306,9 +335,12 @@ class PagedDecoder:
         if self.keep_logits:
             st.logits.append(logits)
         if st.t_prev is None:
+            st.t_first = now
             self._ttft_ms.append((now - st.ticket.t_submit) * 1e3)
         else:
             self._inter_ms.append((now - st.t_prev) * 1e3)
+            if self._rec:
+                st.deltas_ms.append(self._inter_ms[-1])
         st.t_prev = now
         if st.remaining == 0:
             self._retire(slot)
@@ -343,6 +375,12 @@ class PagedDecoder:
         self.prefills += 1
         for i, slot in enumerate(slots):
             self._emit(slot, picks[i], last[i], now)
+        if self._rec:
+            self._rec.emit(
+                "token", kind="prefill", note=self._run_id, rows=len(slots), bucket=pb,
+                prompt_tokens=int(lengths[:len(slots)].sum()),
+                wall_ms=round((now - t0) * 1e3, 3), blocks_free=self.pool.available(),
+                blocks_total=self.pool.num_blocks - 1)
         return len(slots)
 
     def step(self) -> int:
@@ -383,11 +421,24 @@ class PagedDecoder:
         for _ in range(max_steps):
             n = self.step()
             if n == 0 and not self._waiting:
+                self._emit_summary()
                 return produced
             produced += n
         raise RuntimeError(
             f"decode did not drain within {max_steps} steps "
             f"({len(self._waiting)} waiting, {len(self._active)} active)")
+
+    def _emit_summary(self) -> None:
+        if not self._rec:
+            return
+        ledger = self.pool.ledger()
+        # compiles: the port captures no graph on the decode path
+        self._rec.emit(
+            "token", kind="summary", note=self._run_id, requests=self.completed,
+            steps=self.steps, prefills=self.prefills, compiles=0,
+            allocated=ledger["allocated"], freed=ledger["freed"], leaked=ledger["leaked"],
+            dropped=0, blocks_total=self.pool.num_blocks - 1,
+            blocks_free=self.pool.available())
 
     def stats(self) -> dict:
         """Counters, the pool ledger, and host-clock percentiles (ms):
@@ -419,7 +470,10 @@ class TokenRouter:
     def __init__(self, replicas: int = 2, **decoder_kwargs):
         if replicas < 1:
             raise ValueError(f"need >= 1 replica, got {replicas}")
-        self.decoders = [PagedDecoder(**decoder_kwargs) for _ in range(replicas)]
+        # each replica journals under its own note, as the JAX router names them
+        run_id = decoder_kwargs.pop("run_id", "token_router")
+        self.decoders = [PagedDecoder(run_id=f"{run_id}/r{i}", **decoder_kwargs)
+                         for i in range(replicas)]
         self.submitted = 0
         self._tickets: list[Ticket] = []
         self._sweep = 0

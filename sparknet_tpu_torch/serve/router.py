@@ -390,10 +390,11 @@ class ReplicaRouter:
             "queue_p99_ms": percentile(queue, 99), "per_replica": per_replica,
         }
 
-    def summary(self, wall_s: float) -> dict:
-        """:meth:`stats` plus ``dropped`` (submitted minus resolved, which
-        MUST be 0) and ``rps`` over ``wall_s``; journaled as the ``replica``
-        summary event."""
+    def emit_summary(self, wall_s: float) -> dict:
+        """Journal the pod roll-up as a ``replica`` summary event and return
+        it: :meth:`stats` plus ``dropped`` (submitted minus resolved, which
+        MUST be 0: the zero-drop ledger the dryrun gates on) and ``rps``
+        over ``wall_s``."""
         s = self.stats()
         s["dropped"] = self.submitted - s["requests"]
         s["rps"] = s["requests"] / wall_s if wall_s > 0 else 0.0

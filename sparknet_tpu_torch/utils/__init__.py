@@ -2,9 +2,9 @@
 
 Counterpart of ``sparknet_tpu/utils/``, with ``timing`` (``Timer`` on CUDA
 events, ``time_layers``), ``log_parse`` (training logs to CSV tables),
-``draw`` (nets to Graphviz DOT) and ``plotting`` (log charts, matplotlib
-imported in the call); ``op_profile`` and ``profiling`` are ROADMAP Queue
-A13.
+``draw`` (nets to Graphviz DOT), ``plotting`` (log charts, matplotlib
+imported in the call), ``profiling`` (``torch.profiler`` traces with the
+layers' ranges) and ``op_profile`` (a traced step's device time by layer).
 """
 
 from sparknet_tpu_torch.utils.event_log import EventLogger  # noqa: F401

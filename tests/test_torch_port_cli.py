@@ -6,8 +6,9 @@ written from numpy seeds and a ``.caffemodel`` the JAX package exports.
 scores and ``extract_features`` arrays agree within atol 1e-5; ``train
 --data db: --weights`` on LeNet (no dropout) gives a first-iteration loss
 within rtol 1e-4 (the port's solver tests' tolerance); ``time`` lists the
-JAX table's layers and types; every JAX flag, subcommand, layer type or
-store the port does not carry exits naming its ROADMAP item.
+JAX table's layers and types; ``train --profile`` and ``time --trace`` run;
+every JAX flag, subcommand, layer type or store the port does not carry
+exits naming its ROADMAP item.
 """
 
 import json
@@ -284,19 +285,13 @@ HDF5_NET = ('name: "h" layer { name: "d" type: "HDF5Data" top: "data" top: "labe
     (["train", "--weights", "w.h5"], "Queue A4"),
     (["classify", "--model", "m.prototxt", "--weights", "w.h5", "x.jpg"], "Queue A4"),
     (["train", "--scan", "4"], "Queue A5"),
-    (["train", "--profile", "d"], "Queue A13"),
     (["time", "--hlo"], "Queue A14"),
-    (["time", "--trace"], "Queue A13"),
     (["test", "--layout", "nhwc"], "Queue A6"),
-    (["time", "--trace", "--trace-out", "t2.json"], "Queue A13"),
     (["train", "--scan", "2"], "Queue A5"),
-    (["time", "--trace-out", "t.json"], "Queue A13"),
     (["train", "--layout", "nhwc"], "Queue A6"),
-    (["train", "--profile", "d2", "--output", "o"], "Queue A13"),
     (["extract_features", "--solver", "{hdf5}", "--blob", "ip", "--out", "f.npy"], "Queue A9"),
     (["bench"], "Queue A6"),
     (["pods"], "Queue A9"),
-    (["train", "--profile", "d3"], "Queue A13"),
     (["pods", "create"], "Queue A9"),
 ])
 def test_unported_flags_and_commands_name_their_item(argv, item, tmp_path):
@@ -313,6 +308,40 @@ def test_unported_flags_and_commands_name_their_item(argv, item, tmp_path):
             argv += ["--solver", "zoo:lenet", "--batch", "2"]
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["train", "--profile", "d"],
+    ["time", "--trace"],
+    ["time", "--trace", "--trace-out", "t2.json"],
+    ["time", "--trace-out", "t.json"],
+    ["train", "--profile", "d2", "--output", "o"],
+    ["train", "--profile", "d3"],
+])
+def test_profile_and_trace_flags_run(argv, tmp_path, monkeypatch, capsys):
+    """``train --profile DIR`` writes a trace of the run; ``time --trace``
+    banks its artifact (``--trace-out``, default ``tpunet_trace.json``) at
+    its last stage and prints the JSON summary; ``--trace-out`` alone is
+    the artifact's path and changes nothing without ``--trace`` (as in the
+    JAX CLI)."""
+    from sparknet_tpu_torch.utils import op_profile
+
+    monkeypatch.chdir(tmp_path)
+    out = _run(cli.main, argv + ["--device", "cpu", "--solver", "zoo:lenet", "--batch", "2",
+                                 "--iterations", "1"], capsys)
+    if argv[0] == "train":
+        ops = op_profile.host_ops(argv[argv.index("--profile") + 1])
+        assert any("|L.conv1" in name for name, _ in ops)
+        assert (tmp_path / (argv[argv.index("--output") + 1] if "--output" in argv
+                            else "tpunet_final")).with_suffix(".solverstate.npz").exists()
+    elif "--trace" in argv:
+        path = tmp_path / (argv[-1] if "--trace-out" in argv else "tpunet_trace.json")
+        art = json.loads(path.read_text())
+        summary = json.loads(out.strip().splitlines()[-1])
+        assert art["stage"] == "final" and art["platform"] == summary["platform"] == "cpu"
+        assert summary["mfu"] is None and summary["gflop_per_step"] > 0
+    else:
+        assert "TOTAL" in out and not (tmp_path / "t.json").exists()
 
 
 def test_device_defaults_to_cuda(monkeypatch, capsys):

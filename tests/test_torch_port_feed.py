@@ -488,7 +488,9 @@ def test_ring_worker_modules_make_no_torch_call():
     """The ring's workers run only the host modules, which import nothing
     of torch, so a fork after CUDA is initialized leaves no CUDA call in a
     child (``data/pipeline.py``'s start-method note); ``device_feed`` takes
-    torch only inside the function, through the prefetcher.  The record
+    torch only inside the function, through the prefetcher, and the
+    consumer's journal sites reach the obs package (its ``lineage`` and
+    ``schema`` are stdlib-only; the Recorder is the consumer's).  The record
     backend's decode (``createdb``), the LevelDB probe, the proto2 codec
     under ``io_utils`` and the native transform's bindings are host
     modules too."""
@@ -506,7 +508,8 @@ def test_ring_worker_modules_make_no_torch_call():
             for mod in mods:
                 assert not mod.startswith("torch"), (name, mod)
                 assert mod in ("", "__future__") or not mod.startswith("sparknet_tpu_torch") \
-                    or mod.split(".")[-1] in tuple(worker_side) + ("prefetch",), (name, mod)
+                    or mod.split(".")[-1] in tuple(worker_side) + ("prefetch", "obs",
+                                                                    "lineage"), (name, mod)
 
 
 def test_ring_runs_with_cuda_calls_refused(monkeypatch, lmdb_path):

@@ -102,7 +102,8 @@ def test_port_imports_no_jax():
             "leveldb_io", "listfile", "lmdb_io", "minibatch", "pipeline", "prefetch",
             "records", "remote", "resize_images", "sampler", "transform")]
         + [f"sparknet_tpu_torch.utils.{m}" for m in
-           ("draw", "event_log", "log_parse", "plotting", "signals", "timing")])), \
+           ("draw", "event_log", "log_parse", "op_profile", "plotting", "profiling",
+            "signals", "timing")])), \
         out.stdout
     # the weights and record files' codec, the native data plane, the CLI
     # and the worker store
@@ -113,14 +114,15 @@ def test_port_imports_no_jax():
     assert layers == str(["sparknet_tpu_torch.compiler.graph", "sparknet_tpu_torch.interop"] + [
         f"sparknet_tpu_torch.ops.{m}" for m in
         ("data_layers", "loss", "moe", "neuron", "python_layer", "vision")]), out.stdout
-    # the production loop and its obs journal
+    # the production loop, its control-plane scenarios, the obs journal and
+    # its readers
     assert loop == str(["sparknet_tpu_torch.loop"] + [
         f"sparknet_tpu_torch.loop.{m}" for m in
-        ("autoctl", "controller", "deploy", "dryrun", "feed", "watcher")]
+        ("autoctl", "controller", "ctl_scenarios", "deploy", "dryrun", "feed", "watcher")]
         + ["sparknet_tpu_torch.obs"] + [
         f"sparknet_tpu_torch.obs.{m}" for m in
-        ("__main__", "burn", "lineage", "metrics", "recorder", "schema", "sentinel",
-         "slo")]), out.stdout
+        ("__main__", "burn", "lineage", "metrics", "recorder", "report", "schema",
+         "sentinel", "slo", "train_legs")]), out.stdout
     # reduced precision: the Config's dtypes and policies, the int8 path
     assert precision == str(["sparknet_tpu_torch.common", "sparknet_tpu_torch.quant"]), \
         out.stdout

@@ -560,14 +560,19 @@ def test_journal_tail_reads_complete_lines_like_jax(tmp_path):
     assert list(tail.poll()) == list(jtail.poll()) == [{"event": "d"}]
 
 
-def test_obs_cli_validate_and_refusals(journal, capsys):
+def test_obs_cli_validate_and_refusals(journal, capsys, monkeypatch):
     from sparknet_tpu_torch.obs.__main__ import main
 
     assert main(["validate", journal]) == 0
     assert main(["slo", "--quiet", journal]) == 0
     assert capsys.readouterr().out.startswith("OK ")
-    assert main(["report", journal]) == 2
-    assert main(["dryrun", "--serve"]) == 2
+    assert main(["report", journal]) == 0
+    assert "# obsnet run report" in capsys.readouterr().out
+    assert main(["report", journal + ".missing"]) == 2
+    # the chaos gate has nothing to check the port against yet (ROADMAP
+    # A14): armed, a dryrun fails instead of passing unchecked
+    monkeypatch.setenv("SPARKNET_CHAOS_SCHED", "7")
+    assert main(["dryrun", "--ctl", "--out", journal + ".ctl"]) == 1
     bad = os.path.join(os.path.dirname(journal), "bad.jsonl")
     with open(bad, "w") as f:
         f.write(json.dumps({"event": "round", "utc": "2026-10-18 12:00:00Z"}) + "\n")

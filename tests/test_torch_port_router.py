@@ -64,7 +64,7 @@ def test_kill_reroutes_pending_exactly_zero_drop():
     assert router.width() == 1 and router.live_slots == [1]
     router.pump(force=True)
     assert all(t.done() for t in tickets)
-    stats = router.summary(wall_s=1.0)
+    stats = router.emit_summary(wall_s=1.0)
     assert stats["dropped"] == 0 and stats["rerouted"] == rerouted
     with pytest.raises(RuntimeError, match="last replica"):
         router.kill_replica(router.replica_ids()[0])
@@ -134,7 +134,7 @@ def test_rollout_walks_the_pool_with_zero_drops():
     queued = [router.submit(it) for it in _items(router, 6)]
     drained = router.rollout(seed=1)
     assert drained == 6 and all(t.done() for t in queued)
-    stats = router.summary(wall_s=1.0)
+    stats = router.emit_summary(wall_s=1.0)
     assert stats["dropped"] == 0 and stats["serve_path_compiles"] == 0
     # the queued tickets were served by the seed-0 generation; the pool
     # now serves seed 1's weights
