@@ -46,8 +46,20 @@ Phases, in order (any failure exits non-zero):
    storage x L1/L2 x clip on/off x iter_size 1/2: SGD and Nesterov in f32
    bitwise, the others within one float32 ulp (``UPDATE_F32_ULPS``), bf16
    within one bf16 ulp; pad zones stay 0, w and the slots keep their
-   storage (in place); times of SGD f32, Adam f32 and SGD bf16 beside the
-   bound;
+   storage (in place); then fed by gradient segments (each blob's
+   gradient where autograd leaves it), bit for bit the packed path and
+   within the same gates of the plain version at SGD f32, Adam f32, SGD
+   bf16 and a mixed bf16-in-f32 arena, a blob without a gradient among
+   them; the kernel on segments and on the packed arena, and the update
+   path (pack + B2 against B2 on segments), timed beside the bound in
+   turns, by events and by CUDA-graph replay, and counted from each
+   path's capture record (B2's recorded launch and the graph's kernel,
+   memset and memcpy nodes); the same gate on every other arena the
+   script trains (the ImageNet families, MNIST, flickr, the loop's
+   cifar10_quick and transformer, the char LM with the empty kernel's
+   graph-replay floor beside the small arenas), and each trained net's
+   step on the packed arena against its step on segments in turns
+   (AlexNet f32 and bf16 compute, the char LM, cifar10_quick);
 10. train profile: one AlexNet b256 train step by kernel;
 11. fused vs per-blob: 3 AlexNet b256 steps with ``fused_update`` on and 3
     with it off, from the same weights and batch, dropout ratio 0 and
@@ -705,11 +717,66 @@ def phase_card() -> str:
     return smi
 
 
+# a kernel that does nothing, in blocks of the fused update's 256 threads:
+# its graph-replay time is the floor any launch pays on the card, the
+# yardstick of B2 on the small arenas.  The smoke builds it itself; no path
+# of the program launches it.
+EMPTY_KERNEL_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int smoke_empty_kernel(int blocks, void* stream) {
+  empty_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+_EMPTY_LIB = []
+
+
+def empty_kernel_library():
+    """Path of the empty kernel's shared library, and the ``nvcc`` that
+    builds it (None when built), started now."""
+    import hashlib
+
+    from sparknet_tpu_torch.ops import kernels
+
+    digest = hashlib.sha256(EMPTY_KERNEL_CU.encode()
+                            + " ".join(kernels.NVCC_FLAGS).encode()).hexdigest()[:16]
+    path = kernels.BUILD_DIR / f"libsmoke_empty-{digest}.so"
+    if path.exists():
+        return path, None
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = path.with_suffix(".cu")
+    src.write_text(EMPTY_KERNEL_CU)
+    return path, subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(path), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def empty_kernel(blocks: int) -> None:
+    """Launch ``blocks`` blocks of the empty kernel on the current stream
+    (built in the build phase)."""
+    import ctypes
+
+    if not _EMPTY_LIB:
+        path, proc = empty_kernel_library()
+        check(proc is None, "the empty kernel was not built in the build phase")
+        lib = ctypes.CDLL(str(path))
+        lib.smoke_empty_kernel.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.smoke_empty_kernel.restype = ctypes.c_int
+        _EMPTY_LIB.append(lib)
+    err = _EMPTY_LIB[0].smoke_empty_kernel(int(blocks), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"empty kernel: CUDA error {err}")
+
+
 def phase_build() -> None:
     from sparknet_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
+    _, empty_proc = empty_kernel_library()  # built beside the kernels
     logs = kernels.build_libraries()
+    if empty_proc is not None:
+        log = empty_proc.communicate()[0]
+        check(empty_proc.returncode == 0, f"nvcc failed for the empty kernel:\n{log}")
     print(f"build: {sorted(logs) or 'all cached'} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
@@ -978,6 +1045,8 @@ def phase_serve(card: str) -> int:
 UPDATE_F32_ULPS = {"SGD": 0, "Nesterov": 0, "AdaGrad": 1, "RMSProp": 1,
                    "AdaDelta": 1, "Adam": 1}
 TRAIN_STEPS = 10
+TURN_STEPS = 5  # steps a turn when the packed and the segment steps are timed in turns
+STEP_TURNS = 8  # pairs of turns, alternating which step runs first
 
 
 def ulps_f32(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -1121,9 +1190,286 @@ def phase_lrn_backward(card: str) -> dict:
     return dict(max_abs_err=max_err, bound_by="bytes", **totals)
 
 
+def arena_mask(layout) -> torch.Tensor:
+    """True on the arena's real elements, False in the pad zones."""
+    real = torch.zeros(layout.total, dtype=torch.bool, device="cuda")
+    for e in layout.entries:
+        real[e.offset:e.offset + e.size] = True
+    return real
+
+
+def seeded_blob_grads(layout, gen, none_at=None) -> list:
+    """One seeded gradient a layout entry on the card, in its blob's type
+    (a bf16 blob's is bf16), as autograd leaves it; None for a shared
+    blob's placeholder (no span) and for entry ``none_at`` (a blob that
+    got no gradient)."""
+    return [None if not e.span or i == none_at else
+            (torch.randn(e.shape, generator=gen, device="cuda") * 1e-3).to(getattr(torch, e.dtype))
+            for i, e in enumerate(layout.entries)]
+
+
+def capture_record(fn) -> tuple[dict, dict]:
+    """One call of ``fn`` captured into a CUDA graph: the launches the
+    port's wrappers recorded in it, and the graph's own nodes by kind
+    (KERNEL, MEMSET, MEMCPY, from its debug dump), so a path's kernels are
+    counted from the capture and not from a profiler window."""
+    import tempfile
+
+    from sparknet_tpu_torch.ops import kernels
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # the graph, not only its executable
+    graph.enable_debug_mode()
+    with kernels.recording_launches() as recorded:
+        with torch.cuda.graph(graph):
+            fn()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    del graph
+    return dict(recorded), {k: len(re.findall(rf"\b{k}\b", dot))
+                            for k in ("KERNEL", "MEMSET", "MEMCPY")}
+
+
+def b2_gate(card: str, what: str, layout, rule: str, st, sc: torch.Tensor,
+            none_blob: bool = True, timed: bool = True) -> dict:
+    """B2 on ``layout``'s arena fed by gradient segments (each blob's
+    gradient where autograd would leave it, ``ArenaTables.segments``)
+    against the same kernel on the packed grad arena (``pack_grads``, what
+    ``unpack``'s backward makes): params and history bit for bit; and
+    against the plain version at the fused_update phase's gates (SGD and
+    Nesterov f32 bitwise, the others ``UPDATE_F32_ULPS``, bf16 one bf16
+    ulp).  Seeded weights and history on the blobs' spans (0 in the pad
+    zones), one gradient a blob in its own type, the last blob with a span
+    given none when ``none_blob``.  Pad zones stay 0, the gradients are
+    not written, nothing is copied.  When ``timed``: the kernel on
+    segments and on the packed arena by CUDA events and by graph replay,
+    the update path (pack + B2 against B2 on segments) by graph replay,
+    all in turns, each path's capture record, and on a small arena the
+    empty kernel's floor.  Returns the numbers."""
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.solvers import arena as arena_mod
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    tables = arena_mod.ArenaTables(layout, dev)
+    real = arena_mask(layout)
+
+    def rand(scale, positive=False):
+        t = torch.randn(layout.total, generator=gen, device=dev) * scale
+        return torch.where(real, t.abs() if positive else t, 0.0).to(layout.storage)
+
+    w0 = rand(0.01)
+    slots0 = [rand(1e-3, positive=True) for _ in range(kernels.FUSED_RULE_SLOTS[rule])]
+    spans = [i for i, e in enumerate(layout.entries) if e.span]
+    none_at = spans[-1] if none_blob and len(spans) > 1 else None
+    grads = seeded_blob_grads(layout, gen, none_at)
+    seg = [g for e, g in zip(layout.entries, grads) if e.span]
+    before = [None if g is None else g.clone() for g in seg]
+    packed = arena_mod.pack_grads(layout, grads)
+    args = (tables.tile_lr, tables.tile_decay, sc)
+    ref_w, ref_s = kernels.fused_update_torch(rule, st, w0, seg, slots0, *args,
+                                              tables.segments)
+    pw, ps = kernels.fused_update_torch(rule, st, w0, packed, slots0, *args)
+    plain_same = torch.equal(ref_w, pw) and all(torch.equal(a, b) for a, b in zip(ref_s, ps))
+    del pw, ps
+    wp, sp = w0.clone(), [t.clone() for t in slots0]
+    kernels.fused_update(rule, st, wp, packed, sp, *args)
+    ws, ss = w0.clone(), [t.clone() for t in slots0]
+    copies = kernels.FUSED_GRAD_COPIES
+    kernels.fused_update(rule, st, ws, seg, ss, *args, tables.segments)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(ws, wp) and all(torch.equal(a, b) for a, b in zip(ss, sp))
+    max_abs, worst = 0.0, 0
+    for out, ref in zip((ws, *ss), (ref_w, *ref_s)):
+        max_abs = max(max_abs, float((out.float() - ref.float()).abs().max()))
+        if out.dtype == torch.float32:
+            worst = max(worst, ulps_f32(out, ref))
+            check(worst <= UPDATE_F32_ULPS[rule],
+                  f"B2 on segments, {what} {rule}: {worst} ulps off the plain version")
+        else:
+            err = (out.float() - ref.float()).abs()
+            check(bool((err <= bf16_ulp(ref.float())).all()),
+                  f"B2 on segments, {what} {rule}: beyond one bf16 ulp of the plain version")
+        check(not bool(out[~real].any()), f"B2 on segments, {what} {rule}: pad zone not zero")
+    untouched = all(a is None or torch.equal(a, b) for a, b in zip(seg, before))
+    mixed = sum(g is not None and g.dtype != layout.storage for g in seg)
+    print(f"B2 on segments, {what} {rule} {str(layout.storage)[6:]} arena ({layout.param_count():,} "
+          f"params, {len(seg)} segments, {mixed} of another type, "
+          f"{sum(e.span == 0 for e in layout.entries)} placeholders, "
+          f"{'one blob without a gradient' if none_at is not None else 'every blob a gradient'}): "
+          f"{'bit for bit' if bitwise else 'NOT bit for bit'} the packed path, "
+          f"{worst} ulps / max abs err {max_abs:.3e} off the plain version; plain on segments "
+          f"{'bit for bit' if plain_same else 'NOT bit for bit'} plain on the packed arena; "
+          f"gradients {'untouched' if untouched else 'WRITTEN'}, "
+          f"{kernels.FUSED_GRAD_COPIES - copies} copies [{card}]")
+    check(bitwise and plain_same, f"B2 on segments, {what} {rule}: not the packed path")
+    check(untouched, f"B2 on segments, {what} {rule}: wrote a gradient")
+    check(kernels.FUSED_GRAD_COPIES == copies, f"B2 on segments, {what}: copied a gradient")
+    del ref_w, ref_s, before
+    out = dict(max_abs_err=max_abs)
+    if not timed:
+        return out
+    bw, _, _ = card_peaks(card)
+    # timed on the steps' case: every blob a gradient (the one left without
+    # is given zeros; the same update)
+    seg_all = list(seg)
+    if none_at is not None:
+        e = layout.entries[none_at]
+        seg_all[spans.index(none_at)] = torch.zeros(e.shape, device=dev,
+                                                    dtype=getattr(torch, e.dtype))
+    # each arena read and written once, each gradient read once (its own
+    # type)
+    nbytes = ((1 + len(slots0)) * 2 * layout.total * w0.element_size()
+              + sum(g.numel() * g.element_size() for g in seg_all))
+    bound = nbytes / bw * 1e3
+
+    def k_seg():
+        kernels.fused_update(rule, st, ws, seg_all, ss, *args, tables.segments)
+
+    def k_seg_none():
+        kernels.fused_update(rule, st, ws, seg, ss, *args, tables.segments)
+
+    def k_packed():
+        kernels.fused_update(rule, st, wp, packed, sp, *args)
+
+    def path_packed():
+        kernels.fused_update(rule, st, wp, arena_mod.pack_grads(layout, grads), sp, *args)
+
+    reps = 10
+    ev = {"segments": [], "packed": []}
+    gr = {"segments": [], "packed": [], "path": []}
+    for turn in (0, 1):
+        order = (("path", path_packed), ("segments", k_seg), ("packed", k_packed))
+        for name, fn in (order if turn == 0 else order[::-1]):
+            gr[name].append(graph_ms(fn, reps=reps))
+            if name != "path":
+                ev[name].append(time_ms(fn, reps=reps))
+    t_plain = time_ms(lambda: kernels.fused_update_torch(rule, st, ws, seg, ss, *args,
+                                                         tables.segments), reps=reps)
+    host = {}
+    calls = [("segments", k_seg), ("packed", k_packed)]
+    for name, fn in calls + ([("none", k_seg_none)] if none_at is not None else []):
+        # the wrapper's host time: 10 calls queued back to back (the queue
+        # does not fill), host clock, median of ``reps``
+        torch.cuda.synchronize()
+        laps = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            laps.append((time.perf_counter() - t0) / 10 * 1e3)
+            torch.cuda.synchronize()
+        host[name] = float(np.median(laps))
+    med = {k: float(np.median(v)) for k, v in gr.items()}
+    evm = {k: float(np.median(v)) for k, v in ev.items()}
+    rec_p, nodes_p = capture_record(path_packed)
+    rec_s, nodes_s = capture_record(k_seg)
+    floor = ""
+    if layout.total < (1 << 22):
+        blocks = -(-layout.total // (4 if layout.storage == torch.float32 else 8) // 256)
+        f1 = graph_ms(lambda: empty_kernel(1), reps=reps)
+        fb = graph_ms(lambda: empty_kernel(blocks), reps=reps)
+        out.update(floor_ms=f1, floor_blocks_ms=fb)
+        floor = (f"; the empty kernel by graph replay {f1:.4f} ms at 1 block, {fb:.4f} ms "
+                 f"at the update's {blocks} blocks")
+    print(f"time B2 {what} {rule} {str(layout.storage)[6:]}: kernel on segments {evm['segments']:.4f} "
+          f"ms by events ({100 * bound / evm['segments']:.1f}% of bound), {med['segments']:.4f} "
+          f"ms by graph replay ({100 * bound / med['segments']:.1f}%); on the packed arena "
+          f"{evm['packed']:.4f} / {med['packed']:.4f} ms; the wrapper's host time a call "
+          f"{host['segments']:.4f} ms on segments"
+          f"{'' if none_at is None else ' (%.4f with a blob without one)' % host['none']}, "
+          f"{host['packed']:.4f} ms packed; the update path by graph replay: pack + B2 {med['path']:.4f} ms, segments {med['segments']:.4f} ms "
+          f"({med['path'] / med['segments']:.2f}x); plain {t_plain:.4f} ms; bound "
+          f"{bound:.4f} ms ({nbytes / 1e9:.4f} GB, bytes){floor} [{card}]")
+    print(f"  capture record {what}: pack + B2 recorded {rec_p}, graph nodes {nodes_p}; "
+          f"segments recorded {rec_s}, graph nodes {nodes_s}")
+    check(rec_s == {"FUSED_UPDATE_LAUNCHES": 1} and rec_p == {"FUSED_UPDATE_LAUNCHES": 1},
+          f"B2 {what}: one launch a path, recorded {rec_s} / {rec_p}")
+    check(nodes_s == {"KERNEL": 1, "MEMSET": 0, "MEMCPY": 0} and nodes_p["KERNEL"] >= 2,
+          f"B2 {what}: the segment path's graph holds {nodes_s}, want one kernel; the "
+          f"packed path's {nodes_p}")
+    out.update(ms=evm["segments"], ms_graph=med["segments"], packed_ms=evm["packed"],
+               packed_graph_ms=med["packed"], path_packed_ms=med["path"],
+               plain_ms=t_plain, bound_ms=bound, host_ms=host["segments"],
+               packed_host_ms=host["packed"])
+    del ws, ss, wp, sp, packed, seg, seg_all, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_turns(card: str, what: str, solver, data_fn, steps: int,
+               profile: bool = False) -> dict:
+    """``solver``'s fused step on the packed grad arena against its step on
+    segments, in STEP_TURNS pairs of turns, alternating which runs first
+    (``steps`` steps a turn, host clock around synchronised steps): the
+    median ms a step of each and the pairs the segments won; B2 once a
+    step on both, ``unpack``'s backward once a step on the packed path and
+    never on segments, no gradient copied.  ``profile``: one step of each
+    under torch.profiler too, its device ms and its memcpy and fill
+    records."""
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.solvers import arena as arena_mod
+    from sparknet_tpu_torch.solvers.solver import build_fused_step
+
+    steps_of = {"segments": solver._fused_step,
+                "packed": build_fused_step(solver.config, solver.train_net, solver.layout,
+                                           solver._tables, reduce_grads=lambda g: g)}
+    ms = {"packed": [], "segments": []}
+    saved = _arena_state(solver)  # the caller's solver goes on from here
+    try:
+        for pair in range(STEP_TURNS):
+            for kind in (("packed", "segments") if pair % 2 == 0 else ("segments", "packed")):
+                solver._fused_step = steps_of[kind]
+                torch.cuda.synchronize()
+                u0, b0 = arena_mod.UNPACK_BACKWARDS, kernels.FUSED_UPDATE_LAUNCHES
+                c0 = kernels.FUSED_GRAD_COPIES
+                t0 = time.perf_counter()
+                solver.step(steps, data_fn)
+                torch.cuda.synchronize()
+                ms[kind].append(1e3 * (time.perf_counter() - t0) / steps)
+                packs = arena_mod.UNPACK_BACKWARDS - u0
+                b2 = kernels.FUSED_UPDATE_LAUNCHES - b0
+                check(b2 == steps and packs == (steps if kind == "packed" else 0)
+                      and kernels.FUSED_GRAD_COPIES == c0,
+                      f"{what} {kind} steps: B2 {b2}, packs {packs}, copies "
+                      f"{kernels.FUSED_GRAD_COPIES - c0} in {steps} steps")
+        prof = ""
+        if profile:
+            for kind in ("packed", "segments"):
+                solver._fused_step = steps_of[kind]
+                dev_ms, rows = device_breakdown(lambda: solver.step(1, data_fn), top=1000)
+                copies = sum(n for _, name, n in rows if name.startswith("Memcpy DtoD"))
+                fills = sum(n for _, name, n in rows if "FillFunctor" in name)
+                prof += (f"; one {kind} step under torch.profiler {dev_ms:.3f} ms of device "
+                         f"time, {copies} DtoD memcpys, {fills} fill kernels")
+    finally:
+        solver._fused_step = steps_of["segments"]
+        _arena_restore(solver, saved)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    wins = sum(s < p for s, p in zip(ms["segments"], ms["packed"]))
+    print(f"step turns {what}: packed {med['packed']:.3f} ms/step, segments "
+          f"{med['segments']:.3f} ms/step (medians of {STEP_TURNS} turns of {steps} steps, "
+          f"{med['packed'] - med['segments']:+.3f} ms; segments faster in {wins} of "
+          f"{STEP_TURNS} pairs; turns packed {[round(x, 3) for x in ms['packed']]}, segments "
+          f"{[round(x, 3) for x in ms['segments']]}); B2 1 a step on both, unpack's backward "
+          f"1 a step packed and 0 on segments, 0 gradient copies{prof} [{card}]")
+    return med
+
+
 def phase_fused_update(card: str, layout) -> dict:
     """The fused update kernel vs fused_update_torch on the AlexNet arena
-    geometry; times of SGD f32, Adam f32 and SGD bf16."""
+    geometry, every case on the packed grad arena; then, fed by gradient
+    segments, against its packed path (bit for bit) and the plain version
+    at SGD f32, Adam f32, SGD bf16 and a mixed arena (every other blob
+    bf16 in the float32 arena), with the update path timed."""
     from sparknet_tpu_torch.ops import kernels
     from sparknet_tpu_torch.solvers.arena import ArenaTables
     from sparknet_tpu_torch.solvers.updates import adam_correction
@@ -1131,9 +1477,7 @@ def phase_fused_update(card: str, layout) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     tables = ArenaTables(layout, dev)
-    real = torch.zeros(layout.total, dtype=torch.bool, device=dev)
-    for e in layout.entries:
-        real[e.offset:e.offset + e.size] = True
+    real = arena_mask(layout)
     total = layout.total
     print(f"fused_update: AlexNet arena {layout.param_count():,} params in "
           f"{len(layout.entries)} blobs, {total:,} elements after padding "
@@ -1208,25 +1552,19 @@ def phase_fused_update(card: str, layout) -> dict:
           f"other f32 rules within {max(UPDATE_F32_ULPS.values())} ulp, bf16 "
           f"within one bf16 ulp), max abs err {max_abs:.3e}")
 
-    bw, _, _ = card_peaks(card)
     times = {}
-    for rule, dtype in (("SGD", torch.float32), ("Adam", torch.float32),
-                        ("SGD", torch.bfloat16)):
+    for rule, storage in (("SGD", "f32"), ("Adam", "f32"), ("SGD", "bf16")):
+        lay = dataclasses.replace(layout, storage_dtype=storage)
         st = kernels.UpdateStatics(momentum=0.9, reg="l2")
-        w, g, slots = arenas(rule, dtype)
-        sc = scalars(rule, False)
-        t_k = time_ms(lambda: kernels.fused_update(
-            rule, st, w, g, slots, tables.tile_lr, tables.tile_decay, sc))
-        t_p = time_ms(lambda: kernels.fused_update_torch(
-            rule, st, w, g, slots, tables.tile_lr, tables.tile_decay, sc))
-        nbytes = (2 + 2 * len(slots) + 1) * total * w.element_size()
-        bound = nbytes / bw * 1e3
-        times[(rule, str(dtype))] = (t_k, t_p, bound)
-        print(f"time fused_update {rule} {str(dtype)[6:]} L2 on the AlexNet arena: "
-              f"kernel {t_k:.4f} ms ({nbytes / 1e9:.3f} GB, "
-              f"{100 * bound / t_k:.1f}% of bound), plain {t_p:.4f} ms, bound "
-              f"{bound:.4f} ms (bytes) [{card}]")
-        del w, g, slots
+        times[(rule, storage)] = b2_gate(card, "AlexNet", lay, rule, st, scalars(rule, False),
+                                         none_blob=False)
+    mixed = dataclasses.replace(layout, entries=tuple(
+        dataclasses.replace(e, dtype="bfloat16") if k % 2 else e
+        for k, e in enumerate(layout.entries)))
+    check(mixed.mixed, "the mixed arena is not mixed")
+    b2_gate(card, "AlexNet geometry, mixed bf16 in f32", mixed, "SGD",
+            kernels.UpdateStatics(momentum=0.9, reg="l2"), scalars("SGD", False),
+            timed=False)
     # a same-bytes reference, not the same function: PyTorch's SGD keeps
     # the lr out of its momentum buffer, so no PyTorch call computes
     # Caffe's update (library_ms stays null)
@@ -1239,8 +1577,9 @@ def phase_fused_update(card: str, layout) -> dict:
           f"of the arena's size (same bytes, not the same function): "
           f"{t_ref:.4f} ms [{card}]")
     del p, opt
-    t_k, t_p, bound = times[("SGD", "torch.float32")]
-    return dict(max_abs_err=max_abs, ms=t_k, plain_ms=t_p, bound_ms=bound,
+    t = times[("SGD", "f32")]
+    return dict(max_abs_err=max(max_abs, *(v["max_abs_err"] for v in times.values())),
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                 bound_by="bytes", library_ms=None)
 
 
@@ -1319,6 +1658,8 @@ def phase_train(card: str) -> dict:
               f"{1e3 * dt / steps:.2f} ms/step [{card}]")
         out[name] = dict(counts=counts, ms_per_step=1e3 * dt / steps)
         if name == "alexnet":
+            out["turns"] = step_turns(card, "AlexNet b256 f32", solver, lambda it: feeds,
+                                      TURN_STEPS, profile=True)
             out["step"] = lambda s=solver, f=feeds: s.step(1, lambda it: f)
             out["alexnet_solver"] = solver
         del solver
@@ -3486,6 +3827,7 @@ def phase_charlm_train(card: str) -> dict:
     from sparknet_tpu_torch.common import set_config
     from sparknet_tpu_torch.data import char_lm_batches
     from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.solvers.arena import update_statics
 
     t_phase = time.perf_counter()
     text, vocab = charlm_text()
@@ -3533,6 +3875,11 @@ def phase_charlm_train(card: str) -> dict:
         else:
             print("charlm train profile: torch.profiler recorded no device time")
         sample = charlm_sample(card, net, vocab)
+        solver = net.solver
+        b2_gate(card, "char LM", solver.layout, "Adam", update_statics(solver.config),
+                torch.tensor([2e-3, 1.0, 0.9], device="cuda"))
+        step_turns(card, f"char LM b{batch} x {seq}", solver,
+                   lambda it: batches[it % len(batches)], 4 * TURN_STEPS)
         charlm_wide_heads_and_bf16(card)
     finally:
         set_config(fused_update=False)
@@ -4186,58 +4533,18 @@ def zoo_googlenet_plain_lrn(card: str, solver) -> None:
     check(ok, "googlenet logits vs the plain-LRN forward")
 
 
-def b2_against_plain(card: str, what: str, layout, cfg, it: int) -> None:
-    """B2 on ``layout``'s arena against ``fused_update_torch``, bit for
-    bit: seeded weights, grads and history on the blobs' spans (0 in the
-    pad zones; a shared blob's placeholder has no span), ``cfg``'s SGD
-    constants, each blob's lr and decay multipliers (``ArenaTables``) and
-    the rate of iteration ``it``; then both timed beside the bound."""
-    from sparknet_tpu_torch.ops import kernels
-    from sparknet_tpu_torch.solvers.arena import ArenaTables, update_statics
+def b2_against_plain(card: str, what: str, layout, cfg, it: int) -> dict:
+    """B2 on ``layout``'s arena (``b2_gate``): fed by segments, bit for bit
+    its packed path and its plain version; ``cfg``'s SGD constants, each
+    blob's lr and decay multipliers and the rate of iteration ``it``; then
+    timed beside the bound, the update path against pack + B2."""
+    from sparknet_tpu_torch.solvers.arena import update_statics
     from sparknet_tpu_torch.solvers.lr_policy import learning_rate
 
     check(cfg.solver_type == "SGD", f"{what}: B2 check takes SGD, not {cfg.solver_type}")
-    bw, _, _ = card_peaks(card)
-    tables = ArenaTables(layout, torch.device("cuda"))
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
-    real = torch.zeros(layout.total, dtype=torch.bool, device="cuda")
-    for e in layout.entries:
-        real[e.offset:e.offset + e.size] = True
-    w = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 0.01, 0.0)
-    g = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 1e-3, 0.0)
-    h = torch.where(real, torch.randn(layout.total, generator=gen, device="cuda") * 1e-3, 0.0)
-    st = update_statics(cfg)
     one = torch.ones((), device="cuda")
     sc = torch.stack([learning_rate(cfg, it).to("cuda", torch.float32), one, one])
-    ref_w, ref_s = kernels.fused_update_torch("SGD", st, w, g, [h], tables.tile_lr,
-                                              tables.tile_decay, sc)
-    kernels.fused_update("SGD", st, w, g, [h], tables.tile_lr, tables.tile_decay, sc)
-    same = torch.equal(w, ref_w) and torch.equal(h, ref_s[0])
-    del ref_w, ref_s
-    t_k = time_ms(lambda: kernels.fused_update("SGD", st, w, g, [h], tables.tile_lr,
-                                               tables.tile_decay, sc), reps=10)
-    t_p = time_ms(lambda: kernels.fused_update_torch("SGD", st, w, g, [h], tables.tile_lr,
-                                                     tables.tile_decay, sc), reps=10)
-    nbytes = 5 * layout.total * 4
-    bound = nbytes / bw * 1e3
-    graph = ""
-    if layout.total < (1 << 22):
-        # a small arena's kernel is shorter than its launch on the host:
-        # CUDA-graph replay times the kernel alone
-        t_g = graph_ms(lambda: kernels.fused_update("SGD", st, w, g, [h], tables.tile_lr,
-                                                    tables.tile_decay, sc), reps=10)
-        graph = (f"; by CUDA-graph replay {t_g:.4f} ms ({100 * bound / t_g:.1f}% of "
-                 "bound)")
-    print(f"time fused_update SGD f32 reg {st.reg} momentum {st.momentum:g} on the {what} "
-          f"arena ({layout.param_count():,} params, {layout.total:,} after padding, "
-          f"{sum(e.span == 0 for e in layout.entries)} blobs of 0 tiles): kernel {t_k:.4f} ms "
-          f"({nbytes / 1e9:.3f} GB, {100 * bound / t_k:.1f}% of bound){graph}, plain "
-          f"{t_p:.4f} ms, bound {bound:.4f} ms (bytes); kernel against plain "
-          f"{'bitwise equal' if same else 'NOT bitwise equal'} [{card}]")
-    check(same, f"fused_update on the {what} arena differs from its plain version")
-    del w, g, h, tables, real
-    gc.collect()
-    torch.cuda.empty_cache()
+    return b2_gate(card, what, layout, "SGD", update_statics(cfg), sc)
 
 
 def zoo_fused_vs_blob(card: str) -> None:
@@ -4565,6 +4872,10 @@ def phase_zoo(card: str) -> dict:
     fold and the engine.  Returns the main path's launches."""
     walls = [time.perf_counter()]
     train = zoo_train(card)
+    for name in ("googlenet", "resnet50"):  # 128 and 161 gradient segments
+        batch, crop = ZOO_SIZES[name]
+        feeds = zoo_batch(batch, crop)
+        step_turns(card, f"zoo {name} b{batch}", train[name], lambda it, f=feeds: f, 2)
     walls.append(time.perf_counter())
     zoo_lrn(card)
     zoo_googlenet_plain_lrn(card, train.pop("googlenet"))
@@ -5811,6 +6122,8 @@ def precision_alexnet(card: str) -> tuple[int, int, int]:
           f"{ms['f32'] / ms['bf16']:.2f}x; last losses bf16 "
           f"{[round(l, 4) for l in losses['bf16']]} f32 "
           f"{[round(l, 4) for l in losses['f32']]} [{card}]")
+    with port_config(compute_dtype="bf16"):
+        step_turns(card, "AlexNet b256 bf16 compute", bf, lambda it: feeds, TURN_STEPS)
 
     with port_config(compute_dtype="bf16"):
         device_ms, rows = device_breakdown(lambda: bf.step(1, lambda it: feeds))
@@ -7459,6 +7772,12 @@ def loop_kernels(card: str) -> None:
 
     s = Solver(models.cifar10_quick_solver(), models.cifar10_quick(LOOP_BATCH), device="cuda")
     b2_against_plain(card, f"cifar10_quick b{LOOP_BATCH} (loop)", s.layout, s.config, it=0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    feeds = {"data": torch.randn((LOOP_BATCH, 3, 32, 32), generator=gen, device="cuda") * 40,
+             "label": torch.randint(0, 10, (LOOP_BATCH,), generator=gen, device="cuda",
+                                    dtype=torch.int32)}
+    s.step(1, lambda it: feeds)  # warm-up: cuDNN's set-up
+    step_turns(card, f"cifar10_quick b{LOOP_BATCH}", s, lambda it: feeds, 4 * TURN_STEPS)
     fam = GRAPH_SWEEP_FAMILIES["transformer"]
     s = Solver(fam.solver(), fam.net(LOOP_TOKEN_BATCH), device="cuda")
     b2_against_plain(card, f"transformer b{LOOP_TOKEN_BATCH} (loop)", s.layout, s.config,
@@ -8046,9 +8365,15 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     laps = [t_start]  # the clock after each step, for the seconds by phase
 
+    from sparknet_tpu_torch.ops import kernels
+
+    copies = [kernels.FUSED_GRAD_COPIES]
+
     def lap(name: str) -> None:
         laps.append(time.perf_counter())
-        print(f"chip_smoke: {name} took {laps[-1] - laps[-2]:.1f} s")
+        print(f"chip_smoke: {name} took {laps[-1] - laps[-2]:.1f} s; gradients B2's "
+              f"wrapper copied: {kernels.FUSED_GRAD_COPIES - copies[-1]}")
+        copies.append(kernels.FUSED_GRAD_COPIES)
 
     card = phase_card()
     phase_build()
@@ -8199,6 +8524,8 @@ def main(argv=None) -> int:
         return 0
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
+    print(f"chip_smoke: gradients B2's wrapper copied on every path: "
+          f"{kernels.FUSED_GRAD_COPIES} (non-contiguous, misaligned or of another type)")
     meta = {
         "lrn_across_channels": ("sparknet_tpu_torch/csrc/lrn.cu",
                                 "sparknet_tpu/ops/pallas_kernels.py:40", "lrn"),
@@ -8219,7 +8546,9 @@ def main(argv=None) -> int:
         st = stats[key]
         # LRN times and bounds: one AlexNet b256 step's two calls (norm1 +
         # norm2), float32; fused_update: one SGD f32 update of the AlexNet
-        # arena; flash: the char LM's prefill shape [32,4,128,16] causal;
+        # arena fed by gradient segments (events; the bound counts each
+        # gradient read once in its own type); flash: the char LM's
+        # prefill shape [32,4,128,16] causal;
         # flash_attention_backward: the char LM's training shape
         # [32,4,128,16] causal; paged: its decode shape (B 32, H 4, D 16,
         # T 8, MB 16); max_abs_err: the largest over every f32 case (every

@@ -57,10 +57,11 @@ class Span:
     the caller already read the work's own output to the host)."""
 
     __slots__ = ("_rec", "name", "host", "note", "_t0", "_fenced",
-                 "_fence_value")
+                 "_fence_value", "_defer", "_fields")
 
     def __init__(self, rec: "Recorder | None", name: str,
-                 host: bool = False, note: str | None = None):
+                 host: bool = False, note: str | None = None,
+                 defer: bool = False):
         self._rec = rec if (rec is not None and rec.enabled) else None
         self.name = name
         self.host = bool(host)
@@ -68,6 +69,8 @@ class Span:
         self._t0 = 0.0
         self._fenced = False
         self._fence_value: float | None = None
+        self._defer = defer
+        self._fields: dict | None = None
 
     def __enter__(self) -> "Span":
         self._t0 = time.perf_counter()
@@ -108,7 +111,18 @@ class Span:
             fields["fence_value"] = self._fence_value
         if self.note:
             fields["note"] = self.note
+        if self._defer:
+            self._fields = fields
+            return
         self._rec._emit_span(fields)
+
+    def emit(self) -> None:
+        """Journal a deferred span's line (``defer=True``: closing it only
+        measured), once; a caller that closed it under a lock writes it
+        after releasing the lock."""
+        if self._rec is not None and self._fields is not None:
+            fields, self._fields = self._fields, None
+            self._rec._emit_span(fields)
 
 
 class Recorder:
@@ -209,10 +223,12 @@ class Recorder:
 
     # -- public surface ----------------------------------------------------
 
-    def span(self, name: str, host: bool = False, note: str | None = None) -> Span:
+    def span(self, name: str, host: bool = False, note: str | None = None,
+             defer: bool = False) -> Span:
         """A fenced-wall context manager (a no-op when obs is off).
-        ``host=True`` declares the span never encloses device work."""
-        return Span(self, name, host=host, note=note)
+        ``host=True`` declares the span never encloses device work;
+        ``defer=True`` keeps its line for :meth:`Span.emit`."""
+        return Span(self, name, host=host, note=note, defer=defer)
 
     def round(self, *, mode: str, tau: int, devices: int, iters: int,
               batch: int, wall_s: float, loss: float, fenced: bool,

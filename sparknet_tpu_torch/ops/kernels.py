@@ -50,8 +50,10 @@ import os
 import shutil
 import subprocess
 import threading
+from operator import attrgetter
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -73,6 +75,10 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 LRN_LAUNCHES = 0
 LRN_BACKWARD_LAUNCHES = 0
 FUSED_UPDATE_LAUNCHES = 0
+# gradients the fused update's wrapper copied before a launch (a
+# non-contiguous or misaligned segment, or one of another float type): 0
+# on the main paths
+FUSED_GRAD_COPIES = 0
 FLASH_LAUNCHES = 0
 FLASH_BACKWARD_LAUNCHES = 0
 PAGED_LAUNCHES = 0
@@ -82,7 +88,7 @@ INT_MM_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
-    """Set every launch count to 0."""
+    """Set every launch count to 0 (``FUSED_GRAD_COPIES`` runs on)."""
     global LRN_LAUNCHES, LRN_BACKWARD_LAUNCHES, FUSED_UPDATE_LAUNCHES
     global FLASH_LAUNCHES, FLASH_BACKWARD_LAUNCHES, PAGED_LAUNCHES, INT_MM_LAUNCHES
     LRN_LAUNCHES = LRN_BACKWARD_LAUNCHES = FUSED_UPDATE_LAUNCHES = 0
@@ -207,12 +213,16 @@ def _load(name: str) -> ctypes.CDLL:
         elif name == "fused_update":
             lib.sparknet_fused_update_tile.argtypes = []
             lib.sparknet_fused_update_tile.restype = ctypes.c_int
+            if lib.sparknet_fused_update_tile() != ARENA_TILE:
+                raise RuntimeError("csrc/fused_update.cu was built for another tile")
+            lib.sparknet_fused_update_max_segments.argtypes = []
+            lib.sparknet_fused_update_max_segments.restype = ctypes.c_int
+            lib.max_segments = lib.sparknet_fused_update_max_segments()
             lib.sparknet_fused_update.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                *[ctypes.c_float] * 8, ctypes.c_int, ctypes.c_void_p,
+                *[ctypes.c_void_p] * 7, ctypes.c_longlong, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, *[ctypes.c_float] * 8, ctypes.c_int,
+                ctypes.c_void_p,
             ]
             lib.sparknet_fused_update.restype = ctypes.c_int
         elif name == "flash_attention":
@@ -508,13 +518,81 @@ def _fused_rule_math(st: UpdateStatics, rule: str, g, slots, lr, corr):
     raise ValueError(f"unknown fused update rule {rule!r}")
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class GradSegments:
+    """Where an arena's gradient lies when it is not packed: one segment a
+    blob, in arena order.  Segment ``i`` is a tensor of ``size[i]``
+    elements (its blob's gradient, any shape) whose span starts at tile
+    ``first_tile[i]`` and runs to the next segment's first tile (the last
+    to the arena's end); its elements past ``size[i]`` are the blob's pad
+    zone and read as 0.  ``tile_seg``: [n_tiles, 2] int32, (segment, its
+    first tile) for every tile, on the arenas' device (the kernel's own
+    lookup; the plain version reads ``first_tile``).  ``dtypes``: the type
+    each gradient comes in (its blob's), or None when one is neither
+    float32 nor bfloat16; ``rows``: the C entry's [n, 4] int64 rows
+    (pointer 0, count, 1 if bfloat16, first tile) for those types, so a
+    launch fills in only the pointers.  Made once per layout
+    (``solvers/arena.ArenaTables``)."""
+
+    first_tile: tuple
+    size: tuple
+    n_tiles: int
+    tile_seg: torch.Tensor
+    dtypes: tuple | None
+    rows: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.size)
+
+    @classmethod
+    def build(cls, first_tile, size, n_tiles: int, device,
+              dtypes=None) -> "GradSegments":
+        first_tile, size = tuple(int(t) for t in first_tile), tuple(int(n) for n in size)
+        dtypes = (torch.float32,) * len(size) if dtypes is None else tuple(dtypes)
+        ends = (*first_tile[1:], n_tiles)
+        if (first_tile[:1] != ((0,) if n_tiles else ()) or len(dtypes) != len(size)
+                or any(e <= t or not 0 <= n <= (e - t) * ARENA_TILE
+                       for t, e, n in zip(first_tile, ends, size))):
+            raise ValueError("gradient segments must start at tile 0, rise, and "
+                             "each fit its tiles")
+        table = torch.empty((n_tiles, 2), dtype=torch.int32)
+        for k, (t, e) in enumerate(zip(first_tile, ends)):
+            table[t:e, 0] = k
+            table[t:e, 1] = t
+        rows = np.zeros((len(size), 4), np.int64)
+        rows[:, 1] = size
+        rows[:, 2] = [d is torch.bfloat16 for d in dtypes]
+        rows[:, 3] = first_tile
+        if not all(d is torch.float32 or d is torch.bfloat16 for d in dtypes):
+            dtypes = None
+        return cls(first_tile=first_tile, size=size, n_tiles=n_tiles,
+                   tile_seg=table.to(device), dtypes=dtypes, rows=rows)
+
+
+def pack_segments(grads, segments: GradSegments, dtype: torch.dtype) -> torch.Tensor:
+    """The segments' gradients packed into one float32 [n_tiles *
+    ARENA_TILE] arena: each converted to ``dtype`` (the arena's type) and
+    back, as packing it into a grad arena of that type would; 0 in the pad
+    zones and in the span of a segment that is None."""
+    out = torch.zeros((segments.n_tiles * ARENA_TILE,), dtype=torch.float32,
+                      device=segments.tile_seg.device)
+    for g, t, n in zip(grads, segments.first_tile, segments.size):
+        if g is not None:
+            start = t * ARENA_TILE
+            out[start:start + n] = g.reshape(-1).to(dtype).float()
+    return out
+
+
 def fused_update_torch(rule: str, st: UpdateStatics, w, g, slots, tile_lr,
-                       tile_decay, scalars):
+                       tile_decay, scalars, segments: GradSegments | None = None):
     """Plain PyTorch fused update, the port of the JAX
     ``_fused_update_xla``: the same single-sweep math over the
     ``(n_tiles, ARENA_TILE)`` view, float32 whatever the storage type.
-    Returns (new_w, new_slots) in the input types; nothing is written in
-    place."""
+    ``g`` is the packed grad arena, or with ``segments`` one gradient (or
+    None) a segment, packed first (:func:`pack_segments`).  Returns
+    (new_w, new_slots) in the input types; nothing is written in place."""
+    if segments is not None:
+        g = pack_segments(g, segments, w.dtype)
     n = tile_lr.shape[0]
     w32 = w.reshape(n, -1).float()
     g32 = g.reshape(n, -1).float()
@@ -528,11 +606,66 @@ def fused_update_torch(rule: str, st: UpdateStatics, w, g, slots, tile_lr,
                    for h, s in zip(new_slots, slots)]
 
 
-def _fused_update_cuda(rule, st, w, g, slots, tile_lr, tile_decay, scalars):
+_data_ptr, _is_contiguous = torch.Tensor.data_ptr, torch.Tensor.is_contiguous
+_numel, _get_device, _dtype = torch.Tensor.numel, torch.Tensor.get_device, attrgetter("dtype")
+
+
+def _segment_rows(w: torch.Tensor, g, segments: GradSegments | None):
+    """The C entry's [n, 4] int64 segment rows (pointer, count, is_bf16,
+    first tile) and the tensors they point into (kept alive until the
+    launch is queued).  When every gradient given is contiguous, 16-byte
+    aligned, of its segment's count and type and on ``w``'s device (the
+    steps' case), only the pointers are filled into ``segments.rows`` (a
+    segment without a gradient keeps its null pointer).  Otherwise each
+    row is checked: a gradient that is not contiguous and 16-byte aligned
+    in float32 or bfloat16 is copied first (``.to(w.dtype)`` for another
+    type, as packing it would), and the copy counted on
+    ``FUSED_GRAD_COPIES``."""
+    global FUSED_GRAD_COPIES
+    if segments is None:
+        return np.array([[g.data_ptr(), g.shape[0], int(g.dtype == torch.bfloat16), 0]],
+                        np.int64), [g]
+    rows = segments.rows.copy()
+    dev = w.get_device()
+    if segments.dtypes is not None:
+        have, dtypes, sizes = g, segments.dtypes, segments.size
+        try:
+            rows[:, 0] = np.fromiter(map(_data_ptr, g), np.int64, len(rows))
+        except TypeError:  # a blob without a gradient: its pointer stays null
+            at = [i for i, t in enumerate(g) if t is not None]
+            have = [g[i] for i in at]
+            dtypes = tuple(dtypes[i] for i in at)
+            sizes = tuple(sizes[i] for i in at)
+            rows[at, 0] = np.fromiter(map(_data_ptr, have), np.int64, len(at))
+        if (not (rows[:, 0] & 15).any() and all(map(_is_contiguous, have))
+                and tuple(map(_dtype, have)) == dtypes
+                and tuple(map(_numel, have)) == sizes
+                and tuple(map(_get_device, have)) == (dev,) * len(have)):
+            return rows, ()
+    keep = []
+    for i, (t, n) in enumerate(zip(g, segments.size)):
+        if t is None:
+            rows[i, :3] = (0, n, 0)
+            continue
+        if t.get_device() != dev or t.numel() != n:
+            raise ValueError(f"fused_update: a gradient segment of {n} elements on "
+                             f"{w.device} got {t.numel()} on {t.device}")
+        if t.dtype is not torch.float32 and t.dtype is not torch.bfloat16:
+            t = t.to(w.dtype)
+            FUSED_GRAD_COPIES += 1
+            keep.append(t)
+        elif t.data_ptr() % 16 or not t.is_contiguous():
+            t = t.clone(memory_format=torch.contiguous_format)
+            FUSED_GRAD_COPIES += 1
+            keep.append(t)
+        rows[i, :3] = (t.data_ptr(), n, int(t.dtype is torch.bfloat16))
+    return rows, keep
+
+
+def _fused_update_cuda(rule, st, w, g, slots, tile_lr, tile_decay, scalars,
+                       segments=None):
     lib = _load("fused_update")
-    if lib.sparknet_fused_update_tile() != ARENA_TILE:
-        raise RuntimeError("csrc/fused_update.cu was built for another tile")
-    arenas = [w, g, *slots]
+    arenas = [w, *slots] if segments is not None else [w, g, *slots]
     for t in arenas:
         if t.device != w.device or t.dtype != w.dtype or t.dim() != 1:
             raise ValueError("fused_update: w, g and the slots must be 1-D "
@@ -548,37 +681,54 @@ def _fused_update_cuda(rule, st, w, g, slots, tile_lr, tile_decay, scalars):
                 or t.shape[0] != want or not t.is_contiguous()):
             raise ValueError("fused_update: tile tables and scalars must be "
                              "contiguous float32 on the arenas' device")
+    tile_seg = 0
+    if segments is not None:
+        ts = segments.tile_seg
+        if (ts.device != w.device or ts.dtype != torch.int32 or not ts.is_contiguous()
+                or tuple(ts.shape) != (tile_lr.shape[0], 2) or ts.data_ptr() % 8):
+            raise ValueError("fused_update: the segments' tile table must be a "
+                             "contiguous [n_tiles, 2] int32 on the arenas' device")
+        tile_seg = ts.data_ptr()
+    rows, keep = _segment_rows(w, g, segments)
+    n_segs = len(rows)
     s0 = slots[0]
     s1 = slots[1] if len(slots) > 1 else slots[0]
     m, m2, rms = float(st.momentum), float(st.momentum2), float(st.rms_decay)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = lib.sparknet_fused_update(
-            w.data_ptr(), g.data_ptr(), s0.data_ptr(), s1.data_ptr(),
-            tile_lr.data_ptr(), tile_decay.data_ptr(), scalars.data_ptr(),
-            w.shape[0], _RULE_IDS[rule], _REG_IDS[st.reg], int(st.clip),
+            w.data_ptr(), s0.data_ptr(), s1.data_ptr(), tile_lr.data_ptr(),
+            tile_decay.data_ptr(), tile_seg, scalars.data_ptr(), w.shape[0],
+            rows.ctypes.data, n_segs, _RULE_IDS[rule], _REG_IDS[st.reg], int(st.clip),
             int(st.iter_size), m, 1.0 + m, 1.0 - m, m2, 1.0 - m2, rms,
             1.0 - rms, float(st.delta), int(w.dtype == torch.bfloat16), stream)
+    del rows, keep
     _check_launch(lib, err, "fused_update")
-    _count("FUSED_UPDATE_LAUNCHES")
+    for _ in range(-(-n_segs // lib.max_segments)):
+        _count("FUSED_UPDATE_LAUNCHES")
 
 
-def fused_update(rule: str, st: UpdateStatics, w: torch.Tensor,
-                 g: torch.Tensor, slots: list, tile_lr: torch.Tensor,
-                 tile_decay: torch.Tensor, scalars: torch.Tensor) -> None:
+def fused_update(rule: str, st: UpdateStatics, w: torch.Tensor, g,
+                 slots: list, tile_lr: torch.Tensor, tile_decay: torch.Tensor,
+                 scalars: torch.Tensor, segments: GradSegments | None = None) -> None:
     """One-pass optimizer update over flat arenas, IN PLACE: ``w`` and each
     of ``slots`` are overwritten with their updated values (the TPU
-    kernel's ``input_output_aliases``); ``g`` is only read.
+    kernel's ``input_output_aliases``); the gradient is only read.
 
-    ``w``/``g``: [T] param and grad arenas (T a multiple of
-    ``ARENA_TILE``); ``slots``: ``FUSED_RULE_SLOTS[rule]`` [T] history
-    arenas of the same type; ``tile_lr``/``tile_decay``: [T / ARENA_TILE]
-    float32 tables (lr_mult and folded weight_decay * decay_mult per tile);
-    ``scalars``: [3] float32 = (rate, clip_scale, adam_correction), on the
-    arenas' device.
+    ``w``: [T] param arena (T a multiple of ``ARENA_TILE``); ``slots``:
+    ``FUSED_RULE_SLOTS[rule]`` [T] history arenas of the same type;
+    ``tile_lr``/``tile_decay``: [T / ARENA_TILE] float32 tables (lr_mult
+    and folded weight_decay * decay_mult per tile); ``scalars``: [3]
+    float32 = (rate, clip_scale, adam_correction), on the arenas' device.
+    The gradient ``g`` is the packed [T] grad arena of the same type (the
+    one-segment table), or, with ``segments``, one gradient a segment
+    where autograd left it (float32 or bfloat16, or None for a blob
+    without one), read as the packed arena would hold it.
 
-    CUDA tensors: launches the kernel of ``csrc/fused_update.cu``.  CPU
-    tensors: ``fused_update_torch``, copied into ``w`` and ``slots``."""
+    CUDA tensors: launches the kernel of ``csrc/fused_update.cu`` (one
+    launch for up to ``sparknet_fused_update_max_segments()``, 240,
+    segments).
+    CPU tensors: ``fused_update_torch``, copied into ``w`` and ``slots``."""
     if rule not in FUSED_RULE_SLOTS:
         raise ValueError(f"unknown fused update rule {rule!r}")
     if st.reg not in _REG_IDS:
@@ -591,19 +741,25 @@ def fused_update(rule: str, st: UpdateStatics, w: torch.Tensor,
         raise ValueError(
             f"rule {rule!r} takes {FUSED_RULE_SLOTS[rule]} slot arena(s), "
             f"got {len(slots)}")
-    if any(t.shape != w.shape for t in (g, *slots)):
-        raise ValueError("fused_update: w, g and the slots differ in length")
+    if any(t.shape != w.shape for t in slots):
+        raise ValueError("fused_update: w and the slots differ in length")
+    if segments is None:
+        if g.shape != w.shape:
+            raise ValueError("fused_update: w and the grad arena differ in length")
+    elif len(g) != len(segments) or segments.n_tiles != tile_lr.shape[0]:
+        raise ValueError(f"fused_update: {len(g)} gradients for {len(segments)} "
+                         f"segments over {segments.n_tiles} tiles")
     if w.device.type == "cpu":
         with torch.no_grad():
-            new_w, new_slots = fused_update_torch(rule, st, w, g, slots,
-                                                  tile_lr, tile_decay, scalars)
+            new_w, new_slots = fused_update_torch(rule, st, w, g, slots, tile_lr,
+                                                  tile_decay, scalars, segments)
             w.copy_(new_w)
             for s, h in zip(slots, new_slots):
                 s.copy_(h)
         return
     if w.device.type != "cuda":
         raise ValueError(f"fused_update: unsupported device {w.device}")
-    _fused_update_cuda(rule, st, w, g, slots, tile_lr, tile_decay, scalars)
+    _fused_update_cuda(rule, st, w, g, slots, tile_lr, tile_decay, scalars, segments)
 
 
 # ---------------------------------------------------------------------------

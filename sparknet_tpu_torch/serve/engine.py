@@ -647,51 +647,81 @@ class ServeEngine:
         routes through the batcher's deadline-aware admission: a request
         whose projected queue wait exceeds ``max_wait_ms`` + one pump tick
         is rejected (None, counted on ``shed_total``)."""
+        ticket, line = self.submit_deferred(model_name, item, shed=shed)
+        self.emit_shed(line)
+        return ticket
+
+    def submit_deferred(self, model_name: str, item, *,
+                        shed: bool = False) -> tuple[Ticket | None, dict | None]:
+        """:meth:`submit` without the journal write: returns ``(ticket,
+        line)``, where ``line`` is a throttled ``serve/shed`` line for
+        :meth:`emit_shed` or None.  A caller that holds a lock of its own
+        (the router) journals after releasing it."""
+        line = None
         with self._lock:
             model = self._models[model_name]
             item = self._item(model, item)
             if not shed:
-                return model.batcher.submit(item)
+                return model.batcher.submit(item), None
             ticket = model.batcher.shed(item, tick_ms=SHED_TICK_MS)
             if ticket is None:
-                self._note_shed_locked(model_name, model, 1)
-            return ticket
+                line = self._note_shed_locked(model_name, model, 1)
+        return ticket, line
 
     def submit_many(self, model_name: str, items: list, *,
                     shed: bool = False) -> tuple[list, int]:
         """The whole arrival chunk under ONE pump-lock acquisition and one
         batcher lock (batcher ``submit_many``).  Returns ``(tickets,
         shed_n)``."""
+        tickets, n_shed, line = self.submit_many_deferred(model_name, items, shed=shed)
+        self.emit_shed(line)
+        return tickets, n_shed
+
+    def submit_many_deferred(self, model_name: str, items: list, *,
+                             shed: bool = False) -> tuple[list, int, dict | None]:
+        """:meth:`submit_many` without the journal write: ``(tickets,
+        shed_n, line)``, as :meth:`submit_deferred`."""
+        line = None
         with self._lock:
             model = self._models[model_name]
             payloads = [self._item(model, item) for item in items]
             tickets, n_shed = model.batcher.submit_many(payloads, shed=shed,
                                                         tick_ms=SHED_TICK_MS)
             if n_shed:
-                self._note_shed_locked(model_name, model, n_shed)
-        return tickets, n_shed
+                line = self._note_shed_locked(model_name, model, n_shed)
+        return tickets, n_shed, line
 
-    def _note_shed_locked(self, model_name: str, model: ServedModel, n: int) -> None:
-        """Count ``n`` rejections and journal a throttled ``serve/shed`` line
-        (at most one an interval, with the count since the previous line).
-        The caller holds the pump lock."""
+    def _note_shed_locked(self, model_name: str, model: ServedModel,
+                          n: int) -> dict | None:
+        """Count ``n`` rejections and decide the throttled ``serve/shed``
+        line (at most one an interval, with the count since the previous
+        line).  The caller holds the pump lock and journals the returned
+        fields with :meth:`emit_shed` after releasing it, so a slow journal
+        write stalls neither ``submit`` nor the pump."""
         self.shed_total += n
-        rec = get_recorder()
-        if not rec:
-            return
+        if not get_recorder():
+            return None
         self._shed_pending += n
         now = self.clock()
         if (self._shed_last_emit is not None
                 and now - self._shed_last_emit < self._shed_emit_interval_s):
-            return
+            return None
         pending, self._shed_pending = self._shed_pending, 0
         self._shed_last_emit = now
-        rec.emit("serve", kind="shed", model=model_name, shed=pending,
-                 projected_wait_ms=round(model.batcher.last_projected_ms, 3),
-                 tick_ms=SHED_TICK_MS,
-                 note="deadline-aware admission: projected queue wait over "
-                      "max_wait_ms + one pump tick, rejected, not queued (count "
-                      "since the previous shed line)")
+        return dict(model=model_name, shed=pending,
+                    projected_wait_ms=round(model.batcher.last_projected_ms, 3))
+
+    @staticmethod
+    def emit_shed(line: dict | None) -> None:
+        """Journal a ``serve/shed`` line decided under the pump lock (None:
+        nothing); called with no serving lock held."""
+        if line is None:
+            return
+        get_recorder().emit(
+            "serve", kind="shed", **line, tick_ms=SHED_TICK_MS,
+            note="deadline-aware admission: projected queue wait over "
+                 "max_wait_ms + one pump tick, rejected, not queued (count "
+                 "since the previous shed line)")
 
     def infer(self, model_name: str, item, timeout: float | None = 60.0):
         """Synchronous single request: submit, flush now, return the scores.
@@ -718,7 +748,8 @@ class ServeEngine:
                     batch = model.batcher.take(force=force)
                     if batch is None:
                         break
-                    self._run(model, batch)
+                    lines = self._run(model, batch)
+                self._journal(lines)
                 taken += 1
             executed += taken
         return executed
@@ -755,13 +786,30 @@ class ServeEngine:
 
     def _execute(self, model: ServedModel, tickets: list) -> None:
         """One padded-bucket replay under the model's lock; resolves every
-        ticket and records its latencies."""
+        ticket and records its latencies, then journals them."""
         with model.lock:
-            self._run(model, tickets)
+            lines = self._run(model, tickets)
+        self._journal(lines)
 
-    def _run(self, model: ServedModel, tickets: list) -> None:
+    @staticmethod
+    def _journal(lines: list) -> None:
+        """Write the journal lines a batch's run deferred (its device span,
+        a ``request`` line a ticket), with no serving lock held: a stalled
+        journal write holds up only the thread that ran the batch."""
+        if not lines:
+            return
+        rec = get_recorder()
+        for line in lines:
+            if isinstance(line, dict):
+                rec.emit("request", **line)
+            else:
+                line.emit()
+
+    def _run(self, model: ServedModel, tickets: list) -> list:
         """:meth:`_execute`'s body; the caller holds ``model.lock`` (the
-        programs' static buffers take one batch at a time)."""
+        programs' static buffers take one batch at a time).  Returns the
+        batch's journal lines for :meth:`_journal` (none when obs is
+        off)."""
         bucket = tickets[0].bucket
         program = model.programs[bucket]
         asm0 = time.perf_counter()
@@ -774,9 +822,12 @@ class ServeEngine:
         sentinel = get_sentinel()
         captures0 = sentinel.thread_count()
         dev0 = time.perf_counter()
+        lines: list = []
         try:
             if rec:
-                with rec.span("serve_device", note=f"{model.name}/b{bucket}") as sp:
+                sp = rec.span("serve_device", note=f"{model.name}/b{bucket}", defer=True)
+                lines.append(sp)
+                with sp:
                     out = program.run()
                     # the scores were copied from the graph's own output after
                     # its stream finished: their last value is the fence
@@ -786,6 +837,7 @@ class ServeEngine:
         except Exception as e:
             for t in tickets:
                 t.resolve(error=e)
+            self._journal(lines)  # the failed batch's span, as it closed
             raise
         device_ms = (time.perf_counter() - dev0) * 1e3
         # per-THREAD attribution: a concurrent builder's captures land on its
@@ -809,12 +861,14 @@ class ServeEngine:
             model.lat_queue_ms.append(queue_ms)
             model.lat_device_ms.append(device_ms)
             if rec:
-                rec.emit("request", model=model.name, bucket=bucket,
-                         queue_wait_ms=round(queue_ms, 4),
-                         batch_assembly_ms=round(asm_ms, 4),
-                         device_ms=round(device_ms, 4), total_ms=round(total_ms, 4),
-                         batch_n=len(tickets), padded=bucket > len(tickets),
-                         deadline_flush=bool(t.deadline_flush), lineage=lineage)
+                lines.append(dict(model=model.name, bucket=bucket,
+                                  queue_wait_ms=round(queue_ms, 4),
+                                  batch_assembly_ms=round(asm_ms, 4),
+                                  device_ms=round(device_ms, 4),
+                                  total_ms=round(total_ms, 4), batch_n=len(tickets),
+                                  padded=bucket > len(tickets),
+                                  deadline_flush=bool(t.deadline_flush), lineage=lineage))
+        return lines
 
     # -- telemetry ---------------------------------------------------------
 

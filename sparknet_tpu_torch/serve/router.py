@@ -296,10 +296,13 @@ class ReplicaRouter:
                 raise RuntimeError("router is closed")
             # enqueue inside the router lock: a concurrent kill can never
             # close the chosen batcher between the pick and the submit
-            ticket = self._pick_replica().engine.submit(self.model_name, item, shed=shed)
+            engine = self._pick_replica().engine
+            ticket, line = engine.submit_deferred(self.model_name, item, shed=shed)
             if ticket is not None:
                 self.submitted += 1
-            return ticket
+        # the shed journal line is written with no lock held
+        engine.emit_shed(line)
+        return ticket
 
     def submit_many(self, items: list, *, shed: bool = False) -> tuple[list[Ticket], int]:
         """Route a whole arrival chunk to the least-projected-wait replica
@@ -307,10 +310,12 @@ class ReplicaRouter:
         with self._lock:
             if self._closed:
                 raise RuntimeError("router is closed")
-            tickets, n_shed = self._pick_replica().engine.submit_many(
+            engine = self._pick_replica().engine
+            tickets, n_shed, line = engine.submit_many_deferred(
                 self.model_name, items, shed=shed)
             self.submitted += len(tickets)
-            return tickets, n_shed
+        engine.emit_shed(line)
+        return tickets, n_shed
 
     def _pick_replica(self) -> Replica:
         """Least projected wait (batcher ``projected_wait_snapshot``), raw

@@ -29,12 +29,23 @@ Layout invariants (the JAX package's):
 
 The PyTorch form: the param arena is the one leaf tensor of the fused
 step, and ``unpack`` returns each blob as a view of its span (a cast of it
-with bf16 storage).  ``unpack``'s backward is ``pack``, so
-``torch.autograd.grad(loss, arena)`` returns the grad arena already
-packed, zero in the pad zones: the counterpart of differentiating w.r.t.
-the arena at ``sparknet_tpu/solvers/solver.py:289-292``.  The kernel then
-updates the param and slot arenas IN PLACE (the TPU kernel aliases its
-inputs to its outputs), so both keep their storage from step to step.
+with bf16 storage).  The gradient reaches the update in one of two forms:
+
+* segments (the fused step's rule): ``torch.autograd.grad(loss, blobs)``
+  over the blobs ``unpack`` returned, one gradient a blob where autograd
+  left it, which the kernel reads through the layout's segment table
+  (``ArenaTables.segments``).  No grad arena is made and ``unpack``'s
+  backward never runs;
+* the packed grad arena: ``unpack``'s backward is ``pack``, so
+  ``torch.autograd.grad(loss, arena)`` returns the grad arena already
+  packed, zero in the pad zones: the counterpart of differentiating
+  w.r.t. the arena at ``sparknet_tpu/solvers/solver.py:289-292``.  The
+  steps that accumulate micro-batches, clip by the global norm or reduce
+  the grads across workers take this form.
+
+Both give the same update bit for bit.  The kernel updates the param and
+slot arenas IN PLACE (the TPU kernel aliases its inputs to its outputs),
+so both keep their storage from step to step.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from sparknet_tpu_torch.common import resolve_device
 from sparknet_tpu_torch.ops.kernels import (
     ARENA_TILE,
     FUSED_RULE_SLOTS,
+    GradSegments,
     UpdateStatics,
     fused_update,
 )
@@ -59,6 +71,8 @@ __all__ = [
     "build_layout",
     "pack",
     "unpack",
+    "pack_grads",
+    "segment_blobs",
     "pack_slots",
     "unpack_slots",
     "init_slot_arenas",
@@ -69,6 +83,10 @@ __all__ = [
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
+
+# calls of ``unpack``'s backward (the pack of a grad arena): none on a step
+# that takes the gradients as segments
+UNPACK_BACKWARDS = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,13 +242,21 @@ class _Unpack(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        layout = ctx.layout
-        g = torch.zeros((layout.total,), dtype=layout.storage,
-                        device=next(x.device for x in grads if x is not None))
-        for e, gb in zip(layout.entries, grads):
-            if e.span and gb is not None:
-                g[e.offset:e.offset + e.size] = gb.reshape(-1).to(layout.storage)
-        return None, g
+        global UNPACK_BACKWARDS
+        UNPACK_BACKWARDS += 1
+        return None, pack_grads(ctx.layout, grads)
+
+
+def pack_grads(layout: ArenaLayout, grads) -> torch.Tensor:
+    """One gradient (or None) a layout entry -> the grad arena in the
+    storage type: a zero fill of the arena, then one copy a blob that has
+    a span and a gradient (``unpack``'s backward)."""
+    g = torch.zeros((layout.total,), dtype=layout.storage,
+                    device=next(x.device for x in grads if x is not None))
+    for e, gb in zip(layout.entries, grads):
+        if e.span and gb is not None:
+            g[e.offset:e.offset + e.size] = gb.reshape(-1).to(layout.storage)
+    return g
 
 
 def round_to_blobs(layout: ArenaLayout, arena: torch.Tensor) -> None:
@@ -254,6 +280,12 @@ def unpack(layout: ArenaLayout, arena: torch.Tensor) -> dict:
     for e, b in zip(layout.entries, blobs):
         out[e.lname][e.index] = b
     return out
+
+
+def segment_blobs(layout: ArenaLayout, blobs: dict) -> list:
+    """The blobs of a blob dict that hold a span, in arena order: one a
+    gradient segment (a shared blob's placeholder has none)."""
+    return [blobs[e.lname][e.index] for e in layout.entries if e.span]
 
 
 def pack_slots(layout: ArenaLayout, slots: dict, device=None) -> list:
@@ -299,29 +331,41 @@ def update_statics(cfg) -> UpdateStatics:
 
 
 class ArenaTables:
-    """The per-tile tables of a layout on one device, made once."""
+    """The per-tile tables of a layout on one device, made once: lr_mult,
+    folded decay, and the gradient segments (one a blob with a span, in
+    arena order, :func:`segment_blobs`)."""
 
     def __init__(self, layout: ArenaLayout, device):
         self.tile_lr = torch.from_numpy(layout.tile_lr).to(device)
         self.tile_decay = torch.from_numpy(layout.tile_decay).to(device)
+        spans = [e for e in layout.entries if e.span]
+        self.segments = GradSegments.build(
+            [e.offset // layout.tile for e in spans], [e.size for e in spans],
+            layout.n_tiles, device, [_DTYPES[e.dtype] for e in spans])
 
 
 def arena_apply_update(cfg, layout: ArenaLayout, param_arena: torch.Tensor,
-                       grad_arena: torch.Tensor, slot_arenas: list,
-                       rate: torch.Tensor, it: int,
+                       grad, slot_arenas: list, rate: torch.Tensor, it: int,
                        tables: ArenaTables | None = None) -> None:
     """One full Caffe-ordered update over the arenas, the fused twin of
     ``updates.apply_update``, IN PLACE on ``param_arena`` and
-    ``slot_arenas``.  The per-step scalars the kernel takes from the device
-    (the lr ``rate``, a 0-dim float32 tensor; the global-norm clip scale,
-    computed here from the grad arena; Adam's bias correction) ride a [3]
-    float32 tensor, so nothing waits on the host."""
+    ``slot_arenas``.  ``grad`` is the packed grad arena, or a sequence of
+    one gradient (or None) a blob of :func:`segment_blobs`, read where it
+    lies; clipping takes the packed arena.  The per-step scalars the
+    kernel takes from the device (the lr ``rate``, a 0-dim float32 tensor;
+    the global-norm clip scale, computed here from the grad arena; Adam's
+    bias correction) ride a [3] float32 tensor, so nothing waits on the
+    host."""
     dev = param_arena.device
+    segmented = not isinstance(grad, torch.Tensor)
+    if segmented and cfg.clip_gradients > 0:
+        raise ValueError("clip_gradients takes the packed grad arena (its global "
+                         "norm is taken over the arena)")
     if cfg.clip_gradients > 0:
         # ref: ClipGradients (sgd_solver.cpp:81-100) on raw accumulated
         # grads; the pad zones are zero, so the arena norm is the blob-wise
         # global_grad_norm (up to summation order)
-        norm = torch.sqrt(torch.sum(torch.square(grad_arena.float())))
+        norm = torch.sqrt(torch.sum(torch.square(grad.float())))
         cs = clip_scale(cfg.clip_gradients, norm)
     else:
         cs = torch.ones((), dtype=torch.float32, device=dev)
@@ -332,6 +376,6 @@ def arena_apply_update(cfg, layout: ArenaLayout, param_arena: torch.Tensor,
     scalars = torch.stack([rate.to(dev, torch.float32), cs, corr])
     if tables is None:
         tables = ArenaTables(layout, dev)
-    fused_update(cfg.solver_type, update_statics(cfg), param_arena,
-                 grad_arena, slot_arenas, tables.tile_lr, tables.tile_decay,
-                 scalars)
+    fused_update(cfg.solver_type, update_statics(cfg), param_arena, grad,
+                 slot_arenas, tables.tile_lr, tables.tile_decay, scalars,
+                 tables.segments if segmented else None)

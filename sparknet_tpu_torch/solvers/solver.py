@@ -13,8 +13,10 @@ built:
 
 * per blob (default): ``solvers/updates.apply_update``, plain PyTorch;
 * fused: the params and history live in flat arenas
-  (``solvers/arena.py``), the grads come back as one grad arena, and the
-  whole update is one launch of the fused kernel, in place.
+  (``solvers/arena.py``), the kernel reads each blob's grad where
+  autograd left it (or one packed grad arena, on the steps that
+  accumulate, clip or reduce), and the whole update is one launch of the
+  fused kernel, in place.
 
 Forward and backward run in full float32 (``common.f32_precision``: TF32
 off for cuDNN and cuBLAS), because the JAX reference is float32; under
@@ -287,17 +289,25 @@ def build_fused_step(cfg: SolverConfig, net: Network, layout, tables,
                      reduce_grads=None):
     """The fused train step: ``step(param_arena, slot_arenas, state, it,
     feeds, gen) -> (state, loss)``, updating ``param_arena`` and
-    ``slot_arenas`` IN PLACE with one launch of the fused kernel.  The loss
-    is differentiated w.r.t. the param arena (``arena.unpack``'s backward
-    packs the grads), so the grad arena arrives in the arena's type with
-    zero pad zones.  iter_size > 1 accumulates in float32 whatever the
-    storage type (ref: ``sparknet_tpu/solvers/solver.py:313-329``).
-    ``reduce_grads(grad_arena) -> grad_arena``, when given, takes the grad
-    arena between the backward and the update (as in
-    :func:`build_train_step`)."""
+    ``slot_arenas`` IN PLACE with one launch of the fused kernel.
+
+    The gradients reach the kernel where autograd left them: the loss is
+    differentiated w.r.t. the blobs ``arena.unpack`` returns, and the
+    kernel reads them through ``tables.segments``, with no grad arena and
+    no copies.  Three steps take the packed grad arena instead (the loss
+    differentiated w.r.t. the param arena, whose ``unpack`` backward packs
+    the grads in the arena's type with zero pad zones): iter_size > 1,
+    which accumulates in float32 whatever the storage type (ref:
+    ``sparknet_tpu/solvers/solver.py:313-329``); ``clip_gradients``, whose
+    global norm is taken over the arena; and ``reduce_grads(grad_arena) ->
+    grad_arena``, when given, which takes the grad arena between the
+    backward and the update (as in :func:`build_train_step`).  The two
+    forms give the same update bit for bit (``reduce_grads=lambda g: g``
+    takes the packed one)."""
     from sparknet_tpu_torch.solvers import arena as arena_mod
 
     forward = apply_remat(net, remat_policy(cfg))
+    segmented = cfg.iter_size == 1 and cfg.clip_gradients <= 0 and reduce_grads is None
 
     def fused_step(param_arena, slot_arenas, state, it: int, feeds: dict, gen):
         with f32_precision():
@@ -307,11 +317,15 @@ def build_fused_step(cfg: SolverConfig, net: Network, layout, tables,
             for micro in _micro_batches(feeds, cfg.iter_size):
                 params = arena_mod.unpack(layout, leaf)
                 _, state, loss = forward(NetVars(params, state), micro, gen)
-                (g,) = torch.autograd.grad(loss, leaf)
-                if cfg.iter_size > 1:
-                    gsum = g.float() if gsum is None else gsum + g.float()
+                if segmented:
+                    gsum = torch.autograd.grad(
+                        loss, arena_mod.segment_blobs(layout, params), allow_unused=True)
                 else:
-                    gsum = g
+                    (g,) = torch.autograd.grad(loss, leaf)
+                    if cfg.iter_size > 1:
+                        gsum = g.float() if gsum is None else gsum + g.float()
+                    else:
+                        gsum = g
                 loss = loss.detach()
                 loss_sum = loss if loss_sum is None else loss_sum + loss
             if cfg.iter_size > 1:

@@ -16,7 +16,9 @@
 3. **Port-only checks**: exactness within a bucket, bit for bit; pricing,
    refusal and release of residency; the arms and families that raise;
    hot swap and rollback (also under live ``serve_forever`` traffic);
-   ``shutdown``'s drain; the 504-request ``load_run``; CUDA by default.
+   ``shutdown``'s drain; the 504-request ``load_run``; CUDA by default;
+   a ``serve/shed`` journal write that stalls holds no serving lock, so
+   ``submit`` and ``pump`` on another thread go on.
 
 On the CPU a bucket runs eagerly (no CUDA graph), so the capture ledger
 stays at 0.  The tests pin one intra-op thread (ROADMAP Queue C item 7).
@@ -498,3 +500,61 @@ def test_wait_due_wakes_when_a_hot_swap_drains_the_batcher():
         assert b.drain() == []  # a drain before the worker waits wakes nothing
         th.join(timeout=0.05)
     assert out and out[0][0] is False and out[0][1] < 20.0, out
+
+
+def test_stalled_shed_journal_write_holds_no_serving_lock(tmp_path):
+    """The throttled ``serve/shed`` line is decided under the pump lock but
+    written after it is released: while one thread's shed write is stalled
+    (a journal on a slow filesystem), another thread submits, pumps and
+    gets its scores.  The recorder's sink blocks on an ``Event`` for the
+    shed line alone, before its own lock, so only the engine's locks are
+    in question."""
+    from sparknet_tpu_torch.obs.recorder import Recorder, set_recorder
+
+    class StalledShedSink(Recorder):
+        def __init__(self, path):
+            super().__init__(path)
+            self.entered, self.release = threading.Event(), threading.Event()
+
+        def emit(self, event, **fields):
+            if fields.get("kind") == "shed":
+                self.entered.set()
+                self.release.wait(60.0)
+            super().emit(event, **fields)
+
+    rec = StalledShedSink(str(tmp_path / "journal.jsonl"))
+    prev = set_recorder(rec)
+    shed_out, other_out = [], []
+    shedder = other = None
+    try:
+        engine = ServeEngine(buckets=(1, 2), max_wait_ms=1e6, **CPU)  # nothing due
+        engine.load_model("m", family="lenet")
+        item = loadgen.synthetic_items(engine._models["m"], 1, np.random.RandomState(6))[0]
+        # no rate evidence yet: the queue holds two of the top bucket, then sheds
+        assert all(engine.submit("m", item, shed=True) is not None for _ in range(4))
+        shedder = threading.Thread(
+            target=lambda: shed_out.append(engine.submit("m", item, shed=True)), daemon=True)
+        shedder.start()
+        assert rec.entered.wait(30.0)  # the shed line's write is stalled now
+
+        def client():
+            t = engine.submit("m", item)
+            engine.pump(force=True)
+            other_out.append(t.wait(30.0))
+
+        other = threading.Thread(target=client, daemon=True)
+        other.start()
+        other.join(timeout=30.0)
+        assert not other.is_alive(), "submit/pump waited on the stalled shed write"
+        assert other_out and other_out[0].shape == (10,)
+    finally:
+        rec.release.set()
+        for th in (shedder, other):
+            if th is not None:
+                th.join(timeout=30.0)
+        set_recorder(prev)
+    assert shed_out == [None] and engine.shed_total == 1
+    engine.shutdown()
+    rec.close()
+    lines = (tmp_path / "journal.jsonl").read_text().splitlines()
+    assert sum('"kind": "shed"' in line for line in lines) == 1
