@@ -443,6 +443,26 @@ Phases, in order (any failure exits non-zero):
     ``torch.profiler`` windows around the same replay: how many lose B3's
     record, the kinds of record they lose and how far before its launch
     the device's first record was stamped (printed, not gated).
+33. layout (second, after trace: it profiles steps): ``Config.layout =
+    "nhwc"``.  B1 and B1' NHWC (``csrc/lrn.cu``, one warp a pixel) at every
+    main-path shape in f32 and bf16 against their plain versions (rtol
+    1e-5, atol 1e-6; one bf16 ulp), bit for bit B1 / B1' on the NCHW
+    tensor permuted, exact launches; their times at the AlexNet shapes in
+    turns with B1 / B1', beside the plain versions, ``F.local_response_norm``
+    on the channels-last view (its autograd backward) and the bound.  The
+    zoo AlexNet b256 (fused update, dropout on) from the same weights,
+    batch and masks in both layouts: the first f32 step (TF32 off), nhwc
+    against nchw, loss rtol 1e-5 and each blob's gradient and update within
+    1e-3 relative L2; the first bf16-compute step at the precision phase's
+    gates; 2 NHWC forward, 2 NHWC backward, 0 NCHW LRN and 1 B2 launches an
+    nhwc step; the steps of both layouts in f32 and bf16 timed in 8 pairs
+    of turns; one profiled step of each with the count and ms of its
+    layout-transpose kernels (printed, not gated).  DeviceAugment nhwc at
+    [256,256,256,3] bit for bit the nchw arm permuted; an LMDB through
+    ``RecordShardSource(layout="nhwc")``, the ring, ``device_feed`` and
+    the nhwc augment into 3 nhwc steps, the first against a Solver step
+    on the host-augmented batch permuted; ``tpunet train --layout nhwc``
+    (AlexNet b256, 3 iterations).  Prints its seconds (about a minute).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -8340,7 +8360,560 @@ def phase_obs_cli(card: str) -> dict:
     return {"FLASH_LAUNCHES": counts["flash"], "PAGED_LAUNCHES": counts["paged"]}
 
 
-PHASES = ("trace", "kernel", "path", "serve", "profile", "lrn_backward", "train",
+# ---------------------------------------------------------------------------
+# Channels-last: Config.layout = "nhwc" through the layer library, the device
+# feed and the CLI, with B1 and B1' in their NHWC form
+# ---------------------------------------------------------------------------
+
+LAYOUT_TURN = 3  # steps a turn when the nchw and nhwc steps are timed in turns
+LAYOUT_PAIRS = 8  # pairs of turns, alternating which layout runs first (step_turns')
+# f32, TF32 off: the nhwc step's first loss against the nchw step's (rtol), and
+# each blob's gradient and update (relative L2, the listfile phase's 1e-3),
+# held against the same step in float64: the nhwc blob's distance from the
+# float64 one within LAYOUT_BLOB_RTOL or LAYOUT_F64_FACTOR times the nchw
+# blob's distance from it, whichever is larger.  Two f32 orders of summation
+# (cuDNN's NCHW and NHWC algorithms, ATen's max-pool backward in each
+# format) differ by up to 2.6e-3 at conv1's weight gradient at seed init,
+# and the nchw step against itself with cuDNN's deterministic algorithms by
+# 1.24e-3 at conv2's (PERF.md §6): 1e-3 alone sits under what float32
+# resolves on this batch, so the float64 step says which is off.
+LAYOUT_LOSS_RTOL = 1e-5
+LAYOUT_BLOB_RTOL = 1e-3
+LAYOUT_F64_FACTOR = 2.0
+LAYOUT_FED = 3  # nhwc AlexNet steps fed from the LMDB through the ring
+LAYOUT_FED_RECORDS = 512  # 256x256x3 Datums in the phase's LMDB: 2 batches
+LAYOUT_CLI_ITERS = 3  # `tpunet train --layout nhwc` iterations
+# kernels that only reorder a rank-4 blob between NCHW and NHWC: cuDNN's
+# converters and any kernel named a transpose
+LAYOUT_TRANSPOSE = re.compile(r"(?i)nchw\w*to\w*nhwc|nhwc\w*to\w*nchw|transpose")
+
+
+def layout_kernels(card: str) -> dict:
+    """B1 and B1' NHWC at every main-path shape in f32 and bf16: against
+    their plain versions (f32 rtol 1e-5, atol 1e-6; bf16 one bf16 ulp of the
+    plain result), bit for bit B1 and B1' on the NCHW tensor permuted (the
+    same per-element arithmetic), one launch each and none of the NCHW
+    kernels; then at the AlexNet shapes in f32 the times of both forms, the
+    plain versions and F.local_response_norm on the channels-last view (its
+    autograd backward for B1') beside the bound."""
+    from sparknet_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    bw, _, _ = card_peaks(card)
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        for label, shape in LRN_PATH_CASES:
+            x = torch.relu(torch.randn(shape, generator=gen, device="cuda") * 50).to(dt)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            xh, gh = x.permute(0, 2, 3, 1).contiguous(), g.permute(0, 2, 3, 1).contiguous()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            y = kernels.lrn_across_channels(xh, 5, ALPHA, 0.75, 1.0, channel_axis=3)
+            dx = kernels.lrn_backward(xh, gh, 5, ALPHA, 0.75, 1.0, channel_axis=3)
+            torch.cuda.synchronize()
+            counts = (kernels.LRN_NHWC_LAUNCHES, kernels.LRN_NHWC_BACKWARD_LAUNCHES,
+                      kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES)
+            check(counts == (1, 1, 0, 0), f"NHWC {label} launches (fwd, bwd, NCHW fwd, "
+                  f"NCHW bwd) {counts}, want (1, 1, 0, 0)")
+            same = (torch.equal(y, kernels.lrn_across_channels(x, 5, ALPHA, 0.75, 1.0)
+                                .permute(0, 2, 3, 1)),
+                    torch.equal(dx, kernels.lrn_backward(x, g, 5, ALPHA, 0.75, 1.0)
+                                .permute(0, 2, 3, 1)))
+            yp = kernels.lrn_across_channels_torch(xh, 5, ALPHA, 0.75, 1.0, 3)
+            dp = kernels.lrn_backward_torch(xh, gh, 5, ALPHA, 0.75, 1.0, 3)
+            torch.cuda.synchronize()
+            if dt == torch.float32:
+                ok = [bool(((a - b).abs() <= F32_TOL["atol"] + F32_TOL["rtol"] * b.abs()).all())
+                      for a, b in ((y, yp), (dx, dp))]
+                ef, eb = float((y - yp).abs().max()), float((dx - dp).abs().max())
+                err["fwd"], err["bwd"] = max(err["fwd"], ef), max(err["bwd"], eb)
+                how = f"max abs err {ef:.3e} / {eb:.3e} (rtol 1e-5, atol 1e-6)"
+            else:
+                ul = [float(((a.float() - b.float()).abs() / bf16_ulp(b.float())).max())
+                      for a, b in ((y, yp), (dx, dp))]
+                ok = [u <= 1 for u in ul]
+                how = f"{ul[0]:.2f} / {ul[1]:.2f} bf16 ulps off (gate 1)"
+            print(f"layout kernel {label} NHWC {list(xh.shape)} {str(dt)[6:]}: forward / "
+                  f"backward {how}; bit for bit B1 / B1' permuted {same[0]} / {same[1]}; "
+                  f"launches 1 / 1, NCHW 0 / 0 {'ok' if all(ok) and all(same) else 'FAIL'}")
+            check(all(ok), f"NHWC {label} {dt} off its plain version")
+            check(all(same), f"NHWC {label} {dt} not bit for bit B1 / B1' permuted")
+    totals = {"fwd": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0),
+              "bwd": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)}
+    for label, shape in MAIN_CASES:
+        if not label.startswith("alexnet"):
+            continue
+        x = torch.relu(torch.randn(shape, generator=gen, device="cuda") * 50)
+        g = torch.randn(shape, generator=gen, device="cuda")
+        xh, gh = x.permute(0, 2, 3, 1).contiguous(), g.permute(0, 2, 3, 1).contiguous()
+        xb, gb = xh.to(torch.bfloat16), gh.to(torch.bfloat16)
+        t = {}
+        # the NHWC kernels and B1 / B1' in turns on one card
+        for turn in range(2):
+            for kind in (("nhwc", "nchw") if turn == 0 else ("nchw", "nhwc")):
+                a, b, ax = (xh, gh, 3) if kind == "nhwc" else (x, g, 1)
+                t.setdefault(f"{kind} fwd", []).append(time_ms(
+                    lambda: kernels.lrn_across_channels(a, 5, ALPHA, 0.75, 1.0, channel_axis=ax)))
+                t.setdefault(f"{kind} bwd", []).append(time_ms(
+                    lambda: kernels.lrn_backward(a, b, 5, ALPHA, 0.75, 1.0, channel_axis=ax)))
+        t = {k: float(np.median(v)) for k, v in t.items()}
+        t_kg = graph_ms(lambda: kernels.lrn_across_channels(xh, 5, ALPHA, 0.75, 1.0,
+                                                            channel_axis=3))
+        t_kb = time_ms(lambda: kernels.lrn_across_channels(xb, 5, ALPHA, 0.75, 1.0,
+                                                           channel_axis=3))
+        t_bb = time_ms(lambda: kernels.lrn_backward(xb, gb, 5, ALPHA, 0.75, 1.0,
+                                                    channel_axis=3))
+        t_p = time_ms(lambda: kernels.lrn_across_channels_torch(xh, 5, ALPHA, 0.75, 1.0, 3),
+                      reps=10, inner=3)
+        t_bp = time_ms(lambda: kernels.lrn_backward_torch(xh, gh, 5, ALPHA, 0.75, 1.0, 3),
+                       reps=10, inner=3)
+        view = xh.permute(0, 3, 1, 2)  # NCHW-shaped, channels-last strides
+        t_l = time_ms(lambda: F.local_response_norm(view, 5, ALPHA, 0.75, 1.0),
+                      reps=10, inner=3)
+        xr = view.detach().clone(memory_format=torch.channels_last).requires_grad_(True)
+        yr = F.local_response_norm(xr, 5, ALPHA, 0.75, 1.0)
+        gv = gh.permute(0, 3, 1, 2)
+        t_bl = time_ms(lambda: torch.autograd.grad(yr, xr, gv, retain_graph=True),
+                       reps=10, inner=3)
+        del xr, yr
+        bound, by = lrn_bound_ms(shape, 5, 4, card)
+        bound_b = 3 * x.numel() * 4 / bw * 1e3
+        bound_16, _ = lrn_bound_ms(shape, 5, 2, card)
+        print(f"layout time {label} NHWC {list(xh.shape)} f32: forward kernel "
+              f"{t['nhwc fwd']:.4f} ms ({100 * bound / t['nhwc fwd']:.1f}% of {bound:.4f} ms, "
+              f"{by}), by graph replay {t_kg:.4f} ms, B1 on NCHW in turns {t['nchw fwd']:.4f} "
+              f"ms, plain {t_p:.4f} ms, F.local_response_norm on the channels-last view "
+              f"{t_l:.4f} ms; backward kernel {t['nhwc bwd']:.4f} ms ({100 * bound_b / t['nhwc bwd']:.1f}% "
+              f"of {bound_b:.4f} ms, bytes), B1' on NCHW in turns {t['nchw bwd']:.4f} ms, plain "
+              f"{t_bp:.4f} ms, its autograd backward {t_bl:.4f} ms; bf16 forward {t_kb:.4f} ms "
+              f"({100 * bound_16 / t_kb:.1f}% of {bound_16:.4f} ms), backward {t_bb:.4f} ms "
+              f"({100 * bound_b / 2 / t_bb:.1f}% of {bound_b / 2:.4f} ms) [{card}]")
+        for key, k_ms, p_ms, l_ms, b_ms in (("fwd", t["nhwc fwd"], t_p, t_l, bound),
+                                            ("bwd", t["nhwc bwd"], t_bp, t_bl, bound_b)):
+            tot = totals[key]
+            tot["ms"] += k_ms
+            tot["plain_ms"] += p_ms
+            tot["library_ms"] += l_ms
+            tot["bound_ms"] += b_ms
+    return {"lrn_nhwc": dict(max_abs_err=err["fwd"], bound_by=by, **totals["fwd"]),
+            "lrn_backward_nhwc": dict(max_abs_err=err["bwd"], bound_by="bytes",
+                                      **totals["bwd"])}
+
+
+def layout_blob_rel(layout, got: torch.Tensor, ref: torch.Tensor) -> tuple[float, str]:
+    """The largest relative L2 distance of one blob's span of two flat
+    arenas, and that blob's name."""
+    worst, at = 0.0, ""
+    for e in layout.entries:
+        if not e.span:
+            continue
+        a, b = got[e.offset:e.offset + e.size], ref[e.offset:e.offset + e.size]
+        den = float(b.float().norm())
+        rel = float((a.float() - b.float()).norm()) / den if den else float(a.float().norm())
+        if rel >= worst:
+            worst, at = rel, f"{e.lname}[{e.index}]"
+    return worst, at
+
+
+def layout_f64_step(solver, feeds: dict) -> tuple:
+    """The first step's gradient and update of ``solver`` (at its start,
+    SGD, no history) in float64, as flat arenas in its layout: the net run
+    on float64 params and data (cuDNN's and cuBLAS's float64 paths), the
+    cross-channel LRN by its formula in float64, the same dropout masks
+    (the step's generator seed; masks drawn in canonical order), then
+    ``-rate * lr_mult * (g + decay * w)``."""
+    from sparknet_tpu_torch.compiler.graph import NetVars
+    from sparknet_tpu_torch.ops import kernels, vision
+    from sparknet_tpu_torch.solvers.lr_policy import learning_rate
+    from sparknet_tpu_torch.solvers.solver import dropout_seed
+
+    def lrn64(x, size, alpha, beta, k, channel_axis=1):
+        scale = k + (alpha / size) * kernels._channel_window_sum(x * x, size, channel_axis)
+        return x * scale.pow(-beta)
+
+    arena = solver.layout
+    v = solver.variables
+    params = {ln: [p.detach().double().requires_grad_(True) for p in pl]
+              for ln, pl in v.params.items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(dropout_seed(solver._seed, solver.iter, solver.worker))
+    data = {"data": torch.as_tensor(feeds["data"], device="cuda").double(),
+            "label": feeds["label"]}
+    with port_config(layout="nchw"), patched(vision, "lrn_across_channels",
+                                             lambda orig: lrn64):
+        _, _, loss = solver.train_net.apply(NetVars(params, v.state), data, gen=gen)
+        flat = [p for pl in params.values() for p in pl]
+        got = dict(zip([(ln, i) for ln, pl in params.items() for i in range(len(pl))],
+                       torch.autograd.grad(loss, flat)))
+    g = torch.zeros(arena.total, dtype=torch.float64, device="cuda")
+    w = torch.zeros_like(g)
+    for e in arena.entries:
+        if e.span:
+            g[e.offset:e.offset + e.size] = got[(e.lname, e.index)].reshape(-1)
+            w[e.offset:e.offset + e.size] = params[e.lname][e.index].detach().reshape(-1)
+    per_el = [torch.from_numpy(np.repeat(t.astype(np.float64), arena.tile)).cuda()
+              for t in (arena.tile_lr, arena.tile_decay)]
+    rate = float(learning_rate(solver.config, solver.iter))
+    return float(loss.detach()), g, -rate * per_el[0] * (g + per_el[1] * w)
+
+
+def layout_f64_gate(card: str, arena, grads: dict, upd: dict, g64, u64, loss64: float,
+                    first: dict) -> tuple:
+    """Each blob's f32 gradient and update of both layouts against the
+    float64 step's: the nhwc blob's relative L2 distance within
+    LAYOUT_BLOB_RTOL or LAYOUT_F64_FACTOR times the nchw blob's, whichever is
+    larger.  Prints every blob's distances; returns the worst ratio."""
+    worst = (0.0, "")
+    rows = []
+    for e in arena.entries:
+        if not e.span:
+            continue
+        sl = slice(e.offset, e.offset + e.size)
+        name = f"{e.lname}[{e.index}]"
+        for what, ref, got in (("gradient", g64, grads), ("update", u64, upd)):
+            den = float(ref[sl].norm())
+            err = {lay: float((got[lay][sl].double() - ref[sl]).norm()) / den
+                   for lay in ("nchw", "nhwc")}
+            bound = max(LAYOUT_BLOB_RTOL, LAYOUT_F64_FACTOR * err["nchw"])
+            check(err["nhwc"] <= bound, f"layout f32 {name} {what}: nhwc {err['nhwc']:.3e} "
+                  f"off the float64 step, bound {bound:.3e} (nchw {err['nchw']:.3e})")
+            ratio = err["nhwc"] / bound
+            if ratio >= worst[0]:
+                worst = (ratio, f"{name} {what}")
+            if what == "gradient":
+                rows.append(f"{name} {err['nchw']:.2e}/{err['nhwc']:.2e}")
+    print(f"layout alexnet b256 first f32 step against float64 (loss {loss64:.6f}; f32 "
+          f"{first['nchw']:.6f} / {first['nhwc']:.6f}): each blob's gradient, nchw / nhwc "
+          f"relative L2 off float64: {', '.join(rows)}; the worst nhwc blob at "
+          f"{worst[0]:.3f} of its bound ({worst[1]}; bound max({LAYOUT_BLOB_RTOL}, "
+          f"{LAYOUT_F64_FACTOR} x nchw's)) [{card}]")
+    return worst
+
+
+def layout_counts() -> tuple:
+    from sparknet_tpu_torch.ops import kernels
+
+    return (kernels.LRN_NHWC_LAUNCHES, kernels.LRN_NHWC_BACKWARD_LAUNCHES,
+            kernels.LRN_LAUNCHES, kernels.LRN_BACKWARD_LAUNCHES,
+            kernels.FUSED_UPDATE_LAUNCHES)
+
+
+def layout_profile(card: str, what: str, step) -> None:
+    """One step under torch.profiler: its kernels' ms, and the count and ms
+    of the layout-transpose kernels among them."""
+    device_ms, rows = device_breakdown(step, top=1000)
+    if device_ms == 0.0:
+        print(f"layout profile {what}: torch.profiler recorded no device time")
+        return
+    tr = [(ms, name, n) for ms, name, n in rows if LAYOUT_TRANSPOSE.search(name)]
+    copies = [(ms, name, n) for ms, name, n in rows
+              if "copy" in name.lower() and not LAYOUT_TRANSPOSE.search(name)]
+    tr_ms = sum(r[0] for r in tr)
+    print(f"layout profile {what}: {device_ms:.3f} ms of kernels; layout transposes "
+          f"{sum(r[2] for r in tr)} kernels, {tr_ms:.3f} ms ({100 * tr_ms / device_ms:.1f}%); "
+          f"other copy kernels {sum(r[2] for r in copies)}, "
+          f"{sum(r[0] for r in copies):.3f} ms [{card}]")
+    for ms, name, n in sorted(tr, reverse=True)[:6]:
+        print(f"    transpose {ms:8.3f} ms x{n}  {name[:110]}")
+    for ms, name, n in rows[:8]:
+        print(f"    top {ms:8.3f} ms {100 * ms / device_ms:5.1f}% x{n}  {name[:100]}")
+
+
+def layout_steps(card: str) -> dict:
+    """AlexNet b256 (fused update, dropout on) from the same weights, batch
+    and masks in both layouts: the first f32 step (TF32 off) nhwc against
+    nchw, its loss (LAYOUT_LOSS_RTOL) and each blob's gradient and update
+    (LAYOUT_BLOB_RTOL); the first bf16-compute step (the precision phase's gates:
+    PREC_LOSS_RTOL, PREC_GRAD_RTOL, PREC_BF16_UPDATE_RTOL); the launches of
+    a step of each; then both layouts' steps timed in LAYOUT_PAIRS pairs of
+    turns in f32 and in bf16, and one profiled step of each.  Returns the
+    timed steps' launches (nhwc and nchw)."""
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.ops import kernels
+
+    nchw = fixed_batch(256)
+    feeds = {"nchw": nchw, "nhwc": {"data": nchw["data"].permute(0, 2, 3, 1).contiguous(),
+                                    "label": nchw["label"]}}
+    solvers = {}
+    set_config(fused_update=True, storage_dtype="f32")
+    try:
+        for lay in ("nchw", "nhwc"):
+            with port_config(layout=lay):
+                solvers[lay] = train_solver(models.alexnet(256), models.alexnet_solver())
+    finally:
+        set_config(fused_update=False)
+    check(torch.equal(solvers["nchw"]._param_arena, solvers["nhwc"]._param_arena),
+          "the two layouts' solvers start from other weights")
+    start = {lay: _arena_state(s) for lay, s in solvers.items()}
+    arena = solvers["nchw"].layout
+
+    def step(lay: str, n: int, dtype: str = "f32") -> None:
+        with port_config(layout=lay, compute_dtype=dtype):
+            solvers[lay].step(n, lambda it: feeds[lay])
+
+    _arena_restore(solvers["nchw"], start["nchw"])
+    loss64, g64, u64 = layout_f64_step(solvers["nchw"], feeds["nchw"])
+    gates = {}
+    for dtype in ("f32", "bf16"):
+        first, grads, upd = {}, {}, {}
+        for lay, s in solvers.items():
+            _arena_restore(s, start[lay])
+            grad_capture(s, grads, lay)
+            torch.cuda.synchronize()
+            before = layout_counts()
+            step(lay, 1, dtype)
+            torch.cuda.synchronize()
+            counts = tuple(a - b for a, b in zip(layout_counts(), before))
+            want = (2, 2, 0, 0, 1) if lay == "nhwc" else (0, 0, 2, 2, 1)
+            check(counts == want, f"{lay} {dtype} step launches (LRN NHWC fwd, bwd, NCHW "
+                  f"fwd, bwd, B2) {counts}, want {want}")
+            s.set_reduce_grads(None)
+            first[lay] = float(s._loss_window[-1])
+            upd[lay] = s._param_arena - start[lay][0]
+        loss_rel = abs(first["nhwc"] - first["nchw"]) / abs(first["nchw"])
+        if dtype == "f32":
+            g_rel, g_at = layout_blob_rel(arena, grads["nhwc"], grads["nchw"])
+            u_rel, u_at = layout_blob_rel(arena, upd["nhwc"], upd["nchw"])
+            gate = (LAYOUT_LOSS_RTOL, LAYOUT_BLOB_RTOL, LAYOUT_BLOB_RTOL)
+            how = (f"the worst blob's gradient {g_rel:.3e} ({g_at}), update {u_rel:.3e} "
+                   f"({u_at}) apart")
+            # each layout's blobs against the float64 step
+            worst = layout_f64_gate(card, arena, grads, upd, g64, u64, loss64, first)
+            g_rel = u_rel = 0.0  # held by layout_f64_gate, blob by blob
+        else:
+            g_rel, u_rel = rel_l2(grads["nhwc"], grads["nchw"]), rel_l2(upd["nhwc"], upd["nchw"])
+            gate = (PREC_LOSS_RTOL, PREC_GRAD_RTOL, PREC_BF16_UPDATE_RTOL)
+            how = f"gradient {g_rel:.3e}, update {u_rel:.3e} (the whole arena)"
+        print(f"layout alexnet b256 first {dtype} step, nhwc against nchw from the same "
+              f"weights, batch and masks: loss {first['nhwc']:.6f} vs {first['nchw']:.6f} "
+              f"(rel {loss_rel:.2e}, gate {gate[0]}), {how} (relative L2, gates "
+              f"{gate[1]} / {gate[2]}); launches a step: nhwc 2 NHWC LRN forward, 2 NHWC "
+              f"backward, 0 NCHW, 1 B2; nchw 0 NHWC, 2 + 2 NCHW, 1 B2 [{card}]")
+        check(np.isfinite(first["nhwc"]) and loss_rel <= gate[0],
+              f"layout {dtype}: nhwc loss {first['nhwc']} against nchw {first['nchw']}")
+        check(g_rel <= gate[1] and u_rel <= gate[2],
+              f"layout {dtype}: nhwc gradient {g_rel:.3e} / update {u_rel:.3e} off nchw")
+        gates[dtype] = (loss_rel, worst) if dtype == "f32" else (loss_rel, g_rel, u_rel)
+        del grads, upd
+    del start, g64, u64
+    # the main path: both layouts' steps in turns, in f32 and in bf16
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    copies0 = kernels.FUSED_GRAD_COPIES
+    ms = {}
+    for dtype in ("f32", "bf16"):
+        for pair in range(LAYOUT_PAIRS):
+            for lay in (("nchw", "nhwc") if pair % 2 == 0 else ("nhwc", "nchw")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(lay, LAYOUT_TURN, dtype)
+                torch.cuda.synchronize()
+                ms.setdefault((lay, dtype), []).append(
+                    1e3 * (time.perf_counter() - t0) / LAYOUT_TURN)
+    counts = layout_counts()
+    copies = kernels.FUSED_GRAD_COPIES - copies0
+    n = 2 * LAYOUT_PAIRS * LAYOUT_TURN  # steps of each layout
+    check(counts == (2 * n, 2 * n, 2 * n, 2 * n, 2 * n),
+          f"layout turns' launches {counts}, want {(2 * n,) * 5}")
+    losses = [float(l) for s in solvers.values() for l in s._loss_window[-LAYOUT_TURN:]]
+    check(all(np.isfinite(losses)), f"layout turns' losses {losses}")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    for dtype in ("f32", "bf16"):
+        a, b = ms[("nchw", dtype)], ms[("nhwc", dtype)]
+        wins = sum(y < x for x, y in zip(a, b))
+        print(f"layout turns alexnet b256 {dtype}: nchw {med[('nchw', dtype)]:.3f} ms/step, "
+              f"nhwc {med[('nhwc', dtype)]:.3f} ms/step (medians of {LAYOUT_PAIRS} pairs of "
+              f"turns of {LAYOUT_TURN} steps, {med[('nhwc', dtype)] - med[('nchw', dtype)]:+.3f} "
+              f"ms; nhwc faster in {wins} of {LAYOUT_PAIRS}; turns nchw "
+              f"{[round(x, 3) for x in a]}, nhwc {[round(x, 3) for x in b]}) [{card}]")
+    print(f"layout turns: launches {counts} (NHWC fwd, NHWC bwd, NCHW fwd, NCHW bwd, B2) over "
+          f"{n} steps of each layout; gradients B2's wrapper copied {copies} "
+          f"({copies / max(n, 1):.1f} a step of both layouts together)")
+    for dtype in ("f32", "bf16"):
+        for lay in ("nchw", "nhwc"):
+            layout_profile(card, f"alexnet b256 {dtype} {lay}",
+                           lambda lay=lay, dtype=dtype: step(lay, 1, dtype))
+    del solvers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ms=med, gates=gates)
+
+
+def layout_feed(card: str) -> tuple:
+    """The nhwc arm of the uint8 wire at full width: DeviceAugment nhwc bit for
+    bit the nchw arm permuted on the same draws (TEST and TRAIN); then an
+    LMDB through RecordShardSource(layout="nhwc") (HWC bytes out of the
+    workers), the ring, device_feed and the nhwc augment into LAYOUT_FED
+    AlexNet b256 nhwc steps, the first against a Solver step on the
+    host-augmented batch permuted (LAYOUT_LOSS_RTOL, LAYOUT_BLOB_RTOL on
+    the update; deterministic cuDNN).  Returns the fed steps' launches."""
+    import tempfile
+
+    from sparknet_tpu_torch import models
+    from sparknet_tpu_torch.common import set_config
+    from sparknet_tpu_torch.data import (
+        DeviceAugment,
+        ProcessPipeline,
+        RecordShardSource,
+        TransformConfig,
+        device_feed,
+    )
+    from sparknet_tpu_torch.data.io_utils import array_to_datum
+    from sparknet_tpu_torch.data.lmdb_io import LmdbWriter
+    from sparknet_tpu_torch.ops import kernels
+
+    rs = np.random.RandomState(SEED + 29)
+    imgs = rs.randint(0, 256, (LAYOUT_FED_RECORDS, 3, 256, 256), dtype=np.uint8)
+    labels = rs.randint(0, 1000, LAYOUT_FED_RECORDS)
+    mean = imgs.astype(np.float64).mean(0).astype(np.float32)
+    cfg = TransformConfig(crop_size=FEED_CROP, mirror=True, mean_image=mean)
+    aug = {lay: DeviceAugment(cfg, layout=lay) for lay in ("nchw", "nhwc")}
+    x = torch.from_numpy(imgs[:FEED_BATCH]).cuda()
+    xh = x.permute(0, 2, 3, 1).contiguous()
+    (hos, wos), flips = aug["nchw"].draw(FEED_BATCH, 256, 256, aug["nchw"].generator(0, SEED, 0))
+    for train in (False, True):
+        kw = dict(offsets=(hos, wos), flips=flips) if train else {}
+        a, b = aug["nhwc"](xh, train, **kw), aug["nchw"](x, train, **kw)
+        check(a.shape == (FEED_BATCH, FEED_CROP, FEED_CROP, 3)
+              and torch.equal(a, b.permute(0, 2, 3, 1)),
+              f"DeviceAugment nhwc {'TRAIN' if train else 'TEST'} is not the nchw arm permuted")
+    print(f"layout feed: DeviceAugment nhwc on [256,256,256,3] uint8 bit for bit the nchw arm "
+          f"permuted, TEST and TRAIN on the same draws [{card}]")
+    set_config(fused_update=True, storage_dtype="f32")
+    prev = torch.backends.cudnn.deterministic
+    try:
+        with tempfile.TemporaryDirectory() as d, port_config(layout="nhwc"):
+            path = os.path.join(d, "train_lmdb")
+            with LmdbWriter(path) as w:
+                for i in range(LAYOUT_FED_RECORDS):
+                    w.put(f"{i:08d}".encode(), array_to_datum(imgs[i], int(labels[i])))
+            src = RecordShardSource(path, FEED_BATCH, layout="nhwc")
+            b0 = src.get(0, 0)
+            check(b0["data"].shape == (FEED_BATCH, 256, 256, 3)
+                  and np.array_equal(b0["data"], imgs[:FEED_BATCH].transpose(0, 2, 3, 1)),
+                  f"the nhwc record source's batch {b0['data'].shape} is not HWC")
+            torch.backends.cudnn.deterministic = True
+            ref = train_solver(models.alexnet(FEED_BATCH), models.alexnet_solver())
+            host = host_augment(imgs[:FEED_BATCH], mean, hos.cpu().numpy(), wos.cpu().numpy(),
+                                flips.cpu().numpy(), FEED_CROP)
+            start = ref._param_arena.clone()
+            ref_loss = float(ref.train_iteration({
+                "data": np.ascontiguousarray(host.transpose(0, 2, 3, 1)),
+                "label": labels[:FEED_BATCH].astype(np.int32)}))
+            ref_upd = ref._param_arena - start
+            del ref
+            gc.collect()
+            solver = train_solver(models.alexnet(FEED_BATCH), models.alexnet_solver())
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with ProcessPipeline(src, num_batches=LAYOUT_FED, name="layout.feed") as pipe, \
+                    device_feed(pipe, device_fn=aug["nhwc"].device_fn(pid=0, seed=SEED)) as feed:
+                it = iter(feed)
+                losses = []
+                for g in range(LAYOUT_FED):
+                    f = next(it)
+                    check(tuple(f["data"].shape) == (FEED_BATCH, FEED_CROP, FEED_CROP, 3),
+                          f"fed nhwc batch {tuple(f['data'].shape)}")
+                    losses.append(float(solver.train_iteration(f)))
+                    if g == 0:
+                        upd = solver._param_arena - start
+                        bitwise = losses[0] == ref_loss and torch.equal(upd, ref_upd)
+                        u_rel, at = layout_blob_rel(solver.layout, upd, ref_upd)
+                        rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+                        check(rel <= LAYOUT_LOSS_RTOL and u_rel <= LAYOUT_BLOB_RTOL,
+                              f"the first fed nhwc step: loss {losses[0]} vs {ref_loss}, "
+                              f"update {u_rel:.3e} off ({at})")
+                        torch.backends.cudnn.deterministic = prev
+                        del upd
+            torch.cuda.synchronize()
+            counts = layout_counts()
+            check(counts == (2 * LAYOUT_FED, 2 * LAYOUT_FED, 0, 0, LAYOUT_FED),
+                  f"fed nhwc launches {counts}")
+            check(all(np.isfinite(losses)), f"fed nhwc losses {losses}")
+            del solver, ref_upd, start
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        set_config(fused_update=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"layout feed: {LAYOUT_FED_RECORDS} Datums in an LMDB -> RecordShardSource nhwc "
+          f"(HWC uint8 out of the workers) -> the ring -> device_feed -> DeviceAugment nhwc "
+          f"-> {LAYOUT_FED} AlexNet b256 nhwc steps, losses {[round(l, 4) for l in losses]}; "
+          f"the first against a Solver step on the host-augmented batch permuted: loss rel "
+          f"{rel:.2e}, the worst blob's update {u_rel:.3e} ({at}), bit for bit {bitwise}; "
+          f"launches {counts} [{card}]")
+    return counts
+
+
+def layout_cli(card: str) -> tuple:
+    """``tpunet train --layout nhwc`` in process (``SPARKNET_FUSED_UPDATE``'s
+    setting on): AlexNet b256 on synthetic batches for LAYOUT_CLI_ITERS
+    iterations; exit 0, a
+    finite loss, the NHWC kernels launched and no NCHW LRN, and the
+    caller's layout nchw again after.  Returns its launches."""
+    import tempfile
+
+    from sparknet_tpu_torch.common import get_config
+    from sparknet_tpu_torch.ops import kernels
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    losses = []
+    step = Solver.step
+
+    def spy(self, *a, **k):
+        losses.append(step(self, *a, **k))
+        return losses[-1]
+
+    walls = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d, patched(Solver, "step", lambda orig: spy), \
+            port_config(fused_update=True):
+        os.environ["SPARKNET_TRAIN_LOG_DIR"] = d
+        try:
+            lf_cli(["train", "--solver", "zoo:alexnet", "--batch", "256", "--data",
+                    "synthetic", "--iterations", str(LAYOUT_CLI_ITERS), "--test-iters", "0",
+                    "--layout", "nhwc", "--output", os.path.join(d, "final")], walls)
+        finally:
+            os.environ.pop("SPARKNET_TRAIN_LOG_DIR", None)
+    torch.cuda.synchronize()
+    counts = layout_counts()
+    n = LAYOUT_CLI_ITERS
+    check(counts == (2 * n, 2 * n, 0, 0, n), f"tpunet train --layout nhwc launches "
+          f"{counts}, want {(2 * n, 2 * n, 0, 0, n)}")
+    check(losses and all(np.isfinite(losses)), f"tpunet train --layout nhwc losses {losses}")
+    check(get_config().layout == "nchw", "the CLI left its layout behind")
+    print(f"layout cli: tpunet train --solver zoo:alexnet --batch 256 --data synthetic "
+          f"--iterations {n} --layout nhwc (fused update): exit 0 in {walls[0][1]:.1f} s, loss "
+          f"{[round(float(l), 4) for l in losses]}, launches {counts} (NHWC fwd, NHWC bwd, "
+          f"NCHW fwd, NCHW bwd, B2) [{card}]")
+    return counts
+
+
+def phase_layout(card: str) -> dict:
+    """Config.layout = "nhwc" on the card: B1 and B1' NHWC, the AlexNet b256
+    steps in both layouts, the nhwc feed and ``tpunet train --layout
+    nhwc``.  Returns the kernel line's figures of the NHWC kernels and the
+    main paths' launches (the timed steps, the fed steps and the CLI run;
+    each counted from 0)."""
+    t0 = time.perf_counter()
+    stats = layout_kernels(card)
+    t1 = time.perf_counter()
+    steps = layout_steps(card)
+    t2 = time.perf_counter()
+    fed = layout_feed(card)
+    t3 = time.perf_counter()
+    cli_counts = layout_cli(card)
+    t4 = time.perf_counter()
+    total = [a + b + c for a, b, c in zip(steps["counts"], fed, cli_counts)]
+    print(f"layout: phase done in {t4 - t0:.1f} s (kernels {t1 - t0:.1f}, steps "
+          f"{t2 - t1:.1f}, feed {t3 - t2:.1f}, cli {t4 - t3:.1f})")
+    return dict(stats=stats, lrn_nhwc=total[0], lrn_backward_nhwc=total[1], lrn=total[2],
+                lrn_backward=total[3], fused_update=total[4])
+
+
+PHASES = ("trace", "layout", "kernel", "path", "serve", "profile", "lrn_backward", "train",
           "fused_update", "train_profile", "fused_vs_blob", "parallel", "elastic", "feed",
           "cifar_app", "flash", "flash_backward", "paged", "token", "token_profile",
           "charlm_train", "engine", "replica", "zoo", "db_apps", "layers", "precision",
@@ -8379,7 +8952,8 @@ def main(argv=None) -> int:
     phase_build()
     lap("build")
     stats = {}
-    launches = {"lrn_across_channels": 0, "lrn_backward": 0, "fused_update": 0,
+    launches = {"lrn_across_channels": 0, "lrn_backward": 0,
+                "lrn_across_channels_nhwc": 0, "lrn_backward_nhwc": 0, "fused_update": 0,
                 "flash_attention": 0, "flash_attention_backward": 0,
                 "paged_attention": 0}
     if "trace" in phases:
@@ -8393,6 +8967,16 @@ def main(argv=None) -> int:
         launches["flash_attention_backward"] += got.get("FLASH_BACKWARD_LAUNCHES", 0)
         launches["paged_attention"] += got.get("PAGED_LAUNCHES", 0)
         lap("trace")
+    if "layout" in phases:
+        # second: it profiles steps (PERF.md §7, as for trace)
+        got = phase_layout(card)
+        stats.update(got["stats"])
+        launches["lrn_across_channels_nhwc"] += got["lrn_nhwc"]
+        launches["lrn_backward_nhwc"] += got["lrn_backward_nhwc"]
+        launches["lrn_across_channels"] += got["lrn"]
+        launches["lrn_backward"] += got["lrn_backward"]
+        launches["fused_update"] += got["fused_update"]
+        lap("layout")
     if "kernel" in phases:
         stats["lrn"] = phase_kernel(card)
         lap("kernel")
@@ -8531,6 +9115,11 @@ def main(argv=None) -> int:
                                 "sparknet_tpu/ops/pallas_kernels.py:40", "lrn"),
         "lrn_backward": ("sparknet_tpu_torch/csrc/lrn.cu",
                          "sparknet_tpu/ops/pallas_kernels.py:185", "lrn_backward"),
+        "lrn_across_channels_nhwc": ("sparknet_tpu_torch/csrc/lrn.cu",
+                                     "sparknet_tpu/ops/pallas_kernels.py:40", "lrn_nhwc"),
+        "lrn_backward_nhwc": ("sparknet_tpu_torch/csrc/lrn.cu",
+                              "sparknet_tpu/ops/pallas_kernels.py:185",
+                              "lrn_backward_nhwc"),
         "fused_update": ("sparknet_tpu_torch/csrc/fused_update.cu",
                          "sparknet_tpu/ops/pallas_kernels.py:467", "fused_update"),
         "flash_attention": ("sparknet_tpu_torch/csrc/flash_attention.cu",
@@ -8544,8 +9133,8 @@ def main(argv=None) -> int:
     lines = []
     for name, (source, replaces, key) in meta.items():
         st = stats[key]
-        # LRN times and bounds: one AlexNet b256 step's two calls (norm1 +
-        # norm2), float32; fused_update: one SGD f32 update of the AlexNet
+        # LRN times and bounds (NCHW and NHWC): one AlexNet b256 step's two
+        # calls (norm1 + norm2), float32; fused_update: one SGD f32 update of the AlexNet
         # arena fed by gradient segments (events; the bound counts each
         # gradient read once in its own type); flash: the char LM's
         # prefill shape [32,4,128,16] causal;
@@ -8565,7 +9154,8 @@ def main(argv=None) -> int:
         # char LM steps and int8 CaffeNet requests; the listfile phase's CLI
         # training, Detector and classify; the seq_parallel phase's char LM
         # steps on its four ranks; the loop phase's training rounds, replays
-        # and capture warm-ups), each counted from 0
+        # and capture warm-ups; the layout phase's AlexNet steps in turns,
+        # fed nhwc steps and CLI run), each counted from 0
         lines.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -48,8 +48,14 @@ binaries) and ``db:<path>[,<test_path>]`` (a RecordDB, LMDB or LevelDB;
 transform_param crops, mirrors, scales and subtracts its mean_file on the
 host).  Across processes each trains on its own batches.
 
-``bench`` and ``pods``, and the flags ``--scan``, ``--hlo`` and ``--layout
-nhwc``, exit with a message naming their ROADMAP item; none is ignored.
+``--layout nhwc`` (train, test, time) runs the command channels-last
+(``Config.layout``, ``ops/layout.py``) and restores the caller's layout
+after; canonical-NCHW host batches are brought to the internal layout
+before they reach the card, and the process feed's sources emit it
+natively.
+
+``bench`` and ``pods``, and the flags ``--scan`` and ``--hlo``, exit with a
+message naming their ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
@@ -88,7 +94,6 @@ PEAK_FLOPS = {
 # works round a loss whose cause is not known (PERF.md §7): it goes once
 # that loss is explained and fixed
 TRACE_RETRIES = 3
-_LAYOUT_ITEM = "Queue A6 (channels_last)"
 # --platform of the JAX CLI, onto the port's --device
 _PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
@@ -99,8 +104,6 @@ def _refuse_unported(args) -> None:
             flag = "--" + dest.replace("_", "-")
             raise SystemExit(f"{flag} is not ported to sparknet_tpu_torch yet "
                              f"(ROADMAP {item})")
-    if getattr(args, "layout", "") == "nhwc":
-        raise SystemExit(f"--layout nhwc is not ported yet (ROADMAP {_LAYOUT_ITEM})")
 
 
 def _apply_platform(args) -> None:
@@ -250,6 +253,28 @@ def _make_solver(solver_cfg, net_param, args):
                       device=_device(args))
 
 
+def _internalize(fn):
+    """``fn`` with its canonical-NCHW host batches (CIFAR readers, DB
+    cursors, listfile sources all emit blob order) brought to the internal
+    layout (``ops/layout.feeds_to_internal``); ``fn`` itself under nchw.
+    Keeps an attached ``device_fn``/``trainer_device_fn`` (the
+    ``DeviceAugment`` speaks the internal layout) and ``pipeline_factory``
+    (whose sources emit the internal layout themselves, so the process
+    feed pays no transpose a batch)."""
+    from sparknet_tpu_torch.ops.layout import feeds_to_internal, is_nhwc
+
+    if fn is None or not is_nhwc():
+        return fn
+
+    def wrapped(it):
+        return feeds_to_internal(fn(it))
+
+    for attr in ("device_fn", "trainer_device_fn", "pipeline_factory"):
+        if hasattr(fn, attr):
+            setattr(wrapped, attr, getattr(fn, attr))
+    return wrapped
+
+
 def _attach_device_augment(train_fn, cfg, pid, args):
     """The card-side transform as the async feed's ``device_fn`` and as the
     trainers' ``trainer_device_fn`` (``DeviceAugment``)."""
@@ -315,16 +340,18 @@ def _data_fns(args, net, closing: contextlib.ExitStack, test_net=None):
     pid, nproc = _proc()
 
     if args.data == "proto":
-        return _proto_fns(args, net, was_auto, pid, nproc, closing)
+        return tuple(map(_internalize, _proto_fns(args, net, was_auto, pid, nproc,
+                                                  closing)))
 
     shapes = _feed_shapes(net, args)
     data_shape = shapes["data"]
     batch = data_shape[0]
 
     if args.data.startswith("cifar:"):
-        return _cifar_fns(args, batch, pid, nproc)
+        return tuple(map(_internalize, _cifar_fns(args, batch, pid, nproc)))
     if args.data.startswith("db:"):
-        return _db_fns(args, net, test_net, data_shape, batch, pid, nproc)
+        return tuple(map(_internalize, _db_fns(args, net, test_net, data_shape,
+                                               batch, pid, nproc)))
     if args.data == "synthetic":
         return _synthetic_fns(data_shape, batch, pid, _token_vocab(net),
                               shapes.get("label", (batch,)))
@@ -393,14 +420,15 @@ def _cifar_fns(args, batch, pid, nproc):
     if batch > len(ytr) or batch > len(yte):
         raise SystemExit(f"--batch {batch} exceeds dataset size {min(len(ytr), len(yte))}")
 
-    def raw(it):
+    def raw(it, xs=xtr):
         lo = ((it * nproc + pid) * batch) % (len(ytr) - batch + 1)
-        return {"data": xtr[lo:lo + batch], "label": ytr[lo:lo + batch].astype(np.int32)}
+        return {"data": xs[lo:lo + batch], "label": ytr[lo:lo + batch].astype(np.int32)}
 
     def pipeline_factory(transform_cfg):
         """The process feed's twin of the threaded stream: raw slices are a
         pure function of the index, and the host transform, if any, runs in
-        the workers."""
+        the workers.  Under nhwc the images are transposed once, here, and
+        the workers slice and transform them channels-last."""
 
         def factory(num_batches, start_index=0, workers=None):
             from sparknet_tpu_torch.data.pipeline import (
@@ -409,8 +437,14 @@ def _cifar_fns(args, batch, pid, nproc):
                 TransformStage,
             )
 
-            stage = TransformStage(transform_cfg, train=True) if transform_cfg else None
-            return ProcessPipeline(DataFnSource(raw), stage, num_batches=num_batches,
+            from sparknet_tpu_torch.ops.layout import active_layout
+
+            lay = active_layout()
+            xs = np.ascontiguousarray(xtr.transpose(0, 2, 3, 1)) if lay == "nhwc" else xtr
+            stage = (TransformStage(transform_cfg, train=True, layout=lay)
+                     if transform_cfg else None)
+            return ProcessPipeline(DataFnSource(lambda it: raw(it, xs)), stage,
+                                   num_batches=num_batches,
                                    start_index=start_index, workers=workers,
                                    name="feed.cifar")
 
@@ -495,6 +529,7 @@ def _db_fns(args, net, test_net, data_shape, batch, pid, nproc):
     from sparknet_tpu_torch.data import DataTransformer, TransformConfig
     from sparknet_tpu_torch.data.createdb import db_minibatches
     from sparknet_tpu_torch.data.transform import load_mean_file, resolve_mean_file
+    from sparknet_tpu_torch.ops.layout import active_layout, canonical_shape
 
     train_path, test_path = _db_path(args, pid=pid), _db_path(args, 1)
     shared = "{proc}" not in args.data[3:].split(",")[0] and nproc > 1
@@ -575,11 +610,13 @@ def _db_fns(args, net, test_net, data_shape, batch, pid, nproc):
                 b = dict(b, data=b["data"] * p["scale"])
             if "checked" not in state:
                 state["checked"] = True
+                # the cursor's batches are canonical NCHW: compare against
+                # the canonical view of the net's (internal) data blob
                 got = tuple(b["data"].shape[1:])
-                want = tuple(data_shape[1:])
+                want = canonical_shape(data_shape)[1:]
                 if not train and test_net is not None:
                     with contextlib.suppress(KeyError, SystemExit):
-                        want = tuple(_feed_shapes(test_net, args)["data"][1:])
+                        want = canonical_shape(_feed_shapes(test_net, args)["data"])[1:]
                 if raw and p["crop"]:  # the card crops later
                     ok = got[0] == want[0] and got[1] >= want[1] and got[2] >= want[2]
                 else:
@@ -604,11 +641,14 @@ def _db_fns(args, net, test_net, data_shape, batch, pid, nproc):
         from sparknet_tpu_torch.data.pipeline import ProcessPipeline, TransformStage
         from sparknet_tpu_torch.data.records import RecordShardSource
 
+        lay = active_layout()
         try:
-            src = RecordShardSource(train_path, batch, stride=stride, offset=offset)
+            src = RecordShardSource(train_path, batch, layout=lay, stride=stride,
+                                    offset=offset)
         except (OSError, ValueError) as e:
             raise SystemExit(f"--data db: {train_path}: {e}") from None
-        got, want = tuple(peek_db_shape(train_path)), tuple(data_shape[1:])
+        # DB records are canonical (C, H, W)
+        got, want = tuple(peek_db_shape(train_path)), canonical_shape(data_shape)[1:]
         if trainp["crop"]:
             ok = got[0] == want[0] and got[1] >= want[1] and got[2] >= want[2]
         else:
@@ -619,7 +659,8 @@ def _db_fns(args, net, test_net, data_shape, batch, pid, nproc):
         stage = None
         if not device_aug:
             try:
-                stage = TransformStage(transform_cfg(trainp, seed), train=True)
+                stage = TransformStage(transform_cfg(trainp, seed), train=True,
+                                       layout=lay)
             except ValueError as e:
                 raise SystemExit(f"transform_param: {e}") from None
         return ProcessPipeline(src, stage, num_batches=num_batches, start_index=start_index,
@@ -1594,7 +1635,8 @@ def main(argv=None) -> int:
                         help="compute dtype (Config.compute_dtype) for this call; "
                         "params stay float32")
         sp.add_argument("--layout", default="", choices=["", "nchw", "nhwc"],
-                        help="nchw only (nhwc: ROADMAP Queue A6)")
+                        help="internal layout of image blobs (Config.layout) "
+                        "for this call; params and snapshots do not change")
 
     sp = sub.add_parser("train", help="train a model")
     common(sp)
@@ -1844,19 +1886,24 @@ def main(argv=None) -> int:
 
         os.environ["SPARKNET_OBS"] = args.obs
         rebuild_from_env()
-    if not getattr(args, "dtype", ""):
+    overrides = {}
+    if getattr(args, "dtype", ""):
+        overrides["compute_dtype"] = "bf16" if args.dtype in ("bf16", "bfloat16") else "f32"
+    if getattr(args, "layout", ""):
+        overrides["layout"] = args.layout
+    if not overrides:
         return args.fn(args)
-    # the compute dtype is set before any net is built and RESTORED after:
-    # an in-process main() (tests, interactive use) must not leak bf16 into
-    # the caller's config
+    # the compute dtype and the layout are set before any net is built and
+    # RESTORED after: an in-process main() (tests, interactive use) must not
+    # leak them into the caller's config
     from sparknet_tpu_torch.common import get_config, set_config
 
-    prev = get_config().compute_dtype
-    set_config(compute_dtype="bf16" if args.dtype in ("bf16", "bfloat16") else "f32")
+    prev = {k: getattr(get_config(), k) for k in overrides}
+    set_config(**overrides)
     try:
         return args.fn(args)
     finally:
-        set_config(compute_dtype=prev)
+        set_config(**prev)
 
 
 if __name__ == "__main__":

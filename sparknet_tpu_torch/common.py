@@ -2,11 +2,11 @@
 
 Counterpart of ``sparknet_tpu/common.py``.  The port keeps what the
 serving and training paths read: the ``Phase`` enum, the ``Config`` fields
-``seed``, ``compute_dtype``, ``param_dtype``, ``fused_update``,
+``seed``, ``compute_dtype``, ``param_dtype``, ``layout``, ``fused_update``,
 ``storage_dtype``, ``remat`` and ``activation_dtype`` with ``set_config``
-and its checks, ``act_storage_policy``, and two device helpers.  Blobs are
-NCHW only (``ops/layout.py``).  There is no PRNG-key threading: fillers and
-dropout draw from an explicit ``torch.Generator``.
+and its checks, ``act_storage_policy``, and two device helpers.  There is
+no PRNG-key threading: fillers and dropout draw from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -69,6 +69,14 @@ class Config:
     read with ``fused_update`` on; snapshots stay blob-wise in the net's
     param dtype.  ``SPARKNET_STORAGE_DTYPE`` seeds it.
 
+    ``layout``: the internal orientation of rank-4 image blobs, ``"nchw"``
+    (default, Caffe's blob order) or ``"nhwc"`` (channels-last).  Under
+    nhwc activations run (N, H, W, C); params do not move (convolution
+    weights stay OIHW, InnerProduct weights in Caffe's wire order) and
+    prototxt axes stay canonical (``ops/layout.py``).  Read as each
+    forward runs, like ``compute_dtype``; ``SPARKNET_LAYOUT`` seeds it,
+    ``tpunet --layout`` sets it for one command.
+
     ``data_axis``, ``model_axis``, ``seq_axis``: the names of the rank
     grid's axes (``parallel/mesh.py``), the JAX package's mesh axis names.
     """
@@ -76,6 +84,7 @@ class Config:
     seed: int = 1  # ref: common.cpp set_random_seed
     compute_dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32
+    layout: str = os.environ.get("SPARKNET_LAYOUT", "nchw").lower()
     fused_update: bool = os.environ.get("SPARKNET_FUSED_UPDATE", "0") == "1"
     storage_dtype: str = os.environ.get("SPARKNET_STORAGE_DTYPE", "f32").lower()
     remat: str = os.environ.get("SPARKNET_REMAT", "").lower()
@@ -129,6 +138,12 @@ def set_config(**overrides) -> Config:
     ``Solver`` reads the config when it is built, so set it before.
     Spellings are checked and normalized with the JAX package's messages."""
     global _config
+    if "layout" in overrides:
+        lay = str(overrides["layout"]).lower()
+        if lay not in ("nchw", "nhwc"):
+            raise ValueError(f"layout must be 'nchw' or 'nhwc', got "
+                             f"{overrides['layout']!r}")
+        overrides = {**overrides, "layout": lay}
     for name in ("compute_dtype", "param_dtype"):
         if name in overrides:
             overrides = {**overrides, name: _float_dtype(name, overrides[name])}

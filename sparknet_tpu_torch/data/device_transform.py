@@ -22,6 +22,14 @@ Here each call draws from one ``torch.Generator`` on the card seeded by
 replayed round draws the same windows.  ``__call__`` also takes the draws
 themselves (``offsets``, ``flips``), which is how parity tests inject the
 JAX package's.
+
+Layout.  The batch arrives and leaves in the internal layout
+(``Config.layout``): (N, C, H, W) -> (N, C, crop, crop) under nchw, (N, H,
+W, C) -> (N, crop, crop, C) under nhwc.  Image bytes come HWC off the wire
+(decoders, the record DB, ``data/minibatch.py``'s packers), so the nhwc
+arm ships them as they are, with no entry transpose.  Both arms draw the
+same offsets and flips from one generator and do the same per-element
+arithmetic, so the nhwc output is the nchw output permuted, bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 
 from sparknet_tpu_torch.common import resolve_device
 from sparknet_tpu_torch.data.transform import TransformConfig
+from sparknet_tpu_torch.ops.layout import active_layout, normalize
 
 _SLOT_BITS = 16  # slots a round (t + 1 < 2^16; 0 is a rank-4 feed)
 _IT_BITS = 32  # iterations (it < 2^32)
@@ -54,7 +63,9 @@ def draw_seed(pid: int, seed: int | None, it: int, t: int | None = None) -> int:
 
 class DeviceAugment:
     """Batch transform on the card: uint8/float ``[N, C, H, W]`` tensor ->
-    float32 ``[N, C, crop, crop]`` (NCHW, the port's only layout).
+    float32 ``[N, C, crop, crop]`` under nchw, ``[N, H, W, C]`` ->
+    ``[N, crop, crop, C]`` under nhwc (``layout``, default
+    ``Config.layout`` when the augment is made).
 
     Use as the ``device_fn`` of a
     :class:`~sparknet_tpu_torch.data.prefetch.DevicePrefetcher` or of
@@ -64,12 +75,8 @@ class DeviceAugment:
     any device and the output is on theirs.
     """
 
-    def __init__(self, config: TransformConfig, layout: str = "nchw",
+    def __init__(self, config: TransformConfig, layout: str | None = None,
                  device: str | torch.device | None = None):
-        if layout != "nchw":
-            raise NotImplementedError(
-                f"DeviceAugment layout {layout!r}: the port is NCHW only; "
-                "channels_last is ROADMAP Queue A6 (A10's channels_last A/B)")
         if config.mean_image is not None and config.mean_value:
             raise ValueError("specify mean_image or mean_value, not both")
         if config.backend != "numpy":
@@ -77,15 +84,19 @@ class DeviceAugment:
                 "DeviceAugment is its own backend; build the config with "
                 "backend='numpy' (the default) and wrap it here")
         self.config = config
-        self.layout = layout
+        self.layout = normalize(layout) if layout else active_layout()
+        nhwc = self.layout == "nhwc"
         self.device = resolve_device(device)
         mean = None
         if config.mean_image is not None:
-            mean = torch.as_tensor(np.asarray(config.mean_image, np.float32),
-                                   device=self.device)[None]
+            mean = np.asarray(config.mean_image, np.float32)  # canonical (C, H, W)
+            if nhwc:  # once, here
+                mean = np.ascontiguousarray(mean.transpose(1, 2, 0))
+            mean = torch.as_tensor(mean, device=self.device)[None]
         elif config.mean_value:
             mean = torch.as_tensor(np.asarray(config.mean_value, np.float32),
-                                   device=self.device).reshape(1, -1, 1, 1)
+                                   device=self.device).reshape(
+                                       (1, 1, 1, -1) if nhwc else (1, -1, 1, 1))
         self._mean = mean
         # the scale as the float32 the host multiplies by
         self._scale = float(np.float32(config.scale))
@@ -118,13 +129,17 @@ class DeviceAugment:
     def __call__(self, images: torch.Tensor, train: bool = True, *,
                  generator: torch.Generator | None = None,
                  offsets=None, flips=None) -> torch.Tensor:
-        """``images`` [N, C, H, W] -> float32 crops.  TRAIN draws from
-        ``generator`` (:meth:`draw`) unless ``offsets`` ``(hos, wos)`` and
-        ``flips`` (bool [N]) are given; TEST crops the center and never
-        mirrors."""
+        """``images`` [N, C, H, W] (nchw) or [N, H, W, C] (nhwc) -> float32
+        crops in the same layout.  TRAIN draws from ``generator``
+        (:meth:`draw`) unless ``offsets`` ``(hos, wos)`` and ``flips``
+        (bool [N]) are given; TEST crops the center and never mirrors."""
         cfg, c = self.config, self.config.crop_size
+        nhwc = self.layout == "nhwc"
         x = images.to(torch.float32)
-        n, _, h, w = x.shape
+        if nhwc:
+            n, h, w, ch = x.shape
+        else:
+            n, ch, h, w = x.shape
         if self._mean is not None:
             x = x - self._mean.to(x.device)
         if train and (offsets is None and c or flips is None and cfg.mirror):
@@ -142,17 +157,21 @@ class DeviceAugment:
             else:
                 hos = torch.full((n,), (h - c) // 2, device=x.device)
                 wos = torch.full((n,), (w - c) // 2, device=x.device)
-            # one gather: x[n, ch, ho + i, wo + j] by index arithmetic
+            # one gather by index arithmetic: x[n, ch, ho + i, wo + j]
+            # (nchw) or x[n, ho + i, wo + j, ch] (nhwc)
             ar = torch.arange(c, device=x.device)
             rows = hos[:, None] + ar[None]  # (N, c)
             cols = wos[:, None] + ar[None]
-            x = x[torch.arange(n, device=x.device)[:, None, None, None],
-                  torch.arange(x.shape[1], device=x.device)[None, :, None, None],
-                  rows[:, None, :, None],
-                  cols[:, None, None, :]]
+            imgs = torch.arange(n, device=x.device)[:, None, None, None]
+            if nhwc:
+                x = x[imgs, rows[:, :, None, None], cols[:, None, :, None],
+                      torch.arange(ch, device=x.device)[None, None, None, :]]
+            else:
+                x = x[imgs, torch.arange(ch, device=x.device)[None, :, None, None],
+                      rows[:, None, :, None], cols[:, None, None, :]]
         if train and cfg.mirror:
             flip = torch.as_tensor(flips, device=x.device).bool()
-            x = torch.where(flip[:, None, None, None], x.flip(3), x)
+            x = torch.where(flip[:, None, None, None], x.flip(2 if nhwc else 3), x)
         if cfg.scale != 1.0:
             x = x * self._scale
         return x

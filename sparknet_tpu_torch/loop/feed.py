@@ -36,11 +36,16 @@ def synthetic_shard_feed(family, batch: int, seed: int = 0):
 
     from sparknet_tpu_torch.data.pipeline import SyntheticImageSource, shard_batches
 
+    from sparknet_tpu_torch.ops.layout import internal_shape
+
     raw_fn = shard_batches(SyntheticImageSource(
         batch, shape=tuple(family.image_shape), classes=family.num_classes, seed=seed))
+    want = internal_shape((batch, *family.image_shape))
 
     def image_fn(g: int) -> dict:
         raw = raw_fn(g)
         data = raw["data"].astype(np.float32) * (1.0 / 255.0) - 0.5
+        if data.shape != want:  # a channels-last run: NCHW -> NHWC
+            data = np.ascontiguousarray(data.transpose(0, 2, 3, 1))
         return {"data": data, "label": raw["label"].astype(np.int32)}
     return image_fn

@@ -7,6 +7,11 @@ caffe/include/caffe/common_layers.hpp).  InnerProduct is one ``F.linear``
 (cuBLAS on the card), as the JAX package leaves this GEMM to XLA; the
 others are ATen elementwise work, reductions, gathers and views, as they
 are XLA ops there.
+
+Layer parameters (axis, num_axes, blob dims) speak canonical NCHW blob
+coordinates in both layouts (``ops/layout.py``): under nhwc a rank-4
+bottom is read through ``layout.canonical_shape``, ``internal_axis`` or a
+canonicalizing view where the layer's element order is canonical.
 """
 
 from __future__ import annotations
@@ -26,11 +31,21 @@ def _canon_axis(axis: int, ndim: int) -> int:
     return axis + ndim if axis < 0 else axis
 
 
+def _nhwc4(x) -> bool:
+    return x.dim() == 4 and layout.is_nhwc()
+
+
 @register
 class InnerProduct(Layer):
     """Fully connected (ref: inner_product_layer.cpp).  Flattens from
     ``axis`` (default 1, i.e. C*H*W in NCHW order — this ordering is what
-    makes .caffemodel FC weights line up).  W blob: (num_output, dim)."""
+    makes .caffemodel FC weights line up).  W blob: (num_output, dim).
+
+    Under nhwc a rank-4 bottom is flattened in canonical order (its
+    ``layout.from_internal`` view, which the flatten copies), so the same
+    weight bytes make the same product in both layouts.  (The JAX layer
+    lowers this boundary as a full-map VALID convolution: the same
+    function; the port's flatten is the NCHW path's own product.)"""
 
     TYPE = "InnerProduct"
 
@@ -46,7 +61,7 @@ class InnerProduct(Layer):
 
     def init(self, gen, in_shapes):
         n_out, axis, bias, wf, bf = self._conf()
-        shape = tuple(in_shapes[0])
+        shape = layout.canonical_shape(in_shapes[0])
         dim = int(np.prod(shape[_canon_axis(axis, len(shape)):]))
         dtype = get_config().param_dtype
         params = [fillers.fill(wf, gen, (n_out, dim), dtype)]
@@ -57,6 +72,8 @@ class InnerProduct(Layer):
     def apply(self, params, state, inputs, *, train):
         n_out, axis, bias, _, _ = self._conf()
         x = inputs[0]
+        if _nhwc4(x):
+            x = layout.from_internal(x)
         axis = _canon_axis(axis, x.dim())
         lead = tuple(x.shape[:axis])
         flat = x.reshape(-1, int(np.prod(x.shape[axis:])))
@@ -108,7 +125,8 @@ class BatchNorm(Layer):
         use_global = p.get_bool("use_global_stats", not train)
         x = inputs[0]
         xf = x.float()
-        axes = (0,) + tuple(range(2, x.dim()))
+        # every axis but the channels'
+        axes = (0, 1, 2) if _nhwc4(x) else (0,) + tuple(range(2, x.dim()))
         if use_global:
             sf = state["scale_factor"][0]
             scale = torch.where(sf == 0, torch.ones_like(sf),
@@ -136,10 +154,19 @@ class BatchNorm(Layer):
 
 
 def _broadcast_canon(vec: torch.Tensor, x: torch.Tensor, axis: int) -> torch.Tensor:
-    """Broadcast a blob ``vec`` against ``x`` from ``axis`` (Scale/Bias
-    semantics): the NCHW branch of the JAX helper."""
+    """Broadcast a canonical-ordered blob ``vec`` against internal ``x``
+    from canonical ``axis`` (Scale/Bias semantics), the JAX helper: under
+    nhwc on a rank-4 ``x`` the broadcast shape is permuted (and the small
+    blob permuted when it spans more than one non-unit canonical axis),
+    so the same blob scales the same logical elements in both layouts."""
     cb = (1,) * axis + tuple(vec.shape) + (1,) * (x.dim() - axis - vec.dim())
-    return vec.to(x.dtype).reshape(cb)
+    v = vec.to(x.dtype).reshape(cb)
+    if _nhwc4(x):
+        if sum(int(d) > 1 for d in cb[1:]) > 1:
+            v = v.permute(0, 2, 3, 1)
+        else:
+            v = v.reshape((cb[0], cb[2], cb[3], cb[1]))
+    return v
 
 
 def _blob_shape(shape, axis: int, num_axes: int) -> tuple:
@@ -170,8 +197,8 @@ class Scale(Layer):
                 params.append(fillers.fill(p.get_msg("bias_filler"), gen,
                                            tuple(in_shapes[1]), dtype))
             return params, {}
-        shape = _blob_shape(in_shapes[0], self._axis(len(in_shapes[0])),
-                            p.get_int("num_axes", 1))
+        shape = _blob_shape(layout.canonical_shape(in_shapes[0]),
+                            self._axis(len(in_shapes[0])), p.get_int("num_axes", 1))
         filler = p.get_msg("filler")
         if not filler.has("type"):
             filler = filler.copy()
@@ -205,7 +232,7 @@ class Bias(Layer):
         if len(in_shapes) > 1:
             return [], {}
         p = self.lp.get_msg("bias_param")
-        shape0 = tuple(in_shapes[0])
+        shape0 = layout.canonical_shape(in_shapes[0])
         shape = _blob_shape(shape0, _canon_axis(p.get_int("axis", 1), len(shape0)),
                             p.get_int("num_axes", 1))
         return [fillers.fill(p.get_msg("filler"), gen, shape, get_config().param_dtype)], {}
@@ -307,6 +334,14 @@ class Flatten(Layer):
         x = inputs[0]
         axis = _canon_axis(p.get_int("axis", 1), x.dim())
         end = _canon_axis(p.get_int("end_axis", -1), x.dim())
+        if _nhwc4(x) and end > axis:
+            # the flattened blob's element order is canonical C-major (what
+            # downstream fc weights index): a 1x1 map keeps it as it lies,
+            # any other pays one canonicalizing copy
+            if x.shape[1] == 1 and x.shape[2] == 1:
+                x = x.reshape(x.shape[0], x.shape[3], 1, 1)
+            else:
+                x = layout.from_internal(x)
         return LayerOutput([torch.flatten(x, axis, end)])
 
 
@@ -320,7 +355,8 @@ class Slice(Layer):
     def apply(self, params, state, inputs, *, train):
         p = self.lp.get_msg("slice_param")
         x = inputs[0]
-        axis = _canon_axis(p.get_int("axis", p.get_int("slice_dim", 1)), x.dim())
+        axis = layout.internal_axis(
+            _canon_axis(p.get_int("axis", p.get_int("slice_dim", 1)), x.dim()), x.dim())
         points = [int(s) for s in p.get_all("slice_point")]
         if not points:
             size = x.shape[axis] // len(self.tops)
@@ -339,6 +375,11 @@ class Reshape(Layer):
         p = self.lp.get_msg("reshape_param")
         dims = [int(d) for d in p.get_msg("shape").get_all("dim")]
         x = inputs[0]
+        nhwc4 = _nhwc4(x)
+        if nhwc4:
+            # reshape dims speak canonical blob order: canonicalize in, and
+            # turn a still-4-D result back to the internal orientation
+            x = layout.from_internal(x)
         axis = _canon_axis(p.get_int("axis", 0), x.dim())
         num_axes = p.get_int("num_axes", -1)
         end = x.dim() if num_axes == -1 else axis + num_axes
@@ -349,7 +390,8 @@ class Reshape(Layer):
             known = int(np.prod([d for d in out_mid if d != -1]))
             total = int(np.prod(mid_in)) if mid_in else 1
             out_mid[out_mid.index(-1)] = total // max(known, 1)
-        return LayerOutput([x.reshape(head + tuple(out_mid) + tail)])
+        y = x.reshape(head + tuple(out_mid) + tail)
+        return LayerOutput([layout.to_internal(y) if nhwc4 else y])
 
 
 @register
@@ -362,7 +404,8 @@ class Tile(Layer):
         p = self.lp.get_msg("tile_param")
         x = inputs[0]
         reps = [1] * x.dim()
-        reps[_canon_axis(p.get_int("axis", 1), x.dim())] = p.get_int("tiles")
+        reps[layout.internal_axis(_canon_axis(p.get_int("axis", 1), x.dim()),
+                                  x.dim())] = p.get_int("tiles")
         return LayerOutput([x.repeat(reps)])
 
 
@@ -382,6 +425,9 @@ class ArgMax(Layer):
         p = self.lp.get_msg("argmax_param")
         top_k = p.get_int("top_k", 1)
         x = inputs[0]
+        if _nhwc4(x):
+            # the indices address the canonical C*H*W flatten
+            x = layout.from_internal(x)
         flat = x.reshape(x.shape[0], -1)
         vals, idxs = torch.sort(flat, dim=1, descending=True, stable=True)
         vals, idxs = vals[:, :top_k], idxs[:, :top_k].to(x.dtype)
@@ -439,6 +485,10 @@ class Reduction(Layer):
         p = self.lp.get_msg("reduction_param")
         op = p.get_str("operation", "SUM")
         x = inputs[0]
+        if _nhwc4(x):
+            # the tail flatten is canonical (the kept head axes are not
+            # permutation-invariant)
+            x = layout.from_internal(x)
         axis = _canon_axis(p.get_int("axis", 0), x.dim())
         flat = x.reshape(tuple(x.shape[:axis]) + (-1,)) if axis < x.dim() else x[..., None]
         if op == "ASUM":
@@ -463,8 +513,11 @@ class MVN(Layer):
     def apply(self, params, state, inputs, *, train):
         p = self.lp.get_msg("mvn_param")
         x = inputs[0]
-        start = 1 if p.get_bool("across_channels", False) else 2
-        dims = tuple(range(start, x.dim()))
+        across = p.get_bool("across_channels", False)
+        if _nhwc4(x) and not across:
+            dims: tuple = layout.spatial_axes()  # per-channel moments
+        else:
+            dims = tuple(range(1 if across else 2, x.dim()))
         y = x - torch.mean(x, dim=dims, keepdim=True)
         if p.get_bool("normalize_variance", True):
             std = torch.sqrt(torch.mean(torch.square(y), dim=dims, keepdim=True))

@@ -14,6 +14,7 @@ Beside each kernel:
   takes it only for a tensor that lies on the CPU; on a CUDA tensor it
   launches the kernel or raises, with no fallback;
 * a launch count (``LRN_LAUNCHES``, ``LRN_BACKWARD_LAUNCHES``,
+  ``LRN_NHWC_LAUNCHES``, ``LRN_NHWC_BACKWARD_LAUNCHES``,
   ``FUSED_UPDATE_LAUNCHES``, ``FLASH_LAUNCHES``,
   ``FLASH_BACKWARD_LAUNCHES``, ``PAGED_LAUNCHES``),
   raised by one at each launch and nowhere else, so a run can show that
@@ -27,7 +28,9 @@ Kernels ported so far, all from ``sparknet_tpu/ops/pallas_kernels.py``:
 
 * cross-channel LRN forward (``csrc/lrn.cu``, replaces ``_lrn_kernel``) and
   its backward (same source, replaces ``_lrn_fused_bwd``, which is XLA on
-  the TPU), joined by the ``torch.autograd.Function`` ``LRNFunction``;
+  the TPU), joined by the ``torch.autograd.Function`` ``LRNFunction``,
+  each in an NCHW form and a channels-last form (``Config.layout`` nhwc;
+  the channel window on the contiguous axis);
 * the one-pass fused optimizer update (``csrc/fused_update.cu``, replaces
   ``_fused_kernel``);
 * flash attention forward (``csrc/flash_attention.cu``, replaces
@@ -74,6 +77,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 LRN_LAUNCHES = 0
 LRN_BACKWARD_LAUNCHES = 0
+LRN_NHWC_LAUNCHES = 0
+LRN_NHWC_BACKWARD_LAUNCHES = 0
 FUSED_UPDATE_LAUNCHES = 0
 # gradients the fused update's wrapper copied before a launch (a
 # non-contiguous or misaligned segment, or one of another float type): 0
@@ -90,8 +95,10 @@ INT_MM_LAUNCHES = 0
 def reset_launch_counts() -> None:
     """Set every launch count to 0 (``FUSED_GRAD_COPIES`` runs on)."""
     global LRN_LAUNCHES, LRN_BACKWARD_LAUNCHES, FUSED_UPDATE_LAUNCHES
+    global LRN_NHWC_LAUNCHES, LRN_NHWC_BACKWARD_LAUNCHES
     global FLASH_LAUNCHES, FLASH_BACKWARD_LAUNCHES, PAGED_LAUNCHES, INT_MM_LAUNCHES
     LRN_LAUNCHES = LRN_BACKWARD_LAUNCHES = FUSED_UPDATE_LAUNCHES = 0
+    LRN_NHWC_LAUNCHES = LRN_NHWC_BACKWARD_LAUNCHES = 0
     FLASH_LAUNCHES = FLASH_BACKWARD_LAUNCHES = PAGED_LAUNCHES = INT_MM_LAUNCHES = 0
 
 
@@ -210,6 +217,22 @@ def _load(name: str) -> ctypes.CDLL:
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.sparknet_lrn_backward.restype = ctypes.c_int
+            lib.sparknet_lrn_nhwc_max_channels.argtypes = []
+            lib.sparknet_lrn_nhwc_max_channels.restype = ctypes.c_int
+            lib.max_nhwc_channels = lib.sparknet_lrn_nhwc_max_channels()
+            lib.sparknet_lrn_nhwc_forward.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.sparknet_lrn_nhwc_forward.restype = ctypes.c_int
+            lib.sparknet_lrn_nhwc_backward.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.sparknet_lrn_nhwc_backward.restype = ctypes.c_int
         elif name == "fused_update":
             lib.sparknet_fused_update_tile.argtypes = []
             lib.sparknet_fused_update_tile.restype = ctypes.c_int
@@ -265,23 +288,32 @@ def _pow_neg(u: torch.Tensor, beta: float) -> torch.Tensor:
     return torch.pow(u, -beta)
 
 
-def _channel_window_sum(t: torch.Tensor, size: int) -> torch.Tensor:
-    """Sum of ``t`` over the channels within (size-1)/2 of each channel, as
-    the JAX package's ``_windowed_channel_sum`` adds them: the centre, then
-    +1 and -1, +2 and -2, with zeros past the channel edges (shifts past
-    C - 1 are skipped, the clamp for C < size)."""
-    c = t.shape[1]
+def _check_channel_axis(x: torch.Tensor, channel_axis: int, what: str) -> None:
+    if x.dim() != 4 or channel_axis not in (1, 3):
+        raise ValueError(f"{what}: want a 4-D tensor with channels on axis 1 "
+                         f"(NCHW) or 3 (NHWC), got shape {tuple(x.shape)} and "
+                         f"channel_axis {channel_axis}")
+
+
+def _channel_window_sum(t: torch.Tensor, size: int, dim: int = 1) -> torch.Tensor:
+    """Sum of ``t`` over the channels (axis ``dim``) within (size-1)/2 of
+    each channel, as the JAX package's ``_windowed_channel_sum`` adds them:
+    the centre, then +1 and -1, +2 and -2, with zeros past the channel
+    edges (shifts past C - 1 are skipped, the clamp for C < size)."""
+    c = t.shape[dim]
     acc = t
     for off in range(1, min((size - 1) // 2, c - 1) + 1):
-        zeros = torch.zeros_like(t[:, :off])
-        acc = acc + torch.cat([t[:, off:], zeros], dim=1)  # c + off
-        acc = acc + torch.cat([zeros, t[:, : c - off]], dim=1)  # c - off
+        zeros = torch.zeros_like(t.narrow(dim, 0, off))
+        acc = acc + torch.cat([t.narrow(dim, off, c - off), zeros], dim=dim)  # c + off
+        acc = acc + torch.cat([zeros, t.narrow(dim, 0, c - off)], dim=dim)  # c - off
     return acc
 
 
 def lrn_across_channels_torch(x: torch.Tensor, size: int, alpha: float,
-                              beta: float, k: float) -> torch.Tensor:
-    """Plain PyTorch cross-channel LRN on an NCHW tensor:
+                              beta: float, k: float,
+                              channel_axis: int = 1) -> torch.Tensor:
+    """Plain PyTorch cross-channel LRN on an NCHW tensor (``channel_axis``
+    1) or an NHWC one (3):
     ``y = x * (k + alpha/size * sum_{|c'-c| <= (size-1)/2} x[c']^2)^-beta``.
 
     The window sum is ``_channel_window_sum``.  Math is float32 whatever the
@@ -289,13 +321,15 @@ def lrn_across_channels_torch(x: torch.Tensor, size: int, alpha: float,
     ``x.dtype``."""
     if size % 2 == 0:
         raise ValueError(f"LRN local_size must be odd, got {size}")
+    _check_channel_axis(x, channel_axis, "lrn_across_channels")
     xf = x.float()
-    scale = k + (alpha / size) * _channel_window_sum(xf * xf, size)
+    scale = k + (alpha / size) * _channel_window_sum(xf * xf, size, channel_axis)
     return (xf * _pow_neg(scale, beta)).to(x.dtype)
 
 
 def lrn_backward_torch(x: torch.Tensor, g: torch.Tensor, size: int,
-                       alpha: float, beta: float, k: float) -> torch.Tensor:
+                       alpha: float, beta: float, k: float,
+                       channel_axis: int = 1) -> torch.Tensor:
     """Plain PyTorch gradient of ``lrn_across_channels_torch`` w.r.t. ``x``
     for the incoming gradient ``g``, op for op the JAX package's
     ``_lrn_fused_bwd``:
@@ -304,83 +338,112 @@ def lrn_backward_torch(x: torch.Tensor, g: torch.Tensor, size: int,
         dx = g * p - (2 alpha beta / size) * x * wsum(g * x * p / scale)
 
     (the window is symmetric, so the adjoint of wsum is wsum).  scale is
-    recomputed from ``x``.  Math is float32; the result has ``x.dtype``."""
+    recomputed from ``x``.  Channels on axis ``channel_axis`` (1: NCHW,
+    3: NHWC).  Math is float32; the result has ``x.dtype``."""
     if size % 2 == 0:
         raise ValueError(f"LRN local_size must be odd, got {size}")
+    _check_channel_axis(x, channel_axis, "lrn_backward")
     xf, gf = x.float(), g.float()
-    scale = k + (alpha / size) * _channel_window_sum(xf * xf, size)
+    scale = k + (alpha / size) * _channel_window_sum(xf * xf, size, channel_axis)
     p = _pow_neg(scale, beta)
-    w = _channel_window_sum(gf * xf * p / scale, size)
+    w = _channel_window_sum(gf * xf * p / scale, size, channel_axis)
     return (gf * p - (2.0 * alpha * beta / size) * xf * w).to(x.dtype)
 
 
-def _lrn_cuda_checks(x: torch.Tensor, size: int, what: str) -> ctypes.CDLL:
-    if x.dim() != 4:
-        raise ValueError(f"{what}: want NCHW, got shape {tuple(x.shape)}")
+def _lrn_cuda_checks(x: torch.Tensor, size: int, what: str,
+                     channel_axis: int) -> ctypes.CDLL:
+    """The library, after the checks every LRN launch needs: a dense
+    4-D float32 or bfloat16 tensor in the layout ``channel_axis`` names
+    (1: contiguous NCHW; 3: contiguous NHWC, whose channels the kernel
+    reads as the rows of a [pixels, C] matrix).  Anything else raises: an
+    NHWC tensor is never made NCHW-contiguous for the NCHW kernel."""
+    _check_channel_axis(x, channel_axis, what)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: want float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError(f"{what}: input must be contiguous NCHW")
+        form = "NCHW" if channel_axis == 1 else "NHWC"
+        raise ValueError(f"{what}: input must be contiguous {form}")
     lib = _load("lrn")
     if size > lib.max_size:
         raise ValueError(f"{what}: local_size {size} > "
                          f"{lib.max_size}, the largest the kernel takes")
+    if channel_axis == 3 and x.shape[3] > lib.max_nhwc_channels:
+        raise ValueError(f"{what}: {x.shape[3]} channels > "
+                         f"{lib.max_nhwc_channels}, the most the NHWC kernel takes")
     return lib
 
 
 def _lrn_forward_cuda(x: torch.Tensor, size: int, alpha: float, beta: float,
-                      k: float) -> torch.Tensor:
-    lib = _lrn_cuda_checks(x, size, "lrn_across_channels")
+                      k: float, channel_axis: int = 1) -> torch.Tensor:
+    lib = _lrn_cuda_checks(x, size, "lrn_across_channels", channel_axis)
     y = torch.empty_like(x)
-    b, c, h, w = x.shape
-    args = (x.data_ptr(), y.data_ptr(), b, c, h * w, size, alpha / size, beta, k,
-            int(x.dtype == torch.bfloat16))
+    if channel_axis == 3:
+        b, h, w, c = x.shape
+        fn, count = lib.sparknet_lrn_nhwc_forward, "LRN_NHWC_LAUNCHES"
+        args = (x.data_ptr(), y.data_ptr(), b * h * w, c, size, alpha / size,
+                beta, k, int(x.dtype == torch.bfloat16))
+    else:
+        b, c, h, w = x.shape
+        fn, count = lib.sparknet_lrn_forward, "LRN_LAUNCHES"
+        args = (x.data_ptr(), y.data_ptr(), b, c, h * w, size, alpha / size,
+                beta, k, int(x.dtype == torch.bfloat16))
     index = x.device.index
     if index == torch.cuda.current_device():  # the common case, without a switch
-        err = lib.sparknet_lrn_forward(*args, torch._C._cuda_getCurrentRawStream(index))
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
         with torch.cuda.device(index):
-            err = lib.sparknet_lrn_forward(*args, torch.cuda.current_stream().cuda_stream)
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     _check_launch(lib, err, "lrn_across_channels")
-    _count("LRN_LAUNCHES")
+    _count(count)
     return y
 
 
 def _lrn_backward_cuda(x: torch.Tensor, g: torch.Tensor, size: int,
-                       alpha: float, beta: float, k: float) -> torch.Tensor:
-    lib = _lrn_cuda_checks(x, size, "lrn_backward")
+                       alpha: float, beta: float, k: float,
+                       channel_axis: int = 1) -> torch.Tensor:
+    lib = _lrn_cuda_checks(x, size, "lrn_backward", channel_axis)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"lrn_backward: gradient {tuple(g.shape)} {g.dtype} "
                          f"{g.device} does not match x {tuple(x.shape)} "
                          f"{x.dtype} {x.device}")
     g = g.contiguous()
     dx = torch.empty_like(x)
-    b, c, h, w = x.shape
+    coef = 2.0 * alpha * beta / size
+    bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.sparknet_lrn_backward(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), b, c, h * w, size,
-            alpha / size, beta, k, 2.0 * alpha * beta / size,
-            int(x.dtype == torch.bfloat16), stream)
+        if channel_axis == 3:
+            b, h, w, c = x.shape
+            err = lib.sparknet_lrn_nhwc_backward(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr(), b * h * w, c, size,
+                alpha / size, beta, k, coef, bf16, stream)
+            count = "LRN_NHWC_BACKWARD_LAUNCHES"
+        else:
+            b, c, h, w = x.shape
+            err = lib.sparknet_lrn_backward(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr(), b, c, h * w, size,
+                alpha / size, beta, k, coef, bf16, stream)
+            count = "LRN_BACKWARD_LAUNCHES"
     _check_launch(lib, err, "lrn_backward")
-    _count("LRN_BACKWARD_LAUNCHES")
+    _count(count)
     return dx
 
 
 def lrn_backward(x: torch.Tensor, g: torch.Tensor, size: int, alpha: float,
-                 beta: float, k: float) -> torch.Tensor:
-    """Gradient of the cross-channel LRN w.r.t. its input ``x``.
+                 beta: float, k: float, channel_axis: int = 1) -> torch.Tensor:
+    """Gradient of the cross-channel LRN w.r.t. its input ``x``, channels
+    on axis ``channel_axis`` (1: NCHW, 3: NHWC).
 
-    CUDA tensor: launches the backward kernel of ``csrc/lrn.cu`` (x and g
-    f32 or bf16 of one type, 4-D; x contiguous).  CPU tensor:
-    ``lrn_backward_torch``."""
+    CUDA tensor: launches the backward kernel of ``csrc/lrn.cu`` for that
+    layout (x and g f32 or bf16 of one type, 4-D; x contiguous).  CPU
+    tensor: ``lrn_backward_torch``."""
     if size % 2 == 0:
         raise ValueError(f"LRN local_size must be odd, got {size}")
     if x.device.type == "cpu":
-        return lrn_backward_torch(x, g, size, alpha, beta, k)
+        return lrn_backward_torch(x, g, size, alpha, beta, k, channel_axis)
     if x.device.type != "cuda":
         raise ValueError(f"lrn_backward: unsupported device {x.device}")
-    return _lrn_backward_cuda(x, g, size, alpha, beta, k)
+    return _lrn_backward_cuda(x, g, size, alpha, beta, k, channel_axis)
 
 
 class LRNFunction(torch.autograd.Function):
@@ -395,27 +458,29 @@ class LRNFunction(torch.autograd.Function):
     and the forward is the same one launch."""
 
     @staticmethod
-    def forward(ctx, x, size, alpha, beta, k):
+    def forward(ctx, x, size, alpha, beta, k, channel_axis=1):
         if x.device.type == "cpu":
-            y = lrn_across_channels_torch(x, size, alpha, beta, k)
+            y = lrn_across_channels_torch(x, size, alpha, beta, k, channel_axis)
         else:
-            y = _lrn_forward_cuda(x, size, alpha, beta, k)
+            y = _lrn_forward_cuda(x, size, alpha, beta, k, channel_axis)
         ctx.save_for_backward(x)
-        ctx.lrn = (size, alpha, beta, k)
+        ctx.lrn = (size, alpha, beta, k, channel_axis)
         return y
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return lrn_backward(x, g, *ctx.lrn), None, None, None, None
+        return lrn_backward(x, g, *ctx.lrn), None, None, None, None, None
 
 
 def lrn_across_channels(x: torch.Tensor, size: int, alpha: float, beta: float,
-                        k: float) -> torch.Tensor:
-    """Cross-channel LRN forward of an NCHW tensor, differentiable.
+                        k: float, channel_axis: int = 1) -> torch.Tensor:
+    """Cross-channel LRN forward of an NCHW tensor (``channel_axis`` 1) or
+    an NHWC one (3), differentiable.
 
-    CUDA tensor: launches the kernel of ``csrc/lrn.cu`` on the current
-    stream (f32 or bf16, 4-D, contiguous; anything else raises), through
+    CUDA tensor: launches the kernel of ``csrc/lrn.cu`` for that layout on
+    the current stream (f32 or bf16, 4-D, contiguous; anything else
+    raises), through
     ``LRNFunction``, whose backward is the backward kernel, where a
     gradient is to be taken, else directly.  CPU tensor:
     the same Function over ``lrn_across_channels_torch`` and
@@ -429,8 +494,8 @@ def lrn_across_channels(x: torch.Tensor, size: int, alpha: float, beta: float,
         raise ValueError(f"lrn_across_channels: unsupported device {x.device}")
     if x.device.type == "cuda" and not (x.requires_grad and torch.is_grad_enabled()):
         # no gradient to take: the launch alone, without autograd's host work
-        return _lrn_forward_cuda(x, size, alpha, beta, k)
-    return LRNFunction.apply(x, size, alpha, beta, k)
+        return _lrn_forward_cuda(x, size, alpha, beta, k, channel_axis)
+    return LRNFunction.apply(x, size, alpha, beta, k, channel_axis)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ caffe/include/caffe/neuron_layers.hpp): ReLU, PReLU, Sigmoid, TanH,
 AbsVal, BNLL, Dropout, Exp, Log, Power, Threshold and ELU, each the JAX
 layer's formula as ATen elementwise work.  Dropout's mask comes from a
 ``torch.Generator``, so it is not the JAX package's mask for the same seed;
-the parity tests compare its statistics, or run at ratio 0.
+the parity tests compare its statistics, or run at ratio 0.  It is drawn in
+canonical blob order, so the same generator gives the same mask under
+nchw and nhwc.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ class PReLU(Layer):
     def init(self, gen, in_shapes):
         p = self.lp.get_msg("prelu_param")
         shape = in_shapes[0]
-        n = 1 if p.get_bool("channel_shared", False) else shape[layout.channel_axis(len(shape))]
+        n = 1 if p.get_bool("channel_shared", False) else shape[layout.channel_axis(ndim=len(shape))]
         filler = p.get_msg("filler")
         if not filler.has("type"):
             filler = filler.copy()
@@ -117,8 +119,11 @@ class Dropout(Layer):
             raise ValueError(f"Dropout layer {self.name} needs a generator "
                              "(gen) in train mode")
         keep = 1.0 - ratio
-        mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-        mask = mask.bernoulli_(keep, generator=gen).bool()
+        # drawn in canonical blob order, so one generator drops the same
+        # logical activations in both layouts (the JAX layer's rule)
+        mask = torch.empty(layout.canonical_shape(x.shape), dtype=torch.float32,
+                           device=x.device)
+        mask = layout.to_internal(mask.bernoulli_(keep, generator=gen).bool())
         return LayerOutput([torch.where(mask, x / keep, 0.0).to(x.dtype)])
 
 

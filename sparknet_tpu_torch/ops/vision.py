@@ -7,6 +7,12 @@ ceil-mode shapes and, for AVE, Caffe's padded-divisor rule, which differs
 from ``F.avg_pool2d``'s at the edges; STOCHASTIC pooling samples a window
 position with ``F.unfold`` patches.  Cross-channel LRN runs the
 hand-written kernel (``ops/kernels.py``).
+
+Under ``Config.layout`` nhwc the activations are (N, H, W, C): each
+convolution and pool runs on ``layout.nchw_view`` of its input, a
+channels-last view on which cuDNN and ATen take their NHWC kernels, and
+``layout.internal_view`` of the result; the LRN kernel takes the NHWC
+tensor itself.  Weights stay OIHW.
 """
 
 from __future__ import annotations
@@ -68,21 +74,24 @@ class Convolution(Layer):
     def apply(self, params, state, inputs, *, train):
         c = self._conf()
         x = inputs[0]
+        xv = layout.nchw_view(x)
         if not train:
             # the int8 deploy path: only inside quant.quantized_inference and
             # only for calibrated layers
             q = quant.layer_qparams(self.name)
             if q is not None:
                 d = c["dilation"]
-                y = quant.int8_conv(x, q, stride=c["stride"], padding=c["pad"],
-                                    dilation=(d, d), groups=c["group"])
+                ch_ax = layout.channel_axis(ndim=x.dim())
+                y = quant.int8_conv(xv, q, stride=c["stride"], padding=c["pad"],
+                                    dilation=(d, d), groups=c["group"],
+                                    out_channel_axis=ch_ax)
                 if c["bias"]:
-                    y = y + params[1].to(y.dtype)[None, :, None, None]
+                    y = y + params[1].to(y.dtype).reshape(layout.channel_bshape(4))
                 return LayerOutput([y.to(x.dtype)])
         bias = params[1].to(x.dtype) if c["bias"] else None
-        y = F.conv2d(x, params[0].to(x.dtype), bias, stride=c["stride"],
+        y = F.conv2d(xv, params[0].to(x.dtype), bias, stride=c["stride"],
                      padding=c["pad"], dilation=c["dilation"], groups=c["group"])
-        return LayerOutput([y])
+        return LayerOutput([layout.internal_view(y)])
 
 
 @register
@@ -111,10 +120,10 @@ class Deconvolution(Convolution):
         c = self._conf()
         x = inputs[0]
         bias = params[1].to(x.dtype) if c["bias"] else None
-        y = F.conv_transpose2d(x, params[0].to(x.dtype), bias, stride=c["stride"],
-                               padding=c["pad"], groups=c["group"],
-                               dilation=c["dilation"])
-        return LayerOutput([y])
+        y = F.conv_transpose2d(layout.nchw_view(x), params[0].to(x.dtype), bias,
+                               stride=c["stride"], padding=c["pad"],
+                               groups=c["group"], dilation=c["dilation"])
+        return LayerOutput([layout.internal_view(y)])
 
 
 _AVE_DIVISORS: dict = {}
@@ -156,7 +165,8 @@ def _ave_pool_divisor(h: int, w: int, kh: int, kw: int, sh: int, sw: int, ph: in
 
 
 def _pool_pads(x, kernel, stride, pad):
-    """(left, right, top, bottom) padding for ``F.pad`` that makes an
+    """(left, right, top, bottom) padding for ``F.pad`` (``x`` NCHW-shaped:
+    the pools below take ``layout.nchw_view`` of an activation) that makes an
     unpadded floor-mode window over the padded map give Caffe's ceil-mode
     output: ``pad`` on the leading edges, enough on the trailing edges for
     the last ceil-mode window."""
@@ -232,12 +242,15 @@ class Pooling(Layer):
     ``global_pooling`` collapses the spatial dims (ref:
     caffe/src/caffe/layers/pooling_layer.cpp, pooling_layer.cu).
     STOCHASTIC draws its uniforms from the ``gen`` that ``Network.apply``
-    passes down, and raises without one in TRAIN."""
+    passes down, and raises without one in TRAIN; they are drawn in
+    canonical (N, C, oh, ow) order in both layouts, so one generator picks
+    the same window positions under nchw and nhwc."""
 
     TYPE = "Pooling"
     NEEDS_GEN = True
 
     def _conf(self, in_shape):
+        """(method, kernel, stride, pad) for an internal ``in_shape``."""
         p = self.lp.get_msg("pooling_param")
         if p.get_bool("global_pooling", False):
             ha, wa = layout.spatial_axes()
@@ -250,8 +263,8 @@ class Pooling(Layer):
         return p.get_str("pool", "MAX"), kernel, stride, pad
 
     def apply(self, params, state, inputs, *, train, gen=None):
-        x = inputs[0]
-        method, kernel, stride, pad = self._conf(x.shape)
+        method, kernel, stride, pad = self._conf(inputs[0].shape)
+        x = layout.nchw_view(inputs[0])
         if method == "AVE":
             y = caffe_avg_pool(x, kernel, stride, pad)
         elif method == "MAX":
@@ -264,7 +277,7 @@ class Pooling(Layer):
             y = caffe_stochastic_pool(x, kernel, stride, train=train, gen=gen)
         else:
             raise ValueError(f"{self.name}: unknown pool method {method!r}")
-        return LayerOutput([y])
+        return LayerOutput([layout.internal_view(y)])
 
 
 @register
@@ -272,7 +285,8 @@ class LRN(Layer):
     """Local response normalization (ref: caffe/src/caffe/layers/lrn_layer.cpp).
 
     ACROSS_CHANNELS: y = x / (k + alpha/n * sum_{window n} x^2)^beta, through
-    the CUDA kernel on the card (``ops/kernels.lrn_across_channels``).
+    the CUDA kernel on the card (``ops/kernels.lrn_across_channels``), its
+    NCHW or its NHWC form as ``Config.layout`` gives the channel axis.
     WITHIN_CHANNEL:  y = x * (1 + alpha * avepool_{n x n}(x^2))^(-beta), in
     plain PyTorch (the AVE pool uses pad=(n-1)/2 and Caffe's padded divisor).
     """
@@ -292,8 +306,11 @@ class LRN(Layer):
         x = inputs[0]
         if region == "WITHIN_CHANNEL":
             pre_pad = (size - 1) // 2
-            pooled = caffe_avg_pool(x * x, (size, size), (1, 1), (pre_pad, pre_pad))
+            pooled = layout.internal_view(caffe_avg_pool(
+                layout.nchw_view(x * x), (size, size), (1, 1), (pre_pad, pre_pad)))
             return LayerOutput([x * torch.pow(1.0 + alpha * pooled, -beta)])
+        if x.dim() == 4 and layout.is_nhwc():
+            return LayerOutput([lrn_across_channels(x, size, alpha, beta, k, channel_axis=3)])
         return LayerOutput([lrn_across_channels(x, size, alpha, beta, k)])
 
 
@@ -310,6 +327,12 @@ class Im2col(Layer):
         sh, sw = hw_param(p, "stride", default=1)
         ph, pw = hw_param(p, "pad", default=0)
         x = inputs[0]
+        if layout.is_nhwc():
+            # the output's (C*kh*kw, OH, OW) blob order is the layer's
+            # contract, as in the JAX layer: run it under nchw
+            raise ValueError(
+                f"{self.name}: Im2col is a Caffe-parity layer with a "
+                "canonical-NCHW output contract; run under layout=nchw")
         n, c, h, w = x.shape
         oh = conv_out_dim(h, kh, ph, sh)
         ow = conv_out_dim(w, kw, pw, sw)
@@ -328,7 +351,9 @@ class SPP(Layer):
     def apply(self, params, state, inputs, *, train):
         p = self.lp.get_msg("spp_param")
         pool = caffe_avg_pool if p.get_str("pool", "MAX") == "AVE" else caffe_max_pool
-        x = inputs[0]
+        # pooled on the NCHW-shaped view, each level flattens in canonical
+        # (C, bins, bins) order in both layouts, as in the JAX layer
+        x = layout.nchw_view(inputs[0])
         n, h, w = x.shape[0], x.shape[2], x.shape[3]
         outs = []
         for level in range(p.get_int("pyramid_height", 3)):

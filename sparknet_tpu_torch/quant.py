@@ -247,16 +247,23 @@ def conv_int32(x_q: torch.Tensor, w_q: torch.Tensor, *, stride, padding,
 
 
 def int8_conv(x: torch.Tensor, q: dict, *, stride, padding, dilation,
-              groups: int) -> torch.Tensor:
+              groups: int, out_channel_axis: int = 1) -> torch.Tensor:
     """int8 x int8 -> int32 convolution + float32 dequant: the JAX
-    ``int8_conv`` (``q["w_scale"]`` is (Cout, 1, 1, 1)).  The dequant's
-    product writes the contiguous NCHW output, as a convolution returns
-    (the sums come out channels-last, which the LRN kernel refuses)."""
+    ``int8_conv`` (``q["w_scale"]`` is (Cout, 1, 1, 1); weights are OIHW in
+    both layouts).  ``x`` is NCHW-shaped (under nhwc the activation's
+    ``layout.nchw_view``); ``out_channel_axis`` says where the output
+    channels sit in the internal orientation.  3 (nhwc): the sums come out
+    (N, oh, ow, O), which the dequant's product writes as they lie.  1
+    (nchw): the product writes the contiguous NCHW output, as a
+    convolution returns (channels-last sums would be refused by the NCHW
+    LRN kernel)."""
     x_q = quantize_activation(x, q["x_scale"])
     y, (n, oh, ow) = _conv_rows(x_q, q["w_q"], stride=stride, padding=padding,
                                 dilation=dilation, groups=groups, w_mat=q.get("w_mat"))
     o = q["w_q"].shape[0]
     scale = q["w_scale"].reshape(-1) * float(q["x_scale"])
+    if out_channel_axis == 3:
+        return y.reshape(n, oh, ow, o) * scale[None, None, None, :]
     out = torch.empty((n, o, oh, ow), dtype=torch.float32, device=x.device)
     return torch.mul(y.reshape(n, oh, ow, o).permute(0, 3, 1, 2),
                      scale[None, :, None, None], out=out)

@@ -88,6 +88,7 @@ from sparknet_tpu_torch.common import Phase, resolve_device
 from sparknet_tpu_torch.obs import lineage as obs_lineage
 from sparknet_tpu_torch.obs.recorder import get_recorder
 from sparknet_tpu_torch.obs.sentinel import get_sentinel
+from sparknet_tpu_torch.ops.layout import internal_shape
 from sparknet_tpu_torch.serve.batcher import DynamicBatcher, Ticket
 from sparknet_tpu_torch.serve.graphs import BucketProgram
 from sparknet_tpu_torch.serve.residency import AdmissionPolicy
@@ -224,13 +225,15 @@ def _family(family_name: str):
 
 
 def _synthetic_feeds(family, batch: int, seed: int = 0) -> dict:
-    """Batcher-shaped synthetic feeds, NCHW: the JAX package's
-    ``parallel/modes._feeds_for`` (same draws from the same seed)."""
+    """Batcher-shaped synthetic feeds in the internal layout: the JAX
+    package's ``parallel/modes._feeds_for`` (same draws from the same
+    seed)."""
     rs = np.random.RandomState(seed)
     if family.feed == "tokens":
         data = rs.randint(0, family.vocab, (batch, family.seq_len)).astype(np.int32)
     else:
-        data = rs.randn(batch, *family.image_shape).astype(np.float32) * 10
+        shape = internal_shape((batch, *family.image_shape))
+        data = rs.randn(*shape).astype(np.float32) * 10
     label = rs.randint(0, family.num_classes, batch).astype(np.int32)
     return {"data": data, "label": label}
 
@@ -316,7 +319,8 @@ class ServedModel:
             self.item_shape: tuple = (family.seq_len,)
             self.item_dtype = np.int32
         else:
-            self.item_shape = tuple(family.image_shape)
+            # an image request arrives in the internal layout (HWC under nhwc)
+            self.item_shape = internal_shape((1, *family.image_shape))[1:]
             self.item_dtype = np.float32
 
         cuda = self.device.type == "cuda"

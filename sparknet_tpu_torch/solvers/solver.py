@@ -677,9 +677,13 @@ class Solver:
         ``state/<layer>/<k>``, ``hist/<layer>/<i>/<j>``.  Blob-wise and in
         the param dtype on both update paths."""
         flat: dict[str, np.ndarray] = {"__iter__": np.asarray(self.iter)}
+        # `layout` is the activations' Config.layout, provenance only:
+        # params and state do not move between layouts, so a snapshot
+        # written under either restores into a solver running the other.
+        # (self.layout is the fused update's ArenaLayout, another thing.)
         flat["__meta__"] = np.frombuffer(json.dumps(
-            {"solver_type": self.config.solver_type, "layout": "nchw"}).encode(),
-            dtype=np.uint8)
+            {"solver_type": self.config.solver_type,
+             "layout": get_config().layout}).encode(), dtype=np.uint8)
         variables = self.variables
         for lname, plist in variables.params.items():
             for i, p in enumerate(plist):

@@ -55,6 +55,8 @@ _BACKWARD_OP = "autograd::engine::evaluate_function: "
 KERNEL_RECORDS = {
     "LRN_LAUNCHES": (("lrn_forward_kernel",),),
     "LRN_BACKWARD_LAUNCHES": (("lrn_backward_kernel",),),
+    "LRN_NHWC_LAUNCHES": (("lrn_nhwc_forward_kernel",),),
+    "LRN_NHWC_BACKWARD_LAUNCHES": (("lrn_nhwc_backward_kernel",),),
     "FUSED_UPDATE_LAUNCHES": (("fused_update_kernel",),),
     "FLASH_LAUNCHES": (("flash_forward_kernel", "flash_forward_wide_kernel"),),
     "FLASH_BACKWARD_LAUNCHES": (

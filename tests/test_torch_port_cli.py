@@ -7,8 +7,9 @@ scores and ``extract_features`` arrays agree within atol 1e-5; ``train
 --data db: --weights`` on LeNet (no dropout) gives a first-iteration loss
 within rtol 1e-4 (the port's solver tests' tolerance); ``time`` lists the
 JAX table's layers and types; ``train --profile`` and ``time --trace`` run;
-every JAX flag, subcommand, layer type or store the port does not carry
-exits naming its ROADMAP item.
+``train`` and ``test`` under ``--layout nhwc`` give nchw's loss (rtol 1e-5)
+and leave the caller's layout as it was; every JAX flag, subcommand, layer
+type or store the port does not carry exits naming its ROADMAP item.
 """
 
 import json
@@ -196,6 +197,36 @@ def test_train_from_db_with_weights_matches_jax(files, tmp_path, capsys, monkeyp
     assert s.iter == 1
 
 
+@pytest.mark.parametrize("cmd", ["train", "test"])
+def test_layout_nhwc_gives_nchw_loss(cmd, files, tmp_path, capsys, monkeypatch):
+    """``train`` (one iteration) and ``test`` (two batches) from the DB with
+    the same LeNet weights under ``--layout nhwc`` and ``--layout nchw``:
+    the canonical DB batches reach the net channels-last and the loss is
+    nchw's; the layout is the caller's again after each call."""
+    from sparknet_tpu_torch.common import get_config
+    from sparknet_tpu_torch.solvers.solver import Solver
+
+    losses = []
+    step = Solver.step
+
+    def spy(self, *a, **k):
+        losses.append(step(self, *a, **k))
+        return losses[-1]
+
+    monkeypatch.setattr(Solver, "step", spy)
+    monkeypatch.setenv("SPARKNET_TRAIN_LOG_DIR", str(tmp_path))
+    argv = [cmd, "--device", "cpu", *LENET, "--data", f"db:{files / 'mnist.sndb'}",
+            "--weights", str(files / "lenet.caffemodel"), "--iterations",
+            "1" if cmd == "train" else "2"]
+    got = {}
+    for lay in ("nhwc", "nchw"):
+        extra = ["--test-iters", "1", "--output", str(tmp_path / lay)] if cmd == "train" else []
+        out = _run(cli.main, [*argv, *extra, "--layout", lay], capsys)
+        assert get_config().layout == "nchw"
+        got[lay] = losses[-1] if cmd == "train" else json.loads(out)["loss"]
+    np.testing.assert_allclose(got["nhwc"], got["nchw"], rtol=1e-5)
+
+
 def test_time_rows_match_jax(capsys):
     """``time_layers`` and the ``time`` table list the JAX table's layers
     and types in its order; ``--fused`` prints the JAX CLI's keys."""
@@ -286,9 +317,9 @@ HDF5_NET = ('name: "h" layer { name: "d" type: "HDF5Data" top: "data" top: "labe
     (["classify", "--model", "m.prototxt", "--weights", "w.h5", "x.jpg"], "Queue A4"),
     (["train", "--scan", "4"], "Queue A5"),
     (["time", "--hlo"], "Queue A14"),
-    (["test", "--layout", "nhwc"], "Queue A6"),
+    (["bench", "--layout", "nhwc"], "Queue A6"),
     (["train", "--scan", "2"], "Queue A5"),
-    (["train", "--layout", "nhwc"], "Queue A6"),
+    (["bench", "--batch", "256"], "Queue A6"),
     (["extract_features", "--solver", "{hdf5}", "--blob", "ip", "--out", "f.npy"], "Queue A9"),
     (["bench"], "Queue A6"),
     (["pods"], "Queue A9"),

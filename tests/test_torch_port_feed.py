@@ -639,7 +639,8 @@ def test_device_augment_draws():
     """TRAIN's own draws: in range, a fair coin, the same for the same
     ``(pid, seed, it, t)`` and apart for another; ``device_fn`` draws from
     ``generator(pid, seed, it)``; the seeds of rank-4 calls and of each slot
-    differ; nhwc and a double mean are refused; TRAIN without draws
+    differ; the nhwc arm crops the HWC batch at the same draws (the nchw
+    output permuted); a double mean is refused; TRAIN without draws
     raises."""
     aug = DeviceAugment(transform.TransformConfig(crop_size=227, mirror=True),
                         device="cpu")
@@ -660,8 +661,10 @@ def test_device_augment_draws():
     assert torch.equal(out["data"], want) and out["data"].shape == (4, 3, 227, 227)
     with pytest.raises(ValueError, match="generator or"):
         aug(x, True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        DeviceAugment(transform.TransformConfig(), layout="nhwc", device="cpu")
+    hwc = DeviceAugment(transform.TransformConfig(crop_size=227, mirror=True),
+                        layout="nhwc", device="cpu")
+    got = hwc.device_fn(pid=1, seed=2)({"data": x.permute(0, 2, 3, 1)}, 3)["data"]
+    assert got.shape == (4, 227, 227, 3) and torch.equal(got, want.permute(0, 2, 3, 1))
     with pytest.raises(ValueError, match="not both"):
         DeviceAugment(transform.TransformConfig(mean_image=np.zeros((3, 2, 2)),
                                                 mean_value=(1.0,)), device="cpu")

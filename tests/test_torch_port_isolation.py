@@ -46,6 +46,7 @@ files = sorted(n for n in names if n in ("sparknet_tpu_torch.cli",
 layers = sorted(n for n in names if n in ("sparknet_tpu_torch.compiler.graph",
                                           "sparknet_tpu_torch.interop",
                                           "sparknet_tpu_torch.ops.data_layers",
+                                          "sparknet_tpu_torch.ops.layout",
                                           "sparknet_tpu_torch.ops.loss",
                                           "sparknet_tpu_torch.ops.moe",
                                           "sparknet_tpu_torch.ops.neuron",
@@ -109,11 +110,12 @@ def test_port_imports_no_jax():
     # and the worker store
     assert files == str([f"sparknet_tpu_torch.{m}" for m in
                          ("cli", "native", "proto.binary", "worker_store")]), out.stdout
-    # the layer library, the Python layer, DummyData, shared params and the
-    # weights bridge that carries their placeholders
+    # the layer library, the Python layer, DummyData, shared params, the
+    # weights bridge that carries their placeholders, and the layouts
     assert layers == str(["sparknet_tpu_torch.compiler.graph", "sparknet_tpu_torch.interop"] + [
         f"sparknet_tpu_torch.ops.{m}" for m in
-        ("data_layers", "loss", "moe", "neuron", "python_layer", "vision")]), out.stdout
+        ("data_layers", "layout", "loss", "moe", "neuron", "python_layer", "vision")]), \
+        out.stdout
     # the production loop, its control-plane scenarios, the obs journal and
     # its readers
     assert loop == str(["sparknet_tpu_torch.loop"] + [

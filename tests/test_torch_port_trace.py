@@ -169,7 +169,8 @@ def test_kineto_trace_attributes_as_the_jax_scopes(tmp_path):
     assert _tables(events)[1] == {"conv1": (20.0, 40.0), "norm1": (5.0, 7.5),
                                   "(other)": (2.5, 3.5)}
     assert op_profile.kernel_records(events) == {
-        "LRN_LAUNCHES": 1, "LRN_BACKWARD_LAUNCHES": 1, "FUSED_UPDATE_LAUNCHES": 1,
+        "LRN_LAUNCHES": 1, "LRN_BACKWARD_LAUNCHES": 1, "LRN_NHWC_LAUNCHES": 0,
+        "LRN_NHWC_BACKWARD_LAUNCHES": 0, "FUSED_UPDATE_LAUNCHES": 1,
         "FLASH_LAUNCHES": 0, "FLASH_BACKWARD_LAUNCHES": 0, "PAGED_LAUNCHES": 0}
     # the JAX parser reads no device lane there: Kineto names the card's pid
     # after the program
